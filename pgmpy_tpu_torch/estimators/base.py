@@ -1,34 +1,26 @@
 """Estimator base classes: the learning hot path is a device count kernel.
 
 Port of ``pgmpy_tpu/estimators/base.py``.  The DataFrame is integer-coded
-once at construction and copied to ``config.DEVICE``; every count table is
-one weighted bincount (``ops/bincount.py``: the hand-written CUDA kernel on
-the GPU, its plain version on the CPU), shared by MLE and the Bayesian
-estimator.  Rows with a missing value in any involved column get the
-padding index ``idx == length``, which the bincount skips.
+once at construction and copied to ``config.DEVICE``, together with a
+column-major, narrow copy that the count kernel reads.  ``counts``,
+``multi_counts`` and ``multi_counts_padded`` all describe their tables as a
+spec list and make ONE call to ``ops/bincount.py:table_counts`` (the
+hand-written CUDA kernel on the GPU, its plain version on the CPU), shared by
+MLE and the Bayesian estimator.  Rows with a missing value (code -1) in any
+involved column are skipped by the kernel.
 
-Left out from the JAX package: the int8 upload of the codes and the one-hot
-MXU count kernel with its dispatch, both TPU-only; ``multi_counts_padded``
-waits for structure learning.
+Left out from the JAX package, all TPU-only: the int8 upload of the codes,
+the one-hot MXU count kernel with its dispatch, the power-of-two shape
+buckets of ``multi_counts_padded`` and the chunking of ``multi_counts`` (no
+tensor of ``n_specs x n_rows`` elements exists here).
 """
 
 import numpy as np
 import pandas as pd
 import torch
 
-from pgmpy_tpu_torch.config import as_tensor, config, not_ported, to_numpy
-from pgmpy_tpu_torch.ops.bincount import weighted_bincount
-
-
-def _flat_index(codes, cols, cards):
-    """Row-major flat index of ``codes[:, cols]`` into a table of shape
-    ``cards``, and the mask of rows with no missing value (code -1)."""
-    sub = codes[:, cols]
-    valid = torch.all(sub >= 0, dim=1)
-    flat = sub[:, 0]
-    for k in range(1, len(cols)):
-        flat = flat * cards[k] + sub[:, k]
-    return flat, valid
+from pgmpy_tpu_torch.config import as_tensor, config, to_numpy
+from pgmpy_tpu_torch.ops.bincount import column_major_codes, table_counts, table_specs
 
 
 class _CodedData:
@@ -93,87 +85,86 @@ class _CodedData:
         self.codes = torch.from_numpy(codes).to(config.DEVICE)
         self.var_index = {v: j for j, v in enumerate(self.variables)}
         self.cards = {v: len(self.state_names[v]) for v in self.variables}
+        self._column_codes()
         # device-dispatch odometer: every counts()/multi_counts() call is
-        # one (or, for huge batches, a few chunked) bincount launch.
+        # one table-count launch.
         self.n_dispatches = 0  # shadow the class default per instance
         if weighted or "_weight" in df.columns:
             self.weights = as_tensor(df["_weight"].to_numpy(dtype=np.float64))
         else:
             self.weights = None
 
+    def _column_codes(self):
+        """The kernel's view of ``codes``: column-major, int8 or int16 when
+        the cardinalities allow (``ops/bincount.py:column_major_codes``).
+        Made once, on the device; ``codes`` itself stays row-major int32."""
+        cached = self.__dict__.get("_codes_cm")
+        if cached is None:
+            cached = column_major_codes(self.codes, max(self.cards.values(), default=0))
+            self._codes_cm = cached
+        return cached
+
+    def _count_tables(self, specs, weights):
+        """One table-count call for ``specs``: the concatenated tables as a
+        tensor on the codes' device (int32 without weights), and per spec its
+        offset and (var_card, prod(parent_cards)) shape."""
+        col_lists, card_lists = [], []
+        for variable, parents in specs:
+            col_lists.append([self.var_index[variable]] + [self.var_index[p] for p in parents])
+            card_lists.append([self.cards[variable]] + [self.cards[p] for p in parents])
+        table = table_specs(col_lists, card_lists)
+        self.n_dispatches += 1
+        flat = table_counts(self._column_codes(), self.n, table, weights)
+        shapes = [(cards[0], int(size) // cards[0]) for cards, size in zip(card_lists, table.sizes)]
+        return flat, table.offsets, shapes
+
+    @staticmethod
+    def _as_float(flat):
+        """Host copy of a count vector; integer counts become ``config.DTYPE``."""
+        out = to_numpy(flat)
+        if not flat.dtype.is_floating_point:
+            out = out.astype(np.float64 if config.DTYPE == torch.float64 else np.float32)
+        return out
+
     def counts(self, variable, parents=(), weights=None, device=False):
         """(var_card, prod(parent_cards)) count matrix, device-computed.
         Rows with a NaN in any involved column are dropped.  With
-        ``device=True`` the table stays a tensor on ``config.DEVICE``."""
-        cols = [self.var_index[variable]] + [self.var_index[p] for p in parents]
-        cards = [self.cards[variable]] + [self.cards[p] for p in parents]
-        total = int(np.prod(cards))
-        flat, valid = _flat_index(self.codes, cols, cards)
-        flat = torch.where(valid, flat, total)  # padding: skipped by the bincount
-        # weights=None means UNWEIGHTED (ones) — a stored _weight column is
-        # only used when the caller passes it explicitly
-        w = weights if weights is not None else self._ones()
-        self.n_dispatches += 1
-        table = weighted_bincount(flat, w, total).reshape(cards[0], -1)
-        return table if device else to_numpy(table)
+        ``device=True`` the table stays a tensor on ``config.DEVICE``.
 
-    def _ones(self):
-        return torch.ones((self.n,), dtype=config.DTYPE, device=self.codes.device)
-
-    # Cap on (n_specs x n_rows) per bincount launch: the batch concatenates
-    # one flat-index vector per spec, so a 5000-spec x 100k-row batch would
-    # materialize 2 GB of indices.  Chunking keeps the index and weight
-    # vectors at 128 MB while the launch count stays O(1)-ish.
-    _MULTI_COUNTS_MAX_ELEMS = 1 << 24
+        ``weights=None`` means UNWEIGHTED (exact integer counts): a stored
+        ``_weight`` column is only used when the caller passes it."""
+        flat, _, shapes = self._count_tables([(variable, parents)], weights)
+        if device:
+            if not flat.dtype.is_floating_point:
+                flat = flat.to(config.DTYPE)
+            return flat.reshape(shapes[0])
+        return self._as_float(flat).reshape(shapes[0])
 
     def multi_counts(self, specs, weights=None):
-        """Count tables for many (variable, parents) specs in ONE device
-        bincount launch (a few for very large batches): per-spec flat
-        indices are offset into one histogram of length ``sum(sizes)``.
+        """Count tables for many (variable, parents) specs in ONE kernel
+        launch and one readback, whatever the number of specs: the spec list
+        goes to the device as a descriptor table, and each block of the
+        kernel counts one spec's rows straight from the code matrix.
 
-        Returns a list of (var_card, prod(parent_cards)) arrays.
+        Returns a list of (var_card, prod(parent_cards)) float arrays (exact
+        integers for unweighted data).
         """
-        # weights=None means UNWEIGHTED (see counts())
-        w = weights if weights is not None else self._ones()
-
         specs = list(specs)
-        chunk = max(1, self._MULTI_COUNTS_MAX_ELEMS // max(self.n, 1))
-        if len(specs) > chunk:
-            out = []
-            for i in range(0, len(specs), chunk):
-                out.extend(self.multi_counts(specs[i : i + chunk], weights=weights))
-            return out
-
-        offsets, sizes, all_cards, col_lists = [], [], [], []
-        offset = 0
-        for variable, parents in specs:
-            cols = [self.var_index[variable]] + [self.var_index[p] for p in parents]
-            cards = [self.cards[variable]] + [self.cards[p] for p in parents]
-            col_lists.append(tuple(cols))
-            all_cards.append(tuple(cards))
-            offsets.append(offset)
-            size = int(np.prod(cards))
-            sizes.append(size)
-            offset += size
-        total = offset
-
-        flats = []
-        for cols, cards, off in zip(col_lists, all_cards, offsets):
-            flat, valid = _flat_index(self.codes, list(cols), cards)
-            flats.append(torch.where(valid, flat + off, total))
-        flat_all = torch.cat(flats)
-        w_all = w.repeat(len(specs))
-        self.n_dispatches += 1
-        combined = to_numpy(weighted_bincount(flat_all, w_all, total))
-        out = []
-        for (variable, parents), off, size, cards in zip(
-            specs, offsets, sizes, all_cards
-        ):
-            out.append(combined[off : off + size].reshape(cards[0], -1))
-        return out
+        if not specs:
+            return []
+        flat, offsets, shapes = self._count_tables(specs, weights)
+        combined = self._as_float(flat)
+        return [
+            combined[off : off + rows * cols].reshape(rows, cols)
+            for off, (rows, cols) in zip(offsets.tolist(), shapes)
+        ]
 
     def multi_counts_padded(self, specs, weights=None):
-        not_ported("_CodedData.multi_counts_padded", "structure learning")
+        """Same as :meth:`multi_counts`.  The JAX package needs a second,
+        shape-bucketed kernel for spec lists that change every iteration
+        (structure search), so that XLA does not retrace; here the spec list
+        is data to one kernel, so both methods share it."""
+        return self.multi_counts(specs, weights=weights)
 
 
 class BaseEstimator:

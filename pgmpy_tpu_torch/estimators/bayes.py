@@ -43,68 +43,71 @@ class BayesianEstimator(ParameterEstimator):
     def get_parameters(
         self, prior_type="BDeu", equivalent_sample_size=5, pseudo_counts=[], n_jobs=1, weighted=False
     ):
+        """A TabularCPD per node.  ALL count tables come from one
+        ``multi_counts`` call (one kernel launch, one readback); the prior
+        and the normalisation are applied per table on the host in f64."""
+        nodes = sorted(self.model.nodes(), key=str)
+        specs = [(node, sorted(self.model.get_parents(node), key=str)) for node in nodes]
+        priors = []
+        for node, parents in specs:  # validate every prior before the device call
+            node_ess = (equivalent_sample_size[node] if isinstance(equivalent_sample_size, dict)
+                        else equivalent_sample_size)
+            node_pc = pseudo_counts[node] if isinstance(pseudo_counts, dict) else pseudo_counts
+            priors.append(self._pseudo_counts(node, parents, prior_type, node_pc, node_ess))
+        tables = self._coded.multi_counts(
+            specs, weights=self._coded.weights if weighted else None
+        )
         parameters = []
-        for node in sorted(self.model.nodes(), key=str):
-            if isinstance(equivalent_sample_size, dict):
-                node_ess = equivalent_sample_size[node]
-            else:
-                node_ess = equivalent_sample_size
-            if isinstance(pseudo_counts, dict):
-                node_pc = pseudo_counts[node]
-            else:
-                node_pc = pseudo_counts
-            parameters.append(
-                self.estimate_cpd(
-                    node,
-                    prior_type=prior_type,
-                    equivalent_sample_size=node_ess,
-                    pseudo_counts=node_pc,
-                    weighted=weighted,
-                )
-            )
+        for (node, parents), prior, counts in zip(specs, priors, tables):
+            posterior = counts.astype(np.float64) + prior
+            posterior = posterior / posterior.sum(axis=0, keepdims=True)
+            parameters.append(self._cpd(node, parents, posterior))
         return parameters
 
-    def estimate_cpd(
-        self, node, prior_type="BDeu", pseudo_counts=[], equivalent_sample_size=5, weighted=False
-    ):
+    def _pseudo_counts(self, node, parents, prior_type, pseudo_counts, equivalent_sample_size):
+        """The prior's pseudo-count table, (node_card, prod(parent_cards))."""
         node_cardinality = len(self.state_names[node])
-        parents = sorted(self.model.get_parents(node), key=str)
         parents_cardinalities = [len(self.state_names[p]) for p in parents]
         cpd_shape = (node_cardinality, int(np.prod(parents_cardinalities)) if parents else 1)
 
         prior_type = prior_type.lower()
         if prior_type == "k2":
-            pseudo_counts = np.ones(cpd_shape, dtype=float)
-        elif prior_type == "bdeu":
+            return np.ones(cpd_shape, dtype=float)
+        if prior_type == "bdeu":
             alpha = float(equivalent_sample_size) / (
                 node_cardinality * np.prod(parents_cardinalities)
             )
-            pseudo_counts = np.ones(cpd_shape, dtype=float) * alpha
-        elif prior_type == "dirichlet":
+            return np.ones(cpd_shape, dtype=float) * alpha
+        if prior_type == "dirichlet":
             pseudo_counts = np.asarray(pseudo_counts, dtype=float)
             if pseudo_counts.size == 1:
-                pseudo_counts = np.ones(cpd_shape, dtype=float) * float(pseudo_counts)
-            else:
-                if pseudo_counts.shape != cpd_shape:
-                    raise ValueError(
-                        f"The shape of pseudo_counts for the node: {node} must be of shape: {str(cpd_shape)}"
-                    )
-        else:
-            raise ValueError("'prior_type' not specified")
+                return np.ones(cpd_shape, dtype=float) * pseudo_counts.item()
+            if pseudo_counts.shape != cpd_shape:
+                raise ValueError(
+                    f"The shape of pseudo_counts for the node: {node} must be of shape: {str(cpd_shape)}"
+                )
+            return pseudo_counts
+        raise ValueError("'prior_type' not specified")
 
+    def _cpd(self, node, parents, values):
+        return TabularCPD(
+            node,
+            len(self.state_names[node]),
+            values,
+            evidence=parents if parents else None,
+            evidence_card=[len(self.state_names[p]) for p in parents] or None,
+            state_names={v: self.state_names[v] for v in [node] + parents},
+        )
+
+    def estimate_cpd(
+        self, node, prior_type="BDeu", pseudo_counts=[], equivalent_sample_size=5, weighted=False
+    ):
+        parents = sorted(self.model.get_parents(node), key=str)
+        prior = self._pseudo_counts(node, parents, prior_type, pseudo_counts, equivalent_sample_size)
         counts = self._coded.counts(
             node, parents,
             weights=self._coded.weights if weighted else None,
         ).astype(np.float64)
-        bayesian_counts = counts + pseudo_counts
-
-        cpd = TabularCPD(
-            node,
-            node_cardinality,
-            bayesian_counts,
-            evidence=parents if parents else None,
-            evidence_card=parents_cardinalities or None,
-            state_names={v: self.state_names[v] for v in [node] + parents},
-        )
+        cpd = self._cpd(node, parents, counts + prior)
         cpd.normalize()
         return cpd

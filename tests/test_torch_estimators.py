@@ -110,6 +110,65 @@ def test_bayesian_fit(alarm, prior):
     _assert_cpds_close(port, ref)
 
 
+@pytest.mark.parametrize("prior", [
+    dict(prior_type="BDeu", equivalent_sample_size=5),
+    dict(prior_type="K2"),
+    dict(prior_type="dirichlet", pseudo_counts=0.5),
+])
+def test_bayesian_get_parameters_is_one_dispatch(alarm, prior):
+    """All 37 tables of a Bayesian fit come from ONE count call, where the
+    JAX estimator makes one per node."""
+    model, df = alarm
+    est = BayesianEstimator(to_port(model), df, state_names=model.states)
+    ref = JaxBayes(model, df, state_names=model.states)
+    _assert_cpds_close(est.get_parameters(**prior), ref.get_parameters(**prior))
+    assert est._coded.n_dispatches == 1
+    assert ref._coded.n_dispatches == len(model.nodes())
+
+
+def test_bayesian_per_node_priors_and_shape_check(alarm):
+    model, df = alarm
+    ess = {node: 1.0 + i % 3 for i, node in enumerate(sorted(model.nodes()))}
+    port = BayesianEstimator(to_port(model), df, state_names=model.states)
+    ref = JaxBayes(model, df, state_names=model.states)
+    _assert_cpds_close(port.get_parameters(equivalent_sample_size=ess),
+                       ref.get_parameters(equivalent_sample_size=ess))
+    wrong = {node: np.ones((1, 2)) for node in model.nodes()}
+    with pytest.raises(ValueError):
+        port.get_parameters(prior_type="dirichlet", pseudo_counts=wrong)
+    assert port._coded.n_dispatches == 1  # a bad prior is refused before any count
+
+
+@pytest.mark.parametrize("prior_type", ["BDeu", "K2"])
+def test_bayesian_estimate_cpd_is_one_table(alarm, prior_type):
+    model, df = alarm
+    est = BayesianEstimator(to_port(model), df, state_names=model.states)
+    ref = JaxBayes(model, df, state_names=model.states)
+    _assert_cpds_close([est.estimate_cpd("BP", prior_type=prior_type)],
+                       [ref.estimate_cpd("BP", prior_type=prior_type)])
+    assert est._coded.n_dispatches == 1
+
+
+def test_weighted_fit_matches(alarm):
+    model, df = alarm
+    df = df.copy()
+    df["_weight"] = np.random.default_rng(2).random(len(df)).astype(np.float32)
+    port = MaximumLikelihoodEstimator(to_port(model), df, state_names=model.states)
+    ref = JaxMLE(model, df, state_names=model.states)
+    port_cpds, ref_cpds = port.get_parameters(weighted=True), ref.get_parameters(weighted=True)
+    got = {c.variable: c for c in port_cpds}
+    for cpd in ref_cpds:  # f32 weighted sums in another order: atol 1e-5 on probabilities
+        np.testing.assert_allclose(got[cpd.variable].get_values(), np.asarray(cpd.get_values()),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["multi_counts", "multi_counts_padded"])
+def test_multi_counts_on_alarm(coded, method):
+    port, ref = coded
+    for a, b in zip(getattr(port, method)(SPECS), getattr(ref, method)(SPECS)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
 def test_state_counts_frame(alarm):
     model, df = alarm
     port = MaximumLikelihoodEstimator(to_port(model), df).state_counts("BP")

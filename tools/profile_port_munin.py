@@ -8,8 +8,9 @@ It builds the same MUNIN model and 50,000-row data set as ``chip_smoke.py``
 and prints, one ``key value`` pair per line:
 
 * the fit broken into data coding (``_CodedData``) and ``get_parameters``,
-  and the device time of the 1041 count tables, the bincount kernel's share
-  included;
+  and the count step of the fit (all 1041 tables through ``multi_counts``, as
+  ``get_parameters`` calls it): device operations, their device time, the
+  table-count kernel's share, and the host time of the call;
 * per calibration: kernels launched, device time (the sum of kernel times
   from ``torch.profiler``), the host's enqueue time, the CUDA-event wall time,
   the device's idle share, and the bytes the schedule must move with the time
@@ -35,7 +36,7 @@ from pgmpy_tpu_torch.inference import BeliefPropagation  # noqa: E402
 from pgmpy_tpu_torch.models import DiscreteBayesianNetwork  # noqa: E402
 from pgmpy_tpu_torch.utils import get_example_model  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = chip_smoke.HBM_BYTES_PER_S
 
 
 def kernel_stats(prof, reps):
@@ -80,16 +81,29 @@ def main():
         print(f"fit_coding_s {t1 - t0:.4f} fit_get_parameters_s {time.time() - t1:.4f}")
     coded = est._coded
     specs = [(n, sorted(fitted.get_parents(n), key=str)) for n in sorted(fitted.nodes(), key=str)]
+    coded.multi_counts(specs)  # warm-up
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        coded.multi_counts(specs)
+        host_ms.append((time.time() - t0) * 1e3)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for node, parents in specs:
-            coded.counts(node, parents, device=True)
+        coded.multi_counts(specs)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    bincount_ms = sum(e.time_range.elapsed_us() for e in kernels if "bincount" in e.name) / 1e3
-    print(f"counts_tables {len(specs)} counts_kernels {len(kernels)} "
-          f"counts_device_ms {sum(e.time_range.elapsed_us() for e in kernels) / 1e3:.3f} "
-          f"bincount_device_ms {bincount_ms:.3f}")
+    table_ms = sum(e.time_range.elapsed_us() for e in kernels if "table_count" in e.name) / 1e3
+    print(f"counts_tables {len(specs)} counts_device_ops {len(kernels)} "
+          f"counts_device_ms {sum(e.time_range.elapsed_us() for e in kernels) / 1e3:.4f} "
+          f"table_count_kernel_ms {table_ms:.4f} multi_counts_host_ms_median "
+          f"{float(np.median(host_ms)):.3f}")
+    for e in kernels:
+        print(f"counts_device_op {e.time_range.elapsed_us():.1f}us {e.name[:90]}")
+    code_bytes = coded._column_codes().element_size() * coded.n * len(coded.variables)
+    print(f"counts_code_bytes {code_bytes} byte_bound_ms {code_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"int32_code_bytes {4 * coded.n * len(coded.variables)} int32_byte_bound_ms "
+          f"{4 * coded.n * len(coded.variables) / HBM_BYTES_PER_S * 1e3:.4f}")
 
     bp = BeliefPropagation(fitted)
     program = bp._program
