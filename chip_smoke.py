@@ -18,7 +18,17 @@ Runs from the repository root and needs one CUDA card.  It
 3. checks the fit against host ``np.bincount`` counts, the calibration
    against the junction-tree identities and the port's own CPU run, and the
    queries against the CPU run;
-4. prints the card, the timings, one JSON line describing each kernel (its
+4. drives simulate -> fit -> predict at the same width: ``model.simulate``
+   draws 52,048 rows of the true MUNIN on the card (state frequencies against
+   the exact marginals of a calibrated junction tree; the same seed twice
+   gives equal codes), a fresh network is fitted on the first 50,000 (one
+   table-count launch), ``predict`` and ``predict_probability`` fill three
+   dropped columns of the last 2,048 rows (against a numpy float64 oracle
+   computed from the fitted CPD tables, and against the CPU run), one
+   sparse-evidence ``VariableElimination`` query runs if its planned
+   contraction stays under a memory guard (against BeliefPropagation), and
+   ``ApproxInference`` answers one query from 50,000 draws;
+5. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -40,6 +50,9 @@ import torch
 N_ROWS = 50_000
 BATCH_ROWS = 2048
 SEED = 0
+# the sparse VariableElimination query runs only if the largest tensor its
+# planned contraction builds stays under this many elements (1 GiB of float32)
+VE_GUARD_ELEMENTS = 2**28
 # published peaks of one H100 SXM: device memory rate, and f32 operations
 # outside the tensor cores (the integer multiply-adds and atomic adds of a
 # count are charged at that rate)
@@ -98,6 +111,33 @@ def bound(nbytes, operations):
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = operations / PLAIN_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def profiled(fn, reps=1):
+    """(kernels per call, device ms per call) of ``fn`` from ``torch.profiler``:
+    the device operations it starts and the sum of their times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels) / reps, sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+
+
+def host_median_s(fn, reps=3):
+    """Median host-clock seconds of ``fn``, each run ending in a device
+    synchronisation."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return float(np.median(times))
 
 
 def ancestral_sample(model, n_rows, seed):
@@ -480,7 +520,8 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     check(config.DEVICE.type == "cuda", "device left on the CPU")
 
     source = "pgmpy_tpu_torch/csrc/bincount.cu"
-    return [
+    context = {"fitted": fitted, "q_var": q_var, "e_var": e_var, "bp_single": single}
+    return context, [
         {
             "name": "weighted_bincount",
             "route": "cuda",
@@ -506,6 +547,246 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     ]
 
 
+# --------------------------------------------------------------------------- #
+# simulate -> fit -> predict on MUNIN
+# --------------------------------------------------------------------------- #
+def independent_targets(model, count=3):
+    """``count`` inner nodes (parents and children) of ``model``, in name
+    order, none of which lies in another's Markov blanket: with every other
+    variable observed they are conditionally independent, and each one's
+    posterior is a function of its own blanket alone."""
+    targets = []
+    for node in sorted(model.nodes(), key=str):
+        if not model.get_parents(node) or not model.get_children(node):
+            continue
+        blanket = set(model.get_markov_blanket(node))
+        if not blanket & set(targets):
+            targets.append(node)
+        if len(targets) == count:
+            return targets
+    raise AssertionError(f"found only {len(targets)} independent inner nodes")
+
+
+def blanket_posterior(fitted, target, codes):
+    """P(target | every other variable) per row, with numpy in float64 straight
+    from the fitted CPD tables: ``P(t | pa(t)) * prod over children c of
+    P(c | pa(c))``, normalised.  ``codes`` maps each observed variable to its
+    integer states per row."""
+    card = fitted.get_cardinality(target)
+    n_rows = len(next(iter(codes.values())))
+    post = np.ones((n_rows, card))
+    for node in [target] + list(fitted.get_children(target)):
+        cpd = fitted.get_cpds(node)
+        table = cpd.values.double().cpu().numpy()
+        index = tuple(np.arange(card)[None, :] if v == target else codes[v][:, None]
+                      for v in cpd.variables)
+        post = post * table[index]
+    return post / post.sum(axis=1, keepdims=True)
+
+
+def exact_marginals(bp):
+    """{variable: exact marginal as a float64 array} from a calibrated
+    BeliefPropagation."""
+    out = {}
+    for clique, phi in bp.get_clique_beliefs().items():
+        for var in clique:
+            if var not in out:
+                drop = [v for v in phi.variables if v != var]
+                values = phi.marginalize(drop, inplace=False).values.double().cpu().numpy()
+                out[var] = values / values.sum()
+    return out
+
+
+def within_mc_error(freq, p, n):
+    return np.abs(freq - p) <= 5 * np.sqrt(p * (1 - p) / n) + 1e-4
+
+
+def phase_simulate_predict(model, context):
+    import networkx as nx
+
+    from pgmpy_tpu_torch.estimators import BayesianEstimator
+    from pgmpy_tpu_torch.inference import ApproxInference, BeliefPropagation, VariableElimination
+    from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.sampling import BayesianModelSampling
+    from pgmpy_tpu_torch.utils.interop import bn_from_numpy
+
+    states = model.states
+    nodes = sorted(model.nodes(), key=str)
+    n_sim = N_ROWS + BATCH_ROWS
+
+    # ---- 1. simulate on the card
+    torch.cuda.synchronize()
+    t0 = time.time()
+    df = model.simulate(n_samples=n_sim, seed=SEED, show_progress=False)
+    torch.cuda.synchronize()
+    simulate_first_s = time.time() - t0
+    simulate_s = host_median_s(
+        lambda: model.simulate(n_samples=n_sim, seed=SEED, show_progress=False))
+    sampler = BayesianModelSampling(model).sampler  # the one simulate compiled
+    device_codes = sampler.forward(n_sim, seed=SEED)
+    check(device_codes.is_cuda and tuple(device_codes.shape) == (n_sim, len(nodes)),
+          f"simulate codes on {device_codes.device}, shape {tuple(device_codes.shape)}")
+    check(device_codes.dtype == torch.int8, f"simulate codes are {device_codes.dtype}")
+    check(torch.equal(device_codes, sampler.forward(n_sim, seed=SEED)),
+          "the same seed gave different codes")
+    check(not torch.equal(device_codes, sampler.forward(n_sim, seed=SEED + 1)),
+          "another seed gave the same codes")
+    host_codes = device_codes.cpu().numpy()
+    codes = {v: host_codes[:, sampler.var_index[v]].astype(np.int64) for v in nodes}
+    for v in nodes[:: max(len(nodes) // 50, 1)]:
+        check(list(df[v].cat.categories) == list(states[v])
+              and np.array_equal(df[v].cat.codes.to_numpy(), codes[v]),
+              f"simulate frame and sampler codes differ in {v}")
+    sweep_s = host_median_s(lambda: sampler.forward(n_sim, seed=SEED))
+    sim_kernels, sim_device_ms = profiled(lambda: sampler.forward(n_sim, seed=SEED))
+    log(f"simulate rows={n_sim} simulate_s {simulate_s:.4f} (median of 3; first call "
+        f"{simulate_first_s:.4f}) sampler_sweep_s {sweep_s:.4f} kernels_per_call "
+        f"{sim_kernels:.0f} device_ms {sim_device_ms:.3f} "
+        f"idle_share_of_sweep {1 - sim_device_ms / (sweep_s * 1e3):.3f}")
+
+    true_bp = BeliefPropagation(model)
+    true_bp.calibrate()
+    marginals = exact_marginals(true_bp)
+    worst = 0.0
+    for v in nodes:
+        freq = np.bincount(codes[v], minlength=len(states[v])) / n_sim
+        check(bool(within_mc_error(freq, marginals[v], n_sim).all()),
+              f"simulate: frequencies of {v} {freq} against exact {marginals[v]}")
+        worst = max(worst, float(np.abs(freq - marginals[v]).max()))
+    log(f"simulate_check ok variables={len(nodes)} max_abs_freq_err {worst:.3e} "
+        f"(limit 5*sqrt(p(1-p)/n)+1e-4 per state)")
+
+    # ---- 2. fit a fresh network on the first 50,000 simulated rows
+    train = df.iloc[:N_ROWS]
+    fitted = DiscreteBayesianNetwork()
+    fitted.add_nodes_from(model.nodes())
+    fitted.add_edges_from(model.edges())
+    bc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fitted.fit(train, estimator=BayesianEstimator, state_names=states,
+               prior_type="BDeu", equivalent_sample_size=5)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    check(table_launches == 1 and bincount_launches == 0,
+          f"fit on the simulated frame: {table_launches} table-count and "
+          f"{bincount_launches} bincount launches")
+    fit_err = fit_check(fitted, {v: c[:N_ROWS] for v, c in codes.items()}, states)
+    log(f"simulated_fit fit_s {fit_s:.4f} table_count_launches {table_launches} "
+        f"bincount_launches {bincount_launches} fit_check max_abs_err {fit_err:.3e} (limit 1e-6)")
+
+    # ---- 3. predict three dropped columns of the held-out rows
+    targets = independent_targets(fitted)
+    out_card = int(np.prod([len(states[t]) for t in targets]))
+    check(BATCH_ROWS * out_card <= 2**31, f"joint of {targets} has {out_card} states")
+    test = df.iloc[N_ROWS:].drop(columns=targets)
+    held_out = {v: c[N_ROWS:] for v, c in codes.items()}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    predicted = fitted.predict(test)
+    torch.cuda.synchronize()
+    predict_first_s = time.time() - t0
+    predict_s = host_median_s(lambda: fitted.predict(test))
+    plan_s = predict_first_s - predict_s
+    t0 = time.time()
+    probabilities = fitted.predict_probability(test)
+    torch.cuda.synchronize()
+    probability_first_s = time.time() - t0
+    probability_s = host_median_s(lambda: fitted.predict_probability(test))
+    pred_kernels, pred_device_ms = profiled(lambda: fitted.predict(test))
+    prob_kernels, prob_device_ms = profiled(lambda: fitted.predict_probability(test))
+    log(f"predict rows={BATCH_ROWS} missing={targets} joint_states={out_card} "
+        f"predict_s {predict_s:.4f} (median of 3; first call {predict_first_s:.4f}, plan_s "
+        f"{plan_s:.4f}) predict_rows_per_s {BATCH_ROWS / predict_s:.1f} kernels_per_call "
+        f"{pred_kernels:.0f} device_ms {pred_device_ms:.4f}")
+    log(f"predict_probability predict_probability_s {probability_s:.4f} (median of 3; first "
+        f"call {probability_first_s:.4f}) rows_per_s {BATCH_ROWS / probability_s:.1f} "
+        f"kernels_per_call {prob_kernels:.0f} device_ms {prob_device_ms:.4f}")
+
+    check(list(predicted.columns) == targets and len(predicted) == BATCH_ROWS,
+          f"predict returned {list(predicted.columns)} x {len(predicted)}")
+    prob_err, undecided, hits = 0.0, 0, 0
+    oracle = {}
+    for t in targets:
+        oracle[t] = blanket_posterior(fitted, t, held_out)
+        got = probabilities[[f"{t}_{s}" for s in states[t]]].to_numpy()
+        check(bool(np.isfinite(got).all()), f"predict_probability of {t} is not finite")
+        prob_err = max(prob_err, float(np.abs(got - oracle[t]).max()))
+        top2 = np.sort(oracle[t], axis=1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 1e-4
+        undecided += int((~decided).sum())
+        want = np.asarray(states[t], dtype=object)[oracle[t].argmax(axis=1)]
+        check(bool((predicted[t].to_numpy(dtype=object)[decided] == want[decided]).all()),
+              f"predict: MAP state of {t} differs from the oracle's argmax")
+        hits += int((predicted[t].to_numpy(dtype=object)
+                     == np.asarray(states[t], dtype=object)[held_out[t]]).sum())
+    check(prob_err <= 1e-5, f"predict_probability against the oracle: max_abs_err {prob_err}")
+    log(f"predict_check ok oracle max_abs_err {prob_err:.3e} (limit 1e-5) undecided_rows "
+        f"{undecided} accuracy_on_held_out {hits / (len(targets) * BATCH_ROWS):.4f}")
+
+    cpds = [(c.variable, c.variable_card, c.get_values(), c.variables[1:],
+             [int(x) for x in c.cardinality[1:]], c.state_names) for c in fitted.get_cpds()]
+    with on_device("cpu"):
+        cpu_model = bn_from_numpy(list(fitted.edges()), cpds, nodes=list(fitted.nodes()))
+        cpu_probabilities = cpu_model.predict_probability(test)
+        cpu_predicted = cpu_model.predict(test)
+    cpu_err = float(np.abs(probabilities.to_numpy() - cpu_probabilities.to_numpy()).max())
+    check(list(probabilities.columns) == list(cpu_probabilities.columns) and cpu_err <= 1e-5,
+          f"predict_probability against the CPU run: max_abs_err {cpu_err}")
+    joint = np.ones((BATCH_ROWS, 1))
+    for t in targets:
+        joint = (joint[:, :, None] * oracle[t][:, None, :]).reshape(BATCH_ROWS, -1)
+    top2 = np.sort(joint, axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 1e-4
+    check(predicted[decided].equals(cpu_predicted[decided]), "predict differs from the CPU run")
+    log(f"cpu_parity predict_probability max_abs_err {cpu_err:.3e} (limit 1e-5) predict equal "
+        f"on {int(decided.sum())} decided rows")
+
+    # ---- 4. one sparse-evidence VariableElimination query, under a guard
+    # read from the planned contraction before anything is launched
+    q_var, e_var = context["q_var"], context["e_var"]
+    ve = VariableElimination(context["fitted"])
+    t0 = time.time()
+    program = ve._get_compiled_query([q_var], [e_var])
+    largest = program.largest_intermediate()
+    ve_plan_s = time.time() - t0
+    if largest <= VE_GUARD_ELEMENTS:
+        evidence = {e_var: states[e_var][0]}
+        answer = ve.query([q_var], evidence=evidence)
+        ve_err = float((answer.values - context["bp_single"].values).abs().max())
+        check(answer.values.is_cuda and ve_err <= 1e-5,
+              f"sparse VE query against BeliefPropagation: max_abs_err {ve_err}")
+        ve_s = host_median_s(lambda: ve.query([q_var], evidence=evidence))
+        ve_kernels, ve_device_ms = profiled(lambda: ve.query([q_var], evidence=evidence))
+        log(f"sparse_ve_query operands={len(program._arrays)} largest_intermediate {largest} "
+            f"plan_s {ve_plan_s:.4f} query_s {ve_s:.5f} kernels_per_call {ve_kernels:.0f} "
+            f"device_ms {ve_device_ms:.4f} max_abs_err_against_bp {ve_err:.3e} (limit 1e-5)")
+    else:
+        log(f"sparse_ve_query not run: operands={len(program._arrays)} largest_intermediate "
+            f"{largest} elements exceeds the guard of {VE_GUARD_ELEMENTS}")
+
+    # ---- 5. ApproxInference with one root observed: the query is q_var, or
+    # its first child where q_var is itself a root (roots are independent of
+    # each other, so evidence on another root would say nothing about it)
+    a_var = q_var if model.get_parents(q_var) else sorted(model.get_children(q_var), key=str)[0]
+    root = sorted((v for v in nx.ancestors(model, a_var) if not model.get_parents(v)), key=str)[0]
+    root_state = states[root][int(np.argmax(marginals[root]))]
+    t0 = time.time()
+    approx = ApproxInference(model).query([a_var], n_samples=N_ROWS, evidence={root: root_state},
+                                          seed=SEED, show_progress=False)
+    approx_s = time.time() - t0
+    exact = true_bp.query([a_var], evidence={root: root_state}).values.double().cpu().numpy()
+    got = approx.values.double().cpu().numpy()
+    check(bool(within_mc_error(got, exact, N_ROWS).all()),
+          f"ApproxInference {got} against exact {exact}")
+    log(f"approx_inference query={a_var} evidence={root}={root_state} samples={N_ROWS} "
+        f"approx_s {approx_s:.4f} max_abs_err {float(np.abs(got - exact).max()):.3e} "
+        f"(limit 5*sqrt(p(1-p)/n)+1e-4)")
+    return table_launches, bincount_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -521,7 +802,12 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     bincount_results = phase_bincount()
     model, df, codes = load_and_sample()
-    kernels = phase_slice(model, df, codes, bincount_results, phase_table_counts(model, codes))
+    context, kernels = phase_slice(model, df, codes, bincount_results,
+                                   phase_table_counts(model, codes))
+    # the second path: its launches are counted on their own, from zero
+    table_launches, bincount_launches = phase_simulate_predict(model, context)
+    kernels[0]["launches_simulate_fit_predict"] = bincount_launches
+    kernels[1]["launches_simulate_fit_predict"] = table_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

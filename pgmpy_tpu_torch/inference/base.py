@@ -162,3 +162,25 @@ def attach_virtual_evidence(model, virtual_evidence):
             )
         )
     return model
+
+
+def evidence_code(var, state, mapping, card):
+    """The integer code of one evidence state (a state name, or an index in
+    ``[0, card)``).  Raises ``ValueError`` on the host for anything else: an
+    out-of-range index would otherwise reach ``one_hot`` or ``index_select``
+    on the device."""
+    if state in mapping:
+        return mapping[state]
+    if isinstance(state, (int, np.integer)) and 0 <= state < card:
+        return int(state)
+    raise ValueError(f"Evidence state {state!r} not valid for {var}")
+
+
+def evidence_codes(var, states, mapping, card):
+    """Codes of a whole column of evidence states, validated like
+    :func:`evidence_code`."""
+    states = list(states)
+    codes = np.asarray([mapping.get(s, -1) for s in states], dtype=np.int64)
+    for i in np.flatnonzero(codes < 0):
+        codes[i] = evidence_code(var, states[i], mapping, card)
+    return codes

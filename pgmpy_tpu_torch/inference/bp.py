@@ -26,9 +26,9 @@ import networkx as nx
 import numpy as np
 import torch
 
-from pgmpy_tpu_torch.config import TINY, config, not_ported
+from pgmpy_tpu_torch.config import TINY, config
 from pgmpy_tpu_torch.factors.discrete import DiscreteFactor
-from pgmpy_tpu_torch.inference.base import Inference
+from pgmpy_tpu_torch.inference.base import Inference, evidence_code, evidence_codes
 from pgmpy_tpu_torch.models.discrete_bn import DiscreteBayesianNetwork
 from pgmpy_tpu_torch.models.factor_graph import FactorGraph
 from pgmpy_tpu_torch.models.junction_tree import JunctionTree
@@ -502,34 +502,19 @@ class _CompiledBPQuery:
         n = len(next(iter(evidence.values())))
         codes = np.empty((n, len(self.kept)), dtype=np.int64)
         for k, var in enumerate(self.kept):
-            mapping = self._code_maps[k]
-            card = self._kept_cards[k]
-            col = np.empty(n, dtype=np.int64)
-            for i, state in enumerate(evidence[var]):
-                # same validation as encode(): silent out-of-range codes
-                # would one-hot to all-zeros and produce NaN rows
-                if state in mapping:
-                    col[i] = mapping[state]
-                elif isinstance(state, (int, np.integer)) and 0 <= state < card:
-                    col[i] = int(state)
-                else:
-                    raise ValueError(
-                        f"Evidence state {state!r} not valid for {var}"
-                    )
-            codes[:, k] = col
+            # validated on the host: an out-of-range code would one-hot to
+            # all zeros and produce NaN rows
+            codes[:, k] = evidence_codes(
+                var, evidence[var], self._code_maps[k], self._kept_cards[k]
+            )
         return self.run_batch(torch.from_numpy(codes).to(config.DEVICE))
 
     def encode(self, evidence):
         codes = np.empty(len(self.kept), dtype=np.int64)
         for k, var in enumerate(self.kept):
-            state = evidence[var]
-            mapping = self._code_maps[k]
-            if state in mapping:
-                codes[k] = mapping[state]
-            elif isinstance(state, (int, np.integer)) and 0 <= state < self._kept_cards[k]:
-                codes[k] = int(state)
-            else:
-                raise ValueError(f"Evidence state {state!r} not valid for {var}")
+            codes[k] = evidence_code(
+                var, evidence[var], self._code_maps[k], self._kept_cards[k]
+            )
         return codes
 
     def __call__(self, evidence):
@@ -719,10 +704,78 @@ class BeliefPropagation(Inference):
         self._calibrate_junction_tree(operation="maximize")
 
     def _query(self, variables, operation, evidence=None, joint=True, show_progress=False):
-        """Query of a non-Bayesian-network model: VE over the covering
-        subtree's potentials."""
-        not_ported("BeliefPropagation.query on a Markov network or junction tree",
-                   "VariableElimination")
+        """Query of a non-Bayesian-network model: VariableElimination over
+        the potentials of the minimal subtree that covers the query and
+        evidence variables."""
+        from pgmpy_tpu_torch.inference.ve import VariableElimination
+        from pgmpy_tpu_torch.models.cluster_graph import ClusterGraph
+
+        if self._calibrated_operation != operation:
+            self._calibrate_junction_tree(operation=operation)
+
+        if not isinstance(variables, (list, tuple, set)):
+            query_variables = [variables]
+        else:
+            query_variables = list(variables)
+        query_variables.extend(evidence.keys() if evidence else [])
+
+        # minimal covering subtree per connected component (pruned models can
+        # yield clique forests; independent components just multiply)
+        nodes_with_query_variables = set()
+        for var in query_variables:
+            nodes_with_query_variables.update(
+                c for c in self.junction_tree.nodes() if var in c
+            )
+        clique_potential_list = []
+        all_subtree_nodes = set()
+        all_subtree_edges = []
+        for component in nx.connected_components(self.junction_tree):
+            covering = [c for c in nodes_with_query_variables if c in component]
+            if not covering:
+                continue
+            subtree_nodes = set(covering)
+            for i in range(len(covering) - 1):
+                subtree_nodes.update(
+                    nx.shortest_path(self.junction_tree, covering[i], covering[i + 1])
+                )
+            sub = self.junction_tree.subgraph(subtree_nodes)
+            all_subtree_nodes |= subtree_nodes
+            all_subtree_edges.extend(sub.edges())
+            # clique potentials: root belief, then child beliefs divided by
+            # their sepset beliefs (Koller & Friedman Alg. 10.4)
+            root_node = next(iter(subtree_nodes))
+            clique_potential_list.append(self.clique_beliefs[root_node])
+            parent_nodes = {root_node}
+            traversed = set()
+            while parent_nodes:
+                parent_node = parent_nodes.pop()
+                for child_node in set(sub.neighbors(parent_node)) - traversed:
+                    sepset_belief = self.sepset_beliefs[
+                        frozenset((parent_node, child_node))
+                    ]
+                    clique_potential_list.append(
+                        self.clique_beliefs[child_node] / sepset_belief
+                    )
+                    parent_nodes.add(child_node)
+                traversed.add(parent_node)
+
+        # a ClusterGraph tolerates clique forests (JunctionTree insists on
+        # connectedness); VE only needs the factor list
+        subtree = ClusterGraph()
+        subtree.add_nodes_from(all_subtree_nodes)
+        for u, v in all_subtree_edges:
+            subtree.add_edge(u, v)
+        subtree.add_factors(*clique_potential_list)
+
+        variable_elimination = VariableElimination(subtree)
+        if operation == "marginalize":
+            return variable_elimination.query(
+                variables=variables, evidence=evidence, joint=joint,
+                show_progress=show_progress,
+            )
+        return variable_elimination.map_query(
+            variables=variables, evidence=evidence, show_progress=show_progress
+        )
 
     def query(
         self,

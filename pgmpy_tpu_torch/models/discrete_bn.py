@@ -1,18 +1,20 @@
 """DiscreteBayesianNetwork: DAG + TabularCPDs.
 
 Port of ``pgmpy_tpu/models/discrete_bn.py``.  The model object is host-side
-symbolic structure; ``fit`` runs the device count kernel and inference
-(``pgmpy_tpu_torch/inference``) compiles it into a calibration schedule.
-``simulate``, ``predict`` and the other VariableElimination-backed helpers
-raise ``NotImplementedError`` until sampling and VE are ported.
+symbolic structure; ``fit`` runs the device count kernel, inference
+(``pgmpy_tpu_torch/inference``) compiles it into a calibration schedule or a
+planned contraction, and ``simulate`` into an ancestral sampling program
+(``pgmpy_tpu_torch/sampling``).
 """
 
 from collections import defaultdict
 
 import numpy as np
+import pandas as pd
+import torch
 
 from pgmpy_tpu_torch.base.dag import DAG
-from pgmpy_tpu_torch.config import logger, not_ported, to_numpy
+from pgmpy_tpu_torch.config import TINY, logger, not_ported, to_numpy
 from pgmpy_tpu_torch.factors.cpd import TabularCPD
 
 
@@ -226,13 +228,101 @@ class DiscreteBayesianNetwork(DAG):
         self.add_cpds(*cpds_list)
         return self
 
+    def _missing_variables(self, data):
+        if set(data.columns) == set(self.nodes()):
+            raise ValueError("No variable missing in data. Nothing to predict")
+        elif set(data.columns) - set(self.nodes()):
+            raise ValueError("Data has variables which are not in the model")
+        return sorted(set(self.nodes()) - set(data.columns), key=str)
+
     def predict(self, data, algo=None, stochastic=False, n_jobs=1, seed=None, **kwargs):
-        """Impute the missing columns of ``data`` (VariableElimination-backed)."""
-        not_ported("DiscreteBayesianNetwork.predict", "VariableElimination")
+        """Impute the missing columns of ``data``: the joint posterior over
+        the missing variables is computed for ALL rows in one batched
+        contraction (``VariableElimination.query_batch``), then argmax
+        (MAP) or categorical sampling per row.
+
+        ``algo`` picks the inference class; the default VariableElimination
+        rides the batched device path, any other class queries per unique
+        row with ``**kwargs`` forwarded.
+        """
+        from pgmpy_tpu_torch.inference.ve import VariableElimination
+
+        missing_variables = self._missing_variables(data)
+
+        if algo is not None and algo is not VariableElimination:
+            return self._predict_with_algo(
+                data, algo, missing_variables, stochastic, seed, **kwargs
+            )
+
+        infer = VariableElimination(self)
+        evidence = {col: data[col].tolist() for col in data.columns}
+        values, state_names = infer.query_batch(missing_variables, evidence)
+        flat = values.reshape(values.shape[0], -1)
+        if stochastic:
+            # one batched categorical draw over the joint posteriors, from an
+            # explicit generator on the posteriors' device
+            from pgmpy_tpu_torch.utils.mathext import categorical_draw, seeded_generator
+
+            gen = seeded_generator(0 if seed is None else seed, flat.device)
+            picks = categorical_draw(torch.log(torch.clamp_min(flat, TINY)), gen)
+        else:
+            picks = flat.argmax(dim=1)
+        picks = picks.cpu().numpy()
+        cards = [len(state_names[v]) for v in missing_variables]
+        codes = np.stack(np.unravel_index(picks, cards), axis=1)
+        out = {}
+        for j, var in enumerate(missing_variables):
+            out[var] = [state_names[var][c] for c in codes[:, j]]
+        return pd.DataFrame(out, index=data.index)
+
+    def _predict_with_algo(self, data, algo, missing_variables, stochastic, seed, **kwargs):
+        """Per-unique-row prediction through a user-chosen inference class
+        (BeliefPropagation, ApproxInference, ...): each unique row is one
+        query against the chosen engine, memoized across duplicate rows."""
+        infer = algo(self)
+        rng = np.random.default_rng(seed)
+        unique = data.drop_duplicates()
+        row_to_pred = {}
+        for _, row in unique.iterrows():
+            evidence = row.to_dict()
+            joint = infer.query(
+                missing_variables, evidence=evidence, show_progress=False, **kwargs
+            )
+            order = [joint.variables.index(v) for v in missing_variables]
+            values = to_numpy(joint.values).astype(np.float64).transpose(order)
+            flat = values.reshape(-1)
+            if stochastic:
+                pick = rng.choice(flat.size, p=flat / flat.sum())
+            else:
+                pick = int(flat.argmax())
+            codes = np.unravel_index(pick, values.shape)
+            row_to_pred[tuple(row)] = {
+                v: joint.state_names[v][c]
+                for v, c in zip(missing_variables, codes)
+            }
+        out = {v: [] for v in missing_variables}
+        for _, row in data.iterrows():
+            pred = row_to_pred[tuple(row)]
+            for v in missing_variables:
+                out[v].append(pred[v])
+        return pd.DataFrame(out, index=data.index)
 
     def predict_probability(self, data):
-        """Posterior probability of each missing variable state per row."""
-        not_ported("DiscreteBayesianNetwork.predict_probability", "VariableElimination")
+        """Posterior probability of each missing variable state per row:
+        one batched contraction per missing variable."""
+        from pgmpy_tpu_torch.inference.ve import VariableElimination
+
+        missing_variables = self._missing_variables(data)
+
+        infer = VariableElimination(self)
+        evidence = {col: data[col].tolist() for col in data.columns}
+        out = {}
+        for var in missing_variables:
+            values, state_names = infer.query_batch([var], evidence)
+            values = to_numpy(values).astype(np.float64)
+            for no, state in enumerate(state_names[var]):
+                out[f"{var}_{state}"] = values[:, no]
+        return pd.DataFrame(out, index=data.index)
 
     def get_state_probability(self, states):
         """P(assignment) for a full or partial joint assignment via the chain
@@ -247,7 +337,13 @@ class DiscreteBayesianNetwork(DAG):
                 raise ValueError(f"State: {state} not define for variable: {var}")
         if set(states.keys()) != set(self.nodes()):
             # marginal of a partial assignment via inference
-            not_ported("get_state_probability of a partial assignment", "VariableElimination")
+            from pgmpy_tpu_torch.inference.ve import VariableElimination
+
+            infer = VariableElimination(self)
+            phi = infer.query(
+                list(states.keys()), evidence=None, joint=True, show_progress=False
+            )
+            return float(phi.get_value(**states))
         prob = 1.0
         for cpd in self.cpds:
             prob *= cpd.get_value(
@@ -370,8 +466,24 @@ class DiscreteBayesianNetwork(DAG):
         show_progress=True,
         return_full=False,
     ):
-        """Simulate data from the model."""
-        not_ported("DiscreteBayesianNetwork.simulate", "the sampling slice")
+        """Simulate data from the model (see
+        :func:`pgmpy_tpu_torch.sampling.simulate.simulate_model`)."""
+        from pgmpy_tpu_torch.sampling.simulate import simulate_model
+
+        return simulate_model(
+            self,
+            n_samples=n_samples,
+            do=do,
+            evidence=evidence,
+            virtual_evidence=virtual_evidence,
+            virtual_intervention=virtual_intervention,
+            missing_prob=missing_prob,
+            include_latents=include_latents,
+            partial_samples=partial_samples,
+            seed=seed,
+            show_progress=show_progress,
+            return_full=return_full,
+        )
 
     def save(self, filename, filetype=None):
         """Write the model in bif / xmlbif / xdsl / net / uai format (inferred

@@ -8,7 +8,7 @@ computed once per static (axes, shapes) signature and cached.
 ``torch.einsum`` differs from ``jnp.einsum`` in two ways that shape this
 module: its sublist form rejects labels outside ``[0, 52)`` (a MUNIN covering
 subtree has more variables than that), and it takes no contraction path.  So
-the cached path is executed one step at a time: each step is a two-operand
+the cached plan is executed one step at a time: each step is a two-operand
 (or one-operand) ``torch.einsum`` whose labels are renumbered into
 ``[0, 52)``.  Float32 products run in full f32 (``config`` disables TF32).
 """
@@ -31,33 +31,26 @@ def _relabel_einsum(pairs, out_axes):
     return torch.einsum(*args)
 
 
-def _run_path(operand_axes, out_axes, arrays, path):
-    """Execute a contraction path (a list of operand-position tuples, as
-    ``opt_einsum.contract_path`` returns it) one step at a time."""
+def _run_plan(operand_axes, out_axes, arrays, plan):
+    """Execute a contraction plan (see :func:`contraction_plan`) one step at
+    a time."""
     ops = [(arr, tuple(axes)) for arr, axes in zip(arrays, operand_axes)]
-    out_set = set(out_axes)
-    for step in path:
+    for step, keep in plan:
         picked = [ops[i] for i in step]
         for i in sorted(step, reverse=True):
             del ops[i]
-        # keep a label if the output or any remaining operand still needs it
-        needed = set(out_set)
-        for _, axes in ops:
-            needed.update(axes)
-        keep = []
-        for _, axes in picked:
-            for a in axes:
-                if a in needed and a not in keep:
-                    keep.append(a)
-        ops.append((_relabel_einsum(picked, keep), tuple(keep)))
+        ops.append((_relabel_einsum(picked, keep), keep))
     if len(ops) != 1:
         raise ValueError("contraction path did not reduce to one operand")
     return _relabel_einsum(ops, tuple(out_axes))
 
 
 @lru_cache(maxsize=4096)
-def _cached_path(operand_axes, out_axes, shapes, optimize):
-    """Contraction path for a static signature, via opt_einsum."""
+def contraction_plan(operand_axes, out_axes, shapes, optimize="greedy"):
+    """The contraction plan of a static signature: opt_einsum's path (a list
+    of operand-position tuples) with, for each step, the labels its result
+    keeps.  A label is kept if the output or any operand not yet contracted
+    still needs it.  Cached, so planning is paid once per signature."""
     import opt_einsum
 
     interleaved = []
@@ -66,17 +59,57 @@ def _cached_path(operand_axes, out_axes, shapes, optimize):
         interleaved.append(list(axes))
     interleaved.append(list(out_axes))
     path, _ = opt_einsum.contract_path(*interleaved, optimize=optimize)
-    return tuple(tuple(step) for step in path)
+
+    ops = [tuple(axes) for axes in operand_axes]
+    # how many live operands still carry each label
+    uses = {}
+    for axes in ops:
+        for a in set(axes):
+            uses[a] = uses.get(a, 0) + 1
+    out_set = set(out_axes)
+    plan = []
+    for step in path:
+        picked = [ops[i] for i in step]
+        for i in sorted(step, reverse=True):
+            del ops[i]
+        for axes in picked:
+            for a in set(axes):
+                uses[a] -= 1
+        keep = []
+        for axes in picked:
+            for a in axes:
+                if (a in out_set or uses[a] > 0) and a not in keep:
+                    keep.append(a)
+        keep = tuple(keep)
+        for a in keep:
+            uses[a] += 1
+        ops.append(keep)
+        plan.append((tuple(step), keep))
+    return tuple(plan)
+
+
+def largest_intermediate(operand_axes, out_axes, shapes, optimize="greedy"):
+    """Elements of the largest tensor the planned contraction of this
+    signature builds (its intermediates and its output).  Decided from the
+    plan alone, before anything runs."""
+    operand_axes = tuple(tuple(ax) for ax in operand_axes)
+    shapes = tuple(tuple(int(d) for d in shape) for shape in shapes)
+    size = {}
+    for axes, shape in zip(operand_axes, shapes):
+        size.update(zip(axes, shape))
+    plan = contraction_plan(operand_axes, tuple(out_axes), shapes, optimize)
+    results = [keep for _, keep in plan] + [tuple(out_axes)]
+    return max(int(np.prod([size[a] for a in axes], dtype=np.float64)) for axes in results)
 
 
 def sum_product_planned(operand_axes, out_axes, arrays, optimize="greedy"):
     """Contract ``arrays`` (aligned with ``operand_axes``, each a tuple of
-    integer axis labels) down to ``out_axes`` along a contraction path cached
+    integer axis labels) down to ``out_axes`` along a contraction plan cached
     on (axes, shapes), so host-side planning is paid once per signature."""
     shapes = tuple(tuple(a.shape) for a in arrays)
     operand_axes = tuple(tuple(ax) for ax in operand_axes)
-    path = _cached_path(operand_axes, tuple(out_axes), shapes, optimize)
-    return _run_path(operand_axes, tuple(out_axes), arrays, path)
+    plan = contraction_plan(operand_axes, tuple(out_axes), shapes, optimize)
+    return _run_plan(operand_axes, tuple(out_axes), arrays, plan)
 
 
 def sum_product(operand_axes, out_axes, *arrays, optimize="greedy"):

@@ -1,8 +1,9 @@
 """Example-model zoo and data preprocessing helpers.
 
 Port of the discrete part of ``pgmpy_tpu/utils/utils.py``.  The bundled
-networks are read by path from the JAX package's data directory,
-``pgmpy_tpu/utils/example_models/*.bif.gz``, without importing that package.
+networks are read from this package's own data directory,
+``pgmpy_tpu_torch/utils/example_models/*.bif.gz`` (byte-identical copies of
+the JAX package's files).
 The Gaussian networks, the dagitty teaching DAGs, ``discretize`` and the
 pairwise-orientation helpers wait for later slices.
 
@@ -21,8 +22,7 @@ import pandas as pd
 
 from pgmpy_tpu_torch.config import not_ported
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_EXAMPLE_DIR = os.path.join(_REPO, "pgmpy_tpu", "utils", "example_models")
+_EXAMPLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "example_models")
 
 DISCRETE_MODELS = {
     "asia", "cancer", "earthquake", "sachs", "survey",

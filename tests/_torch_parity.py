@@ -1,8 +1,9 @@
 """Shared helpers for the parity tests of pgmpy_tpu_torch against pgmpy_tpu.
 
 Both packages get identical inputs: models are carried across as numpy CPD
-tables (``pgmpy_tpu_torch.utils.interop.bn_from_numpy``) and data comes from
-the numpy ancestral sampler in ``_golden_data``.  The port runs on the CPU
+tables (``pgmpy_tpu_torch.utils.interop.bn_from_numpy``), random networks come
+from a numpy seed (``random_bn_pair``) and data comes from the numpy ancestral
+sampler in ``_golden_data``.  The port runs on the CPU
 (``config.set_device("cpu")``), where every kernel wrapper uses its plain
 PyTorch version.
 """
@@ -57,3 +58,72 @@ def assert_factor_close(port_factor, jax_factor, atol, rtol=0.0):
     np.testing.assert_allclose(
         aligned(port_factor, variables), np_values(jax_factor.values), atol=atol, rtol=rtol
     )
+
+
+def random_bn_tables(seed, n_nodes=8, edge_prob=0.35, max_parents=3, deterministic=False):
+    """(nodes, edges, CPD tuples as ``cpd_tuples`` returns them) of one random
+    network, from a numpy seed, in float64: a random DAG over ``X0..X{n-1}``
+    (edges from lower to higher index, at most ``max_parents`` parents),
+    cardinalities 2-4, Dirichlet CPD columns and string state names.
+    ``deterministic`` makes every non-root CPD a 0/1 table."""
+    rng = np.random.default_rng(seed)
+    names = [f"X{i}" for i in range(n_nodes)]
+    cards = {v: int(rng.integers(2, 5)) for v in names}
+    states = {v: [f"{v}_s{k}" for k in range(cards[v])] for v in names}
+    parents = {}
+    for j, v in enumerate(names):
+        picked = [names[i] for i in range(j) if rng.random() < edge_prob]
+        if j and not picked:
+            picked = [names[int(rng.integers(0, j))]]  # keep the graph connected
+        parents[v] = picked[-max_parents:]
+    tuples = []
+    for v in names:
+        n_cols = int(np.prod([cards[p] for p in parents[v]])) if parents[v] else 1
+        if deterministic and parents[v]:
+            values = np.zeros((cards[v], n_cols))
+            values[rng.integers(0, cards[v], n_cols), np.arange(n_cols)] = 1.0
+        else:
+            values = rng.dirichlet(np.ones(cards[v]), size=n_cols).T
+        tuples.append((v, cards[v], values, parents[v], [cards[p] for p in parents[v]],
+                       {u: states[u] for u in [v] + parents[v]}))
+    return names, [(p, v) for v in names for p in parents[v]], tuples
+
+
+def random_bn_pair(seed, **kwargs):
+    """(port model, pgmpy_tpu model) of the network ``random_bn_tables``
+    makes from ``seed``; the port's copy carries the JAX model's float32
+    tables, so both packages compute on identical numbers."""
+    from pgmpy_tpu.factors import TabularCPD as JaxCPD
+    from pgmpy_tpu.models import DiscreteBayesianNetwork as JaxBN
+
+    names, edges, tuples = random_bn_tables(seed, **kwargs)
+    jax_model = JaxBN()
+    jax_model.add_nodes_from(names)
+    jax_model.add_edges_from(edges)
+    jax_model.add_cpds(*[
+        JaxCPD(v, card, values, evidence=evidence or None, evidence_card=ev_card or None,
+               state_names=state_names)
+        for v, card, values, evidence, ev_card, state_names in tuples
+    ])
+    return to_port(jax_model), jax_model
+
+
+def brute_force_posterior(model, variables, evidence=None):
+    """P(variables | evidence) of a small network of either package, by
+    enumerating the full joint with numpy in float64: an oracle independent
+    of both packages' inference code.  ``evidence`` maps variables to state
+    names.  Axes of the result follow ``variables``."""
+    evidence = evidence or {}
+    nodes = list(model.nodes())
+    letters = {v: chr(ord("a") + i) for i, v in enumerate(nodes)}
+    operands, subs = [], []
+    for cpd in model.get_cpds():
+        operands.append(np_values(cpd.values))
+        subs.append("".join(letters[v] for v in cpd.variables))
+    for var, state in evidence.items():
+        delta = np.zeros(len(model.states[var]))
+        delta[list(model.states[var]).index(state)] = 1.0
+        operands.append(delta)
+        subs.append(letters[var])
+    out = np.einsum(",".join(subs) + "->" + "".join(letters[v] for v in variables), *operands)
+    return out / out.sum()

@@ -72,9 +72,11 @@ def test_import_leaves_jax_out():
         "import sys, pgmpy_tpu_torch\n"
         "import pgmpy_tpu_torch.factors, pgmpy_tpu_torch.models, pgmpy_tpu_torch.estimators\n"
         "import pgmpy_tpu_torch.inference, pgmpy_tpu_torch.utils.interop, pgmpy_tpu_torch.ops\n"
+        "import pgmpy_tpu_torch.sampling, pgmpy_tpu_torch.utils.mathext\n"
         "from pgmpy_tpu_torch.config import config\n"
         "config.set_device('cpu')\n"
         "m = pgmpy_tpu_torch.utils.get_example_model('asia')\n"
+        "m.predict(m.simulate(20, seed=0, show_progress=False).drop(columns=['lung']))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pgmpy_tpu.'))"
         " or k == 'pgmpy_tpu']\n"
         "print(bad)\n"
@@ -87,11 +89,18 @@ def test_import_leaves_jax_out():
 
 
 def test_unported_paths_raise_not_implemented():
+    """What the port has not reached yet says so, and names its ROADMAP
+    item; ``simulate`` and ``predict`` are ported and run."""
+    from pgmpy_tpu_torch.utils.utils import get_example_model as example
+
     model = get_example_model("asia")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        model.simulate(10)
-    with pytest.raises(NotImplementedError, match="VariableElimination"):
-        model.predict(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md: slice 4"):
+        model.is_imap(None)
+    with pytest.raises(NotImplementedError, match="Gaussian models"):
+        example("ecoli70")
+    frame = model.simulate(10, seed=0, show_progress=False)
+    assert frame.shape == (10, 8)
+    assert model.predict(frame.drop(columns=["lung"])).shape == (10, 1)
 
 
 DOCTEST_MODULES = [
@@ -104,6 +113,9 @@ DOCTEST_MODULES = [
     "pgmpy_tpu_torch.estimators.mle",
     "pgmpy_tpu_torch.estimators.bayes",
     "pgmpy_tpu_torch.inference.bp",
+    "pgmpy_tpu_torch.inference.ve",
+    "pgmpy_tpu_torch.inference.approx",
+    "pgmpy_tpu_torch.sampling.forward",
     "pgmpy_tpu_torch.utils.utils",
 ]
 

@@ -15,7 +15,12 @@ and prints, one ``key value`` pair per line:
   from ``torch.profiler``), the host's enqueue time, the CUDA-event wall time,
   the device's idle share, and the bytes the schedule must move with the time
   that takes at the card's published 3.35 TB/s;
-* the device time of one 2048-row ``query_batch``.
+* the device time of one 2048-row ``query_batch``;
+* per ``simulate`` of 52,048 rows: kernels and device time of the sampler's
+  sweep, its host time, and the host time of the whole call (the sweep plus the
+  pandas frame); per ``predict`` and ``predict_probability`` of 2,048 rows
+  with three columns missing: kernels, device time, host time, and the same
+  for the batched contraction alone (codes already on the card).
 """
 
 import os
@@ -32,26 +37,31 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from pgmpy_tpu_torch.config import config  # noqa: E402
 from pgmpy_tpu_torch.estimators import BayesianEstimator  # noqa: E402
-from pgmpy_tpu_torch.inference import BeliefPropagation  # noqa: E402
+from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination  # noqa: E402
 from pgmpy_tpu_torch.models import DiscreteBayesianNetwork  # noqa: E402
+from pgmpy_tpu_torch.sampling import BayesianModelSampling  # noqa: E402
 from pgmpy_tpu_torch.utils import get_example_model  # noqa: E402
 
 HBM_BYTES_PER_S = chip_smoke.HBM_BYTES_PER_S
 
 
-def kernel_stats(prof, reps):
-    """(kernels per rep, device ms per rep) from a profile of ``reps`` runs."""
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(kernels) / reps, sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+profiled = chip_smoke.profiled
 
 
-def profiled(fn, reps):
+def print_top_kernels(label, fn, top=6):
+    """The device operations of one call of ``fn`` summed by name, largest
+    first: count, total microseconds, name."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    return kernel_stats(prof, reps)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            count, total = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, total + e.time_range.elapsed_us())
+    for name, (count, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"{label}_device_op x{count} {total:.1f}us {name[:100]}")
 
 
 def main():
@@ -134,6 +144,44 @@ def main():
     bp.query_batch([q_var], rows)
     n_kernels, device_ms = profiled(lambda: bp.query_batch([q_var], rows), reps=5)
     print(f"query_batch_kernels {n_kernels:.0f} query_batch_device_ms {device_ms:.4f}")
+
+    # ---- simulate: the sampler's sweep, then the whole call
+    n_sim = chip_smoke.N_ROWS + chip_smoke.BATCH_ROWS
+    sampler = BayesianModelSampling(model).sampler
+    sampler.forward(n_sim, seed=0)  # warm-up
+    sweep_s = chip_smoke.host_median_s(lambda: sampler.forward(n_sim, seed=0), reps=5)
+    n_kernels, device_ms = profiled(lambda: sampler.forward(n_sim, seed=0), reps=2)
+    simulate_s = chip_smoke.host_median_s(
+        lambda: model.simulate(n_sim, seed=0, show_progress=False), reps=3)
+    print(f"simulate_rows {n_sim} sweep_kernels {n_kernels:.0f} sweep_device_ms {device_ms:.3f} "
+          f"sweep_host_s {sweep_s:.4f} sweep_idle_share {1 - device_ms / (sweep_s * 1e3):.3f} "
+          f"simulate_s {simulate_s:.4f}")
+    print_top_kernels("sweep", lambda: sampler.forward(n_sim, seed=0))
+
+    # ---- predict: the whole call, then the batched contraction alone
+    targets = chip_smoke.independent_targets(fitted)
+    test = df.iloc[-chip_smoke.BATCH_ROWS:].drop(columns=targets)
+    fitted.predict(test)  # warm-up: prune, gather tables, plan
+    fitted.predict_probability(test)
+    for name, call in (("predict", lambda: fitted.predict(test)),
+                       ("predict_probability", lambda: fitted.predict_probability(test))):
+        host_s = chip_smoke.host_median_s(call, reps=3)
+        n_kernels, device_ms = profiled(call, reps=2)
+        print(f"{name}_rows {len(test)} {name}_kernels {n_kernels:.0f} {name}_device_ms "
+              f"{device_ms:.4f} {name}_host_s {host_s:.4f} "
+              f"{name}_idle_share {1 - device_ms / (host_s * 1e3):.4f}")
+        print_top_kernels(name, call, top=4)
+    ve = VariableElimination(fitted)
+    ev_vars = sorted(test.columns, key=str)
+    run, _, code_maps = ve._get_batch_program(tuple(targets), tuple(ev_vars))
+    codes = torch.as_tensor(
+        np.stack([[code_maps[k][s] for s in test[v].tolist()]
+                  for k, v in enumerate(ev_vars)], axis=1), dtype=torch.int64, device="cuda")
+    run(codes)
+    host_s = chip_smoke.host_median_s(lambda: run(codes), reps=5)
+    n_kernels, device_ms = profiled(lambda: run(codes), reps=5)
+    print(f"predict_contraction_kernels {n_kernels:.0f} predict_contraction_device_ms "
+          f"{device_ms:.4f} predict_contraction_host_s {host_s:.5f}")
     return 0
 
 
