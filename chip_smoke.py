@@ -28,7 +28,16 @@ Runs from the repository root and needs one CUDA card.  It
    sparse-evidence ``VariableElimination`` query runs if its planned
    contraction stays under a memory guard (against BeliefPropagation), and
    ``ApproxInference`` answers one query from 50,000 draws;
-5. prints the card, the timings, one JSON line describing each kernel (its
+5. drives the MCMC lane (``phase_mcmc``): Gibbs on MUNIN (4,096 chains started
+   from ancestral samples, 5 sweeps over all 1041 variables: the local
+   conditionals against a numpy float64 oracle and the CPU run, every state
+   still possible after every sweep, the same seed twice, a run checkpointed
+   after 2 sweeps and resumed), Gibbs on HEPAR2 (10,000 chains x 120 sweeps
+   against the exact marginals of a calibrated junction tree), and on the
+   46-dimensional linear-Gaussian network ecoli70 ``VectorizedNUTS`` with
+   1,024 chains and ``HamiltonianMCDA`` with 64 (moments against the
+   closed-form joint, the batched leapfrog against the CPU run);
+6. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -39,8 +48,10 @@ printed.  Without a CUDA device it exits with code 1 before doing anything.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -787,6 +798,298 @@ def phase_simulate_predict(model, context):
     return table_launches, bincount_launches
 
 
+# --------------------------------------------------------------------------- #
+# the MCMC lane: Gibbs on MUNIN and HEPAR2, NUTS and HMC on ecoli70
+# --------------------------------------------------------------------------- #
+GIBBS_CHAINS = 4096
+GIBBS_SWEEPS = 5
+HEPAR_CHAINS = 10_000
+HEPAR_SWEEPS = 120
+HEPAR_BURN_IN = 20
+NUTS_CHAINS = 1024
+NUTS_SAMPLES = 120
+NUTS_ADAPT = 20
+HMC_CHAINS = 64
+
+
+def blanket_logits(model, var, codes):
+    """log P(var = k | every other variable) up to a constant per row, with
+    numpy in float64 straight from the CPD tables (zeros clamped at 1e-38, as
+    the samplers clamp them): ``codes`` maps each variable to its states per
+    row."""
+    card = model.get_cardinality(var)
+    total = np.zeros((len(codes[var]), card))
+    for node in [var] + list(model.get_children(var)):
+        cpd = model.get_cpds(node)
+        table = np.log(np.maximum(cpd.values.double().cpu().numpy(), 1e-38))
+        index = tuple(np.arange(card)[None, :] if v == var else codes[v][:, None]
+                      for v in cpd.variables)
+        total = total + table[index]
+    return total
+
+
+def possible(model, variables, codes):
+    """Per chain, whether its state has positive joint probability: every
+    CPD entry it selects is > 0.  ``codes``: (..., d) host integers, columns
+    in ``variables`` order."""
+    column = {v: codes[..., j].astype(np.int64) for j, v in enumerate(variables)}
+    ok = np.ones(codes.shape[:-1], dtype=bool)
+    for cpd in model.get_cpds():
+        table = cpd.values.cpu().numpy()
+        ok &= table[tuple(column[v] for v in cpd.variables)] > 0
+    return ok
+
+
+def moment_check(name, samples, mean, cov, n_effective):
+    """Pooled mean and standard deviations of ``samples`` (draws, dim) against
+    the joint's, six standard errors at ``n_effective`` independent draws:
+    |mean error| <= 6 sd / sqrt(n) and |sd ratio - 1| <= 6 / sqrt(2 n)."""
+    sd = np.sqrt(np.diag(cov))
+    check(bool(np.isfinite(samples).all()), f"{name}: non-finite samples")
+    mean_err = float(np.abs((samples.mean(axis=0) - mean) / sd).max())
+    sd_err = float(np.abs(samples.std(axis=0) / sd - 1).max())
+    mean_limit, sd_limit = 6 / np.sqrt(n_effective), 6 / np.sqrt(2 * n_effective)
+    check(mean_err <= mean_limit, f"{name}: pooled mean off by {mean_err} sd (limit {mean_limit})")
+    check(sd_err <= sd_limit, f"{name}: pooled sd off by {sd_err} (limit {sd_limit})")
+    return (f"max_mean_err_in_sd {mean_err:.4f} (limit {mean_limit:.4f}) max_rel_sd_err "
+            f"{sd_err:.4f} (limit {sd_limit:.4f}; 6 standard errors at {n_effective:.0f} "
+            f"effective draws)")
+
+
+def phase_gibbs_munin(model):
+    from pgmpy_tpu_torch.sampling import (BayesianModelSampling, GibbsSampling,
+                                          load_sampler_state, save_sampler_state)
+    from pgmpy_tpu_torch.utils.interop import bn_from_numpy
+    from pgmpy_tpu_torch.utils.mathext import seeded_generator
+
+    t0 = time.time()
+    gibbs = GibbsSampling(model)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    compiled = gibbs._compiled
+    variables = gibbs.variables
+    pairs = sum(len(specs) for specs in compiled._var_specs)
+    entries = sum(int(t.numel()) for specs in compiled._var_specs for t, _, _ in specs)
+    check(pairs == sum(len(c.variables) for c in model.get_cpds()),
+          f"gibbs: {pairs} (variable, blanket factor) pairs")
+    zeros = sum(int((c.values == 0).sum()) for c in model.get_cpds())
+    log(f"gibbs_munin variables={len(variables)} pairs={pairs} table_entries={entries} "
+        f"largest_card={max(compiled.cards)} zero_cpd_entries={zeros} build_s {build_s:.3f}")
+
+    # start where the joint is positive: MUNIN's CPDs hold zeros
+    sampler = BayesianModelSampling(model).sampler
+    check(sampler.variables == variables, "sampler and Gibbs order the variables differently")
+    init = sampler.forward(GIBBS_CHAINS, seed=SEED)
+    init_host = init.cpu().numpy()
+    check(bool(possible(model, variables, init_host).all()), "an ancestral sample is impossible")
+
+    # ---- the local conditionals: numpy float64 oracle, and the CPU run
+    states = init.to(torch.int64).T.contiguous()
+    by_factors = sorted(range(len(variables)), key=lambda i: -len(compiled._var_specs[i]))[:10]
+    spread = range(0, len(variables), max(len(variables) // 22, 1))
+    picked = by_factors + [i for i in spread if i not in by_factors][:22]
+    codes = {v: init_host[:, j].astype(np.int64) for j, v in enumerate(variables)}
+    cpds = [(c.variable, c.variable_card, c.get_values(), c.variables[1:],
+             [int(x) for x in c.cardinality[1:]], c.state_names) for c in model.get_cpds()]
+    with on_device("cpu"):
+        cpu_model = bn_from_numpy(list(model.edges()), cpds, nodes=list(model.nodes()))
+        cpu_gibbs = GibbsSampling(cpu_model)
+        check(cpu_gibbs.variables == variables, "CPU and GPU Gibbs order the variables differently")
+        cpu_states = states.cpu()
+        cpu_logits = {i: cpu_gibbs._compiled._conditional_logits(cpu_states, i) for i in picked}
+    # A float32 sum of k log entries, none below log(1e-38) = -87.5: each of
+    # the k additions rounds a partial sum of at most 87.5 k by half an ulp,
+    # so the sum lies within 87.5 k^2 2^-24 of the float64 oracle.  The CPU
+    # run adds the same float32 numbers in the same order.
+    oracle_err = cpu_err = oracle_margin = 0.0
+    for i in picked:
+        got = compiled._conditional_logits(states, i)
+        check(got.is_cuda and tuple(got.shape) == (GIBBS_CHAINS, compiled.cards[i]),
+              f"gibbs logits of {variables[i]}: {got.device} {tuple(got.shape)}")
+        err = float(np.abs(got.double().cpu().numpy()
+                           - blanket_logits(model, variables[i], codes)).max())
+        limit = 87.5 * len(compiled._var_specs[i]) ** 2 * 2.0**-24 + 1e-5
+        check(err <= limit, f"gibbs logits of {variables[i]} against the oracle: {err} > {limit}")
+        oracle_err, oracle_margin = max(oracle_err, err), max(oracle_margin, err / limit)
+        cpu_err = max(cpu_err, float((got.cpu() - cpu_logits[i]).abs().max()))
+    check(cpu_err <= 1e-5, f"gibbs conditional logits against the CPU run: {cpu_err}")
+    log(f"gibbs_munin conditional_logits variables={len(picked)} most_blanket_factors="
+        f"{len(compiled._var_specs[by_factors[0]])} oracle max_abs_err {oracle_err:.3e} (numpy "
+        f"float64; limit 87.5 k^2 2^-24 + 1e-5 for k blanket factors, largest share of it used "
+        f"{oracle_margin:.3f}) cpu_run max_abs_err {cpu_err:.3e} (limit 1e-5)")
+
+    # ---- the run, and what must hold of it
+    torch.cuda.synchronize()
+    t0 = time.time()
+    traj = compiled._run_chains(seeded_generator(SEED), GIBBS_SWEEPS, init)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    check(traj.is_cuda and traj.dtype == torch.int8
+          and tuple(traj.shape) == (GIBBS_SWEEPS, GIBBS_CHAINS, len(variables)),
+          f"gibbs trajectory {traj.dtype} {tuple(traj.shape)} on {traj.device}")
+    cards = torch.as_tensor(compiled.cards, dtype=torch.int8, device=traj.device)
+    check(bool(((traj >= 0) & (traj < cards)).all()), "gibbs: a code is out of range")
+    host = traj.cpu().numpy()
+    alive = possible(model, variables, host)
+    check(bool(alive.all()), f"gibbs: {int((~alive).sum())} chain states of probability 0, the "
+                             f"first after sweep {int(np.argmin(alive.all(axis=1))) + 1}")
+    moved = float((host[-1] != init_host).mean())
+    check(moved > 0.01, f"gibbs: only {moved:.4f} of the codes changed in {GIBBS_SWEEPS} sweeps")
+    check(torch.equal(traj, compiled._run_chains(seeded_generator(SEED), GIBBS_SWEEPS, init)),
+          "gibbs: the same seed gave another trajectory")
+    check(not torch.equal(traj, compiled._run_chains(seeded_generator(SEED + 1), GIBBS_SWEEPS, init)),
+          "gibbs: another seed gave the same trajectory")
+
+    # ---- checkpoint after 2 sweeps, resume for 3
+    gen = seeded_generator(SEED)
+    head = compiled._run_chains(gen, 2, init)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gibbs_state.npz")
+        save_sampler_state(path, {"codes": head[-1]}, gen, step=2)
+        saved, key, step, _ = load_sampler_state(path, treedef_like={"codes": None})
+    resumed = seeded_generator(0)
+    resumed.set_state(key)
+    tail = compiled._run_chains(resumed, GIBBS_SWEEPS - step, saved["codes"])
+    check(step == 2 and saved["codes"].is_cuda and torch.equal(tail, traj[2:]),
+          "gibbs: the resumed run differs from the uninterrupted one")
+    log(f"gibbs_munin_check ok trajectory {tuple(traj.shape)} {traj.dtype} codes in range, "
+        f"every state possible after each of {GIBBS_SWEEPS} sweeps, share_of_codes_changed "
+        f"{moved:.4f}, same seed equal, resumed after 2 sweeps equal")
+
+    # ---- timings of one sweep
+    gen = seeded_generator(SEED)
+    sweep_s = host_median_s(lambda: compiled._sweep(states, gen))
+    kernels, device_ms = profiled(lambda: compiled._sweep(states, gen))
+    log(f"gibbs_munin chains={GIBBS_CHAINS} sweeps={GIBBS_SWEEPS} run_s {run_s:.4f} "
+        f"sweep_s {sweep_s:.4f} (median of 3) gibbs_chain_sweeps_per_s "
+        f"{GIBBS_CHAINS / sweep_s:.1f} kernels_per_sweep {kernels:.0f} device_ms "
+        f"{device_ms:.3f} idle_share_of_sweep {1 - device_ms / (sweep_s * 1e3):.3f}")
+
+
+def phase_gibbs_hepar2():
+    from pgmpy_tpu_torch.inference import BeliefPropagation
+    from pgmpy_tpu_torch.sampling import GibbsSampling
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    model = get_example_model("hepar2")
+    smallest = min(float(c.values.min()) for c in model.get_cpds())
+    check(smallest > 0, "hepar2 has a zero CPD entry: the Gibbs chain may be reducible")
+    gibbs = GibbsSampling(model)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    traj = gibbs.sample_chains(HEPAR_CHAINS, HEPAR_SWEEPS, seed=SEED)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    check(traj.is_cuda and tuple(traj.shape) == (HEPAR_SWEEPS, HEPAR_CHAINS, len(gibbs.variables)),
+          f"hepar2 trajectory {tuple(traj.shape)} on {traj.device}")
+    bp = BeliefPropagation(model)
+    bp.calibrate()
+    marginals = exact_marginals(bp)
+    kept = traj[HEPAR_BURN_IN:].reshape(-1, traj.shape[-1])
+    worst, worst_var = 0.0, None
+    for j, v in enumerate(gibbs.variables):
+        freq = torch.bincount(kept[:, j].to(torch.int64), minlength=len(marginals[v]))
+        err = float(np.abs(freq.cpu().numpy() / kept.shape[0] - marginals[v]).max())
+        if err > worst:
+            worst, worst_var = err, v
+    check(worst <= 0.02, f"hepar2 Gibbs marginal of {worst_var} off by {worst}")
+    log(f"gibbs_hepar2 variables={len(gibbs.variables)} smallest_cpd_entry {smallest:.2e} "
+        f"chains={HEPAR_CHAINS} sweeps={HEPAR_SWEEPS} burn_in={HEPAR_BURN_IN} run_s {run_s:.4f} "
+        f"gibbs_chain_sweeps_per_s {HEPAR_CHAINS * HEPAR_SWEEPS / run_s:.1f} "
+        f"max_abs_marginal_err {worst:.4e} at {worst_var} (limit 0.02)")
+
+
+def phase_nuts_ecoli70():
+    from pgmpy_tpu_torch.config import as_tensor
+    from pgmpy_tpu_torch.sampling import HamiltonianMCDA, VectorizedNUTS
+    from pgmpy_tpu_torch.utils import get_example_model
+    from pgmpy_tpu_torch.utils.mathext import seeded_generator
+
+    ecoli = get_example_model("ecoli70")
+    variables, mu, cov = ecoli.joint_gaussian()
+    dim = len(variables)
+    nuts = VectorizedNUTS(ecoli, max_depth=6)
+
+    # ---- the batched leapfrog on the card against the CPU run
+    rng = np.random.default_rng(SEED)
+    z = mu + rng.normal(size=(NUTS_CHAINS, dim)) * np.sqrt(np.diag(cov))
+    r = rng.normal(size=(NUTS_CHAINS, dim))
+    got = nuts._leapfrog(as_tensor(z), as_tensor(r), nuts._grad(as_tensor(z)), 0.17)
+    with on_device("cpu"):
+        cpu_nuts = VectorizedNUTS(ecoli, max_depth=6)
+        want = cpu_nuts._leapfrog(as_tensor(z), as_tensor(r), cpu_nuts._grad(as_tensor(z)), 0.17)
+    leap_err = 0.0
+    for a, b in zip(got, want):
+        check(a.is_cuda and tuple(a.shape) == (NUTS_CHAINS, dim), f"leapfrog output on {a.device}")
+        leap_err = max(leap_err, float(((a.cpu() - b).abs() / b.abs().max()).max()))
+    check(leap_err <= 1e-5, f"nuts leapfrog against the CPU run: {leap_err}")
+
+    # ---- the same seed twice, on a short run
+    short = dict(num_samples=6, num_adapt=4, stepsize=0.17, n_chains=NUTS_CHAINS)
+    first = nuts.sample(mu.copy(), seed=SEED + 1, **short)
+    check(np.array_equal(first, nuts.sample(mu.copy(), seed=SEED + 1, **short)),
+          "nuts: the same seed gave other samples")
+    check(not np.array_equal(first, nuts.sample(mu.copy(), seed=SEED + 2, **short)),
+          "nuts: another seed gave the same samples")
+
+    # ---- the run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    samples = nuts.sample(mu.copy(), num_samples=NUTS_SAMPLES, num_adapt=NUTS_ADAPT,
+                          stepsize=0.17, n_chains=NUTS_CHAINS, seed=SEED)
+    run_s = time.time() - t0
+    steps = NUTS_SAMPLES + NUTS_ADAPT
+    leaves, reads = nuts.leaf_iterations, nuts.host_reads
+    check(samples.shape == (NUTS_SAMPLES, NUTS_CHAINS, dim), f"nuts samples {samples.shape}")
+    check(0.6 < nuts.acceptance_rate <= 1.0, f"nuts acceptance rate {nuts.acceptance_rate}")
+    # an autocorrelation time of 10 transitions is allowed for
+    pooled = samples.reshape(-1, dim).astype(np.float64)
+    moments = moment_check("nuts", pooled, mu, cov, pooled.shape[0] / 10)
+    positions = as_tensor(samples[-1])
+    gen = seeded_generator(SEED)
+    kernels, device_ms = profiled(lambda: nuts._nuts_step(gen, positions, nuts.final_stepsize))
+    log(f"nuts_ecoli70 dim={dim} chains={NUTS_CHAINS} samples={NUTS_SAMPLES} adapt={NUTS_ADAPT} "
+        f"max_depth=6 run_s {run_s:.3f} nuts_samples_per_s "
+        f"{NUTS_SAMPLES * NUTS_CHAINS / run_s:.1f} acceptance_rate {nuts.acceptance_rate:.4f} "
+        f"final_stepsize {nuts.final_stepsize:.4f} leaf_iterations_per_step {leaves / steps:.2f} "
+        f"host_reads_per_step {reads / steps:.2f} step_s {run_s / steps:.4f} kernels_per_step "
+        f"{kernels:.0f} device_ms_per_step {device_ms:.3f} (one profiled step) idle_share "
+        f"{1 - device_ms / (run_s / steps * 1e3):.3f}")
+    log(f"nuts_ecoli70_check ok {moments} leapfrog_vs_cpu max_rel_err {leap_err:.3e} "
+        f"(limit 1e-5) same seed equal on a run of {short['num_adapt'] + short['num_samples']} steps")
+
+    # ---- HMC with dual averaging, 64 chains.  A fixed trajectory length can
+    # freeze a direction of a Gaussian whose period it matches, so each chain
+    # is counted as one independent draw.
+    hmc = HamiltonianMCDA(ecoli)
+    t0 = time.time()
+    samples = hmc.sample(mu.copy(), num_adapt=50, num_samples=150, trajectory_length=3.0,
+                         stepsize=0.17, n_chains=HMC_CHAINS, seed=SEED, return_type="array")
+    run_s = time.time() - t0
+    check(samples.shape == (150, HMC_CHAINS, dim), f"hmc samples {samples.shape}")
+    check(0.3 < hmc.acceptance_rate <= 1.0, f"hmc acceptance rate {hmc.acceptance_rate}")
+    moments = moment_check("hmcda", samples[30:].reshape(-1, dim).astype(np.float64), mu, cov,
+                           HMC_CHAINS)
+    log(f"hmcda_ecoli70 chains={HMC_CHAINS} adapt=50 samples=150 trajectory_length=3.0 "
+        f"run_s {run_s:.3f} samples_per_s {150 * HMC_CHAINS / run_s:.1f} acceptance_rate "
+        f"{hmc.acceptance_rate:.4f} {moments}")
+
+
+def phase_mcmc(model):
+    """The MCMC lane; returns the (table-count, bincount) launches it made."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.ops import bincount as bc
+
+    bc.reset_launches()
+    phase_gibbs_munin(model)
+    phase_gibbs_hepar2()
+    phase_nuts_ecoli70()
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    log(f"mcmc_path table_count_launches {bc.TABLE_LAUNCHES} bincount_launches {bc.LAUNCHES} "
+        f"(no module of the lane counts)")
+    return bc.TABLE_LAUNCHES, bc.LAUNCHES
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -808,6 +1111,10 @@ def main():
     table_launches, bincount_launches = phase_simulate_predict(model, context)
     kernels[0]["launches_simulate_fit_predict"] = bincount_launches
     kernels[1]["launches_simulate_fit_predict"] = table_launches
+    # the third path
+    table_launches, bincount_launches = phase_mcmc(model)
+    kernels[0]["launches_mcmc"] = bincount_launches
+    kernels[1]["launches_mcmc"] = table_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from pgmpy_tpu_torch.factors.factor_set import (
     factorset_product,
     factorset_divide,
 )
+from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
 
 __all__ = [
     "DiscreteFactor",
@@ -23,4 +24,5 @@ __all__ = [
     "FactorSet",
     "factorset_product",
     "factorset_divide",
+    "LinearGaussianCPD",
 ]

@@ -3,6 +3,8 @@ from pgmpy_tpu_torch.models.markov_network import DiscreteMarkovNetwork
 from pgmpy_tpu_torch.models.factor_graph import FactorGraph
 from pgmpy_tpu_torch.models.cluster_graph import ClusterGraph
 from pgmpy_tpu_torch.models.junction_tree import JunctionTree
+from pgmpy_tpu_torch.models.markov_chain import MarkovChain
+from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
 
 # deprecated aliases kept for API familiarity with the reference
 BayesianNetwork = DiscreteBayesianNetwork
@@ -14,6 +16,8 @@ __all__ = [
     "FactorGraph",
     "ClusterGraph",
     "JunctionTree",
+    "MarkovChain",
+    "LinearGaussianBayesianNetwork",
     "BayesianNetwork",
     "MarkovNetwork",
 ]

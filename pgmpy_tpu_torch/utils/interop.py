@@ -5,11 +5,16 @@ tuple ``(variable, card, values, evidence, evidence_card, state_names)``
 with ``values`` the 2-D ``(card, prod(evidence_card))`` table (last evidence
 variable fastest).  :func:`bn_from_numpy` turns such a description into a
 ``pgmpy_tpu_torch`` network, so two packages can compute on identical
-tables.  It takes numpy only.
+tables.  A linear-Gaussian network is described per node by
+``(variable, parents, beta, std)`` with ``beta`` the intercept followed by one
+coefficient per parent; :func:`lgbn_from_numpy` builds it.  Both take numpy
+only.
 """
 
+from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
 from pgmpy_tpu_torch.factors.cpd import TabularCPD
 from pgmpy_tpu_torch.models.discrete_bn import DiscreteBayesianNetwork
+from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
 
 
 def bn_from_numpy(edges, cpds, nodes=None):
@@ -25,4 +30,19 @@ def bn_from_numpy(edges, cpds, nodes=None):
     model.add_nodes_from(nodes if nodes is not None else [s[0] for s in specs])
     model.add_edges_from(edges)
     model.add_cpds(*TabularCPD.batch_build(specs))
+    return model
+
+
+def lgbn_from_numpy(edges, cpds, nodes=None, latents=()):
+    """A :class:`LinearGaussianBayesianNetwork` with ``edges`` and one
+    ``LinearGaussianCPD(variable, beta, std, evidence=parents)`` per entry
+    ``(variable, parents, beta, std)`` of ``cpds``; ``nodes`` fixes the node
+    order (default: the CPDs' order)."""
+    model = LinearGaussianBayesianNetwork(latents=set(latents))
+    model.add_nodes_from(nodes if nodes is not None else [c[0] for c in cpds])
+    model.add_edges_from(edges)
+    model.add_cpds(*[
+        LinearGaussianCPD(var, beta, std, evidence=list(parents))
+        for var, parents, beta, std in cpds
+    ])
     return model

@@ -41,15 +41,28 @@ def seeded_generator(seed, device=None):
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def race_noise(shape, gen, dtype=None):
+    """``log(E)`` with ``E ~ Exp(1)`` drawn from ``gen`` on its device, in
+    ``dtype`` (default ``config.DTYPE``): ``argmax(logits - race_noise)`` is a
+    categorical draw.  The noise is kept finite (``E >= 1e-20``)."""
+    noise = torch.empty(shape, dtype=config.DTYPE if dtype is None else dtype, device=gen.device)
+    return noise.exponential_(generator=gen).clamp_min_(1e-20).log_()
+
+
 def categorical_draw(logits, gen):
     """One categorical draw per row of ``logits`` (n, k), unnormalised log
     probabilities: the exponential-race form of the Gumbel-max trick,
     ``argmax_j(logits_j - log(E_j))`` with ``E_j ~ Exp(1)`` drawn from
     ``gen``.  The noise is kept finite, so a state whose log probability sits
     at a clamp such as ``log(1e-38)`` never beats a state of real mass."""
-    noise = torch.empty(logits.shape, dtype=logits.dtype, device=logits.device)
-    noise = noise.exponential_(generator=gen).clamp_min_(1e-20).log_()
-    return torch.argmax(logits - noise, dim=-1)
+    return torch.argmax(logits - race_noise(logits.shape, gen, logits.dtype), dim=-1)
+
+
+def normal_draw(shape, gen, dtype=None):
+    """Standard normal draws of ``shape`` from ``gen`` on its device, in
+    ``dtype`` (default ``config.DTYPE``)."""
+    return torch.randn(shape, generator=gen, dtype=config.DTYPE if dtype is None else dtype,
+                       device=gen.device)
 
 
 def _log_weights(weights):

@@ -1,11 +1,11 @@
 """Example-model zoo and data preprocessing helpers.
 
-Port of the discrete part of ``pgmpy_tpu/utils/utils.py``.  The bundled
-networks are read from this package's own data directory,
-``pgmpy_tpu_torch/utils/example_models/*.bif.gz`` (byte-identical copies of
-the JAX package's files).
-The Gaussian networks, the dagitty teaching DAGs, ``discretize`` and the
-pairwise-orientation helpers wait for later slices.
+Port of the discrete and Gaussian parts of ``pgmpy_tpu/utils/utils.py``.  The
+bundled networks are read from this package's own data directory,
+``pgmpy_tpu_torch/utils/example_models/`` (``*.bif.gz`` discrete, ``*.json``
+linear-Gaussian; byte-identical copies of the JAX package's files).
+The dagitty teaching DAGs, ``discretize`` and the pairwise-orientation
+helpers wait for later slices.
 
 Examples
 --------
@@ -15,12 +15,11 @@ Examples
 (8, 8)
 """
 
+import json
 import os
 
 import numpy as np
 import pandas as pd
-
-from pgmpy_tpu_torch.config import not_ported
 
 _EXAMPLE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "example_models")
 
@@ -35,14 +34,33 @@ GAUSSIAN_MODELS = {"ecoli70", "magic-niab", "magic-irri", "arth150"}
 
 
 def get_example_model(model):
-    """Load a bundled discrete example network by name."""
+    """Load a bundled example network by name: discrete networks from
+    ``.bif.gz``, linear-Gaussian networks from ``.json``."""
     if model in DISCRETE_MODELS:
         from pgmpy_tpu_torch.readwrite.bif import BIFReader
 
         path = os.path.join(_EXAMPLE_DIR, f"{model}.bif.gz")
         return BIFReader(path=path).get_model()
     if model in GAUSSIAN_MODELS:
-        not_ported(f"get_example_model({model!r})", "Gaussian models, slice 4")
+        from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
+        from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
+
+        with open(os.path.join(_EXAMPLE_DIR, f"{model}.json")) as f:
+            spec = json.load(f)
+        lgbn = LinearGaussianBayesianNetwork()
+        lgbn.add_nodes_from(spec["nodes"])
+        lgbn.add_edges_from([tuple(arc) for arc in spec["arcs"]])
+        cpds = []
+        for var, cpd_spec in spec["cpds"].items():
+            parents = cpd_spec.get("parents", [])
+            coeffs = cpd_spec["coefficients"]
+            beta = [float(coeffs["(Intercept)"][0])] + [
+                float(coeffs[p][0]) for p in parents
+            ]
+            std = float(np.sqrt(cpd_spec["variance"][0]))
+            cpds.append(LinearGaussianCPD(var, beta, std, evidence=parents))
+        lgbn.add_cpds(*cpds)
+        return lgbn
     raise ValueError(f"Unknown example model: {model}")
 
 

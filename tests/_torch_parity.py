@@ -11,7 +11,7 @@ PyTorch version.
 import numpy as np
 
 from pgmpy_tpu_torch.config import config as torch_config
-from pgmpy_tpu_torch.utils.interop import bn_from_numpy
+from pgmpy_tpu_torch.utils.interop import bn_from_numpy, lgbn_from_numpy
 
 torch_config.set_device("cpu")
 
@@ -42,6 +42,19 @@ def cpd_tuples(model):
 def to_port(model):
     """The port's copy of a pgmpy_tpu DiscreteBayesianNetwork."""
     return bn_from_numpy(list(model.edges()), cpd_tuples(model), nodes=list(model.nodes()))
+
+
+def lgbn_tuples(model):
+    """(variable, parents, beta, std) per CPD of a linear-Gaussian network of
+    either package."""
+    return [(cpd.variable, list(cpd.evidence), np.asarray(cpd.beta, dtype=np.float64),
+             float(cpd.std)) for cpd in model.get_cpds()]
+
+
+def to_port_lgbn(model):
+    """The port's copy of a pgmpy_tpu LinearGaussianBayesianNetwork."""
+    return lgbn_from_numpy(list(model.edges()), lgbn_tuples(model), nodes=list(model.nodes()),
+                           latents=model.latents)
 
 
 def aligned(factor, variables):

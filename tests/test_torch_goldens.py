@@ -20,7 +20,7 @@ from pgmpy_tpu_torch.estimators import BayesianEstimator
 from pgmpy_tpu_torch.factors import TabularCPD
 from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination
 from pgmpy_tpu_torch.utils import get_example_model
-from pgmpy_tpu_torch.utils.utils import _EXAMPLE_DIR, DISCRETE_MODELS
+from pgmpy_tpu_torch.utils.utils import _EXAMPLE_DIR, DISCRETE_MODELS, GAUSSIAN_MODELS
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 with open(os.path.join(HERE, "reference_goldens_v2.json")) as fh:
@@ -95,12 +95,12 @@ def test_extras_bayesian_estimator(name):
                                    np.asarray(want["k2"]), atol=2e-6, err_msg=node)
 
 
-@pytest.mark.parametrize("name", sorted(DISCRETE_MODELS))
+@pytest.mark.parametrize("name", sorted(DISCRETE_MODELS) + sorted(GAUSSIAN_MODELS))
 def test_example_network_is_a_copy_of_the_jax_packages(name):
-    """The port ships its own example networks: each file is byte-identical
-    to the JAX package's."""
-    mine = os.path.join(_EXAMPLE_DIR, f"{name}.bif.gz")
-    theirs = os.path.join(os.path.dirname(HERE), "pgmpy_tpu", "utils", "example_models",
-                          f"{name}.bif.gz")
+    """The port ships its own example networks, discrete and Gaussian: each
+    file is byte-identical to the JAX package's."""
+    file = f"{name}.bif.gz" if name in DISCRETE_MODELS else f"{name}.json"
+    mine = os.path.join(_EXAMPLE_DIR, file)
+    theirs = os.path.join(os.path.dirname(HERE), "pgmpy_tpu", "utils", "example_models", file)
     assert os.path.dirname(mine).endswith(os.path.join("pgmpy_tpu_torch", "utils", "example_models"))
     assert filecmp.cmp(mine, theirs, shallow=False)

@@ -90,14 +90,17 @@ def test_import_leaves_jax_out():
 
 def test_unported_paths_raise_not_implemented():
     """What the port has not reached yet says so, and names its ROADMAP
-    item; ``simulate`` and ``predict`` are ported and run."""
+    item; ``simulate``, ``predict`` and the Gaussian example networks are
+    ported and run."""
+    from pgmpy_tpu_torch.base import DAG
     from pgmpy_tpu_torch.utils.utils import get_example_model as example
 
     model = get_example_model("asia")
     with pytest.raises(NotImplementedError, match="ROADMAP.md: slice 4"):
         model.is_imap(None)
-    with pytest.raises(NotImplementedError, match="Gaussian models"):
-        example("ecoli70")
+    with pytest.raises(NotImplementedError, match="utils/parser.py"):
+        DAG(dagitty_str="dag { a -> b }")
+    assert len(example("ecoli70").nodes()) == 46
     frame = model.simulate(10, seed=0, show_progress=False)
     assert frame.shape == (10, 8)
     assert model.predict(frame.drop(columns=["lung"])).shape == (10, 1)
@@ -116,6 +119,9 @@ DOCTEST_MODULES = [
     "pgmpy_tpu_torch.inference.ve",
     "pgmpy_tpu_torch.inference.approx",
     "pgmpy_tpu_torch.sampling.forward",
+    "pgmpy_tpu_torch.sampling.gibbs",
+    "pgmpy_tpu_torch.models.markov_chain",
+    "pgmpy_tpu_torch.models.linear_gaussian_bn",
     "pgmpy_tpu_torch.utils.utils",
 ]
 

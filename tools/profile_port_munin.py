@@ -20,7 +20,10 @@ and prints, one ``key value`` pair per line:
   sweep, its host time, and the host time of the whole call (the sweep plus the
   pandas frame); per ``predict`` and ``predict_probability`` of 2,048 rows
   with three columns missing: kernels, device time, host time, and the same
-  for the batched contraction alone (codes already on the card).
+  for the batched contraction alone (codes already on the card);
+* per Gibbs sweep of 4,096 chains over MUNIN's 1041 variables, and per NUTS
+  step of 1,024 chains on ecoli70: kernels, device time, host time, the idle
+  share and the device operations by name.
 """
 
 import os
@@ -35,12 +38,13 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
-from pgmpy_tpu_torch.config import config  # noqa: E402
+from pgmpy_tpu_torch.config import as_tensor, config  # noqa: E402
 from pgmpy_tpu_torch.estimators import BayesianEstimator  # noqa: E402
 from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination  # noqa: E402
 from pgmpy_tpu_torch.models import DiscreteBayesianNetwork  # noqa: E402
-from pgmpy_tpu_torch.sampling import BayesianModelSampling  # noqa: E402
+from pgmpy_tpu_torch.sampling import BayesianModelSampling, GibbsSampling, VectorizedNUTS  # noqa: E402
 from pgmpy_tpu_torch.utils import get_example_model  # noqa: E402
+from pgmpy_tpu_torch.utils.mathext import seeded_generator  # noqa: E402
 
 HBM_BYTES_PER_S = chip_smoke.HBM_BYTES_PER_S
 
@@ -182,6 +186,36 @@ def main():
     n_kernels, device_ms = profiled(lambda: run(codes), reps=5)
     print(f"predict_contraction_kernels {n_kernels:.0f} predict_contraction_device_ms "
           f"{device_ms:.4f} predict_contraction_host_s {host_s:.5f}")
+
+    # ---- Gibbs: one sweep of every chain over all variables
+    gibbs = GibbsSampling(model)._compiled
+    states = sampler.forward(chip_smoke.GIBBS_CHAINS, seed=0).to(torch.int64).T.contiguous()
+    gen = seeded_generator(0)
+    gibbs._sweep(states, gen)  # warm-up
+    sweep_s = chip_smoke.host_median_s(lambda: gibbs._sweep(states, gen), reps=5)
+    n_kernels, device_ms = profiled(lambda: gibbs._sweep(states, gen), reps=2)
+    print(f"gibbs_chains {chip_smoke.GIBBS_CHAINS} gibbs_pairs "
+          f"{sum(len(specs) for specs in gibbs._var_specs)} gibbs_sweep_kernels {n_kernels:.0f} "
+          f"gibbs_sweep_device_ms {device_ms:.3f} gibbs_sweep_host_s {sweep_s:.4f} "
+          f"gibbs_sweep_idle_share {1 - device_ms / (sweep_s * 1e3):.3f}")
+    print_top_kernels("gibbs_sweep", lambda: gibbs._sweep(states, gen), top=8)
+
+    # ---- NUTS: one step of every chain on ecoli70, started from the joint
+    ecoli = get_example_model("ecoli70")
+    _, mu, cov = ecoli.joint_gaussian()
+    nuts = VectorizedNUTS(ecoli, max_depth=6)
+    draws = np.random.default_rng(0).multivariate_normal(mu, cov, size=chip_smoke.NUTS_CHAINS)
+    positions = as_tensor(draws)
+    nuts._nuts_step(gen, positions, 0.17)  # warm-up
+    nuts.leaf_iterations = nuts.host_reads = 0
+    step_s = chip_smoke.host_median_s(lambda: nuts._nuts_step(gen, positions, 0.17), reps=5)
+    leaves, reads = nuts.leaf_iterations / 5, nuts.host_reads / 5
+    n_kernels, device_ms = profiled(lambda: nuts._nuts_step(gen, positions, 0.17), reps=2)
+    print(f"nuts_chains {chip_smoke.NUTS_CHAINS} nuts_step_leaf_iterations {leaves:.1f} "
+          f"nuts_step_host_reads {reads:.1f} nuts_step_kernels {n_kernels:.0f} "
+          f"nuts_step_device_ms {device_ms:.3f} nuts_step_host_s {step_s:.4f} "
+          f"nuts_step_idle_share {1 - device_ms / (step_s * 1e3):.3f}")
+    print_top_kernels("nuts_step", lambda: nuts._nuts_step(gen, positions, 0.17), top=8)
     return 0
 
 
