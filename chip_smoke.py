@@ -37,7 +37,22 @@ Runs from the repository root and needs one CUDA card.  It
    46-dimensional linear-Gaussian network ecoli70 ``VectorizedNUTS`` with
    1,024 chains and ``HamiltonianMCDA`` with 64 (moments against the
    closed-form joint, the batched leapfrog against the CPU run);
-6. prints the card, the timings, one JSON line describing each kernel (its
+6. drives the temporal lane (``phase_temporal``): the particle filter on the
+   rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
+   as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
+   three leaves observed in every slice), each slice's weighted marginals one
+   launch of ``table_counts``; the filtered marginals against
+   ``DBNInference.forward_scan`` on the card, ``forward_scan`` against the CPU
+   run; ``DynamicBayesianNetwork.simulate`` and ``fit`` (one launch per pair
+   of slices);
+7. drives score-based structure search (``phase_structure``):
+   ``HillClimbSearch`` with BIC on 2,000 simulated ALARM rows (one launch per
+   iteration with uncached specs, the DAG against the CPU run, the first
+   iteration's 1,369 scores against numpy) and a Chow-Liu ``TreeSearch`` over
+   MUNIN's 50,000 rows x 1041 columns (541,320 pair tables in one launch,
+   held whole against the plain version; 200 tables and their mutual
+   information against numpy);
+8. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -48,6 +63,7 @@ printed.  Without a CUDA device it exits with code 1 before doing anything.
 
 import contextlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -1090,6 +1106,498 @@ def phase_mcmc(model):
     return bc.TABLE_LAUNCHES, bc.LAUNCHES
 
 
+# --------------------------------------------------------------------------- #
+# the temporal lane: DynamicBayesianNetwork, DBNInference, the particle filter
+# --------------------------------------------------------------------------- #
+PF_PARTICLES = 16_384
+PF_SLICES = 200
+ALARM_PARTICLES = 262_144
+ALARM_SLICES = 50
+ALARM_PERSISTENT = 6
+ALARM_EVIDENCE_LEAVES = 3
+DBN_SIM_ROWS = 2000
+DBN_SIM_SLICES = 4
+
+
+def rain_umbrella_dbn():
+    from pgmpy_tpu_torch.factors import TabularCPD
+    from pgmpy_tpu_torch.models import DynamicBayesianNetwork
+
+    dbn = DynamicBayesianNetwork()
+    dbn.add_edges_from([(("rain", 0), ("umbrella", 0)), (("rain", 0), ("rain", 1))])
+    dbn.add_cpds(
+        TabularCPD(("rain", 0), 2, [[0.5], [0.5]]),
+        TabularCPD(("umbrella", 0), 2, [[0.8, 0.1], [0.2, 0.9]],
+                   evidence=[("rain", 0)], evidence_card=[2]),
+        TabularCPD(("rain", 1), 2, [[0.7, 0.3], [0.3, 0.7]],
+                   evidence=[("rain", 0)], evidence_card=[2]),
+        TabularCPD(("umbrella", 1), 2, [[0.8, 0.1], [0.2, 0.9]],
+                   evidence=[("rain", 1)], evidence_card=[2]),
+    )
+    return dbn
+
+
+def alarm_2tbn(alarm, n_persistent):
+    """A 2-TBN of ALARM's width: ALARM's edges and CPDs inside each slice, and
+    for the first ``n_persistent`` root nodes (in sorted order) an edge
+    ``(v, 0) -> (v, 1)`` whose CPD is ``0.9 I + 0.1 prior(v)``.  Returns the
+    network, the persistent nodes and their transition tables."""
+    from pgmpy_tpu_torch.factors import TabularCPD
+    from pgmpy_tpu_torch.models import DynamicBayesianNetwork
+
+    roots = sorted((v for v in alarm.nodes() if not alarm.get_parents(v)), key=str)
+    persistent = roots[:n_persistent]
+    dbn = DynamicBayesianNetwork()
+    dbn.add_nodes_from(sorted(alarm.nodes(), key=str))
+    dbn.add_edges_from(((u, 0), (v, 0)) for u, v in alarm.edges())
+    dbn.add_edges_from(((v, 0), (v, 1)) for v in persistent)
+    cpds, transitions = [], {}
+    for t in (0, 1):
+        for cpd in alarm.get_cpds():
+            var = cpd.variable
+            values = cpd.get_values().astype(np.float64)
+            evidence = [(p, t) for p in cpd.variables[1:]]
+            evidence_card = [int(c) for c in cpd.cardinality[1:]]
+            names = {(v, t): cpd.state_names[v] for v in cpd.variables}
+            if t == 1 and var in persistent:
+                card = cpd.variable_card
+                values = 0.9 * np.eye(card) + 0.1 * values.reshape(card, 1)
+                transitions[var] = values
+                evidence, evidence_card = [(var, 0)], [card]
+                names[(var, 0)] = cpd.state_names[var]
+            cpds.append(TabularCPD((var, t), cpd.variable_card, values, evidence=evidence or None,
+                                   evidence_card=evidence_card or None, state_names=names))
+    dbn.add_cpds(*cpds)
+    return dbn, persistent, transitions
+
+
+def dbn_trajectory(dbn, n_slices, seed):
+    """One trajectory {(name, t): state index} of a 2-TBN, drawn with numpy:
+    slice 0 from the slice-0 CPDs, every later slice from the slice-1 CPDs."""
+    import networkx as nx
+
+    rng = np.random.default_rng(seed)
+    order = {t: [n for n in nx.topological_sort(dbn) if n[1] == t] for t in (0, 1)}
+    out = {}
+    for t in range(n_slices):
+        local = 0 if t == 0 else 1
+        for node in order[local]:
+            cpd = dbn.get_cpds(node)
+            col = 0
+            for parent in cpd.variables[1:]:
+                state = out[(parent[0], t - (local - parent[1]))]
+                col = col * len(cpd.state_names[parent]) + state
+            column = cpd.get_values()[:, col].astype(np.float64)
+            out[(node[0], t)] = int(rng.choice(cpd.variable_card, p=column / column.sum()))
+    return out
+
+
+def filter_check(name, marginals, ess, exact, variables, n_slices, n_particles, lineage=False):
+    """Filtered marginals against the exact filter: 5 standard errors at the
+    slice's effective sample size, plus 1e-4.  With ``lineage`` the sample
+    size of a slice is the smallest one up to it: a variable that persists
+    from slice to slice is inherited through every resampling, so after a
+    slice that left few effective particles the ones read later overstate how
+    many independent histories the population still holds."""
+    check(ess.shape == (n_slices,) and bool(((ess > 0) & (ess <= n_particles * (1 + 1e-5))).all()),
+          f"{name}: effective sample sizes outside (0, n]: {ess.min()} .. {ess.max()}")
+    if lineage:
+        ess = np.minimum.accumulate(ess)
+    worst = 0.0
+    for v in variables:
+        for t in range(n_slices):
+            got, want = marginals[(v, t)].astype(np.float64), exact[(v, t)].astype(np.float64)
+            check(bool(np.isfinite(got).all()), f"{name}: marginal of {(v, t)} is not finite")
+            limit = 5 * np.sqrt(want * (1 - want) / ess[t]) + 1e-4
+            check(bool((np.abs(got - want) <= limit).all()),
+                  f"{name}: marginal of {(v, t)} {got} against exact {want} (ess {ess[t]})")
+            worst = max(worst, float((np.abs(got - want) / limit).max()))
+    return worst
+
+
+def phase_temporal():
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.inference import DBNInference
+    from pgmpy_tpu_torch.models import DynamicBayesianNetwork
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.sampling.smc import ParticleFilter
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    # ---- build: the repo's own filter configuration, and ALARM as a 2-TBN
+    rain = rain_umbrella_dbn()
+    rain_ev = {("umbrella", t): t % 2 for t in range(0, PF_SLICES, 3)}
+    rain_pf = ParticleFilter(rain, n_particles=PF_PARTICLES)
+    alarm = get_example_model("alarm")
+    t0 = time.time()
+    dbn, persistent, transitions = alarm_2tbn(alarm, ALARM_PERSISTENT)
+    leaves = sorted((v for v in alarm.nodes() if not alarm.get_children(v)),
+                    key=str)[:ALARM_EVIDENCE_LEAVES]
+    truth = dbn_trajectory(dbn, ALARM_SLICES, SEED)
+    alarm_ev = {(v, t): truth[(v, t)] for v in leaves for t in range(ALARM_SLICES)}
+    alarm_pf = ParticleFilter(dbn, n_particles=ALARM_PARTICLES)
+    alarm_infer = DBNInference(dbn)
+    torch.cuda.synchronize()
+    log(f"alarm_2tbn variables={len(alarm.nodes())} persistent={persistent} evidence_on={leaves} "
+        f"build_s {time.time() - t0:.3f}")
+
+    # ---- the main path, counted: filter twice, simulate, fit
+    bc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rain_marg, rain_particles, rain_ess = rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED)
+    rain_first_s = time.time() - t0
+    check(bc.TABLE_LAUNCHES == PF_SLICES, f"rain filter made {bc.TABLE_LAUNCHES} count launches")
+    t0 = time.time()
+    alarm_marg, alarm_particles, alarm_ess = alarm_pf.filter(
+        alarm_ev, n_time_slices=ALARM_SLICES, seed=SEED)
+    alarm_first_s = time.time() - t0
+    check(bc.TABLE_LAUNCHES == PF_SLICES + ALARM_SLICES,
+          f"alarm filter made {bc.TABLE_LAUNCHES - PF_SLICES} count launches")
+    t0 = time.time()
+    frame = dbn.simulate(n_samples=DBN_SIM_ROWS, n_time_slices=DBN_SIM_SLICES, seed=SEED,
+                         show_progress=False)
+    torch.cuda.synchronize()
+    dbn_simulate_s = time.time() - t0
+    learned = DynamicBayesianNetwork()
+    learned.add_nodes_from(sorted(alarm.nodes(), key=str))
+    learned.add_edges_from(dbn.edges())
+    before = bc.TABLE_LAUNCHES
+    t0 = time.time()
+    # every slice pair after the first replaces the CPDs of the one before,
+    # and the network says so once per CPD
+    port_logger = logging.getLogger("pgmpy_tpu_torch")
+    level = port_logger.level
+    port_logger.setLevel(logging.ERROR)
+    try:
+        learned.fit(frame)
+    finally:
+        port_logger.setLevel(level)
+    torch.cuda.synchronize()
+    dbn_fit_s = time.time() - t0
+    fit_launches = bc.TABLE_LAUNCHES - before
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    check(fit_launches == DBN_SIM_SLICES - 1,
+          f"DynamicBayesianNetwork.fit made {fit_launches} count launches for "
+          f"{DBN_SIM_SLICES - 1} slice pairs")
+    log(f"temporal_path table_count_launches {table_launches} (rain filter {PF_SLICES}, alarm "
+        f"filter {ALARM_SLICES}, dbn fit {fit_launches}) bincount_launches {bincount_launches}")
+
+    # ---- rain / umbrella: against the exact filter, the same seed, the CPU run
+    rain_infer = DBNInference(rain)
+    exact = rain_infer.forward_scan(["rain"], rain_ev, n_time_slices=PF_SLICES)
+    with on_device("cpu"):
+        cpu_exact = DBNInference(rain_umbrella_dbn()).forward_scan(
+            ["rain"], rain_ev, n_time_slices=PF_SLICES)
+    scan_err = max(float(np.abs(exact[k] - cpu_exact[k]).max()) for k in exact)
+    check(scan_err <= 1e-5, f"forward_scan against the CPU run: {scan_err}")
+    check(rain_particles.shape == (PF_PARTICLES, 2), f"final particles {rain_particles.shape}")
+    margin = filter_check("rain", rain_marg, rain_ess, exact, ["rain"], PF_SLICES, PF_PARTICLES)
+    again = rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED)
+    # the particles and the effective sample sizes are equal bit for bit; the
+    # marginals are float sums that the count kernel adds with atomics, in an
+    # order that differs from run to run
+    check(np.array_equal(rain_particles, again[1]) and np.array_equal(rain_ess, again[2]),
+          "particle filter: the same seed gave other particles or sample sizes")
+    drift = max(float(np.abs(rain_marg[k] - again[0][k]).max()) for k in rain_marg)
+    check(drift <= 1e-5, f"particle filter: the same seed moved a marginal by {drift}")
+    other = rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED + 1)
+    check(not np.array_equal(rain_particles, other[1]), "particle filter: another seed, same result")
+    rain_s = host_median_s(lambda: rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED))
+    kernels, device_ms = profiled(
+        lambda: rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED))
+    log(f"particle_filter_rain particles={PF_PARTICLES} slices={PF_SLICES} filter_s {rain_s:.4f} "
+        f"(median of 3; first call {rain_first_s:.4f}) particle_steps_per_s "
+        f"{PF_PARTICLES * PF_SLICES / rain_s:.1f} kernels_per_slice {kernels / PF_SLICES:.1f} "
+        f"device_ms_per_slice {device_ms / PF_SLICES:.4f} idle_share "
+        f"{1 - device_ms / (rain_s * 1e3):.3f} min_ess {rain_ess.min():.1f}")
+    log(f"particle_filter_rain_check ok 200 filtered marginals of rain within 5 standard errors at "
+        f"the slice's effective sample size + 1e-4 of forward_scan (largest share of the limit "
+        f"{margin:.3f}), same seed: particles and sample sizes equal, marginals within "
+        f"{drift:.3e} (float atomics; limit 1e-5), forward_scan_vs_cpu max_abs_err "
+        f"{scan_err:.3e} (limit 1e-5)")
+
+    # ---- ALARM 2-TBN: the exact filter, then the particle filter against it
+    guard = alarm_infer.forward_scan(persistent[:1], alarm_ev, n_time_slices=2)  # plans, warm
+    check(len(guard) == 2, "forward_scan of two slices")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    exact = alarm_infer.forward_scan(persistent, alarm_ev, n_time_slices=ALARM_SLICES)
+    scan_s = time.time() - t0
+    scan_kernels, scan_device_ms = profiled(lambda: alarm_infer.forward_scan(
+        persistent, alarm_ev, n_time_slices=ALARM_SLICES))
+    log(f"forward_scan_alarm slices={ALARM_SLICES} queries={len(persistent)} scan_s {scan_s:.4f} "
+        f"forward_scan_slices_per_s {(ALARM_SLICES - 1) / scan_s:.1f} kernels_per_slice "
+        f"{scan_kernels / (ALARM_SLICES - 1):.1f} device_ms_per_slice "
+        f"{scan_device_ms / (ALARM_SLICES - 1):.4f} idle_share "
+        f"{1 - scan_device_ms / (scan_s * 1e3):.3f}")
+    check(alarm_particles.shape == (ALARM_PARTICLES, len(alarm.nodes())),
+          f"final particles {alarm_particles.shape}")
+    margin = filter_check("alarm", alarm_marg, alarm_ess, exact, persistent, ALARM_SLICES,
+                          ALARM_PARTICLES, lineage=True)
+    for (v, t), code in alarm_ev.items():
+        check(abs(float(alarm_marg[(v, t)][code]) - 1) <= 1e-3,
+              f"alarm: the marginal of observed {(v, t)} is {alarm_marg[(v, t)]}")
+    alarm_s = host_median_s(
+        lambda: alarm_pf.filter(alarm_ev, n_time_slices=ALARM_SLICES, seed=SEED), reps=2)
+    kernels, device_ms = profiled(
+        lambda: alarm_pf.filter(alarm_ev, n_time_slices=ALARM_SLICES, seed=SEED))
+    log(f"particle_filter_alarm particles={ALARM_PARTICLES} slices={ALARM_SLICES} filter_s "
+        f"{alarm_s:.4f} (median of 2; first call {alarm_first_s:.4f}) particle_steps_per_s "
+        f"{ALARM_PARTICLES * ALARM_SLICES / alarm_s:.1f} kernels_per_slice "
+        f"{kernels / ALARM_SLICES:.1f} device_ms_per_slice {device_ms / ALARM_SLICES:.4f} "
+        f"idle_share {1 - device_ms / (alarm_s * 1e3):.3f} "
+        f"min_ess {alarm_ess.min():.1f} resampled_slices "
+        f"{int((alarm_ess < alarm_pf.ess_threshold * ALARM_PARTICLES).sum())}")
+    log(f"particle_filter_alarm_check ok {len(persistent) * ALARM_SLICES} filtered marginals of "
+        f"the persistent nodes within 5 standard errors (at the smallest effective sample size "
+        f"so far) + 1e-4 of forward_scan (largest share of the limit {margin:.3f}), ess in "
+        f"(0, n], observed leaves at their evidence")
+
+    # ---- K1 at the filter's shape: the weighted marginals of one slice
+    n, specs = ALARM_PARTICLES, alarm_pf._marginal_specs
+    cm = bc.column_major_codes(torch.as_tensor(alarm_particles, device="cuda"),
+                               max(alarm_pf.cards.values()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    w = torch.softmax(torch.randn(n, generator=gen, device="cuda", dtype=config.DTYPE), dim=0)
+    got = bc.table_counts_cuda(cm, n, specs, w)
+    ref = bc.table_counts_reference(cm, n, specs, w.double())
+    torch.cuda.synchronize()
+    err = float((got.double() - ref).abs().max())
+    check(got.dtype == w.dtype and torch.allclose(got.double(), ref, rtol=1e-5, atol=0),
+          f"k1t particle marginals: max_abs_err {err}")
+    nbytes = cm.shape[0] * n * cm.element_size() + n * w.element_size() + specs.total * 4 \
+        + 8 * len(specs) * (6 + 2 * specs.cols.shape[1])
+    bound_ms, bound_by = bound(nbytes, 2 * int(specs.n_cols.sum()) * n)
+    weighted = {
+        "err": err,
+        "ms": cuda_median_ms(lambda: bc.table_counts_cuda(cm, n, specs, w), device_only=True),
+        "plain_ms": cuda_median_ms(lambda: bc.table_counts_reference(cm, n, specs, w),
+                                   reps=5, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+    host_us = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        bc.table_counts_cuda(cm, n, specs, w)
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    log(f"k1t particle_marginals specs={len(specs)} rows={n} codes={cm.dtype} weights={w.dtype} "
+        f"max_abs_err={err:.3e} (rtol 1e-5 against the f64 plain version) kernel_ms="
+        f"{weighted['ms']:.5f} plain_ms={weighted['plain_ms']:.4f} bound_ms={bound_ms:.6f} "
+        f"({bound_by}) wrapper_host_us_median {float(np.median(host_us)):.1f} (descriptor "
+        f"uploaded once)")
+
+    # ---- simulate and fit of the 2-TBN
+    check(set(frame.columns) == {(v, t) for v in alarm.nodes() for t in range(DBN_SIM_SLICES)}
+          and len(frame) == DBN_SIM_ROWS, f"dbn simulate frame {frame.shape}")
+    check(learned.check_model(), "fitted 2-TBN invalid")
+    worst = 0.0
+    for v in persistent:
+        cpd = learned.get_cpds((v, 1))
+        check([tuple(p) for p in cpd.variables[1:]] == [(v, 0)], f"fitted parents of {(v, 1)}")
+        names = cpd.state_names[(v, 1)]
+        order = [alarm.states[v].index(s) for s in names]
+        true = transitions[v][np.ix_(order, order)]
+        true = true / true.sum(axis=0, keepdims=True)
+        seen = np.zeros(len(names))
+        for t in range(DBN_SIM_SLICES - 1):
+            seen += np.array([(frame[(v, t)] == s).sum() for s in names])
+        got = cpd.get_values().astype(np.float64)
+        limit = 5 * np.sqrt(true * (1 - true) / seen[None, :]) + 1e-3
+        check(bool((np.abs(got - true) <= limit).all()),
+              f"fitted transition CPD of {v} {got} against {true} (parent counts {seen})")
+        worst = max(worst, float((np.abs(got - true) / limit).max()))
+    log(f"dbn_simulate_fit rows={DBN_SIM_ROWS} slices={DBN_SIM_SLICES} dbn_simulate_s "
+        f"{dbn_simulate_s:.4f} dbn_fit_s {dbn_fit_s:.4f} table_count_launches {fit_launches} "
+        f"transition CPDs of {len(persistent)} persistent nodes within 5 standard errors + 1e-3 "
+        f"of the true ones (largest share of the limit {worst:.3f})")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    return (table_launches, bincount_launches), weighted, ALARM_SLICES
+
+
+# --------------------------------------------------------------------------- #
+# score-based structure search: HillClimbSearch on ALARM, Chow-Liu on MUNIN
+# --------------------------------------------------------------------------- #
+HILLCLIMB_ROWS = 2000
+TREE_CHECKED_PAIRS = 200
+
+
+def bic_from_codes(codes, cards, variable, parents):
+    """The BIC local score from numpy counts, in float64."""
+    n_cols = int(np.prod([cards[p] for p in parents])) if parents else 1
+    flat = codes[variable] * n_cols
+    stride = 1
+    for p in reversed(parents):
+        flat = flat + codes[p] * stride
+        stride *= cards[p]
+    counts = np.bincount(flat, minlength=cards[variable] * n_cols).reshape(cards[variable], n_cols)
+    counts = counts.astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ll = np.where(counts > 0, counts * np.log(counts / counts.sum(axis=0, keepdims=True)), 0.0)
+    return float(ll.sum() - 0.5 * np.log(counts.sum()) * n_cols * (cards[variable] - 1))
+
+
+def cuda_profiled_ms(fn):
+    """Device ms of ``fn`` from ``torch.profiler`` tracing the card alone (no
+    host events: ``fn`` is a long Python loop)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def phase_structure(munin_df):
+    import networkx as nx
+
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.estimators import BIC, HillClimbSearch, ScoreCache, TreeSearch
+    from pgmpy_tpu_torch.estimators.tree_search import pairwise_mutual_info
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    alarm = get_example_model("alarm")
+    frame = alarm.simulate(n_samples=HILLCLIMB_ROWS, seed=3, show_progress=False)
+    torch.cuda.synchronize()
+
+    # iterations whose dry run found a spec the cache did not hold
+    primed = []
+    real_prime = ScoreCache.prime
+
+    def counting_prime(self, specs):
+        keys = {(v, tuple(sorted(ps, key=str))) for v, ps in specs}
+        primed.append(len(keys - set(self._cache.keys())))
+        real_prime(self, specs)
+
+    # ---- the main path, counted: one hill climb, one Chow-Liu tree
+    bc.reset_launches()
+    scorer = BIC(frame)
+    ScoreCache.prime = counting_prime
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dag = HillClimbSearch(frame).estimate(scoring_method=scorer, show_progress=False)
+        torch.cuda.synchronize()
+        hillclimb_s = time.time() - t0
+    finally:
+        ScoreCache.prime = real_prime
+    dispatches, hill_launches = scorer._coded.n_dispatches, bc.TABLE_LAUNCHES
+    uncached_iterations = sum(1 for n in primed if n)
+    check(dispatches == uncached_iterations,
+          f"hill climb: {dispatches} dispatches in {uncached_iterations} iterations with uncached "
+          f"specs")
+    check(hill_launches == dispatches, f"hill climb: {hill_launches} launches, {dispatches} dispatches")
+    t0 = time.time()
+    search = TreeSearch(munin_df)
+    torch.cuda.synchronize()
+    tree_coding_s = time.time() - t0
+    t0 = time.time()
+    tree = search.estimate(estimator_type="chow-liu", show_progress=False)
+    treesearch_s = time.time() - t0
+    timings = dict(search.timings)
+    check(bc.TABLE_LAUNCHES == hill_launches + 1 and search._coded.n_dispatches == 1,
+          f"Chow-Liu made {bc.TABLE_LAUNCHES - hill_launches} count launches")
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    log(f"structure_path table_count_launches {table_launches} (hill climb {hill_launches}, "
+        f"Chow-Liu 1) bincount_launches {bincount_launches}")
+
+    # ---- hill climb: against the CPU run and numpy scores
+    with on_device("cpu"):
+        cpu_dag = HillClimbSearch(frame).estimate(scoring_method="bic-d", show_progress=False)
+    check(sorted(dag.edges()) == sorted(cpu_dag.edges()),
+          "hill climb: the card and the CPU learned different DAGs")
+    check(nx.is_directed_acyclic_graph(dag) and set(dag.nodes()) == set(alarm.nodes()),
+          "hill climb: not a DAG over ALARM's variables")
+    variables = list(frame.columns)
+    first = [(v, []) for v in variables] + [(v, [u]) for v in variables for u in variables if u != v]
+    check(primed[0] == len(first), f"the first iteration primed {primed[0]} specs, not {len(first)}")
+    codes = {v: np.unique(frame[v].astype(str), return_inverse=True)[1] for v in variables}
+    cards = {v: int(codes[v].max()) + 1 for v in variables}
+    got = np.array(scorer.local_scores_batch(first))
+    want = np.array([bic_from_codes(codes, cards, v, ps) for v, ps in first])
+    score_err = float((np.abs(got - want) / np.abs(want)).max())
+    check(score_err <= 1e-9, f"first-iteration scores against numpy counts: {score_err}")
+    true_skeleton = {frozenset(e) for e in alarm.edges()}
+    found = {frozenset(e) for e in dag.edges()}
+    device_ms = cuda_profiled_ms(
+        lambda: HillClimbSearch(frame).estimate(scoring_method=BIC(frame), show_progress=False))
+    log(f"hillclimb_alarm rows={HILLCLIMB_ROWS} hillclimb_s {hillclimb_s:.3f} iterations "
+        f"{len(primed)} dispatches {dispatches} specs_first_launch {primed[0]} specs_per_launch "
+        f"{sum(primed) / max(dispatches, 1):.1f} edges {len(dag.edges())} true_edges_found "
+        f"{len(found & true_skeleton)}/{len(true_skeleton)} device_ms {device_ms:.3f} host_share "
+        f"{1 - device_ms / (hillclimb_s * 1e3):.5f}")
+    log(f"hillclimb_check ok DAG equal to the CPU run's, one launch per iteration with uncached "
+        f"specs, {len(first)} first-iteration scores within {score_err:.3e} of numpy (limit 1e-9 "
+        f"relative)")
+
+    # ---- Chow-Liu: tables and mutual information against numpy, the tree
+    n_vars = len(search.variables)
+    check(len(tree.edges()) == n_vars - 1 and nx.is_tree(tree.to_undirected()),
+          f"Chow-Liu: {len(tree.edges())} edges over {n_vars} variables, or not a tree")
+    flat, table, pair_i, pair_j = search._pair_tables(list(search.variables))  # one more launch
+    torch.cuda.synchronize()
+    n_pairs = len(table)
+    check(n_pairs == n_vars * (n_vars - 1) // 2, f"{n_pairs} pair tables")
+    coded = search._coded
+    host_codes = coded.codes.cpu().numpy()
+    pair_cards = np.array([coded.cards[v] for v in search.variables])
+    mi = pairwise_mutual_info(flat.cpu().numpy().astype(np.float64), pair_cards[pair_i],
+                              pair_cards[pair_j])
+    rng = np.random.default_rng(SEED)
+    mi_err = 0.0
+    for s in rng.choice(n_pairs, TREE_CHECKED_PAIRS, replace=False):
+        a, b = int(pair_i[s]), int(pair_j[s])
+        ca, cb = int(table.sizes[s]) // coded.cards[search.variables[b]], coded.cards[search.variables[b]]
+        want = np.bincount(host_codes[:, a].astype(np.int64) * cb + host_codes[:, b],
+                           minlength=ca * cb)
+        part = flat[int(table.offsets[s]): int(table.offsets[s] + table.sizes[s])]
+        check(torch.equal(part.cpu(), torch.from_numpy(want).to(torch.int32)),
+              f"pair table {s} differs from numpy")
+        pxy = want.reshape(ca, cb) / want.sum()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            terms = np.where(pxy > 0, pxy * np.log(pxy / (pxy.sum(1, keepdims=True)
+                                                           * pxy.sum(0, keepdims=True))), 0.0)
+        mi_err = max(mi_err, abs(float(terms.sum()) - mi[s]))
+    check(mi_err <= 1e-9, f"mutual information against numpy: {mi_err}")
+
+    # ---- K1 at this shape: the whole launch against the plain version
+    cm = coded._column_codes()
+    t0 = time.time()
+    ref = bc.table_counts_reference(cm, coded.n, table)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    check(flat.dtype == torch.int32 and torch.equal(flat, ref),
+          "pair tables differ from the plain version")
+    check(int(flat.sum()) == coded.n * n_pairs, "pair tables: a row was dropped")
+    del ref
+    ms = cuda_median_ms(lambda: bc.table_counts_cuda(cm, coded.n, table), reps=5, warmup=1,
+                        device_only=True)
+    desc_bytes = 8 * n_pairs * (6 + 2 * table.cols.shape[1])
+    nbytes = cm.shape[0] * coded.n * cm.element_size() + table.total * 4 + desc_bytes
+    bound_ms, bound_by = bound(nbytes, 2 * int(table.n_cols.sum()) * coded.n)
+    per_spec_bytes = int(table.n_cols.sum()) * coded.n * cm.element_size() + table.total * 4
+    pairs = {"err": 0.0, "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
+    log(f"k1t pair_tables specs={n_pairs} rows={coded.n} codes={cm.dtype} entries={table.total} "
+        f"descriptor_bytes={desc_bytes} equal to the plain version, kernel_ms={ms:.4f} (device "
+        f"time, median of 5) plain_ms={plain_s * 1e3:.1f} (one run) bound_ms={bound_ms:.5f} "
+        f"({bound_by}) bytes_if_each_spec_reads_its_columns {per_spec_bytes} at 3.35 TB/s "
+        f"{per_spec_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    log(f"treesearch_munin rows={coded.n} columns={n_vars} pairs={n_pairs} treesearch_s "
+        f"{treesearch_s:.3f} specs_s {timings['specs_s']:.3f} launch_s {timings['launch_s']:.3f} "
+        f"readback_s {timings['readback_s']:.3f} mutual_info_s {timings['mutual_info_s']:.3f} "
+        f"spanning_tree_s {timings['spanning_tree_s']:.3f} coding_s {tree_coding_s:.3f} "
+        f"(TreeSearch(df), before estimate)")
+    log(f"treesearch_check ok one launch, {TREE_CHECKED_PAIRS} pair tables equal to numpy counts, "
+        f"their mutual information within {mi_err:.3e} of numpy float64 (limit 1e-9), "
+        f"{len(tree.edges())} edges, a tree")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    return (table_launches, bincount_launches), pairs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1097,6 +1605,7 @@ def main():
     from pgmpy_tpu_torch.config import config
 
     config.set_device("cuda")
+    started = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1115,6 +1624,24 @@ def main():
     table_launches, bincount_launches = phase_mcmc(model)
     kernels[0]["launches_mcmc"] = bincount_launches
     kernels[1]["launches_mcmc"] = table_launches
+    # the fourth and fifth paths, and K1 at the two shapes they give it
+    (temporal_tables, temporal_bincounts), weighted, filter_launches = phase_temporal()
+    (structure_tables, structure_bincounts), pairs = phase_structure(df)
+    for row, temporal, structure in ((kernels[0], temporal_bincounts, structure_bincounts),
+                                     (kernels[1], temporal_tables, structure_tables)):
+        row["launches_temporal"] = temporal
+        row["launches_structure"] = structure
+    for name, launches, result in (
+            ("table_counts/particle_marginals_weighted", filter_launches, weighted),
+            ("table_counts/pair_tables", 1, pairs)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": kernels[1]["source"],
+            "replaces": kernels[1]["replaces"], "launches": launches,
+            "max_abs_err": result["err"],
+            **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "launches_temporal": temporal_tables, "launches_structure": structure_tables,
+        })
+    log(f"script_s {time.time() - started:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -113,58 +113,70 @@ class _CodedData:
             col_lists.append([self.var_index[variable]] + [self.var_index[p] for p in parents])
             card_lists.append([self.cards[variable]] + [self.cards[p] for p in parents])
         table = table_specs(col_lists, card_lists)
-        self.n_dispatches += 1
-        flat = table_counts(self._column_codes(), self.n, table, weights)
+        flat = self._count_specs(table, weights)
         shapes = [(cards[0], int(size) // cards[0]) for cards, size in zip(card_lists, table.sizes)]
         return flat, table.offsets, shapes
 
+    def _count_specs(self, table, weights=None):
+        """One table-count call for a ready :class:`TableSpecs` (column
+        numbers, not names): the concatenated tables on the codes' device."""
+        self.n_dispatches += 1
+        return table_counts(self._column_codes(), self.n, table, weights)
+
     @staticmethod
-    def _as_float(flat):
-        """Host copy of a count vector; integer counts become ``config.DTYPE``."""
+    def _as_float(flat, dtype=None):
+        """Host copy of a count vector; integer counts become ``dtype``
+        (default ``config.DTYPE``).  float32 holds a count exactly only below
+        2**24 rows in one cell: a caller that needs exact counts of any size
+        (the structure scores) asks for ``np.float64``."""
         out = to_numpy(flat)
+        if dtype is not None:
+            return out.astype(dtype)
         if not flat.dtype.is_floating_point:
             out = out.astype(np.float64 if config.DTYPE == torch.float64 else np.float32)
         return out
 
-    def counts(self, variable, parents=(), weights=None, device=False):
+    def counts(self, variable, parents=(), weights=None, device=False, dtype=None):
         """(var_card, prod(parent_cards)) count matrix, device-computed.
         Rows with a NaN in any involved column are dropped.  With
         ``device=True`` the table stays a tensor on ``config.DEVICE``.
 
         ``weights=None`` means UNWEIGHTED (exact integer counts): a stored
-        ``_weight`` column is only used when the caller passes it."""
+        ``_weight`` column is only used when the caller passes it.
+        ``dtype`` is the host array's type (see :meth:`_as_float`)."""
         flat, _, shapes = self._count_tables([(variable, parents)], weights)
         if device:
             if not flat.dtype.is_floating_point:
                 flat = flat.to(config.DTYPE)
             return flat.reshape(shapes[0])
-        return self._as_float(flat).reshape(shapes[0])
+        return self._as_float(flat, dtype).reshape(shapes[0])
 
-    def multi_counts(self, specs, weights=None):
+    def multi_counts(self, specs, weights=None, dtype=None):
         """Count tables for many (variable, parents) specs in ONE kernel
         launch and one readback, whatever the number of specs: the spec list
         goes to the device as a descriptor table, and each block of the
         kernel counts one spec's rows straight from the code matrix.
 
         Returns a list of (var_card, prod(parent_cards)) float arrays (exact
-        integers for unweighted data).
+        integers for unweighted data) of type ``dtype`` (see
+        :meth:`_as_float`).
         """
         specs = list(specs)
         if not specs:
             return []
         flat, offsets, shapes = self._count_tables(specs, weights)
-        combined = self._as_float(flat)
+        combined = self._as_float(flat, dtype)
         return [
             combined[off : off + rows * cols].reshape(rows, cols)
             for off, (rows, cols) in zip(offsets.tolist(), shapes)
         ]
 
-    def multi_counts_padded(self, specs, weights=None):
+    def multi_counts_padded(self, specs, weights=None, dtype=None):
         """Same as :meth:`multi_counts`.  The JAX package needs a second,
         shape-bucketed kernel for spec lists that change every iteration
         (structure search), so that XLA does not retrace; here the spec list
         is data to one kernel, so both methods share it."""
-        return self.multi_counts(specs, weights=weights)
+        return self.multi_counts(specs, weights=weights, dtype=dtype)
 
 
 class BaseEstimator:
@@ -220,3 +232,42 @@ class ParameterEstimator(BaseEstimator):
         return super().state_counts(
             variable, parents=parents, weighted=weighted, **kwargs
         )
+
+
+class StructureEstimator(BaseEstimator):
+    def __init__(self, data=None, independencies=None, **kwargs):
+        self.independencies = independencies
+        super().__init__(data, **kwargs)
+
+    def estimate(self):
+        pass
+
+
+class MarginalEstimator(BaseEstimator):
+    """Base for estimators that fit models to empirical clique marginals."""
+
+    def estimate(self):
+        """Abstract hook; concrete subclasses override it."""
+        pass
+
+    def __init__(self, model, data, **kwargs):
+        from pgmpy_tpu_torch.factors.factor_dict import FactorDict
+        from pgmpy_tpu_torch.models.factor_graph import FactorGraph
+        from pgmpy_tpu_torch.models.junction_tree import JunctionTree
+        from pgmpy_tpu_torch.models.markov_network import DiscreteMarkovNetwork
+
+        if isinstance(model, FactorGraph):
+            model = model.to_markov_model()
+        if isinstance(model, DiscreteMarkovNetwork):
+            model = model.to_junction_tree()
+        if not isinstance(model, JunctionTree):
+            raise ValueError(
+                "model must be a DiscreteMarkovNetwork, FactorGraph or "
+                f"JunctionTree. Got {type(model)}"
+            )
+        self.theta = None
+        self.belief_propagation = None
+        self.model = model
+        super().__init__(data=data, **kwargs)
+        cliques = list(model.nodes())
+        self.observed_marginals = FactorDict.from_dataframe(data, cliques)

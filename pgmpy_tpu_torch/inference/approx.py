@@ -34,11 +34,8 @@ class ApproxInference:
     """
 
     def __init__(self, model):
-        from pgmpy_tpu_torch.config import not_ported
         from pgmpy_tpu_torch.models.discrete_bn import DiscreteBayesianNetwork
 
-        if type(model).__name__ == "DynamicBayesianNetwork":
-            not_ported("ApproxInference on a DynamicBayesianNetwork", "models/dynamic_bn.py")
         model.check_model()
         if not isinstance(model, DiscreteBayesianNetwork):
             raise ValueError(

@@ -5,6 +5,7 @@ from pgmpy_tpu_torch.models.cluster_graph import ClusterGraph
 from pgmpy_tpu_torch.models.junction_tree import JunctionTree
 from pgmpy_tpu_torch.models.markov_chain import MarkovChain
 from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
+from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork, DynamicNode
 
 # deprecated aliases kept for API familiarity with the reference
 BayesianNetwork = DiscreteBayesianNetwork
@@ -18,6 +19,8 @@ __all__ = [
     "JunctionTree",
     "MarkovChain",
     "LinearGaussianBayesianNetwork",
+    "DynamicBayesianNetwork",
+    "DynamicNode",
     "BayesianNetwork",
     "MarkovNetwork",
 ]

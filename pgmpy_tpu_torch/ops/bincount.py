@@ -28,7 +28,7 @@ both.
 """
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -52,6 +52,8 @@ _MAX_COLS = 32  # kMaxCols in bincount.cu
 _HEADER = 6  # kHeader in bincount.cu
 _ROW_ALIGN = 16  # rows per 16-byte load of int8 codes
 _CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
+# codes the plain version gathers (as int64) per index_add_ call
+_REFERENCE_CHUNK_ELEMS = 1 << 24
 
 LAUNCHES = 0
 TABLE_LAUNCHES = 0
@@ -70,7 +72,9 @@ def reset_launches():
 class TableSpecs:
     """Count-table specs as host arrays: for spec ``s`` its ``n_cols[s]``
     column numbers ``cols[s, :k]`` into the code matrix, the row-major stride
-    of each column, its table size and its offset into the output."""
+    of each column, its table size and its offset into the output.  The
+    arrays are not to be changed once made: ``launch_plans`` keeps what the
+    CUDA wrapper derived from them (see ``_launch_plan``)."""
 
     n_cols: np.ndarray  # (S,) int64
     cols: np.ndarray  # (S, K) int64, 0 beyond n_cols
@@ -78,33 +82,42 @@ class TableSpecs:
     sizes: np.ndarray  # (S,) int64
     offsets: np.ndarray  # (S,) int64
     total: int
+    launch_plans: dict = field(default_factory=dict, compare=False, repr=False)
 
     def __len__(self):
         return len(self.sizes)
 
 
+def _padded(lists, n_cols, width, fill):
+    """``lists`` as an ``(S, width)`` int64 array, rows padded with ``fill``."""
+    if len(lists) and (n_cols == width).all():
+        return np.asarray(lists, dtype=np.int64).reshape(len(lists), width)
+    out = np.full((len(lists), width), fill, dtype=np.int64)
+    for s, row in enumerate(lists):
+        out[s, : len(row)] = row
+    return out
+
+
 def table_specs(col_lists, card_lists):
     """:class:`TableSpecs` for tables whose axes are the columns ``col_lists[s]``
-    with cardinalities ``card_lists[s]`` (first axis slowest)."""
+    with cardinalities ``card_lists[s]`` (first axis slowest).  Both may be
+    lists of lists or, when every spec has as many columns, 2-D arrays; the
+    strides, sizes and offsets are computed for all specs at once."""
     n_specs = len(col_lists)
-    width = max((len(c) for c in col_lists), default=1)
+    n_cols = np.fromiter((len(c) for c in col_lists), dtype=np.int64, count=n_specs)
+    width = max(int(n_cols.max()) if n_specs else 1, 1)
     if width > _MAX_COLS:
         raise ValueError(f"table_specs: a spec has {width} columns, at most {_MAX_COLS} are supported")
-    n_cols = np.zeros(n_specs, dtype=np.int64)
-    cols = np.zeros((n_specs, width), dtype=np.int64)
-    strides = np.zeros((n_specs, width), dtype=np.int64)
-    sizes = np.zeros(n_specs, dtype=np.int64)
-    for s, (spec_cols, cards) in enumerate(zip(col_lists, card_lists)):
-        k = len(spec_cols)
-        n_cols[s] = k
-        cols[s, :k] = spec_cols
-        stride = 1
-        for j in range(k - 1, -1, -1):
-            strides[s, j] = stride
-            stride *= int(cards[j])
-        if stride >= 2**31:
-            raise ValueError(f"table_specs: a table of {stride} entries is too large")
-        sizes[s] = stride
+    cols = _padded(col_lists, n_cols, width, 0)
+    cards = _padded(card_lists, n_cols, width, 1)
+    # row-major strides: the product of the cardinalities to the right.  In
+    # float64, so that a table beyond int64 is refused and does not wrap.
+    after = np.cumprod(cards[:, ::-1].astype(np.float64), axis=1)[:, ::-1]
+    if n_specs and after[:, 0].max() >= 2**31:
+        raise ValueError(f"table_specs: a table of {int(after[:, 0].max())} entries is too large")
+    sizes = after[:, 0].astype(np.int64) if n_specs else np.zeros(0, dtype=np.int64)
+    strides = np.concatenate([after[:, 1:], np.ones((n_specs, 1))], axis=1).astype(np.int64)
+    strides[np.arange(width)[None, :] >= n_cols[:, None]] = 0
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
     return TableSpecs(n_cols, cols, strides, sizes, offsets, int(sizes.sum()))
 
@@ -146,20 +159,30 @@ def _check_table_inputs(codes_cm, n_rows, specs, weights):
 
 
 def table_counts_reference(codes_cm, n_rows, specs, weights=None):
-    """Plain version: one masked ``index_add_`` per spec.  Returns the
-    concatenated tables, ``int32`` without weights, else in the weights' type."""
+    """Plain version: masked ``index_add_`` calls, each over as many specs as
+    ``_REFERENCE_CHUNK_ELEMS`` gathered codes allow.  Returns the concatenated
+    tables, ``int32`` without weights, else in the weights' type."""
     _check_table_inputs(codes_cm, n_rows, specs, weights)
     dtype = torch.int32 if weights is None else weights.dtype
-    out = torch.zeros(specs.total, dtype=dtype, device=codes_cm.device)
-    for s in range(len(specs)):
-        k = int(specs.n_cols[s])
-        sub = codes_cm[specs.cols[s, :k].tolist(), :n_rows].long()
-        valid = torch.all(sub >= 0, dim=0)
-        strides = torch.as_tensor(specs.strides[s, :k], device=sub.device)
-        flat = (sub * strides[:, None]).sum(dim=0) + int(specs.offsets[s])
-        keep = valid & (flat < int(specs.offsets[s] + specs.sizes[s]))
-        values = torch.ones((), dtype=dtype, device=out.device).expand(n_rows) if weights is None else weights
-        out.index_add_(0, flat[keep], values[keep])
+    device = codes_cm.device
+    out = torch.zeros(specs.total, dtype=dtype, device=device)
+    if len(specs) == 0 or n_rows == 0:
+        return out
+    width = specs.cols.shape[1]
+    chunk = max(1, _REFERENCE_CHUNK_ELEMS // (width * n_rows))
+    used = np.arange(width)[None, :] < specs.n_cols[:, None]
+    values = torch.ones((), dtype=dtype, device=device) if weights is None else weights
+    rows = codes_cm[:, :n_rows]
+    for lo in range(0, len(specs), chunk):
+        part = slice(lo, lo + chunk)
+        sub = rows[torch.as_tensor(specs.cols[part], device=device)].long()  # (c, width, n)
+        strides = torch.as_tensor(specs.strides[part], device=device)  # 0 beyond n_cols
+        unused = torch.as_tensor(~used[part], device=device)
+        valid = ((sub >= 0) | unused[:, :, None]).all(dim=1)
+        flat = (sub * strides[:, :, None]).sum(dim=1)
+        keep = valid & (flat < torch.as_tensor(specs.sizes[part], device=device)[:, None])
+        flat = flat + torch.as_tensor(specs.offsets[part], device=device)[:, None]
+        out.index_add_(0, flat[keep], values.expand(flat.shape)[keep])
     return out
 
 
@@ -223,6 +246,36 @@ def _aligned(tensor):
     return tensor if tensor.data_ptr() % 16 == 0 else tensor.clone()
 
 
+def _launch_plan(specs, n_rows, code_bytes, elem, device):
+    """What a launch over ``specs`` needs besides its tensors: the descriptor
+    table on ``device``, the grid's tile count and the dynamic shared memory.
+    Made once per (row count, code width, output width, device) and kept on
+    ``specs``, so a caller that counts the same specs again and again (the
+    particle filter: once per time slice) plans and uploads once."""
+    key = (n_rows, code_bytes, elem, device)
+    plan = specs.launch_plans.get(key)
+    if plan is not None:
+        # order this stream behind the upload, whichever stream made it
+        torch.cuda.current_stream(device).wait_event(plan[3])
+        return plan[:3]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles, rows, repl = _plan_tiles(specs.sizes, n_rows, len(specs), code_bytes, elem, sms)
+    width = specs.cols.shape[1]
+    desc = np.concatenate(
+        [np.stack([specs.n_cols, specs.offsets, specs.sizes, tiles, rows, repl], axis=1),
+         specs.cols, specs.strides], axis=1).astype(np.int64)
+    assert desc.shape[1] == _HEADER + 2 * width
+    # pinned and asynchronous: the launch queues behind the copy without the
+    # host waiting for the stream
+    desc_dev = torch.from_numpy(np.ascontiguousarray(desc)).pin_memory().to(
+        device, non_blocking=True)
+    uploaded = torch.cuda.Event()
+    uploaded.record(torch.cuda.current_stream(device))
+    plan = (desc_dev, int(tiles.max()), _shared_bytes(specs.sizes, repl, elem), uploaded)
+    specs.launch_plans[key] = plan
+    return plan[:3]
+
+
 def table_counts_cuda(codes_cm, n_rows, specs, weights=None):
     """Launch the table-count kernel on the current stream: one launch for
     all of ``specs``.  Returns the concatenated tables, ``int32`` without
@@ -238,30 +291,19 @@ def table_counts_cuda(codes_cm, n_rows, specs, weights=None):
         return out.zero_()
     w = None if weights is None else _aligned(weights)
     elem = out.element_size()
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles, rows, repl = _plan_tiles(specs.sizes, n_rows, len(specs), codes_cm.element_size(),
-                                    elem, sms)
-    width = specs.cols.shape[1]
-    desc = np.concatenate(
-        [np.stack([specs.n_cols, specs.offsets, specs.sizes, tiles, rows, repl], axis=1),
-         specs.cols, specs.strides], axis=1).astype(np.int64)
-    assert desc.shape[1] == _HEADER + 2 * width
     with torch.cuda.device(device):
-        # pinned and asynchronous: the launch queues behind the copy without
-        # the host waiting for the stream
-        desc_dev = torch.from_numpy(np.ascontiguousarray(desc)).pin_memory().to(
-            device, non_blocking=True)
+        desc_dev, max_tiles, shared_bytes = _launch_plan(
+            specs, n_rows, codes_cm.element_size(), elem, device)
         err = _library().pgmpy_table_count(
             codes_cm.data_ptr(), codes_cm.element_size(), codes_cm.shape[1], n_rows,
             0 if w is None else w.data_ptr(), 0 if w is None else w.element_size(),
-            out.data_ptr(), out.numel() * elem, desc_dev.data_ptr(), len(specs), width,
-            int(tiles.max()), _BLOCK, _shared_bytes(specs.sizes, repl, elem),
+            out.data_ptr(), out.numel() * elem, desc_dev.data_ptr(), len(specs),
+            specs.cols.shape[1], max_tiles, _BLOCK, shared_bytes,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"table_counts kernel launch failed: cudaError_t {err}")
     TABLE_LAUNCHES += 1
-    # the stream orders the launch before any reuse of desc_dev's memory
     return out
 
 

@@ -7,13 +7,15 @@ variable fastest).  :func:`bn_from_numpy` turns such a description into a
 ``pgmpy_tpu_torch`` network, so two packages can compute on identical
 tables.  A linear-Gaussian network is described per node by
 ``(variable, parents, beta, std)`` with ``beta`` the intercept followed by one
-coefficient per parent; :func:`lgbn_from_numpy` builds it.  Both take numpy
-only.
+coefficient per parent; :func:`lgbn_from_numpy` builds it.  A 2-TBN is
+described like a discrete network, with ``(name, time_slice)`` pairs for
+variables; :func:`dbn_from_numpy` builds it.  All take numpy only.
 """
 
 from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
 from pgmpy_tpu_torch.factors.cpd import TabularCPD
 from pgmpy_tpu_torch.models.discrete_bn import DiscreteBayesianNetwork
+from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork
 from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
 
 
@@ -30,6 +32,24 @@ def bn_from_numpy(edges, cpds, nodes=None):
     model.add_nodes_from(nodes if nodes is not None else [s[0] for s in specs])
     model.add_edges_from(edges)
     model.add_cpds(*TabularCPD.batch_build(specs))
+    return model
+
+
+def dbn_from_numpy(edges, cpds):
+    """A :class:`DynamicBayesianNetwork` with ``edges`` between
+    ``(name, time_slice)`` nodes and one ``TabularCPD`` per entry
+    ``(variable, card, values, evidence, evidence_card, state_names)`` of
+    ``cpds``, every variable a ``(name, time_slice)`` pair."""
+    model = DynamicBayesianNetwork()
+    model.add_nodes_from(sorted({var[0] for var, *_ in cpds}, key=str))
+    model.add_edges_from(edges)
+    model.add_cpds(*[
+        TabularCPD(tuple(var), int(card), values,
+                   evidence=[tuple(e) for e in evidence or []] or None,
+                   evidence_card=[int(c) for c in evidence_card or []] or None,
+                   state_names={tuple(k): list(v) for k, v in state_names.items()})
+        for var, card, values, evidence, evidence_card, state_names in cpds
+    ])
     return model
 
 

@@ -376,6 +376,14 @@ def test_importing_the_mcmc_modules_leaves_jax_out():
         "    save_sampler_state, load_sampler_state)\n"
         "from pgmpy_tpu_torch.models import MarkovChain, LinearGaussianBayesianNetwork\n"
         "from pgmpy_tpu_torch.factors import LinearGaussianCPD\n"
+        "from pgmpy_tpu_torch.models import DynamicBayesianNetwork, DynamicNode\n"
+        "from pgmpy_tpu_torch.inference import DBNInference\n"
+        "from pgmpy_tpu_torch.sampling.smc import ParticleFilter\n"
+        "from pgmpy_tpu_torch.estimators import (StructureEstimator, MarginalEstimator,\n"
+        "    get_scoring_method, StructureScore, K2, BDeu, BDs, LogLikeliHood, BIC, AIC,\n"
+        "    LogLikelihoodGauss, BICGauss, AICGauss, LogLikelihoodCondGauss, BICCondGauss,\n"
+        "    AICCondGauss, ScoreCache, ExpertKnowledge, HillClimbSearch, TreeSearch,\n"
+        "    ExhaustiveSearch)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pgmpy_tpu.'))"
         " or k == 'pgmpy_tpu']\n"
         "print(bad)\n"

@@ -372,12 +372,17 @@ def test_approx_inference(pairs, seed):
 
 
 def test_approx_inference_rejects_other_models():
-    class DynamicBayesianNetwork:
-        pass
+    """A DynamicBayesianNetwork is a DAG, not a DiscreteBayesianNetwork: it is
+    refused with the JAX package's ``ValueError``."""
+    from pgmpy_tpu_torch.factors import TabularCPD
+    from pgmpy_tpu_torch.models import DiscreteMarkovNetwork, DynamicBayesianNetwork
 
-    with pytest.raises(NotImplementedError, match="dynamic_bn"):
-        ApproxInference(DynamicBayesianNetwork())
-    from pgmpy_tpu_torch.models import DiscreteMarkovNetwork
+    dbn = DynamicBayesianNetwork([(("Z", 0), ("Z", 1))])
+    dbn.add_cpds(TabularCPD(("Z", 0), 2, [[0.6], [0.4]]),
+                 TabularCPD(("Z", 1), 2, [[0.7, 0.2], [0.3, 0.8]],
+                            evidence=[("Z", 0)], evidence_card=[2]))
+    with pytest.raises(ValueError, match=r"must be a DiscreteBayesianNetwork \(or DBN\)"):
+        ApproxInference(dbn)
 
     with pytest.raises(ValueError, match="DiscreteBayesianNetwork"):
         ApproxInference(DiscreteMarkovNetwork())

@@ -73,6 +73,11 @@ def test_import_leaves_jax_out():
         "import pgmpy_tpu_torch.factors, pgmpy_tpu_torch.models, pgmpy_tpu_torch.estimators\n"
         "import pgmpy_tpu_torch.inference, pgmpy_tpu_torch.utils.interop, pgmpy_tpu_torch.ops\n"
         "import pgmpy_tpu_torch.sampling, pgmpy_tpu_torch.utils.mathext\n"
+        "import pgmpy_tpu_torch.models.dynamic_bn, pgmpy_tpu_torch.inference.dbn\n"
+        "import pgmpy_tpu_torch.sampling.smc, pgmpy_tpu_torch.estimators.scores\n"
+        "import pgmpy_tpu_torch.estimators.hill_climb, pgmpy_tpu_torch.estimators.tree_search\n"
+        "import pgmpy_tpu_torch.estimators.exhaustive\n"
+        "import pgmpy_tpu_torch.estimators.expert_knowledge\n"
         "from pgmpy_tpu_torch.config import config\n"
         "config.set_device('cpu')\n"
         "m = pgmpy_tpu_torch.utils.get_example_model('asia')\n"
@@ -123,6 +128,11 @@ DOCTEST_MODULES = [
     "pgmpy_tpu_torch.models.markov_chain",
     "pgmpy_tpu_torch.models.linear_gaussian_bn",
     "pgmpy_tpu_torch.utils.utils",
+    "pgmpy_tpu_torch.models.dynamic_bn",
+    "pgmpy_tpu_torch.sampling.smc",
+    "pgmpy_tpu_torch.estimators.scores",
+    "pgmpy_tpu_torch.estimators.hill_climb",
+    "pgmpy_tpu_torch.estimators.tree_search",
 ]
 
 

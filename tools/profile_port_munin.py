@@ -23,7 +23,16 @@ and prints, one ``key value`` pair per line:
   for the batched contraction alone (codes already on the card);
 * per Gibbs sweep of 4,096 chains over MUNIN's 1041 variables, and per NUTS
   step of 1,024 chains on ecoli70: kernels, device time, host time, the idle
-  share and the device operations by name.
+  share and the device operations by name;
+* per time slice of the particle filter (262,144 particles) and of
+  ``DBNInference.forward_scan`` (6 queries) on ALARM unrolled as a 2-TBN, as
+  ``chip_smoke.py`` builds it: kernels, device time, host time, the idle share
+  and the device operations by name;
+* for the first iteration of ``HillClimbSearch`` on 2,000 simulated ALARM rows
+  (1,369 BIC scores from one ``table_counts`` launch): device operations,
+  device time and host time, split into the count call and the host's float64
+  score reductions; and for the Chow-Liu launch on MUNIN (541,320 pair
+  tables): device operations by name and host time of the call.
 """
 
 import os
@@ -39,10 +48,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from pgmpy_tpu_torch.config import as_tensor, config  # noqa: E402
-from pgmpy_tpu_torch.estimators import BayesianEstimator  # noqa: E402
-from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination  # noqa: E402
+from pgmpy_tpu_torch.estimators import BIC, BayesianEstimator, TreeSearch  # noqa: E402
+from pgmpy_tpu_torch.inference import BeliefPropagation, DBNInference, VariableElimination  # noqa: E402
 from pgmpy_tpu_torch.models import DiscreteBayesianNetwork  # noqa: E402
+from pgmpy_tpu_torch.ops import bincount as bc  # noqa: E402
 from pgmpy_tpu_torch.sampling import BayesianModelSampling, GibbsSampling, VectorizedNUTS  # noqa: E402
+from pgmpy_tpu_torch.sampling.smc import ParticleFilter  # noqa: E402
 from pgmpy_tpu_torch.utils import get_example_model  # noqa: E402
 from pgmpy_tpu_torch.utils.mathext import seeded_generator  # noqa: E402
 
@@ -216,6 +227,67 @@ def main():
           f"nuts_step_device_ms {device_ms:.3f} nuts_step_host_s {step_s:.4f} "
           f"nuts_step_idle_share {1 - device_ms / (step_s * 1e3):.3f}")
     print_top_kernels("nuts_step", lambda: nuts._nuts_step(gen, positions, 0.17), top=8)
+
+    # ---- the temporal lane on ALARM as a 2-TBN: per slice of the particle
+    # filter and of forward_scan
+    alarm = get_example_model("alarm")
+    dbn, persistent, _ = chip_smoke.alarm_2tbn(alarm, chip_smoke.ALARM_PERSISTENT)
+    leaves = sorted((v for v in alarm.nodes() if not alarm.get_children(v)),
+                    key=str)[:chip_smoke.ALARM_EVIDENCE_LEAVES]
+    slices = 10
+    truth = chip_smoke.dbn_trajectory(dbn, slices, chip_smoke.SEED)
+    evidence = {(v, t): truth[(v, t)] for v in leaves for t in range(slices)}
+    pf = ParticleFilter(dbn, n_particles=chip_smoke.ALARM_PARTICLES)
+    infer = DBNInference(dbn)
+    for name, per_call, call in (
+            ("particle_filter", slices,
+             lambda: pf.filter(evidence, n_time_slices=slices, seed=0)),
+            ("forward_scan", slices - 1,
+             lambda: infer.forward_scan(persistent, evidence, n_time_slices=slices))):
+        call()  # warm-up: plans, the descriptor
+        host_s = chip_smoke.host_median_s(call, reps=3)
+        n_kernels, device_ms = profiled(call)
+        print(f"{name}_slices {per_call} {name}_kernels_per_slice {n_kernels / per_call:.1f} "
+              f"{name}_device_ms_per_slice {device_ms / per_call:.4f} {name}_host_ms_per_slice "
+              f"{host_s / per_call * 1e3:.3f} {name}_idle_share "
+              f"{1 - device_ms / (host_s * 1e3):.3f}")
+        print_top_kernels(name, call, top=8)
+
+    # ---- structure search: the first hill-climb iteration on ALARM
+    frame = alarm.simulate(n_samples=chip_smoke.HILLCLIMB_ROWS, seed=3, show_progress=False)
+    scorer = BIC(frame)
+    columns = list(frame.columns)
+    first = [(v, ()) for v in columns] + [(v, (u,)) for v in columns for u in columns if u != v]
+    scorer.local_scores_batch(first)  # warm-up
+    count_s = chip_smoke.host_median_s(
+        lambda: scorer._coded.multi_counts_padded(first, dtype=np.float64), reps=5)
+    batch_s = chip_smoke.host_median_s(lambda: scorer.local_scores_batch(first), reps=5)
+    # the launch alone (specs built, plan and descriptor kept on them): CUDA
+    # events behind a device sleep, as chip_smoke.py times K1
+    coded = scorer._coded
+    table = bc.table_specs(
+        [[coded.var_index[v]] + [coded.var_index[u] for u in ps] for v, ps in first],
+        [[coded.cards[v]] + [coded.cards[u] for u in ps] for v, ps in first])
+    device_ms = chip_smoke.cuda_median_ms(
+        lambda: bc.table_counts_cuda(coded._column_codes(), coded.n, table), device_only=True)
+    print(f"hillclimb_first_iteration_specs {len(first)} count_launch_device_ms {device_ms:.4f} "
+          f"count_call_host_s {count_s:.4f} scores_host_s {batch_s - count_s:.4f} "
+          f"host_share {1 - device_ms / (batch_s * 1e3):.5f}")
+    print_top_kernels("hillclimb_first_iteration", lambda: scorer.local_scores_batch(first), top=4)
+
+    # ---- structure search: the Chow-Liu launch on MUNIN's 50,000 rows
+    search = TreeSearch(df)
+    variables = list(search.variables)
+    _, table, _, _ = search._pair_tables(variables)  # warm-up
+    launch_s = chip_smoke.host_median_s(lambda: search._pair_tables(variables), reps=3)
+    coded = search._coded
+    device_ms = chip_smoke.cuda_median_ms(
+        lambda: bc.table_counts_cuda(coded._column_codes(), coded.n, table), reps=5, warmup=1,
+        device_only=True)
+    print(f"chow_liu_pairs {len(table)} pair_launch_device_ms {device_ms:.3f} (memset and "
+          f"kernel, the descriptor already on the card; CUDA events) pair_tables_host_s "
+          f"{launch_s:.4f} (specs, plan, descriptor upload, launch)")
+    print_top_kernels("chow_liu", lambda: search._pair_tables(variables), top=4)
     return 0
 
 

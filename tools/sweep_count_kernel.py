@@ -76,8 +76,10 @@ def main():
     for name, values in sweeps.items():
         for value in values:
             setattr(bc, name, value)
+            specs.launch_plans.clear()  # plan again under the new constant
             report(f"{name}={value}")
         setattr(bc, name, defaults[name])
+        specs.launch_plans.clear()
     return 0
 
 
