@@ -52,7 +52,16 @@ Runs from the repository root and needs one CUDA card.  It
    MUNIN's 50,000 rows x 1041 columns (541,320 pair tables in one launch,
    held whole against the plain version; 200 tables and their mutual
    information against numpy);
-8. prints the card, the timings, one JSON line describing each kernel (its
+8. drives constraint-based structure learning and the log-likelihood metric
+   (``phase_constraint``): PC on 50,000 ALARM rows simulated on the card
+   (chi-square, significance 0.01, up to 5 conditioning variables; one
+   launch per non-empty level; skeleton, separating sets and PDAG against
+   the CPU run, 200 triples of levels 1 and 2 against scipy's
+   ``chi2_contingency`` per slice), the bench's skeleton on 2,000 rows, GES
+   with BIC on 2,000 ALARM rows and MMHC on 2,000 SACHS rows (both against
+   the CPU run), and ``log_likelihood_score`` of the fitted MUNIN on its
+   50,000 rows against a numpy float64 gather-sum, with ``DAG.validate``;
+9. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -1368,12 +1377,26 @@ def phase_temporal():
     nbytes = cm.shape[0] * n * cm.element_size() + n * w.element_size() + specs.total * 4 \
         + 8 * len(specs) * (6 + 2 * specs.cols.shape[1])
     bound_ms, bound_by = bound(nbytes, 2 * int(specs.n_cols.sum()) * n)
+    # the library call: one torch.bincount over every spec's column offset
+    # into one index space, the weights repeated once per spec (the index is
+    # built outside the timed window)
+    check(bool((specs.n_cols == 1).all()), "particle marginals: a spec of several columns")
+    cols = torch.as_tensor(specs.cols[:, 0], device="cuda")
+    offsets = torch.as_tensor(specs.offsets, device="cuda")
+    flat_idx = (cm[cols, :n].long() + offsets[:, None]).reshape(-1)
+    flat_w = w.repeat(len(specs))
+    lib = torch.bincount(flat_idx, weights=flat_w, minlength=specs.total)
+    check(lib.numel() == specs.total and torch.allclose(lib.double(), ref, rtol=1e-5, atol=0),
+          "particle marginals: torch.bincount differs from the plain version")
     weighted = {
         "err": err,
         "ms": cuda_median_ms(lambda: bc.table_counts_cuda(cm, n, specs, w), device_only=True),
         "plain_ms": cuda_median_ms(lambda: bc.table_counts_reference(cm, n, specs, w),
                                    reps=5, warmup=1),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_median_ms(
+            lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total),
+            device_only=True),
     }
     host_us = []
     for _ in range(20):
@@ -1384,8 +1407,9 @@ def phase_temporal():
     log(f"k1t particle_marginals specs={len(specs)} rows={n} codes={cm.dtype} weights={w.dtype} "
         f"max_abs_err={err:.3e} (rtol 1e-5 against the f64 plain version) kernel_ms="
         f"{weighted['ms']:.5f} plain_ms={weighted['plain_ms']:.4f} bound_ms={bound_ms:.6f} "
-        f"({bound_by}) wrapper_host_us_median {float(np.median(host_us)):.1f} (descriptor "
-        f"uploaded once)")
+        f"({bound_by}) torch_bincount_ms={weighted['library_ms']:.5f} (one call over the "
+        f"{len(specs)} columns offset into one index space, weights repeated) "
+        f"wrapper_host_us_median {float(np.median(host_us)):.1f} (descriptor uploaded once)")
 
     # ---- simulate and fit of the 2-TBN
     check(set(frame.columns) == {(v, t) for v in alarm.nodes() for t in range(DBN_SIM_SLICES)}
@@ -1598,6 +1622,309 @@ def phase_structure(munin_df):
     return (table_launches, bincount_launches), pairs
 
 
+# --------------------------------------------------------------------------- #
+# constraint-based structure learning (PC, GES, MMHC) and the log-likelihood
+# metric (K13)
+# --------------------------------------------------------------------------- #
+PC_ROWS = 50_000
+PC_MAX_COND_VARS = 5
+PC_BENCH_ROWS = 2000
+PC_CHECKED_TRIPLES = 200
+GES_ROWS = 2000
+MMHC_ROWS = 2000
+
+
+def chi_square_oracle(host, x, y, z):
+    """(stat, dof) of the chi-square test of ``x`` and ``y`` given ``z`` from
+    numpy counts and scipy: ``chi2_contingency`` (Yates where scipy applies it)
+    per Z slice over its observed rows and columns, summed."""
+    from scipy.stats import chi2_contingency
+
+    cx, cy = int(host[x].max()) + 1, int(host[y].max()) + 1
+    zi = np.zeros(len(host[x]), dtype=np.int64)
+    nz = 1
+    for v in z:
+        card = int(host[v].max()) + 1
+        zi, nz = zi * card + host[v], nz * card
+    table = np.bincount((zi * cx + host[x]) * cy + host[y], minlength=nz * cx * cy)
+    stat, dof = 0.0, 0
+    for part in table.reshape(nz, cx, cy):
+        part = part[part.sum(axis=1) > 0][:, part.sum(axis=0) > 0]
+        if part.shape[0] >= 2 and part.shape[1] >= 2:
+            s, _, d, _ = chi2_contingency(part)
+            stat, dof = stat + s, dof + int(d)
+    return stat, dof
+
+
+def numpy_log_probability(model, frame):
+    """log P(row) in float64 by numpy from the frame's categorical codes: per
+    node the CPD entry at the row's state and parent states, log-clamped at
+    1e-38 as the sampler's tables are, summed over nodes."""
+    total = np.zeros(len(frame))
+    for cpd in model.get_cpds():
+        codes = {}
+        for v in cpd.variables:
+            check(list(frame[v].cat.categories) == list(cpd.state_names[v]),
+                  f"k13 oracle: {v}'s categories are not its state names")
+            codes[v] = frame[v].cat.codes.to_numpy().astype(np.int64)
+        values = cpd.get_values().astype(np.float64)
+        col = np.zeros(len(frame), dtype=np.int64)
+        for parent in cpd.variables[1:]:
+            col = col * len(cpd.state_names[parent]) + codes[parent]
+        total += np.log(np.maximum(values[codes[cpd.variable], col], 1e-38))
+    return total
+
+
+def phase_constraint(fitted_munin, munin_df):
+    import networkx as nx
+    from scipy import stats
+
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.estimators import BIC, GES, PC, MmhcEstimator, ScoreCache, citests
+    from pgmpy_tpu_torch.metrics import BayesianModelProbability, log_likelihood_score
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    alarm = get_example_model("alarm")
+    frame = alarm.simulate(n_samples=PC_ROWS, seed=3, show_progress=False)
+    bench_frame = alarm.simulate(n_samples=PC_BENCH_ROWS, seed=3, show_progress=False)
+    sachs_frame = get_example_model("sachs").simulate(n_samples=MMHC_ROWS, seed=3,
+                                                      show_progress=False)
+    torch.cuda.synchronize()
+
+    # every batch of CI tests handed to the count kernel, with its results
+    batches = []
+    real_batch = citests.power_divergence_batch
+
+    def recording_batch(triples, *args, **kwargs):
+        out = real_batch(triples, *args, **kwargs)
+        batches.append((list(triples), out))
+        return out
+
+    # the skeleton and separating sets inside PC.estimate, and the skeleton
+    # inside MmhcEstimator.estimate (with its time and launches)
+    skeletons, mmpc_runs = [], []
+    real_build, real_mmpc = PC.build_skeleton, MmhcEstimator.mmpc
+
+    def recording_build(self, *args, **kwargs):
+        out = real_build(self, *args, **kwargs)
+        skeletons.append(out)
+        return out
+
+    def recording_mmpc(self, *args, **kwargs):
+        launches, t0 = bc.TABLE_LAUNCHES, time.time()
+        out = real_mmpc(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        mmpc_runs.append((out, time.time() - t0, bc.TABLE_LAUNCHES - launches))
+        return out
+
+    PC.build_skeleton, MmhcEstimator.mmpc = recording_build, recording_mmpc
+    primed = []
+    real_prime = ScoreCache.prime
+
+    def counting_prime(self, specs):
+        keys = {(v, tuple(sorted(ps, key=str))) for v, ps in specs}
+        primed.append(len(keys - set(self._cache.keys())))
+        real_prime(self, specs)
+
+    pc_kwargs = dict(ci_test="chi_square", significance_level=0.01,
+                     max_cond_vars=PC_MAX_COND_VARS, show_progress=False)
+    # ---- the main path, counted: PC, the bench's skeleton, GES, MMHC, K13
+    bc.reset_launches()
+    citests.power_divergence_batch = recording_batch
+    try:
+        est = PC(frame)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pdag = est.estimate(return_type="pdag", **pc_kwargs)
+        torch.cuda.synchronize()
+        pc_s = time.time() - t0
+        pc_batches = list(batches)
+        pc_launches = bc.TABLE_LAUNCHES
+        dag = pdag.to_dag()
+        bench_est = PC(bench_frame)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        bench_skel, bench_seps = bench_est.build_skeleton(
+            ci_test="chi_square", max_cond_vars=2, significance_level=0.01, show_progress=False)
+        torch.cuda.synchronize()
+        pc_skeleton_s = time.time() - t0
+        bench_launches = bc.TABLE_LAUNCHES - pc_launches
+    finally:
+        citests.power_divergence_batch = real_batch
+    before = bc.TABLE_LAUNCHES
+    scorer = BIC(bench_frame)
+    ScoreCache.prime = counting_prime
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ges_dag = GES(bench_frame).estimate(scoring_method=scorer)
+        torch.cuda.synchronize()
+        ges_s = time.time() - t0
+    finally:
+        ScoreCache.prime = real_prime
+    ges_launches = bc.TABLE_LAUNCHES - before
+    before = bc.TABLE_LAUNCHES
+    t0 = time.time()
+    mmhc_dag = MmhcEstimator(sachs_frame).estimate(significance_level=0.01)
+    torch.cuda.synchronize()
+    mmhc_s = time.time() - t0
+    mmhc_launches = bc.TABLE_LAUNCHES - before
+    mmhc_skel, mmpc_s, mmpc_launches = mmpc_runs[-1]
+    t0 = time.time()
+    loglik = log_likelihood_score(fitted_munin, munin_df)
+    loglik_first_s = time.time() - t0
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    log(f"constraint_path table_count_launches {table_launches} (PC {pc_launches}, PC skeleton "
+        f"{bench_launches}, GES {ges_launches}, MMHC {mmhc_launches} of which mmpc "
+        f"{mmpc_launches}, K13 0) bincount_launches {bincount_launches}")
+
+    # ---- PC: one launch per non-empty level, the CPU run, numpy/scipy
+    levels = [(triples, out) for triples, out in pc_batches if triples]
+    check(pc_launches == len(levels) == est._coded.n_dispatches,
+          f"PC: {pc_launches} launches, {len(levels)} non-empty levels, "
+          f"{est._coded.n_dispatches} dispatches")
+    per_level = [(len(t), len({(x, (y,) + tuple(z)) for x, y, z in t}),
+                  len(t[0][2])) for t, _ in levels]
+    with on_device("cpu"):
+        cpu_pdag = PC(frame).estimate(return_type="pdag", **pc_kwargs)
+        cpu_bench = PC(bench_frame).build_skeleton(
+            ci_test="chi_square", max_cond_vars=2, significance_level=0.01, show_progress=False)
+        cpu_ges = GES(bench_frame).estimate(scoring_method="bic-d")
+        cpu_dag = MmhcEstimator(sachs_frame).estimate(significance_level=0.01)
+    PC.build_skeleton, MmhcEstimator.mmpc = real_build, real_mmpc
+    (skel, seps), (cpu_skel, cpu_seps) = skeletons[0], skeletons[-2]
+    cpu_mmhc_skel = mmpc_runs[-1][0]
+    check(len(skeletons) == 4 and len(mmpc_runs) == 2, "the recorders missed a run")
+    check({frozenset(e) for e in skel.edges()} == {frozenset(e) for e in cpu_skel.edges()}
+          and seps == cpu_seps, "PC: skeleton or separating sets differ from the CPU run's")
+    check(pdag == cpu_pdag, "PC: the PDAG differs from the CPU run's")
+    check({frozenset(e) for e in bench_skel.edges()} == {frozenset(e) for e in cpu_bench[0].edges()}
+          and bench_seps == cpu_bench[1], "PC skeleton (bench configuration) differs from the CPU run's")
+    check(nx.is_directed_acyclic_graph(dag) and set(dag.nodes()) == set(alarm.nodes()),
+          "PC: to_dag is not a DAG over ALARM's variables")
+    host = {v: np.unique(frame[v].astype(str), return_inverse=True)[1] for v in frame.columns}
+    rng = np.random.default_rng(SEED)
+    worst_stat = worst_p = 0.0
+    checked = 0
+    for want_level in (1, 2):
+        triples, out = next((t, o) for t, o in levels if len(t[0][2]) == want_level)
+        for k in rng.choice(len(triples), min(PC_CHECKED_TRIPLES, len(triples)), replace=False):
+            (x, y, z), (stat, p, dof) = triples[k], out[k]
+            want_stat, want_dof = chi_square_oracle(host, x, y, z)
+            check(dof == want_dof, f"PC triple {triples[k]}: dof {dof}, scipy {want_dof}")
+            if dof == 0:
+                check(stat == 0.0 and np.isnan(p), f"PC triple {triples[k]}: degenerate")
+                continue
+            want_p = float(stats.chi2.sf(want_stat, want_dof))
+            rel = abs(stat - want_stat) / max(abs(want_stat), 1e-300)
+            check(rel <= 1e-9 and abs(p - want_p) <= 1e-9,
+                  f"PC triple {triples[k]}: ({stat}, {p}) against scipy ({want_stat}, {want_p})")
+            worst_stat, worst_p = max(worst_stat, rel), max(worst_p, abs(p - want_p))
+            checked += 1
+    pc_device_ms = cuda_profiled_ms(lambda: PC(frame).estimate(return_type="pdag", **pc_kwargs))
+    true_skeleton = {frozenset(e) for e in alarm.edges()}
+    found = {frozenset(e) for e in skel.edges()}
+    log(f"pc_alarm rows={PC_ROWS} max_cond_vars={PC_MAX_COND_VARS} pc_s {pc_s:.3f} launches "
+        f"{pc_launches} triples_per_level {[n for n, _, _ in per_level]} unique_specs_per_level "
+        f"{[u for _, u, _ in per_level]} pdag_arcs {len(pdag.edges())} (directed "
+        f"{len(pdag.directed_edges)}, undirected {len(pdag.undirected_edges)}) true_edges_found "
+        f"{len(found & true_skeleton)}/{len(true_skeleton)} extra {len(found - true_skeleton)} "
+        f"device_ms {pc_device_ms:.3f} host_share {1 - pc_device_ms / (pc_s * 1e3):.5f}")
+    log(f"pc_check ok one launch per non-empty level, skeleton, separating sets and PDAG equal "
+        f"to the CPU run's, {checked} triples of levels 1 and 2 within {worst_stat:.3e} (stat, "
+        f"relative) and {worst_p:.3e} (p) of scipy chi2_contingency per slice (limits 1e-9), "
+        f"dof equal")
+    log(f"pc_skeleton_alarm rows={PC_BENCH_ROWS} max_cond_vars=2 pc_skeleton_s {pc_skeleton_s:.3f} "
+        f"launches {bench_launches} edges {len(bench_skel.edges())}; equal to the CPU run's")
+
+    # ---- K1 at the new shape: the level-1 spec list of the PC run
+    coded = est._coded
+    triples = next(t for t, _ in levels if len(t[0][2]) == 1)
+    uniq = list(dict.fromkeys((x, (y,) + tuple(z)) for x, y, z in triples))
+    col_lists = [[coded.var_index[x]] + [coded.var_index[v] for v in rest] for x, rest in uniq]
+    table = bc.table_specs(col_lists, [[coded.cards[coded.variables[c]] for c in cols]
+                                       for cols in col_lists])
+    cm = coded._column_codes()
+    got = bc.table_counts_cuda(cm, coded.n, table)
+    ref = bc.table_counts_reference(cm, coded.n, table)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.int32 and torch.equal(got, ref),
+          "PC level 1: the kernel differs from the plain version")
+    ms = cuda_median_ms(lambda: bc.table_counts_cuda(cm, coded.n, table), device_only=True)
+    plain_ms = cuda_median_ms(lambda: bc.table_counts_reference(cm, coded.n, table),
+                              reps=5, warmup=1)
+    used = np.unique(np.concatenate(col_lists)).size
+    desc_bytes = 8 * len(table) * (6 + 2 * table.cols.shape[1])
+    nbytes = used * coded.n * cm.element_size() + table.total * 4 + desc_bytes
+    bound_ms, bound_by = bound(nbytes, 2 * int(table.n_cols.sum()) * coded.n)
+    per_spec_bytes = int(table.n_cols.sum()) * coded.n * cm.element_size() + table.total * 4
+    level1 = {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None}
+    log(f"k1t pc_level1 specs={len(table)} rows={coded.n} codes={cm.dtype} entries={table.total} "
+        f"descriptor_bytes={desc_bytes} equal to the plain version, kernel_ms={ms:.5f} (device "
+        f"time, median of 20) plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} "
+        f"({bound_by}) bytes_if_each_spec_reads_its_columns {per_spec_bytes} at 3.35 TB/s "
+        f"{per_spec_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms library_ms null")
+    t0 = time.perf_counter()
+    results = real_batch(triples, lambda_="pearson", coded=coded)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    check([r[2] for r in results] == [r[2] for r in next(o for t, o in levels if t is triples)],
+          "PC level 1: a second batch disagrees")
+    log(f"pc_level1_batch triples={len(triples)} batch_s {batch_s:.4f} (one launch and the host "
+        f"statistic of every triple)")
+
+    # ---- GES: one launch per iteration with uncached specs, the CPU run
+    uncached = sum(1 for n in primed if n)
+    check(ges_launches == scorer._coded.n_dispatches == uncached,
+          f"GES: {ges_launches} launches, {scorer._coded.n_dispatches} dispatches, {uncached} "
+          f"iterations with uncached specs")
+    check(sorted(ges_dag.edges()) == sorted(cpu_ges.edges()), "GES: the DAG differs from the CPU run's")
+    log(f"ges_alarm rows={GES_ROWS} ges_s {ges_s:.3f} iterations {len(primed)} launches "
+        f"{ges_launches} specs_per_launch {sum(primed) / max(ges_launches, 1):.1f} edges "
+        f"{len(ges_dag.edges())}; DAG equal to the CPU run's")
+
+    # ---- MMHC on SACHS: the CPU run
+    check({frozenset(e) for e in mmhc_skel.edges()} == {frozenset(e) for e in cpu_mmhc_skel.edges()},
+          "MMHC: the mmpc skeleton differs from the CPU run's")
+    check(sorted(mmhc_dag.edges()) == sorted(cpu_dag.edges()), "MMHC: the DAG differs from the CPU run's")
+    log(f"mmhc_sachs rows={MMHC_ROWS} mmhc_s {mmhc_s:.3f} (estimate, its mmpc included) "
+        f"mmpc_s {mmpc_s:.3f} launches {mmhc_launches} (mmpc {mmpc_launches}) skeleton_edges "
+        f"{len(mmhc_skel.edges())} dag_edges {len(mmhc_dag.edges())}; skeleton and DAG equal to "
+        f"the CPU run's")
+
+    # ---- K13 on MUNIN: per row and in total against numpy float64
+    prob = BayesianModelProbability(fitted_munin)
+    rows = prob.log_probability(munin_df)
+    want = numpy_log_probability(fitted_munin, munin_df)
+    row_err = float((np.abs(rows - want) / np.abs(want)).max())
+    total_err = abs(loglik - want.sum()) / abs(want.sum())
+    check(np.all(np.isfinite(rows)) and row_err <= 1e-5, f"k13: per-row error {row_err}")
+    check(total_err <= 1e-6, f"k13: total {loglik} against numpy {want.sum()} ({total_err})")
+    codes = prob._encode(munin_df)
+    torch.cuda.synchronize()
+    encode_s = host_median_s(lambda: prob._encode(munin_df))
+    logp_s = host_median_s(lambda: prob._logp(codes))
+    call_s = host_median_s(lambda: prob.log_probability(munin_df))
+    kernels, device_ms = profiled(lambda: prob._logp(codes))
+    log(f"k13_munin rows={len(munin_df)} columns={munin_df.shape[1]} loglik_rows_per_s "
+        f"{len(munin_df) / call_s:.1f} log_probability_s {call_s:.4f} (median of 3; first "
+        f"log_likelihood_score {loglik_first_s:.4f}) encode_s {encode_s:.4f} device_sum_s "
+        f"{logp_s:.5f} kernels_per_call {kernels:.0f} device_ms {device_ms:.4f} idle_share "
+        f"{1 - device_ms / (call_s * 1e3):.4f}")
+    log(f"k13_check ok {len(rows)} rows within {row_err:.3e} (limit 1e-5 relative) and the total "
+        f"{loglik:.6f} within {total_err:.3e} (limit 1e-6) of a numpy float64 gather-sum")
+    report = fitted_munin.validate(munin_df, metrics=("log-likelihood", "bic"))
+    values = dict(zip(report["metric"], report["value"]))
+    check(all(isinstance(v, float) and np.isfinite(v) for v in values.values())
+          and abs(values["log-likelihood"] - loglik) <= 1e-6 * abs(loglik),
+          f"DAG.validate: {values}")
+    log(f"validate_munin ok log-likelihood {values['log-likelihood']:.6f} bic {values['bic']:.6f}")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    return (table_launches, bincount_launches), level1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1627,19 +1954,25 @@ def main():
     # the fourth and fifth paths, and K1 at the two shapes they give it
     (temporal_tables, temporal_bincounts), weighted, filter_launches = phase_temporal()
     (structure_tables, structure_bincounts), pairs = phase_structure(df)
-    for row, temporal, structure in ((kernels[0], temporal_bincounts, structure_bincounts),
-                                     (kernels[1], temporal_tables, structure_tables)):
+    # the sixth path, and K1 at the shape of a PC level
+    (constraint_tables, constraint_bincounts), level1 = phase_constraint(context["fitted"], df)
+    for row, temporal, structure, constraint in (
+            (kernels[0], temporal_bincounts, structure_bincounts, constraint_bincounts),
+            (kernels[1], temporal_tables, structure_tables, constraint_tables)):
         row["launches_temporal"] = temporal
         row["launches_structure"] = structure
+        row["launches_constraint"] = constraint
     for name, launches, result in (
             ("table_counts/particle_marginals_weighted", filter_launches, weighted),
-            ("table_counts/pair_tables", 1, pairs)):
+            ("table_counts/pair_tables", 1, pairs),
+            ("table_counts/pc_level1", 1, level1)):
         kernels.append({
             "name": name, "route": "cuda", "source": kernels[1]["source"],
             "replaces": kernels[1]["replaces"], "launches": launches,
             "max_abs_err": result["err"],
             **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "launches_temporal": temporal_tables, "launches_structure": structure_tables,
+            "launches_constraint": constraint_tables,
         })
     log(f"script_s {time.time() - started:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 from pgmpy_tpu_torch.base.dag import DAG
+from pgmpy_tpu_torch.base.pdag import PDAG
 from pgmpy_tpu_torch.base.undirected import UndirectedGraph
 from pgmpy_tpu_torch.base.roles import GraphRolesMixin
 
-__all__ = ["DAG", "UndirectedGraph", "GraphRolesMixin"]
+__all__ = ["DAG", "PDAG", "UndirectedGraph", "GraphRolesMixin"]

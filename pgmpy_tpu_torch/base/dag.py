@@ -50,7 +50,7 @@ class DAG(GraphRolesMixin, nx.DiGraph):
 
     def __init__(self, ebunch=None, latents=[], lavaan_str=None, dagitty_str=None, roles=None):
         if lavaan_str is not None or dagitty_str is not None:
-            not_ported("DAG(lavaan_str=..., dagitty_str=...)", "the long tail, utils/parser.py")
+            not_ported("DAG(lavaan_str=..., dagitty_str=...)", "utils/parser.py")
         self._init_building = True
         super().__init__(ebunch)
         self._init_building = False
@@ -230,7 +230,24 @@ class DAG(GraphRolesMixin, nx.DiGraph):
     def to_pdag(self):
         """CPDAG of this DAG: v-structure edges directed, rest undirected,
         completed with Meek's rules."""
-        not_ported("DAG.to_pdag", "the long tail, base/pdag.py")
+        from pgmpy_tpu_torch.base.pdag import PDAG
+
+        directed = set()
+        for child, pairs in self.get_immoralities().items():
+            for p1, p2 in pairs:
+                directed.add((p1, child))
+                directed.add((p2, child))
+        undirected = [
+            (u, v) for u, v in self.edges() if (u, v) not in directed
+        ]
+        pdag = PDAG(
+            directed_ebunch=list(directed),
+            undirected_ebunch=undirected,
+            latents=self.latents,
+        )
+        pdag.add_nodes_from(self.nodes())
+        pdag.apply_meeks_rules(inplace=True)
+        return pdag
 
     def do(self, nodes, inplace=False):
         """Apply the do-operator: sever incoming edges of ``nodes``."""
@@ -514,9 +531,74 @@ class DAG(GraphRolesMixin, nx.DiGraph):
         """Strength of each edge as the Pillai-trace effect size of the
         residualization-based CI test of (u, v) given v's other parents
         (Ankan & Textor 2023)."""
-        not_ported("DAG.edge_strength", "structure learning, estimators/citests.py")
+        from pgmpy_tpu_torch.estimators.citests import pillai_trace
+
+        if edges is None:
+            edges = list(self.edges())
+        elif isinstance(edges, tuple) and len(edges) == 2 and not isinstance(edges[0], tuple):
+            edges = [edges]
+        strengths = {}
+        skipped = []
+        for u, v in edges:
+            parents_v = self.get_parents(v)
+            # edges touching latent variables can't be tested on observed
+            # data (ref DAG.py:1716-1726)
+            if (
+                u in self.latents
+                or v in self.latents
+                or any(p in self.latents for p in parents_v)
+            ):
+                skipped.append((u, v))
+                continue
+            other_parents = [p for p in parents_v if p != u]
+            effect, _ = pillai_trace(u, v, other_parents, data, boolean=False)
+            strengths[(u, v)] = effect
+            self.edges[(u, v)]["strength"] = effect
+        if skipped:
+            from pgmpy_tpu_torch.config import logger
+
+            logger.warning(
+                f"Skipped computing strengths for edges involving latent "
+                f"variables: {skipped}. Use CausalInference class for "
+                f"advanced causal effect estimation."
+            )
+        return strengths
 
     def validate(self, data, metrics=None, significance_level=0.05, **kwargs):
         """Run model-fit metrics on the DAG + data; returns a DataFrame of
         (metric, value) rows."""
-        not_ported("DAG.validate", "the long tail, metrics/")
+        import pandas as pd
+
+        from pgmpy_tpu_torch.metrics import (
+            correlation_score,
+            fisher_c,
+            implied_cis,
+            log_likelihood_score,
+            structure_score,
+        )
+
+        dispatch = {
+            "correlation": lambda m, d: correlation_score(
+                m, d, significance_level=significance_level
+            ),
+            "log-likelihood": log_likelihood_score,
+            "aic": lambda m, d: structure_score(m, d, scoring_method="aic-d"),
+            "bic": lambda m, d: structure_score(m, d, scoring_method="bic-d"),
+            "fisher-c": lambda m, d: fisher_c(
+                m, d, ci_test="pillai", show_progress=False
+            ),
+            "implied-cis": lambda m, d: implied_cis(
+                m, d, ci_test="pillai", show_progress=False
+            ),
+        }
+        if metrics is None:
+            metrics = ("correlation", "log-likelihood", "bic")
+        rows = []
+        for metric in metrics:
+            fn = dispatch[metric] if isinstance(metric, str) else metric
+            name = metric if isinstance(metric, str) else metric.__name__
+            try:
+                rows.append({"metric": name, "value": fn(self, data)})
+            except Exception as e:
+                rows.append({"metric": name, "value": f"error: {e}"})
+        return pd.DataFrame(rows)

@@ -28,9 +28,25 @@ from pgmpy_tpu_torch.estimators.scores import (
     ScoreCache,
     get_scoring_method,
 )
+from pgmpy_tpu_torch.estimators.citests import (
+    power_divergence,
+    chi_square,
+    g_sq,
+    log_likelihood,
+    modified_log_likelihood,
+    pearsonr,
+    pillai_trace,
+    gcm,
+    independence_match,
+    get_callable_ci_test,
+)
+from pgmpy_tpu_torch.estimators.constraint import BaseConstraintEstimator
+from pgmpy_tpu_torch.estimators.pc import PC
 from pgmpy_tpu_torch.estimators.hill_climb import HillClimbSearch
+from pgmpy_tpu_torch.estimators.ges import GES
 from pgmpy_tpu_torch.estimators.exhaustive import ExhaustiveSearch
 from pgmpy_tpu_torch.estimators.tree_search import TreeSearch
+from pgmpy_tpu_torch.estimators.mmhc import MmhcEstimator
 from pgmpy_tpu_torch.estimators.expert_knowledge import ExpertKnowledge
 
 __all__ = [
@@ -41,5 +57,8 @@ __all__ = [
     "LogLikelihoodCondGauss", "BICCondGauss", "AICCondGauss",
     "K2Score", "BDeuScore", "BDsScore", "BicScore", "AicScore",
     "ScoreCache", "get_scoring_method",
-    "HillClimbSearch", "ExhaustiveSearch", "TreeSearch", "ExpertKnowledge",
+    "power_divergence", "chi_square", "g_sq", "log_likelihood", "modified_log_likelihood",
+    "pearsonr", "pillai_trace", "gcm", "independence_match", "get_callable_ci_test",
+    "BaseConstraintEstimator", "PC", "HillClimbSearch", "GES",
+    "ExhaustiveSearch", "TreeSearch", "MmhcEstimator", "ExpertKnowledge",
 ]

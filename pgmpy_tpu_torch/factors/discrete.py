@@ -14,15 +14,12 @@ the *right-most* variable cycling fastest, binary ops keep the left operand's
 axis order and append new variables, and ``0/0 == 0`` in division.
 """
 
-from collections import namedtuple
-
 import numpy as np
 import torch
 
 from pgmpy_tpu_torch.config import as_tensor, config, logger, to_numpy
+from pgmpy_tpu_torch.utils.mathext import State
 from pgmpy_tpu_torch.utils.state_name import StateNameMixin
-
-State = namedtuple("State", ["var", "state"])
 
 
 class DiscreteFactor(StateNameMixin):

@@ -363,7 +363,7 @@ class DiscreteBayesianNetwork(DAG):
         return f"$ {out} $" if latex else out
 
     def is_imap(self, JPD):
-        not_ported("DiscreteBayesianNetwork.is_imap", "slice 4, factors/jpd.py")
+        not_ported("DiscreteBayesianNetwork.is_imap", "factors/jpd.py")
 
     def copy(self):
         model_copy = DiscreteBayesianNetwork()

@@ -65,7 +65,7 @@ def _ckpt_range(n):
 
 def _require_one_device(axis_name):
     if axis_name is not None:
-        not_ported("VectorizedNUTS under a device mesh (axis_name)", "multi-GPU, parallel/")
+        not_ported("VectorizedNUTS under a device mesh (axis_name)", "parallel/")
 
 
 class VectorizedNUTS:

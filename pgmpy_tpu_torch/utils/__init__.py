@@ -1,5 +1,12 @@
 from pgmpy_tpu_torch.utils.state_name import StateNameMixin
 from pgmpy_tpu_torch.utils.utils import get_example_model, get_dataset_type, preprocess_data
+from pgmpy_tpu_torch.utils.mathext import (
+    State,
+    cartesian,
+    sample_discrete,
+    sample_discrete_maps,
+    powerset,
+)
 from pgmpy_tpu_torch.utils._safe_import import _safe_import, _check_soft_dependencies
 
 __all__ = [
@@ -7,4 +14,9 @@ __all__ = [
     "get_example_model",
     "get_dataset_type",
     "preprocess_data",
+    "State",
+    "cartesian",
+    "sample_discrete",
+    "sample_discrete_maps",
+    "powerset",
 ]

@@ -7,13 +7,17 @@ the compiled sampler in ``pgmpy_tpu_torch.sampling.core`` is the performance
 path.
 """
 
+from collections import namedtuple
 from itertools import chain, combinations
 
 import numpy as np
 import torch
 
 from pgmpy_tpu_torch.config import TINY, config
-from pgmpy_tpu_torch.factors.discrete import State  # noqa: F401  (re-exported)
+
+# (variable, state) pair used in evidence lists and samples; the factor
+# module takes it from here
+State = namedtuple("State", ["var", "state"])
 
 
 def cartesian(arrays, out=None):

@@ -110,6 +110,21 @@ class TestTableCountKernel:
         assert bc.TABLE_LAUNCHES == 1
         assert torch.equal(got, bc.table_counts_reference(cm, 20_000, specs))
 
+    @pytest.mark.parametrize("n_cond", [1, 2])
+    def test_pc_level_shape(self, n_cond):
+        """A PC level: hundreds of (X, Y, Z...) specs of 3-4 columns over
+        37 ALARM-like columns (cardinalities 2-4) and 50,000 rows, in one
+        launch, equal to the plain version."""
+        rng = np.random.default_rng(n_cond)
+        cards = tuple(int(c) for c in rng.integers(2, 5, 37))
+        col_lists = [list(rng.choice(37, 2 + n_cond, replace=False)) for _ in range(600)]
+        cm, specs = _table_case(50_000, cards, col_lists, seed=n_cond, missing=0.01)
+        bc.reset_launches()
+        got = bc.table_counts(cm, 50_000, specs)
+        torch.cuda.synchronize()
+        assert bc.TABLE_LAUNCHES == 1
+        assert torch.equal(got, bc.table_counts_reference(cm, 50_000, specs))
+
     def test_table_beyond_shared_memory(self):
         # [5, 4] has 21 * 40,000 = 840,000 bins and [5] has 40,000: global
         # atomics; the small tables are built in shared memory beside them

@@ -383,7 +383,15 @@ def test_importing_the_mcmc_modules_leaves_jax_out():
         "    get_scoring_method, StructureScore, K2, BDeu, BDs, LogLikeliHood, BIC, AIC,\n"
         "    LogLikelihoodGauss, BICGauss, AICGauss, LogLikelihoodCondGauss, BICCondGauss,\n"
         "    AICCondGauss, ScoreCache, ExpertKnowledge, HillClimbSearch, TreeSearch,\n"
-        "    ExhaustiveSearch)\n"
+        "    ExhaustiveSearch, PC, GES, MmhcEstimator, BaseConstraintEstimator,\n"
+        "    power_divergence, chi_square, g_sq, log_likelihood, modified_log_likelihood,\n"
+        "    pearsonr, pillai_trace, gcm, independence_match, get_callable_ci_test)\n"
+        "from pgmpy_tpu_torch.estimators.citests import power_divergence_batch\n"
+        "from pgmpy_tpu_torch.base import PDAG\n"
+        "from pgmpy_tpu_torch.metrics import (correlation_score, log_likelihood_score,\n"
+        "    structure_score, implied_cis, fisher_c, SHD, get_metrics, BayesianModelProbability)\n"
+        "from pgmpy_tpu_torch.inference import MinFill, MinNeighbors, MinWeight, WeightedMinFill\n"
+        "from pgmpy_tpu_torch.utils import State, cartesian, powerset, sample_discrete\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pgmpy_tpu.'))"
         " or k == 'pgmpy_tpu']\n"
         "print(bad)\n"

@@ -32,7 +32,13 @@ and prints, one ``key value`` pair per line:
   (1,369 BIC scores from one ``table_counts`` launch): device operations,
   device time and host time, split into the count call and the host's float64
   score reductions; and for the Chow-Liu launch on MUNIN (541,320 pair
-  tables): device operations by name and host time of the call.
+  tables): device operations by name and host time of the call;
+* for level 1 of PC on 50,000 simulated ALARM rows (every (X, Y, Z) chi-square
+  test of the level from one ``table_counts`` launch): the launch's device
+  time, the host time of the count call and of the float64 statistics; and
+  per ``BayesianModelProbability.log_probability`` of the fitted MUNIN over
+  its 50,000 rows (K13): kernels, device time, host time and the share of it
+  spent coding the frame (``_encode``).
 """
 
 import os
@@ -48,8 +54,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from pgmpy_tpu_torch.config import as_tensor, config  # noqa: E402
-from pgmpy_tpu_torch.estimators import BIC, BayesianEstimator, TreeSearch  # noqa: E402
+from pgmpy_tpu_torch.estimators import BIC, PC, BayesianEstimator, TreeSearch, citests  # noqa: E402
 from pgmpy_tpu_torch.inference import BeliefPropagation, DBNInference, VariableElimination  # noqa: E402
+from pgmpy_tpu_torch.metrics import BayesianModelProbability  # noqa: E402
 from pgmpy_tpu_torch.models import DiscreteBayesianNetwork  # noqa: E402
 from pgmpy_tpu_torch.ops import bincount as bc  # noqa: E402
 from pgmpy_tpu_torch.sampling import BayesianModelSampling, GibbsSampling, VectorizedNUTS  # noqa: E402
@@ -288,6 +295,55 @@ def main():
           f"kernel, the descriptor already on the card; CUDA events) pair_tables_host_s "
           f"{launch_s:.4f} (specs, plan, descriptor upload, launch)")
     print_top_kernels("chow_liu", lambda: search._pair_tables(variables), top=4)
+
+    # ---- constraint-based search: level 1 of PC on 50,000 ALARM rows
+    pc_frame = alarm.simulate(n_samples=chip_smoke.PC_ROWS, seed=3, show_progress=False)
+    est = PC(pc_frame)
+    batches = []
+    real_batch = citests.power_divergence_batch
+
+    def recording_batch(triples, *args, **kwargs):
+        batches.append(list(triples))
+        return real_batch(triples, *args, **kwargs)
+
+    citests.power_divergence_batch = recording_batch
+    try:
+        est.build_skeleton(ci_test="chi_square", max_cond_vars=1, significance_level=0.01,
+                           show_progress=False)
+    finally:
+        citests.power_divergence_batch = real_batch
+    triples = next(t for t in batches if t and len(t[0][2]) == 1)
+    coded = est._coded
+    uniq = list(dict.fromkeys((x, (y,) + tuple(z)) for x, y, z in triples))
+    count_s = chip_smoke.host_median_s(
+        lambda: coded.multi_counts_padded(uniq, dtype=np.float64), reps=3)
+    batch_s = chip_smoke.host_median_s(
+        lambda: real_batch(triples, lambda_="pearson", coded=coded), reps=3)
+    table = bc.table_specs(
+        [[coded.var_index[x]] + [coded.var_index[v] for v in rest] for x, rest in uniq],
+        [[coded.cards[x]] + [coded.cards[v] for v in rest] for x, rest in uniq])
+    device_ms = chip_smoke.cuda_median_ms(
+        lambda: bc.table_counts_cuda(coded._column_codes(), coded.n, table), device_only=True)
+    print(f"pc_level1_triples {len(triples)} unique_specs {len(uniq)} count_launch_device_ms "
+          f"{device_ms:.5f} count_call_host_s {count_s:.4f} statistic_host_s "
+          f"{batch_s - count_s:.4f} batch_host_s {batch_s:.4f} host_share "
+          f"{1 - device_ms / (batch_s * 1e3):.5f}")
+    print_top_kernels("pc_level1", lambda: coded.multi_counts_padded(uniq, dtype=np.float64),
+                      top=4)
+
+    # ---- K13: log P(row) of the fitted MUNIN over its 50,000 rows
+    prob = BayesianModelProbability(fitted)
+    prob.log_probability(df)  # warm-up
+    call_s = chip_smoke.host_median_s(lambda: prob.log_probability(df))
+    encode_s = chip_smoke.host_median_s(lambda: prob._encode(df))
+    codes = prob._encode(df)
+    n_kernels, device_ms = profiled(lambda: prob._logp(codes))
+    sum_s = chip_smoke.host_median_s(lambda: prob._logp(codes))
+    print(f"k13_rows {len(df)} k13_kernels_per_call {n_kernels:.0f} k13_device_ms "
+          f"{device_ms:.4f} k13_call_host_s {call_s:.4f} k13_encode_host_s {encode_s:.4f} "
+          f"k13_encode_share {encode_s / call_s:.3f} k13_device_sum_host_s {sum_s:.5f} "
+          f"k13_idle_share {1 - device_ms / (call_s * 1e3):.4f}")
+    print_top_kernels("k13", lambda: prob._logp(codes), top=6)
     return 0
 
 
