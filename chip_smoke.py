@@ -61,7 +61,25 @@ Runs from the repository root and needs one CUDA card.  It
    with BIC on 2,000 ALARM rows and MMHC on 2,000 SACHS rows (both against
    the CPU run), and ``log_likelihood_score`` of the fitted MUNIN on its
    50,000 rows against a numpy float64 gather-sum, with ``DAG.validate``;
-9. prints the card, the timings, one JSON line describing each kernel (its
+9. drives the latent-variable lane (``phase_latent``): ``NaiveBayes`` on
+   MUNIN's 50,000 rows with DIFFN_PATHO (5 states) as the class (one launch,
+   every table against ``np.bincount``; ``predict_probability`` of 2,048
+   rows against a numpy float64 log-space oracle), ``ExpectationMaximization``
+   with DIFFN_PATHO latent (one iteration against numpy float64, the
+   observed-data log-likelihood along 1, 3 and 10 iterations, the same seed
+   twice), ``MirrorDescentEstimator`` on ALARM's junction tree fitted to
+   50,000 simulated rows (100 iterations with the line search, against the
+   CPU run), ``ExpertInLoop`` on 2,000 SACHS rows with an oracle answering
+   from the true DAG (against the CPU run), and ``is_imap`` on ASIA's joint
+   as a JPD beside a noisy-OR query;
+10. drives loopy and LP inference (``phase_loopy``): flooding BP on a
+   128 x 128 binary grid (16,384 variables, 32,512 factors) with a noisy
+   image as virtual evidence (against the CPU run, rounds at most one
+   apart), the 8 x 8
+   grid against the junction tree, a star of 600 leaves against its exact
+   beliefs, and ``Mplp.map_query`` on the v4 golden's grid and a 12 x 12 grid
+   with diagonals (against the CPU run);
+11. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -151,16 +169,46 @@ def bound(nbytes, operations):
 
 def profiled(fn, reps=1):
     """(kernels per call, device ms per call) of ``fn`` from ``torch.profiler``:
-    the device operations it starts and the sum of their times."""
+    the device operations it starts and the sum of their times.
+
+    A profiling session can come back without some of its device records (in
+    one process the same call of K13 read 5, 33, 5, 33, 5 kernels in five
+    sessions, 33 being what it launches), so each count is a lower bound: this
+    takes the session with the most records of three."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    best = (0, 0.0)
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(kernels) / reps, sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = max(best, (len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    return best[0] / reps, best[1] / 1e3 / reps
+
+
+def kernels_by_name(fn):
+    """{device operation name: (count, microseconds)} of one call of ``fn``,
+    largest first (``torch.profiler``; of three sessions, the one with the
+    most records, as in :func:`profiled`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                count, total = out.get(e.name, (0, 0.0))
+                out[e.name] = (count + 1, total + e.time_range.elapsed_us())
+        if sum(c for c, _ in out.values()) > sum(c for c, _ in best.values()):
+            best = out
+    return dict(sorted(best.items(), key=lambda kv: -kv[1][1]))
 
 
 def host_median_s(fn, reps=3):
@@ -1463,15 +1511,19 @@ def bic_from_codes(codes, cards, variable, parents):
 
 def cuda_profiled_ms(fn):
     """Device ms of ``fn`` from ``torch.profiler`` tracing the card alone (no
-    host events: ``fn`` is a long Python loop)."""
+    host events: ``fn`` is a long Python loop); of three sessions, the one
+    with the most records (see :func:`profiled`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    best = (0, 0.0)
+    for _ in range(3):
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = max(best, (len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    return best[1] / 1e3
 
 
 def phase_structure(munin_df):
@@ -1925,6 +1977,587 @@ def phase_constraint(fitted_munin, munin_df):
     return (table_launches, bincount_launches), level1
 
 
+# --------------------------------------------------------------------------- #
+# the latent-variable lane: NaiveBayes, EM, mirror descent, ExpertInLoop, JPD
+# --------------------------------------------------------------------------- #
+LATENT = "DIFFN_PATHO"
+LATENT_CARD = 5
+NB_PREDICT_ROWS = 2048
+MD_ROWS = 50_000
+MD_ITERATIONS = 100
+EXPERT_ROWS = 2000
+
+
+def k1_shape_row(name, cm, n, specs, weights=None):
+    """K1 at one shape of the latent lane: the kernel against its plain version
+    (equal without weights; with them within rtol 1e-4 and atol 1e-4 of the
+    float64 plain version: a float32 cell sums up to a quarter million
+    weights), its device time, the plain version's, the card's bound, and one
+    ``torch.bincount`` over every spec's flat index offset into one index
+    space, weights repeated (the index built outside the timed window)."""
+    from pgmpy_tpu_torch.ops import bincount as bc
+
+    got = bc.table_counts_cuda(cm, n, specs, weights)
+    if weights is None:
+        ref = bc.table_counts_reference(cm, n, specs)
+        err = float((got - ref).abs().max())
+        check(got.dtype == torch.int32 and torch.equal(got, ref),
+              f"k1 {name}: the kernel differs from the plain version")
+    else:
+        ref = bc.table_counts_reference(cm, n, specs, weights.double())
+        err = float((got.double() - ref).abs().max())
+        check(got.dtype == weights.dtype
+              and torch.allclose(got.double(), ref, rtol=1e-4, atol=1e-4),
+              f"k1 {name}: max_abs_err {err} against the float64 plain version")
+    ms = cuda_median_ms(lambda: bc.table_counts_cuda(cm, n, specs, weights), device_only=True)
+    plain_ms = cuda_median_ms(lambda: bc.table_counts_reference(cm, n, specs, weights),
+                              reps=3, warmup=1)
+    used = np.unique(np.concatenate([specs.cols[s, : specs.n_cols[s]] for s in range(len(specs))]))
+    out_bytes = specs.total * got.element_size()
+    nbytes = used.size * n * cm.element_size() + out_bytes \
+        + (0 if weights is None else n * weights.element_size()) \
+        + 8 * len(specs) * (6 + 2 * specs.cols.shape[1])
+    bound_ms, bound_by = bound(nbytes, 2 * int(specs.n_cols.sum()) * n)
+    # the library call's index: per spec its flat entry, offset into one space
+    idx = torch.empty((len(specs), n), dtype=torch.int64, device=cm.device)
+    for width in np.unique(specs.n_cols):
+        rows = np.flatnonzero(specs.n_cols == width)
+        cols = torch.as_tensor(specs.cols[rows, :width].reshape(-1), device=cm.device)
+        strides = torch.as_tensor(specs.strides[rows, :width], device=cm.device)
+        g = cm.index_select(0, cols)[:, :n].view(len(rows), width, n).long()
+        idx[torch.as_tensor(rows, device=cm.device)] = (g * strides[:, :, None]).sum(dim=1) \
+            + torch.as_tensor(specs.offsets[rows], device=cm.device)[:, None]
+        del g
+    flat_idx = idx.view(-1)
+    flat_w = None if weights is None else weights.repeat(len(specs))
+    lib = torch.bincount(flat_idx, weights=flat_w, minlength=specs.total)
+    lib_err = float((lib.double() - ref.double()).abs().max())
+    # torch.bincount adds float32 weights with global atomics, one per row
+    check(lib.numel() == specs.total and torch.allclose(lib.double(), ref.double(), rtol=1e-3,
+                                                          atol=1e-3),
+          f"k1 {name}: torch.bincount differs from the plain version by {lib_err}")
+    library_ms = cuda_median_ms(
+        lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total),
+        reps=5, warmup=1, device_only=True)
+    del idx, flat_idx, flat_w, lib
+    row = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    log(f"k1t {name} specs={len(specs)} rows={n} codes={cm.dtype} entries={specs.total} "
+        f"weights={None if weights is None else weights.dtype} max_abs_err={err:.3e} "
+        f"kernel_ms={ms:.5f} (device time, median of 20) plain_ms={plain_ms:.3f} (median of 3) "
+        f"bound_ms={bound_ms:.6f} ({bound_by}) torch_bincount_ms={library_ms:.5f} (one call "
+        f"over the {len(specs)} specs offset into one index space, median of 5; its max_abs_err "
+        f"{lib_err:.3e})")
+    return row
+
+
+def spec_flat_host(host_codes, columns, strides, offset=0):
+    """Host flat entries of one spec: the codes of ``columns`` times their
+    strides."""
+    flat = np.full(len(host_codes[columns[0]]), offset, dtype=np.int64)
+    for column, stride in zip(columns, strides):
+        flat += host_codes[column].astype(np.int64) * int(stride)
+    return flat
+
+
+def em_numpy_logp(cpds, codes, var_order, parents, cards, latent, K):
+    """(n, K) log P(observed row, latent = k) under ``cpds`` in numpy float64
+    (each CPD entry clamped at TINY as the E-step does): ``codes`` {variable:
+    host codes} of the observed columns."""
+    from pgmpy_tpu_torch.config import TINY
+
+    n = len(next(iter(codes.values())))
+    lp = np.zeros((n, K))
+    for v in var_order:
+        table = np.log(np.maximum(np.asarray(cpds[v].get_values(), dtype=np.float64), TINY))
+        scope = [v] + parents[v]
+        strides = np.cumprod([1] + [cards[u] for u in scope[::-1]])[:-1][::-1]
+        if latent not in scope:
+            lp += table.ravel()[spec_flat_host(codes, scope, strides)][:, None]
+            continue
+        for k in range(K):
+            rows = {**codes, latent: np.full(n, k)}
+            lp[:, k] += table.ravel()[spec_flat_host(rows, scope, strides)]
+    return lp
+
+
+def observed_loglik(lp):
+    """The observed-data log-likelihood from :func:`em_numpy_logp`."""
+    top = lp.max(axis=1, keepdims=True)
+    return float((top[:, 0] + np.log(np.exp(lp - top).sum(axis=1))).sum())
+
+
+def em_numpy_step(lp, codes, var_order, parents, cards, latent, K):
+    """One M-step in numpy float64 from the E-step's ``lp``: {variable:
+    (card, prod parent cards) table}, every column normalised, an empty
+    column uniform."""
+    n = lp.shape[0]
+    w = np.exp(lp - lp.max(axis=1, keepdims=True))
+    w /= w.sum(axis=1, keepdims=True)
+    out = {}
+    for v in var_order:
+        scope = [v] + parents[v]
+        size = int(np.prod([cards[u] for u in scope]))
+        strides = np.cumprod([1] + [cards[u] for u in scope[::-1]])[:-1][::-1]
+        if latent not in scope:
+            counts = np.bincount(spec_flat_host(codes, scope, strides), minlength=size)
+            counts = counts.astype(np.float64)
+        else:
+            counts = np.zeros(size)
+            for k in range(K):
+                rows = {**codes, latent: np.full(n, k)}
+                counts += np.bincount(spec_flat_host(rows, scope, strides), weights=w[:, k],
+                                      minlength=size)
+        counts = counts.reshape(cards[v], -1)
+        counts[:, counts.sum(axis=0) == 0] = 1.0
+        out[v] = counts / counts.sum(axis=0, keepdims=True)
+    return out
+
+
+def phase_latent(model, df, host_codes):
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.estimators import (ExpectationMaximization, ExpertInLoop,
+                                            MirrorDescentEstimator)
+    from pgmpy_tpu_torch.estimators import base as estimators_base
+    from pgmpy_tpu_torch.factors import JointProbabilityDistribution, NoisyORCPD, TabularCPD
+    from pgmpy_tpu_torch.factors.jpd import model_joint_factor
+    from pgmpy_tpu_torch.inference import VariableElimination
+    from pgmpy_tpu_torch.inference.bp import JunctionTreeProgram
+    from pgmpy_tpu_torch.models import DiscreteBayesianNetwork, NaiveBayes
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.utils import get_example_model
+    from pgmpy_tpu_torch.utils.interop import bn_from_numpy
+
+    states = model.states
+    check(not model.get_parents(LATENT) and len(list(model.get_children(LATENT))) == 69
+          and len(states[LATENT]) == LATENT_CARD, f"{LATENT} is not a 5-state root of 69 children")
+    predict_rows = df.iloc[-NB_PREDICT_ROWS:].drop(columns=[LATENT])
+    em_data = df.drop(columns=[LATENT])
+    em_states = {v: states[v] for v in em_data.columns}
+    em_kwargs = dict(latent_card={LATENT: LATENT_CARD}, seed=0, init_cpds="random",
+                     show_progress=False)
+    alarm = get_example_model("alarm")
+    md_frame = alarm.simulate(n_samples=MD_ROWS, seed=4, show_progress=False)
+    md_model = alarm.to_markov_model()
+    sachs = get_example_model("sachs")
+    expert_frame = sachs.simulate(n_samples=EXPERT_ROWS, seed=3, show_progress=False)
+    sachs_edges = set(sachs.edges())
+    oracle_calls = []
+
+    def oracle(u, v, **kwargs):
+        oracle_calls.append((u, v))
+        return (u, v) if (u, v) in sachs_edges else (v, u) if (v, u) in sachs_edges else None
+
+    # instruments: the fit's count launch with its output, calibrations, CI tests
+    recorded, calibrations, ci_tests = [], [0], [0]
+    real_count = estimators_base._CodedData._count_specs
+    real_calibrate = JunctionTreeProgram.calibrate
+    real_effect = ExpertInLoop._effect
+
+    def recording_count(self, table, weights=None):
+        out = real_count(self, table, weights)
+        recorded.append((self, table, out))
+        return out
+
+    def counting_calibrate(self, *args, **kwargs):
+        calibrations[0] += 1
+        return real_calibrate(self, *args, **kwargs)
+
+    def counting_effect(self, *args, **kwargs):
+        ci_tests[0] += 1
+        return real_effect(self, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    # ---- the main path, counted: NaiveBayes fit and predict, EM, mirror
+    # descent, ExpertInLoop, is_imap and a noisy-OR query
+    bc.reset_launches()
+    estimators_base._CodedData._count_specs = recording_count
+    try:
+        t0 = time.time()
+        nb = NaiveBayes()
+        nb.fit(df, parent_node=LATENT, state_names=states)
+        torch.cuda.synchronize()
+        nb_fit_s = time.time() - t0
+    finally:
+        estimators_base._CodedData._count_specs = real_count
+    nb_fit_launches = bc.TABLE_LAUNCHES
+    t0 = time.time()
+    nb_probs = nb.predict_probability(predict_rows)
+    nb_first_s = time.time() - t0
+
+    before = bc.TABLE_LAUNCHES
+    em = ExpectationMaximization(DiscreteBayesianNetwork(list(model.edges()), latents={LATENT}),
+                                 em_data, state_names=em_states)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    em10 = em.get_parameters(max_iter=10, **em_kwargs)
+    torch.cuda.synchronize()
+    em10_s = time.time() - t0
+    em_launches = bc.TABLE_LAUNCHES - before
+
+    JunctionTreeProgram.calibrate = counting_calibrate
+    try:
+        md = MirrorDescentEstimator(md_model, md_frame)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        md_jt = md.estimate(iterations=MD_ITERATIONS, show_progress=False)
+        torch.cuda.synchronize()
+        md_s = time.time() - t0
+    finally:
+        JunctionTreeProgram.calibrate = real_calibrate
+
+    before = bc.TABLE_LAUNCHES
+    ExpertInLoop._effect = counting_effect
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        expert_dag = ExpertInLoop(expert_frame).estimate(orientation_fn=oracle,
+                                                         show_progress=False)
+        torch.cuda.synchronize()
+        expert_s = time.time() - t0
+    finally:
+        ExpertInLoop._effect = real_effect
+    expert_launches = bc.TABLE_LAUNCHES - before
+
+    asia = get_example_model("asia")
+    asia_cpds = [(c.variable, int(c.variable_card), c.get_values(), list(c.variables[1:]),
+                  [int(k) for k in c.cardinality[1:]], {v: [0, 1] for v in c.variables})
+                 for c in asia.get_cpds()]
+    asia01 = bn_from_numpy(list(asia.edges()), asia_cpds)
+    joint = model_joint_factor(asia01)
+    jpd = JointProbabilityDistribution(joint.variables, joint.cardinality, joint.values)
+    marg = jpd.marginal_distribution(["dysp", "bronc"], inplace=False)
+    marg = marg.values.permute([marg.variables.index("dysp"), marg.variables.index("bronc")])
+    cut_cpds = [c if c[0] != "dysp" else
+                ("dysp", 2, (marg / marg.sum(dim=0, keepdim=True)).cpu().numpy(), ["bronc"], [2],
+                 {"dysp": [0, 1], "bronc": [0, 1]}) for c in asia_cpds]
+    cut = bn_from_numpy([e for e in asia.edges() if e != ("either", "dysp")], cut_cpds)
+    imap = (jpd.is_imap(asia01), asia01.is_imap(jpd), jpd.is_imap(cut), cut.is_imap(jpd))
+    noisy = DiscreteBayesianNetwork([("flu", "fever"), ("cold", "fever")])
+    noisy.add_cpds(NoisyORCPD("fever", [0.8, 0.6], evidence=["flu", "cold"]),
+                   *[TabularCPD(v, 2, [[p], [1 - p]], state_names={v: ["True", "False"]})
+                     for v, p in (("flu", 0.1), ("cold", 0.3))])
+    fever = VariableElimination(noisy).query(["fever"], evidence={"flu": "True"})
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    log(f"latent_path table_count_launches {table_launches} (NaiveBayes fit {nb_fit_launches}, "
+        f"EM {em_launches}, ExpertInLoop {expert_launches}) bincount_launches "
+        f"{bincount_launches}")
+
+    # ---- NaiveBayes: one launch, every table against np.bincount
+    check(nb_fit_launches == 1 and len(recorded) == 1,
+          f"NaiveBayes.fit made {nb_fit_launches} launches")
+    coded, table, out = recorded[0]
+    flat = out.cpu().numpy()
+    for s in range(len(table)):
+        columns = [coded.variables[c] for c in table.cols[s, : table.n_cols[s]]]
+        want = np.bincount(spec_flat_host(host_codes, columns, table.strides[s, : table.n_cols[s]]),
+                           minlength=int(table.sizes[s]))
+        got = flat[int(table.offsets[s]): int(table.offsets[s] + table.sizes[s])]
+        check(np.array_equal(got, want), f"NaiveBayes.fit: the table of {columns} differs")
+    check(len(table) == 1041 and int((table.n_cols == 2).sum()) == 1040,
+          f"NaiveBayes.fit: {len(table)} specs")
+    prior = np.log(np.asarray(nb.get_cpds(LATENT).get_values(), dtype=np.float64)[:, 0])
+    logp = np.tile(prior, (NB_PREDICT_ROWS, 1))
+    for feature in predict_rows.columns:
+        values = np.asarray(nb.get_cpds(feature).get_values(), dtype=np.float64)
+        with np.errstate(divide="ignore"):
+            logp += np.log(values)[host_codes[feature][-NB_PREDICT_ROWS:]]
+    logp -= logp.max(axis=1, keepdims=True)
+    want = np.exp(logp)
+    want /= want.sum(axis=1, keepdims=True)
+    got = nb_probs.to_numpy(dtype=np.float64)
+    check(got.shape == want.shape and not np.isnan(got).any(), f"NaiveBayes: {got.shape}, NaN")
+    nb_err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 1e-3
+    check(nb_err <= 1e-4 and np.array_equal(got.argmax(1)[decided], want.argmax(1)[decided]),
+          f"NaiveBayes predict_probability: {nb_err} from the log-space oracle")
+    nb_s = host_median_s(lambda: nb.predict_probability(predict_rows))
+    log(f"naive_bayes_munin class={LATENT} features={predict_rows.shape[1]} fit_s {nb_fit_s:.3f} "
+        f"launches {nb_fit_launches}; 1041 tables equal to np.bincount; predict_probability rows="
+        f"{NB_PREDICT_ROWS} nb_predict_rows_per_s {NB_PREDICT_ROWS / nb_s:.1f} (median of 3; "
+        f"first call {nb_first_s:.3f} s) max_abs_err {nb_err:.3e} (limit 1e-4) from a numpy "
+        f"float64 log-space oracle, argmax equal on {int(decided.sum())} rows with a margin "
+        f"above 1e-3, no NaN")
+
+    # ---- EM: one iteration against numpy, the ascent, the same seed twice
+    check(em_launches == 10, f"EM: {em_launches} launches in 10 iterations")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    em1 = em.get_parameters(max_iter=1, **em_kwargs)
+    torch.cuda.synchronize()
+    em1_s = time.time() - t0
+    em3 = em.get_parameters(max_iter=3, **em_kwargs)
+    em3b = em.get_parameters(max_iter=3, **em_kwargs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    em10b = em.get_parameters(max_iter=10, **em_kwargs)
+    torch.cuda.synchronize()
+    em10b_s = time.time() - t0
+    # the device program the fits ran, built again (an estimator keeps none)
+    program, cards, names = em._program({LATENT: LATENT_CARD})
+    check(program.chunk_rows >= len(em_data), f"EM: {program.chunk_rows} rows per E-step chunk")
+    var_order = program.var_order
+    init = em._initial_cpds("random", 0, cards, names)
+    obs_codes = {v: host_codes[v] for v in em_data.columns}
+    numpy_args = (obs_codes, var_order, program.parents, cards, LATENT, LATENT_CARD)
+    lp0 = em_numpy_logp(init, *numpy_args)
+    want = em_numpy_step(lp0, *numpy_args)
+    em_err = max(float(np.abs(np.asarray(c.get_values(), dtype=np.float64)
+                              - want[c.variable]).max()) for c in em1)
+    check(em_err <= 2e-5, f"EM: one iteration is {em_err} from numpy")
+    lls = [observed_loglik(lp0)] + [
+        observed_loglik(em_numpy_logp({c.variable: c for c in cpds}, *numpy_args))
+        for cpds in (em1, em3, em10)]
+    ascent = all(b >= a - 1e-6 * abs(a) for a, b in zip(lls, lls[1:]))
+    check(ascent, f"EM: the observed-data log-likelihood fell along 0, 1, 3, 10 iterations: {lls}")
+    def cpd_gap(first, second):
+        return max(float(np.abs(np.asarray(a.get_values()) - np.asarray(b.get_values())).max())
+                   for a, b in zip(first, second))
+
+    # the weighted counts and the column sums add floats with atomics, and
+    # EM's early iterations from a random start amplify what they leave
+    repeat, repeat10 = cpd_gap(em3, em3b), cpd_gap(em10, em10b)
+    check(repeat <= 1e-5, f"EM: the same seed twice differs by {repeat} after 3 iterations")
+    prob = program.flat_of({c.variable: c for c in em10})
+    weights = program.e_step(prob)
+    iteration = lambda: float(torch.max(torch.abs(program.m_step(program.e_step(prob), False)  # noqa: E731
+                                                - prob)))
+    kernels, device_ms = profiled(iteration)
+    by_name = kernels_by_name(iteration)
+    # one iteration as the loop runs it, ending in its host read; the calls'
+    # own set-up (the expanded rows, 1041 initial CPDs) varies by more than
+    # nine iterations take, so the calls' difference cannot give it
+    em_iter_s = host_median_s(iteration, reps=5)
+    log(f"em_munin latent={LATENT} card={LATENT_CARD} rows={len(em_data)} expanded_rows="
+        f"{program.coded.n} em_iter_s {em_iter_s:.4f} (median of 5; calls of 10 iterations "
+        f"{em10b_s:.3f} s, of 1 {em1_s:.3f} s, the first of 10 {em10_s:.3f} s) kernels_per_iteration {kernels:.0f} device_ms_per_iteration "
+        f"{device_ms:.4f} idle_share {1 - device_ms / (em_iter_s * 1e3):.4f} launches_per_iteration "
+        f"1 e_step_chunks {-(-len(em_data) // program.chunk_rows)}; by name "
+        f"{sum(c for c, _ in by_name.values())} kernels "
+        f"{sum(us for _, us in by_name.values()) / 1e3:.4f} ms: "
+        + "; ".join(f"{n[:50]} x{c} {us:.1f}us" for n, (c, us) in list(by_name.items())[:8]))
+    log(f"em_check ok one iteration within {em_err:.3e} (limit 2e-5) of numpy float64; "
+        f"observed-data log-likelihood over the {len(em_data)} rows at 0/1/3/10 iterations "
+        f"{[round(x, 3) for x in lls]} never falls (limit 1e-6 relative); the same seed twice "
+        f"within {repeat:.3e} after 3 iterations (limit 1e-5) and {repeat10:.3e} after 10")
+    em_row = k1_shape_row("em_mstep_weighted", program.coded._column_codes(), program.coded.n,
+                          program.specs, weights)
+    nb_row = k1_shape_row("naive_bayes_fit", coded._column_codes(), coded.n, table)
+    del program, weights, prob
+
+    # ---- mirror descent: the losses, the CPU run
+    check(all(b <= a for a, b in zip(md.losses, md.losses[1:])),
+          "mirror descent: an accepted loss increased")
+    alarm_cpu = None
+    with on_device("cpu"):
+        alarm_cpu = get_example_model("alarm").to_markov_model()
+        cpu_md = MirrorDescentEstimator(alarm_cpu, md_frame)
+        cpu_jt = cpu_md.estimate(iterations=MD_ITERATIONS, show_progress=False)
+    cpu = {frozenset(f.variables): f for f in cpu_jt.factors}
+    md_err = 0.0
+    for f in md_jt.factors:
+        c = cpu[frozenset(f.variables)]
+        a = f.values.double().cpu().numpy()
+        b = np.transpose(c.values.double().numpy(), [c.variables.index(v) for v in f.variables])
+        md_err = max(md_err, float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max()))
+    check(md_err <= 1e-3, f"mirror descent: {md_err} (relative) from the CPU run")
+    log(f"mirror_descent_alarm rows={MD_ROWS} cliques={len(md_jt.factors)} iterations "
+        f"{MD_ITERATIONS} accepted {len(md.losses) - 1} mirror_descent_s {md_s:.3f} "
+        f"calibrations {calibrations[0]} calibrations_per_s {calibrations[0] / md_s:.1f} loss "
+        f"{md.losses[0]:.4e} -> {md.losses[-1]:.4e}; accepted losses never increase; fitted "
+        f"count marginals within {md_err:.3e} (limit 1e-3 relative, counts below 1 absolute) "
+        f"of the CPU run")
+
+    # ---- ExpertInLoop: the CPU run
+    with on_device("cpu"):
+        cpu_dag = ExpertInLoop(expert_frame).estimate(orientation_fn=lambda u, v, **kw: (
+            (u, v) if (u, v) in sachs_edges else (v, u) if (v, u) in sachs_edges else None),
+            show_progress=False)
+    check(sorted(expert_dag.edges()) == sorted(cpu_dag.edges()),
+          "ExpertInLoop: the DAG differs from the CPU run's")
+    log(f"expert_sachs rows={EXPERT_ROWS} expert_s {expert_s:.3f} oracle_calls "
+        f"{len(oracle_calls)} ci_tests {ci_tests[0]} launches {expert_launches} edges "
+        f"{len(expert_dag.edges())} of which true {len(set(expert_dag.edges()) & sachs_edges)}"
+        f"/{len(sachs_edges)}; equal to the CPU run's")
+
+    # ---- is_imap and the noisy-OR query
+    check(joint.values.numel() == 256 and imap == (True, True, False, False),
+          f"is_imap on ASIA: {imap}")
+    p = 1 - (1 - 0.8) * (1 - 0.6 * 0.3)
+    fever_err = float(np.abs(fever.values.double().cpu().numpy() - [p, 1 - p]).max())
+    check(fever.values.is_cuda and fever_err <= 1e-6, f"noisy-OR query: {fever_err}")
+    log(f"jpd_asia entries 256 is_imap ASIA True, without either->dysp False (both "
+        f"directions); noisy-OR P(fever | flu) within {fever_err:.1e} of its closed form")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    return (table_launches, bincount_launches), em_row, nb_row, em_launches, nb_fit_launches
+
+
+# --------------------------------------------------------------------------- #
+# loopy inference: flooding BP on a 128 x 128 grid and a 600-leaf star, Mplp
+# --------------------------------------------------------------------------- #
+GRID_SIDE = 128
+STAR_LEAVES = 600
+MPLP_FRUSTRATED_SIDE = 12
+
+
+def grid_tables(n, seed, coupling=0.2):
+    """An n x n binary grid MRF: pairwise exp(coupling N(0,1)) tables."""
+    rng = np.random.default_rng(seed)
+    names = [[f"x{i}_{j}" for j in range(n)] for i in range(n)]
+    scopes, tables = [], []
+    for i in range(n):
+        for j in range(n):
+            for di, dj in ((0, 1), (1, 0)):
+                if i + di < n and j + dj < n:
+                    scopes.append([names[i][j], names[i + di][j + dj]])
+                    tables.append(np.exp(coupling * rng.standard_normal((2, 2))))
+    return scopes, {v: 2 for row in names for v in row}, tables
+
+
+def mplp_grid(rows, cols, seed, diagonals=False):
+    """The v4 golden's binary grid Markov network (exp N(0,1) unary and
+    pairwise tables, drawn in its order); ``diagonals`` adds one diagonal per
+    cell before the pairwise draws, so every cell holds two triangles whose
+    random couplings frustrate the pairwise LP relaxation."""
+    rng = np.random.default_rng(seed)
+    nodes = [f"x{r}_{c}" for r in range(rows) for c in range(cols)]
+    edges = []
+    for r in range(rows):
+        for c in range(cols):
+            if c + 1 < cols:
+                edges.append((f"x{r}_{c}", f"x{r}_{c + 1}"))
+            if r + 1 < rows:
+                edges.append((f"x{r}_{c}", f"x{r + 1}_{c}"))
+    if diagonals:
+        edges += [(f"x{r}_{c}", f"x{r + 1}_{c + 1}") for r in range(rows - 1)
+                  for c in range(cols - 1)]
+    unary = {n: np.exp(rng.normal(size=2)) for n in nodes}
+    pairwise = {e: np.exp(rng.normal(size=(2, 2))) for e in edges}
+    scopes = [[n] for n in nodes] + [list(e) for e in edges]
+    tables = [unary[n] for n in nodes] + [pairwise[e] for e in edges]
+    return scopes, {n: 2 for n in nodes}, tables
+
+
+def phase_loopy():
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.factors import DiscreteFactor
+    from pgmpy_tpu_torch.inference import (BeliefPropagation,
+                                           BeliefPropagationWithMessagePassing, Mplp)
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.utils.interop import factor_graph_from_numpy, markov_network_from_numpy
+
+    scopes, cards, tables = grid_tables(GRID_SIDE, SEED)
+    variables = sorted(cards)
+    rng = np.random.default_rng(SEED + 5)
+    i, j = np.meshgrid(np.arange(GRID_SIDE), np.arange(GRID_SIDE), indexing="ij")
+    image = (((i // 32) + (j // 32)) % 2).ravel()
+    noisy = np.where(rng.random(image.size) < 0.1, 1 - image, image)
+    pixel = {f"x{a}_{b}": noisy[a * GRID_SIDE + b] for a in range(GRID_SIDE)
+             for b in range(GRID_SIDE)}
+    star_scopes = [["hub", f"l{k:03d}"] for k in range(STAR_LEAVES)]
+    star_rng = np.random.default_rng(SEED + 6)
+    star_tabs = [np.exp(0.2 * star_rng.standard_normal((2, 2))) for _ in range(STAR_LEAVES)]
+    small = grid_tables(8, 1)
+    mplp_cases = {"v4_grid": mplp_grid(3, 3, 55),
+                  "frustrated": mplp_grid(MPLP_FRUSTRATED_SIDE, MPLP_FRUSTRATED_SIDE, 8, True)}
+
+    # ---- the main path, counted: loopy BP on the grid, the star, the 8 x 8
+    # grid, Mplp on both grids
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    t0 = time.time()
+    fg = factor_graph_from_numpy(scopes, cards, tables)
+    bp = BeliefPropagationWithMessagePassing(fg)
+    virtual = [DiscreteFactor([v], [2], [0.8, 0.2] if pixel[v] == 0 else [0.2, 0.8])
+               for v in variables]
+    build_s = time.time() - t0
+    t0 = time.time()
+    beliefs = bp.query(variables, virtual_evidence=virtual)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    rounds = bp._program.last_rounds
+    star = BeliefPropagationWithMessagePassing(
+        factor_graph_from_numpy(star_scopes, {v: 2 for s in star_scopes for v in s}, star_tabs))
+    star_beliefs = star.query(["hub", "l000", "l599"])
+    loopy8 = BeliefPropagationWithMessagePassing(factor_graph_from_numpy(*small))
+    loopy8_beliefs = loopy8.query(["x0_0", "x3_4", "x7_7"])
+    mplp_results = {}
+    for name, (m_scopes, m_cards, m_tables) in mplp_cases.items():
+        mplp = Mplp(markov_network_from_numpy(m_scopes, m_cards, m_tables))
+        t0 = time.time()
+        assignment = mplp.map_query()
+        mplp_results[name] = (assignment, mplp.get_integrality_gap(), time.time() - t0,
+                              len(mplp.triplets))
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    log(f"loopy_path table_count_launches {table_launches} bincount_launches {bincount_launches}")
+
+    # ---- the grid: the CPU run, rounds, kernels per round
+    query_s = host_median_s(lambda: bp.query(variables, virtual_evidence=virtual), reps=2)
+    program = bp._program
+    f2v = torch.as_tensor(program.mask / program.cards[:, None], dtype=program.dtype,
+                          device=program.device)
+    log_fixed = torch.log(torch.as_tensor(program.mask, dtype=program.dtype, device=program.device))
+    padded = bp._tables[2]
+    by_name = kernels_by_name(lambda: program.round(f2v, log_fixed, padded))
+    kernels = sum(c for c, _ in by_name.values())
+    device_ms = sum(us for _, us in by_name.values()) / 1e3
+    round_s = host_median_s(lambda: float(program.round(f2v, log_fixed, padded)[1]), reps=5)
+    with on_device("cpu"):
+        cpu_bp = BeliefPropagationWithMessagePassing(factor_graph_from_numpy(scopes, cards, tables))
+        cpu_virtual = [DiscreteFactor([v], [2], [0.8, 0.2] if pixel[v] == 0 else [0.2, 0.8])
+                       for v in variables]
+        cpu_beliefs = cpu_bp.query(variables, virtual_evidence=cpu_virtual)
+    cpu_rounds = cpu_bp._program.last_rounds
+    grid_err = max(float(np.abs(beliefs[v].values.double().cpu().numpy()
+                                - cpu_beliefs[v].values.double().numpy()).max())
+                   for v in variables)
+    # the round count is a float32 threshold, which the card's and the CPU's
+    # sums may put a round apart
+    check(abs(rounds - cpu_rounds) <= 1 and rounds < program.max_iter and grid_err <= 1e-4,
+          f"loopy grid: {rounds} rounds (CPU {cpu_rounds}), {grid_err} from the CPU run")
+    log(f"loopy_grid side={GRID_SIDE} variables={len(variables)} factors={len(scopes)} messages="
+        f"{program.n_edges} rounds {rounds} loopy_rounds_per_s {rounds / query_s:.1f} query_s "
+        f"{query_s:.4f} (median of 2; first call {first_s:.3f} s, graph build {build_s:.3f} s) "
+        f"host_reads {rounds} kernels_per_round {kernels:.0f} device_ms_per_round "
+        f"{device_ms:.4f} round_host_s {round_s:.5f} idle_share "
+        f"{1 - device_ms * rounds / (query_s * 1e3):.4f}")
+    log(f"loopy_grid_check ok beliefs within {grid_err:.3e} (limit 1e-4) of the CPU run, "
+        f"rounds {rounds} on the card and {cpu_rounds} on the CPU (limit: one apart)")
+
+    # ---- the 8 x 8 grid against the junction tree, the star against exact
+    exact = BeliefPropagation(markov_network_from_numpy(*small))
+    exact.calibrate()
+    small_err = max(float(np.abs(loopy8_beliefs[v].values.double().cpu().numpy()
+                                 - exact.query([v], show_progress=False).values.double()
+                                 .cpu().numpy()).max()) for v in loopy8_beliefs)
+    check(small_err <= 0.02, f"loopy 8 x 8 grid: {small_err} from the junction tree")
+    log_hub = sum(np.log(t.sum(axis=1)) for t in star_tabs)
+    hub = np.exp(log_hub - log_hub.max())
+    hub /= hub.sum()
+    star_want = {"hub": hub}
+    for k in (0, 599):
+        t = star_tabs[k]
+        star_want[f"l{k:03d}"] = (hub[:, None] * t / t.sum(axis=1, keepdims=True)).sum(axis=0)
+    star_err = max(float(np.abs(star_beliefs[v].values.double().cpu().numpy()
+                                - star_want[v]).max()) for v in star_want)
+    check(star_err <= 1e-5, f"loopy star: {star_err} from the exact beliefs")
+    log(f"loopy_small_check ok the 8 x 8 grid (seed 1) within {small_err:.3e} (limit 0.02) of "
+        f"the junction tree; the {STAR_LEAVES}-leaf star within {star_err:.3e} (limit 1e-5) of "
+        f"its exact beliefs in {star._program.last_rounds} rounds")
+
+    # ---- Mplp: the CPU run
+    for name, (m_scopes, m_cards, m_tables) in mplp_cases.items():
+        with on_device("cpu"):
+            cpu_assignment = Mplp(markov_network_from_numpy(m_scopes, m_cards, m_tables)).map_query()
+        assignment, gap, mplp_s, triplets = mplp_results[name]
+        check(assignment == cpu_assignment, f"Mplp {name}: the assignment differs from the CPU run's")
+        log(f"mplp_{name} variables={len(m_cards)} factors={len(m_scopes)} mplp_s {mplp_s:.3f} "
+            f"integrality_gap {gap:.6g} triplets {triplets}; assignment equal to the CPU run's")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    return table_launches, bincount_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1962,10 +2595,20 @@ def main():
         row["launches_temporal"] = temporal
         row["launches_structure"] = structure
         row["launches_constraint"] = constraint
+    # the seventh and eighth paths, and K1 at the two shapes the latent lane gives it
+    t0 = time.time()
+    ((latent_tables, latent_bincounts), em_row, nb_row, em_launches,
+     nb_fit_launches) = phase_latent(model, df, codes)
+    log(f"phase_latent_s {time.time() - t0:.1f}")
+    t0 = time.time()
+    loopy_tables, loopy_bincounts = phase_loopy()
+    log(f"phase_loopy_s {time.time() - t0:.1f}")
     for name, launches, result in (
             ("table_counts/particle_marginals_weighted", filter_launches, weighted),
             ("table_counts/pair_tables", 1, pairs),
-            ("table_counts/pc_level1", 1, level1)):
+            ("table_counts/pc_level1", 1, level1),
+            ("table_counts/em_mstep_weighted", em_launches, em_row),
+            ("table_counts/naive_bayes_fit", nb_fit_launches, nb_row)):
         kernels.append({
             "name": name, "route": "cuda", "source": kernels[1]["source"],
             "replaces": kernels[1]["replaces"], "launches": launches,
@@ -1974,6 +2617,10 @@ def main():
             "launches_temporal": temporal_tables, "launches_structure": structure_tables,
             "launches_constraint": constraint_tables,
         })
+    for row in kernels:
+        first = row is kernels[0]  # weighted_bincount's row; the others are table_counts'
+        row["launches_latent"] = latent_bincounts if first else latent_tables
+        row["launches_loopy"] = loopy_bincounts if first else loopy_tables
     log(f"script_s {time.time() - started:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

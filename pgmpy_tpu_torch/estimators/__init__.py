@@ -6,6 +6,7 @@ from pgmpy_tpu_torch.estimators.base import (
 )
 from pgmpy_tpu_torch.estimators.mle import MaximumLikelihoodEstimator
 from pgmpy_tpu_torch.estimators.bayes import BayesianEstimator
+from pgmpy_tpu_torch.estimators.em import ExpectationMaximization
 from pgmpy_tpu_torch.estimators.scores import (
     StructureScore,
     K2,
@@ -51,7 +52,7 @@ from pgmpy_tpu_torch.estimators.expert_knowledge import ExpertKnowledge
 
 __all__ = [
     "BaseEstimator", "ParameterEstimator", "StructureEstimator", "MarginalEstimator",
-    "MaximumLikelihoodEstimator", "BayesianEstimator",
+    "MaximumLikelihoodEstimator", "BayesianEstimator", "ExpectationMaximization",
     "StructureScore", "K2", "BDeu", "BDs", "BIC", "AIC", "LogLikeliHood",
     "LogLikelihoodGauss", "BICGauss", "AICGauss",
     "LogLikelihoodCondGauss", "BICCondGauss", "AICCondGauss",
@@ -62,3 +63,16 @@ __all__ = [
     "BaseConstraintEstimator", "PC", "HillClimbSearch", "GES",
     "ExhaustiveSearch", "TreeSearch", "MmhcEstimator", "ExpertKnowledge",
 ]
+
+
+def __getattr__(name):
+    # the JAX package resolves these lazily; so does the port
+    if name == "MirrorDescentEstimator":
+        from pgmpy_tpu_torch.estimators.mirror_descent import MirrorDescentEstimator
+
+        return MirrorDescentEstimator
+    if name == "ExpertInLoop":
+        from pgmpy_tpu_torch.estimators.expert import ExpertInLoop
+
+        return ExpertInLoop
+    raise AttributeError(name)

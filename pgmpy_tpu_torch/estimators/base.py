@@ -27,11 +27,6 @@ class _CodedData:
     """Integer-coded dataset resident on device.  NaN rows are tracked with
     a per-column validity mask (code -1)."""
 
-    # class-level default: EM builds instances via __new__ (skipping
-    # __init__), and `self.n_dispatches += 1` still works — the read falls
-    # back to the class attribute, the write lands on the instance
-    n_dispatches = 0
-
     def __init__(self, df, state_names=None, weighted=False):
         self.variables = [c for c in df.columns if c != "_weight"]
         self.n = df.shape[0]
@@ -88,16 +83,34 @@ class _CodedData:
         self._column_codes()
         # device-dispatch odometer: every counts()/multi_counts() call is
         # one table-count launch.
-        self.n_dispatches = 0  # shadow the class default per instance
+        self.n_dispatches = 0
         if weighted or "_weight" in df.columns:
             self.weights = as_tensor(df["_weight"].to_numpy(dtype=np.float64))
         else:
             self.weights = None
 
+    @classmethod
+    def from_codes(cls, codes, variables, state_names):
+        """A coded dataset from ready codes: ``codes`` an ``(n, d)`` integer
+        tensor (-1 = missing) whose columns are ``variables``, coded against
+        ``state_names``.  No frame is read; the column-major copy the count
+        kernel reads is made here, on the codes' device, and is the only copy
+        kept: ``codes`` is not."""
+        self = cls.__new__(cls)
+        self.variables = list(variables)
+        self.n = int(codes.shape[0])
+        self.state_names = {v: list(state_names[v]) for v in self.variables}
+        self.var_index = {v: j for j, v in enumerate(self.variables)}
+        self.cards = {v: len(self.state_names[v]) for v in self.variables}
+        self.n_dispatches = 0
+        self.weights = None
+        self._codes_cm = column_major_codes(codes, max(self.cards.values(), default=0))
+        return self
+
     def _column_codes(self):
         """The kernel's view of ``codes``: column-major, int8 or int16 when
         the cardinalities allow (``ops/bincount.py:column_major_codes``).
-        Made once, on the device; ``codes`` itself stays row-major int32."""
+        Made once, on the device; ``codes`` itself stays row-major."""
         cached = self.__dict__.get("_codes_cm")
         if cached is None:
             cached = column_major_codes(self.codes, max(self.cards.values(), default=0))

@@ -11,7 +11,9 @@ from pgmpy_tpu_torch.factors.factor_set import (
     factorset_product,
     factorset_divide,
 )
+from pgmpy_tpu_torch.factors.jpd import JointProbabilityDistribution
 from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
+from pgmpy_tpu_torch.factors.noisy_or import NoisyORCPD
 
 __all__ = [
     "DiscreteFactor",
@@ -24,5 +26,7 @@ __all__ = [
     "FactorSet",
     "factorset_product",
     "factorset_divide",
+    "JointProbabilityDistribution",
     "LinearGaussianCPD",
+    "NoisyORCPD",
 ]

@@ -437,11 +437,19 @@ class DiscreteFactor(StateNameMixin):
         return not self.__eq__(other)
 
     def __hash__(self):
-        return hash(
-            (
+        # a factor is a graph node of factor graphs and cluster graphs, hashed
+        # at every lookup: the hash is kept until the values are rebound
+        # (``_mutation``) or edited in place (the tensor's ``_version``), so
+        # a graph of tens of thousands of factors does not copy each factor's
+        # values to the host at every lookup
+        key = (tuple(self.variables), self.__dict__.get("_mutation", 0), self._values._version)
+        cached = self.__dict__.get("_hash")
+        if cached is None or cached[0] != key:
+            cached = (key, hash((
                 tuple(map(str, self.variables)),
                 tuple(int(c) for c in self.cardinality),
                 to_numpy(self.values).tobytes(),
-            )
-        )
+            )))
+            self.__dict__["_hash"] = cached
+        return cached[1]
 

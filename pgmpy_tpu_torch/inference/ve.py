@@ -269,12 +269,51 @@ class _GatherPlan:
         table = values.permute(observed + free).reshape((acc,) + tuple(shape[i] for i in free))
         return table.contiguous(), [ev_pos[scope[i]] for i in observed], strides[::-1]
 
+    def flat_codes(self, codes):
+        """``(n_tables, n)``: each row's flat observed code in each table."""
+        padded = torch.nn.functional.pad(codes, (0, 1))
+        return (padded[:, self._cols] * self._strides).sum(dim=2).t().contiguous()
+
     def rows(self, codes):
         """``tables[j][flat code of row i]`` for every table: a list of
         ``(n, *free axes)`` tensors."""
-        padded = torch.nn.functional.pad(codes, (0, 1))
-        flat = (padded[:, self._cols] * self._strides).sum(dim=2).t().contiguous()
+        flat = self.flat_codes(codes)
         return [table.index_select(0, flat[j]) for j, table in enumerate(self.tables)]
+
+
+class _LogGroup:
+    """Gathered CPD rows that share one free scope, combined in log space.
+
+    At a naive Bayes' width a thousand ``P(feature | class)`` rows share the
+    class axis; their float32 product underflows to 0 and the row normalises
+    to 0/0.  The members' log tables (float64, free axes in one order) are
+    concatenated once; per call one gather takes every member's rows, they
+    are summed, the per-row maximum is subtracted and the result
+    exponentiated: ONE operand of the contraction in place of the group.
+    The shift is a per-row constant and cancels in the row's normalisation.
+    """
+
+    def __init__(self, members, tables, free_orders, free):
+        logs, sizes = [], []
+        for j in members:
+            perm = [0] + [1 + free_orders[j].index(v) for v in free]
+            logs.append(torch.log(tables[j].permute(perm).to(torch.float64)))
+            sizes.append(logs[-1].shape[0])
+        self.free = free
+        self.members = torch.as_tensor(members, dtype=torch.int64, device=config.DEVICE)
+        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        self._offsets = torch.from_numpy(offsets).to(config.DEVICE)[:, None]
+        self._table = torch.cat(logs).contiguous()
+        self._free_dims = tuple(range(1, 1 + len(free)))
+
+    def operand(self, flat):
+        idx = flat.index_select(0, self.members) + self._offsets  # (m, n)
+        m, n = idx.shape
+        logp = self._table.index_select(0, idx.reshape(-1))
+        logp = logp.reshape((m, n) + self._table.shape[1:]).sum(dim=0)
+        shift = torch.amax(logp, dim=self._free_dims, keepdim=True)
+        shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
+        return torch.exp(logp - shift).to(config.DTYPE)
 
 
 class VariableElimination(Inference):
@@ -563,7 +602,12 @@ class VariableElimination(Inference):
         contraction: at MUNIN's width a thousand such numbers multiply to 0
         in float32 and the row would normalize to 0/0.  (For a row whose
         evidence has probability 0 the rows that result are therefore
-        conditional on the CPDs that remain, not NaN.)"""
+        conditional on the CPDs that remain, not NaN.)
+
+        The gathered rows of CPDs that keep the same free scope (every
+        ``P(feature | class)`` of a naive Bayes) are combined in log space
+        into one operand (:class:`_LogGroup`): their product would underflow
+        as well."""
         model, _ = self._prune_bayesian_model(
             list(variables), {v: 0 for v in ev_vars}
         )
@@ -583,7 +627,7 @@ class VariableElimination(Inference):
 
         ev_pos = {v: k for k, v in enumerate(ev_vars)}
         fixed, fixed_scopes = [], []  # CPDs with no observed axis
-        tables, ev_columns, ev_strides, gathered_scopes = [], [], [], []
+        tables, ev_columns, ev_strides, free_orders = [], [], [], []
         for cpd in model.cpds:
             scope = list(cpd.variables)
             free = [v for v in scope if v not in ev_pos]
@@ -596,8 +640,20 @@ class VariableElimination(Inference):
                 tables.append(table)
                 ev_columns.append(columns)
                 ev_strides.append(strides)
-                gathered_scopes.append(["__batch__"] + free)
+                free_orders.append(free)
         gather = _GatherPlan(tables, ev_columns, ev_strides, len(ev_vars)) if tables else None
+
+        by_scope = {}
+        for j, free in enumerate(free_orders):
+            by_scope.setdefault(frozenset(free), []).append(j)
+        singles = [js[0] for js in by_scope.values() if len(js) == 1]
+        log_groups = [
+            _LogGroup(js, tables, free_orders, free_orders[js[0]])
+            for js in by_scope.values() if len(js) > 1
+        ]
+        gathered_scopes = [["__batch__"] + free_orders[j] for j in singles] + [
+            ["__batch__"] + g.free for g in log_groups
+        ]
 
         var_to_int, operand_axes = make_axis_map(
             [["__batch__"]] + fixed_scopes + gathered_scopes
@@ -619,10 +675,11 @@ class VariableElimination(Inference):
                 # no remaining CPD sees the evidence: every row has one answer
                 values = sum_product_planned(operand_axes, query_axes, fixed)
                 return (values / torch.sum(values)).expand(n, *query_cards)
+            flat = gather.flat_codes(codes)
+            operands = [gather.tables[j].index_select(0, flat[j]) for j in singles]
+            operands += [group.operand(flat) for group in log_groups]
             values = sum_product_planned(
-                operand_axes,
-                (var_to_int["__batch__"],) + query_axes,
-                fixed + gather.rows(codes),
+                operand_axes, (var_to_int["__batch__"],) + query_axes, fixed + operands
             )
             norm = values.reshape(n, -1).sum(dim=1).reshape((n,) + (1,) * n_query)
             return values / norm

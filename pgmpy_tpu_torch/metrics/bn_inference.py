@@ -5,11 +5,13 @@ one program that, for each node, forms the flat parent index of every row and
 gathers one entry of the sampler's log table.  Here the sampler's log tables
 (``CompiledAncestralSampler._node_specs``, clamped at ``log(max(p, 1e-38))``
 as in the JAX package) are concatenated once into one flat vector on
-``config.DEVICE``, and the nodes are grouped by their number of parents: per
-group one column gather of the codes, the index arithmetic, one gather from
-the flat table and one row sum, so a call makes a few kernels per group
-instead of several per node.  The codes are uploaded once; the per-row sum is
-in ``config.DTYPE`` on the device, the total in float64 on the host.
+``config.DEVICE``, and the per-row sum is ``ops/table_gather.py``'s
+``TableGather`` (shared with the E-step of ``ExpectationMaximization``): per
+parent-count group one column gather of the codes, the index arithmetic, one
+gather from the flat table and one sum, so a call makes a few kernels per
+group instead of several per node.  The codes are uploaded once, column-major;
+the per-row sum is in ``config.DTYPE`` on the device, the total in float64 on
+the host.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pandas as pd
 import torch
 
 from pgmpy_tpu_torch.config import config, to_numpy
+from pgmpy_tpu_torch.ops.table_gather import TableGather
 from pgmpy_tpu_torch.sampling.core import CompiledAncestralSampler
 
 
@@ -29,32 +32,20 @@ class BayesianModelProbability:
         sizes = [int(log_table.numel()) for _, _, log_table in specs]
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
         self._table = torch.cat([log_table.reshape(-1) for _, _, log_table in specs])
-        # one group per parent count: (node columns, parent columns, the
-        # parents' strides scaled by the node's cardinality, table offsets)
-        by_count = {}
-        for i, (parent_idx, strides, _) in enumerate(specs):
-            by_count.setdefault(len(parent_idx), []).append(i)
-        def device(a):
-            return torch.as_tensor(a, dtype=torch.int64, device=config.DEVICE)
-
-        self._groups = []
-        for k, nodes in sorted(by_count.items()):
-            parents = np.array([specs[i][0] for i in nodes], dtype=np.int64).reshape(len(nodes), k)
-            scale = np.array([[s * self.sampler.cards[i] for s in specs[i][1]] for i in nodes],
-                             dtype=np.int64).reshape(len(nodes), k)
-            self._groups.append((device(nodes), device(parents.T), device(scale.T),
-                                 device(offsets[nodes])))
+        # a row's entry of node i: offset + code + sum_j parent code * stride * card
+        cards = self.sampler.cards
+        self._gather = TableGather(
+            [(i,) + tuple(parent_idx) for i, (parent_idx, _, _) in enumerate(specs)],
+            [(1,) + tuple(s * cards[i] for s in strides)
+             for i, (_, strides, _) in enumerate(specs)],
+            offsets, int(sum(sizes)), config.DEVICE,
+        )
 
     def _logp(self, codes):
-        """(n,) log P(row) in ``config.DTYPE`` on the device, from the (n, d)
-        int64 code matrix ``codes`` (columns in the sampler's order)."""
-        lp = torch.zeros(codes.shape[0], dtype=self._table.dtype, device=codes.device)
-        for nodes, parents, scale, offsets in self._groups:
-            flat = codes.index_select(1, nodes) + offsets
-            for j in range(parents.shape[0]):
-                flat = flat + codes.index_select(1, parents[j]) * scale[j]
-            lp = lp + self._table[flat].sum(dim=1)
-        return lp
+        """(n,) log P(row) in ``config.DTYPE`` on the device, from the
+        ``(d, n)`` code matrix ``codes`` (one row per variable, in the
+        sampler's order)."""
+        return self._gather.row_sums(self._table, codes)
 
     def pre_compute_reduce(self, variable):
         """Reference BayesianModelInference surface (ref sampling/base.py:38)."""
@@ -67,15 +58,15 @@ class BayesianModelProbability:
         )
 
     def _encode(self, data):
-        """The frame's state codes as one (n, d) int64 tensor on
-        ``config.DEVICE``, columns in the sampler's order.  A value outside a
-        variable's states raises ``ValueError``."""
-        codes = np.empty((data.shape[0], len(self.sampler.variables)), dtype=np.int64)
+        """The frame's state codes as one ``(d, n)`` int64 tensor on
+        ``config.DEVICE``, one row per variable in the sampler's order.  A
+        value outside a variable's states raises ``ValueError``."""
+        codes = np.empty((len(self.sampler.variables), data.shape[0]), dtype=np.int64)
         for j, var in enumerate(self.sampler.variables):
             column = pd.Index(self.sampler.state_names[var]).get_indexer(data[var])
             if (column < 0).any():
                 raise ValueError(f"Data holds a state of {var} outside its state names, or NaN.")
-            codes[:, j] = column
+            codes[j] = column
         return torch.from_numpy(codes).to(config.DEVICE)
 
     def log_probability(self, data, ordering=None):

@@ -4,6 +4,7 @@ from pgmpy_tpu_torch.models.factor_graph import FactorGraph
 from pgmpy_tpu_torch.models.cluster_graph import ClusterGraph
 from pgmpy_tpu_torch.models.junction_tree import JunctionTree
 from pgmpy_tpu_torch.models.markov_chain import MarkovChain
+from pgmpy_tpu_torch.models.naive_bayes import NaiveBayes
 from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
 from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork, DynamicNode
 
@@ -18,6 +19,7 @@ __all__ = [
     "ClusterGraph",
     "JunctionTree",
     "MarkovChain",
+    "NaiveBayes",
     "LinearGaussianBayesianNetwork",
     "DynamicBayesianNetwork",
     "DynamicNode",

@@ -14,7 +14,7 @@ import pandas as pd
 import torch
 
 from pgmpy_tpu_torch.base.dag import DAG
-from pgmpy_tpu_torch.config import TINY, logger, not_ported, to_numpy
+from pgmpy_tpu_torch.config import TINY, logger, to_numpy
 from pgmpy_tpu_torch.factors.cpd import TabularCPD
 
 
@@ -363,7 +363,11 @@ class DiscreteBayesianNetwork(DAG):
         return f"$ {out} $" if latex else out
 
     def is_imap(self, JPD):
-        not_ported("DiscreteBayesianNetwork.is_imap", "factors/jpd.py")
+        from pgmpy_tpu_torch.factors.jpd import JointProbabilityDistribution, model_joint_factor
+
+        if not isinstance(JPD, JointProbabilityDistribution):
+            raise TypeError("JPD must be an instance of JointProbabilityDistribution")
+        return JPD.to_factor() == model_joint_factor(self)
 
     def copy(self):
         model_copy = DiscreteBayesianNetwork()

@@ -47,10 +47,9 @@ class FactorGraph(UndirectedGraph):
             raise ValueError("Self loops can not be added")
 
     def add_factors(self, *factors, replace=False):
+        nodes = set(self.nodes())
         for factor in factors:
-            if set(factor.variables) - set(factor.variables).intersection(
-                set(self.nodes())
-            ):
+            if set(factor.variables) - nodes:
                 raise ValueError("Factors defined on variable not in the model", factor)
             if replace:
                 for existing in list(self.factors):

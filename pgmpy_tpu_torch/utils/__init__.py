@@ -1,5 +1,12 @@
 from pgmpy_tpu_torch.utils.state_name import StateNameMixin
-from pgmpy_tpu_torch.utils.utils import get_example_model, get_dataset_type, preprocess_data
+from pgmpy_tpu_torch.utils.utils import (
+    get_example_model,
+    get_dataset_type,
+    preprocess_data,
+    discretize,
+    llm_pairwise_orient,
+    manual_pairwise_orient,
+)
 from pgmpy_tpu_torch.utils.mathext import (
     State,
     cartesian,
@@ -14,6 +21,9 @@ __all__ = [
     "get_example_model",
     "get_dataset_type",
     "preprocess_data",
+    "discretize",
+    "llm_pairwise_orient",
+    "manual_pairwise_orient",
     "State",
     "cartesian",
     "sample_discrete",

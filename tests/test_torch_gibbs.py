@@ -392,6 +392,13 @@ def test_importing_the_mcmc_modules_leaves_jax_out():
         "    structure_score, implied_cis, fisher_c, SHD, get_metrics, BayesianModelProbability)\n"
         "from pgmpy_tpu_torch.inference import MinFill, MinNeighbors, MinWeight, WeightedMinFill\n"
         "from pgmpy_tpu_torch.utils import State, cartesian, powerset, sample_discrete\n"
+        "from pgmpy_tpu_torch.estimators import (ExpectationMaximization, MirrorDescentEstimator,\n"
+        "    ExpertInLoop)\n"
+        "from pgmpy_tpu_torch.factors import JointProbabilityDistribution, NoisyORCPD\n"
+        "from pgmpy_tpu_torch.models import NaiveBayes\n"
+        "from pgmpy_tpu_torch.inference import BeliefPropagationWithMessagePassing, Mplp\n"
+        "from pgmpy_tpu_torch.utils.interop import (factor_graph_from_numpy,\n"
+        "    markov_network_from_numpy)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'pgmpy_tpu.'))"
         " or k == 'pgmpy_tpu']\n"
         "print(bad)\n"

@@ -20,7 +20,11 @@ dataset log-probability of ``_v2``, all of ``_v3`` (PC skeleton and
 separating sets, ``correlation_score``, ``fisher_c``, ``implied_cis``),
 GES, MMHC and the residual CI tests of ``_v4``, ``log_likelihood_score`` and
 SHD of ``_v5``, ``pillai_trace`` and ``edge_strength`` of ``_v6`` and
-``DAG.to_pdag`` of ``_v7``."""
+``DAG.to_pdag`` of ``_v7``.
+
+The latent-variable lane and loopy inference run EM with a fixed init and
+Mplp's MAP of ``_v4``, ``NoisyORCPD`` of ``_v5``, and the JPD, discretize,
+``fit_update`` and partition-function suites of ``_v7``."""
 
 import filecmp
 import json
@@ -35,10 +39,13 @@ from _golden_data import (
     LinearPillaiClassifier,
     LinearPillaiRegressor,
     GAUSSIAN_FRAME_EDGES,
+    em_init_values,
+    mplp_grid_spec,
     standalone_dbn_frame,
     standalone_gaussian_frame,
     standalone_mixed_frame,
     standalone_sample,
+    standalone_sample_jpd,
 )
 from _torch_parity import np_values
 from pgmpy_tpu_torch import estimators
@@ -557,3 +564,182 @@ def test_v7_cpdag_edges(name):
             directed.append([str(u), str(v)])
     assert sorted(directed) == V7["to_pdag"][name]["directed"], name
     assert sorted(undirected) == V7["to_pdag"][name]["undirected"], name
+
+
+# --------------------------------------------------------------------------- #
+# the latent-variable lane and loopy inference
+# --------------------------------------------------------------------------- #
+def test_v4_em_fixed_init():
+    from pgmpy_tpu_torch.estimators import ExpectationMaximization
+    from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
+
+    g = V4["em"]
+    model = get_example_model(g["network"])
+    df = standalone_sample(model, g["n_rows"], seed=g["data_seed"]).drop(columns=[g["latent"]])
+    latent = g["latent"]
+    bn = DiscreteBayesianNetwork(list(model.edges()), latents={latent})
+    spec = [(var, 2, [(p, 2) for p in sorted(bn.get_parents(var), key=str)])
+            for var in sorted(bn.nodes(), key=str)]
+    init_vals = em_init_values(spec, seed=g["init_seed"])
+    init_cpds = {
+        var: TabularCPD(
+            var, card, init_vals[var],
+            evidence=[p for p, _ in parents] or None,
+            evidence_card=[pc for _, pc in parents] or None,
+            state_names={
+                v: sorted(model.get_cpds(v).state_names[v], key=str) if v != latent else [0, 1]
+                for v in [var] + [p for p, _ in parents]
+            },
+        )
+        for var, card, parents in spec
+    }
+    cpds = ExpectationMaximization(bn, df).get_parameters(
+        latent_card={latent: 2}, max_iter=g["max_iter"], atol=1e-12, seed=0,
+        init_cpds=init_cpds, show_progress=False)
+    ours = {str(c.variable): c for c in cpds}
+    for gc in g["cpds"]:
+        cpd = ours[gc["variable"]]
+        ev_ours = [str(e) for e in cpd.variables[1:]]
+        assert sorted(ev_ours) == sorted(gc["evidence"])
+        var = gc["variable"]
+        g_states = {k: [str(x) for x in v] for k, v in gc["state_names"].items()}
+        card = len(g_states[var])
+        arr = np.asarray(gc["values_2d"], dtype=np.float64).reshape(
+            [card] + [len(g_states[e]) for e in gc["evidence"]])
+        arr = np.transpose(arr, [0] + [1 + gc["evidence"].index(e) for e in ev_ours])
+        our_states = {str(v): [str(x) for x in cpd.state_names[v]] for v in cpd.variables}
+        index = [[g_states[var].index(x) for x in our_states[var]]] + [
+            [g_states[e].index(x) for x in our_states[e]] for e in ev_ours]
+        arr = arr[np.ix_(*index)]
+        np.testing.assert_allclose(np_values(cpd.get_values()), arr.reshape(card, -1),
+                                   atol=1e-4, err_msg=var)
+
+
+def test_v4_mplp_map_query():
+    import itertools
+
+    from pgmpy_tpu_torch.inference import Mplp
+    from pgmpy_tpu_torch.utils.interop import markov_network_from_numpy
+
+    g = V4["mplp"]
+    nodes, edges, unary, pairwise = mplp_grid_spec(g["rows"], g["cols"], seed=g["seed"])
+    scopes = [[n] for n in nodes] + [list(e) for e in edges]
+    tables = [unary[n] for n in nodes] + [pairwise[e] for e in edges]
+    mplp = Mplp(markov_network_from_numpy(scopes, {n: 2 for n in nodes}, tables))
+    assignment = {str(k): int(v) for k, v in mplp.map_query().items()}
+
+    def energy(assign):
+        return sum(np.log(unary[n][assign[n]]) for n in nodes) + sum(
+            np.log(pairwise[(u, v)][assign[u], assign[v]]) for u, v in edges)
+
+    best = max(energy(dict(zip(nodes, vals)))
+               for vals in itertools.product([0, 1], repeat=len(nodes)))
+    ref_energy = energy({k: int(v) for k, v in g["assignment"].items()})
+    assert energy(assignment) >= ref_energy - 1e-9
+    assert energy(assignment) == pytest.approx(best, abs=1e-9)
+    assert float(mplp.get_integrality_gap()) == pytest.approx(g["integrality_gap"], abs=1e-6)
+
+
+def test_v5_noisy_or_values():
+    from pgmpy_tpu_torch.factors import NoisyORCPD
+
+    for case in V5["noisy_or"]:
+        cpd = NoisyORCPD(case["variable"], case["prob_values"], evidence=case["evidence"])
+        np.testing.assert_allclose(np_values(cpd.get_values()), case["values_2d"], atol=1e-12)
+        for v in cpd.variables:
+            assert [str(x) for x in cpd.state_names[v]] == case["state_names"][str(v)]
+
+
+def v7_jpd(variables, cards, values):
+    from pgmpy_tpu_torch.factors import JointProbabilityDistribution
+
+    return JointProbabilityDistribution(variables, cards, np.asarray(values))
+
+
+def test_v7_jpd_minimal_imap_reference_semantics():
+    g = V7["jpd"]
+    jpd = v7_jpd(["A", "B", "C"], [2, 3, 2], g["values"])
+    for order_key, want in g["minimal_imap_edges"].items():
+        if order_key == "uniform_ABC":
+            dist, order = v7_jpd(["A", "B", "C"], [2, 3, 2], np.ones(12) / 12), ["A", "B", "C"]
+        elif order_key == "partial_ABC":
+            ab = np.array([[0.30, 0.10, 0.05], [0.05, 0.15, 0.35]])
+            c = np.array([0.4, 0.6])
+            dist = v7_jpd(["A", "B", "C"], [2, 3, 2], np.einsum("ab,c->abc", ab, c).ravel())
+            order = ["A", "B", "C"]
+        else:
+            dist, order = jpd, list(order_key)
+        got = sorted([str(u), str(v)] for u, v in dist.minimal_imap(order).edges())
+        assert got == want, order_key
+
+
+def test_v7_jpd_is_imap():
+    from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
+
+    g = V7["jpd"]
+    jpd = v7_jpd(["A", "B", "C"], [2, 3, 2], g["values"])
+    bn = DiscreteBayesianNetwork([("A", "B"), ("A", "C"), ("B", "C")])
+    bn.fit(standalone_sample_jpd(jpd, 4000, seed=5))
+    assert jpd.is_imap(bn) == g["is_imap_full_bn"]
+
+
+def test_v7_discretize_rounding_and_quantile():
+    from pgmpy_tpu_torch.utils import discretize
+
+    g = V7["discretize"]
+    gdf = standalone_gaussian_frame(g["n_rows"], seed=g["seed"])
+    for method in ["rounding", "quantile"]:
+        disc = discretize(gdf, cardinality={c: 4 for c in gdf.columns}, method=method)
+        for c in gdf.columns:
+            assert [str(x) for x in disc[c].tolist()] == g[method][c], (method, c)
+
+
+def test_v7_dataset_type():
+    from pgmpy_tpu_torch.utils import get_dataset_type
+
+    assert str(get_dataset_type(standalone_mixed_frame(50, seed=42))) == \
+        V7["discretize"]["dataset_type"]
+
+
+def test_v7_fit_update_dirichlet():
+    g = V7["fit_update"]
+    model = get_example_model("asia")
+    model.fit_update(standalone_sample(model, g["n_rows"], seed=g["seed"]),
+                     n_prev_samples=g["n_prev_samples"])
+    for var, want in g["cpds"].items():
+        cpd = model.get_cpds(var)
+        assert [str(v) for v in cpd.variables[1:]] == want["evidence"], var
+        np.testing.assert_allclose(np_values(cpd.get_values()),
+                                   np.asarray(want["values"], dtype=np.float64), atol=1e-10,
+                                   err_msg=var)
+
+
+def test_v7_markov_network_partition_function():
+    from pgmpy_tpu_torch.utils.interop import markov_network_from_numpy
+
+    nodes, edges, unary, pairwise = mplp_grid_spec(3, 3, seed=17)
+    scopes = [[n] for n in nodes] + [list(e) for e in edges]
+    tables = [unary[n] for n in nodes] + [pairwise[e] for e in edges]
+    mn = markov_network_from_numpy(scopes, {n: 2 for n in nodes}, tables)
+    assert float(mn.get_partition_function()) == pytest.approx(
+        V7["markov_network"]["partition_function"], rel=1e-5)
+
+
+def test_v7_factor_graph_partition_function():
+    """At the JAX suite's 1e-9 the tables must be float64: float32 tables
+    round each entry by up to 6e-8 (the JAX package meets 1e-9 only because
+    its float32 total happens to round to within 1e-10 of the answer)."""
+    import torch
+
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.utils.interop import factor_graph_from_numpy
+
+    nodes, edges, unary, pairwise = mplp_grid_spec(2, 3, seed=23)
+    config.set_dtype(torch.float64)
+    try:
+        fg = factor_graph_from_numpy([list(e) for e in edges], {n: 2 for n in nodes},
+                                     [pairwise[e] for e in edges])
+        z = float(fg.get_partition_function())
+    finally:
+        config.set_dtype(torch.float32)
+    assert z == pytest.approx(V7["markov_network"]["fg_partition_function"], rel=1e-9)
