@@ -79,7 +79,21 @@ Runs from the repository root and needs one CUDA card.  It
    grid against the junction tree, a star of 600 leaves against its exact
    beliefs, and ``Mplp.map_query`` on the v4 golden's grid and a 12 x 12 grid
    with diagonals (against the CPU run);
-11. prints the card, the timings, one JSON line describing each kernel (its
+11. drives the causal and SEM lane (``phase_causal``): do-queries on MUNIN
+   through ``BeliefPropagation`` (R_APB_EFFMUS := OTHER, 49 combinations in
+   one ``query_batch``; R_LNLW_APB_MUSIZE's 100 combinations, NaN in the
+   reference semantics) and on ALARM through ``VariableElimination``
+   (CATECHOL := HIGH, 54 combinations), each against the per-combination
+   loop on the card, the truncated factorisation and the CPU run;
+   ``Adjustment`` / ``Frontdoor`` on the twelve teaching DAGs, minimal
+   adjustment sets of 20 seeded MUNIN pairs and a MAG on ALARM against the
+   CPU run; ``SEMEstimator.fit`` (ML, Adam, run to its stopping rule) of
+   Bollen's political-democracy model and of ecoli70 as a path SEM on 50,000
+   rows (against the CPU run of the same steps, Bollen also against the
+   parameters its rows were drawn from and ecoli70 against OLS), ``IVEstimator`` on
+   500,000 rows against numpy 2SLS and ``estimate_ate`` against
+   ``LinearEstimator``;
+12. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -350,6 +364,52 @@ def munin_count_inputs(model, codes):
     return host, cm, cards, col_lists, card_lists
 
 
+def library_index(cm, n, specs, chunk=1024):
+    """Every spec's flat table entry per row, offset into one index space: the
+    input of one ``torch.bincount`` that computes all of ``specs``'s tables
+    (built in chunks of specs, outside any timed window)."""
+    idx = torch.empty((len(specs), n), dtype=torch.int64, device=cm.device)
+    for width in np.unique(specs.n_cols):
+        rows = np.flatnonzero(specs.n_cols == width)
+        for start in range(0, rows.size, chunk):
+            part = rows[start:start + chunk]
+            cols = torch.as_tensor(specs.cols[part, :width].reshape(-1), device=cm.device)
+            strides = torch.as_tensor(specs.strides[part, :width], device=cm.device)
+            g = cm.index_select(0, cols)[:, :n].view(len(part), width, n).long()
+            idx[torch.as_tensor(part, device=cm.device)] = (g * strides[:, :, None]).sum(dim=1) \
+                + torch.as_tensor(specs.offsets[part], device=cm.device)[:, None]
+            del g
+    return idx.view(-1)
+
+
+def library_bincount(name, cm, n, specs, ref, weights=None):
+    """(max_abs_err, ms) of one ``torch.bincount`` over every spec's flat index
+    (weights repeated per spec) against the plain version's tables ``ref``:
+    equal without weights; with them within 1e-3, as ``torch.bincount`` adds
+    float32 weights with one global atomic per row.  Median of 5 device-time
+    runs."""
+    flat_idx = library_index(cm, n, specs)
+    flat_w = None if weights is None else weights.repeat(len(specs))
+    lib = torch.bincount(flat_idx, weights=flat_w, minlength=specs.total)
+    err = float((lib.double() - ref.double()).abs().max())
+    if weights is None:
+        check(lib.numel() == specs.total and torch.equal(lib, ref.to(lib.dtype)),
+              f"k1 {name}: torch.bincount differs from the plain version by {err}")
+    else:
+        check(lib.numel() == specs.total and torch.allclose(lib.double(), ref.double(),
+                                                              rtol=1e-3, atol=1e-3),
+              f"k1 {name}: torch.bincount differs from the plain version by {err}")
+    ms = cuda_median_ms(lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total),
+                        reps=5, warmup=1, device_only=True)
+    log(f"k1t {name} library torch_bincount_ms={ms:.5f} (one call over the {len(specs)} specs "
+        f"offset into one index space of {flat_idx.numel()} int64 entries, "
+        f"{flat_idx.numel() * 8 / 1e9:.2f} GB, built outside the timing; median of 5; "
+        f"max_abs_err {err:.3e})")
+    del flat_idx, flat_w, lib
+    torch.cuda.empty_cache()
+    return err, ms
+
+
 def phase_table_counts(model, codes):
     """The table-count kernel against its plain version on MUNIN's code
     matrix (50,000 rows x 1041 columns) and its 1041 (node, parents) specs."""
@@ -427,8 +487,9 @@ def phase_table_counts(model, codes):
         f"{int(specs.n_cols.sum())} kernel_ms={ms:.5f} weighted_kernel_ms={ms_w:.5f} "
         f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.6f} ({bound_by}) "
         f"weighted_bound_ms={wbound_ms:.6f} (kernel: device time, median of 20; plain: 3 runs)")
+    _, library_ms = library_bincount("munin", cm, n_rows, specs, full)
     return {"err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 # --------------------------------------------------------------------------- #
@@ -1661,7 +1722,9 @@ def phase_structure(munin_df):
         f"descriptor_bytes={desc_bytes} equal to the plain version, kernel_ms={ms:.4f} (device "
         f"time, median of 5) plain_ms={plain_s * 1e3:.1f} (one run) bound_ms={bound_ms:.5f} "
         f"({bound_by}) bytes_if_each_spec_reads_its_columns {per_spec_bytes} at 3.35 TB/s "
-        f"{per_spec_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"{per_spec_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms library_ms null (one torch.bincount "
+        f"would take an index of {n_pairs * coded.n} int64 entries, "
+        f"{n_pairs * coded.n * 8 / 1e9:.0f} GB, beyond the card's 80 GB)")
     log(f"treesearch_munin rows={coded.n} columns={n_vars} pairs={n_pairs} treesearch_s "
         f"{treesearch_s:.3f} specs_s {timings['specs_s']:.3f} launch_s {timings['launch_s']:.3f} "
         f"readback_s {timings['readback_s']:.3f} mutual_info_s {timings['mutual_info_s']:.3f} "
@@ -1911,13 +1974,14 @@ def phase_constraint(fitted_munin, munin_df):
     nbytes = used * coded.n * cm.element_size() + table.total * 4 + desc_bytes
     bound_ms, bound_by = bound(nbytes, 2 * int(table.n_cols.sum()) * coded.n)
     per_spec_bytes = int(table.n_cols.sum()) * coded.n * cm.element_size() + table.total * 4
+    _, library_ms = library_bincount("pc_level1", cm, coded.n, table, ref)
     level1 = {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None}
+              "bound_by": bound_by, "library_ms": library_ms}
     log(f"k1t pc_level1 specs={len(table)} rows={coded.n} codes={cm.dtype} entries={table.total} "
         f"descriptor_bytes={desc_bytes} equal to the plain version, kernel_ms={ms:.5f} (device "
         f"time, median of 20) plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} "
         f"({bound_by}) bytes_if_each_spec_reads_its_columns {per_spec_bytes} at 3.35 TB/s "
-        f"{per_spec_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms library_ms null")
+        f"{per_spec_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms library_ms {library_ms:.5f}")
     t0 = time.perf_counter()
     results = real_batch(triples, lambda_="pearson", coded=coded)
     torch.cuda.synchronize()
@@ -2018,28 +2082,7 @@ def k1_shape_row(name, cm, n, specs, weights=None):
         + (0 if weights is None else n * weights.element_size()) \
         + 8 * len(specs) * (6 + 2 * specs.cols.shape[1])
     bound_ms, bound_by = bound(nbytes, 2 * int(specs.n_cols.sum()) * n)
-    # the library call's index: per spec its flat entry, offset into one space
-    idx = torch.empty((len(specs), n), dtype=torch.int64, device=cm.device)
-    for width in np.unique(specs.n_cols):
-        rows = np.flatnonzero(specs.n_cols == width)
-        cols = torch.as_tensor(specs.cols[rows, :width].reshape(-1), device=cm.device)
-        strides = torch.as_tensor(specs.strides[rows, :width], device=cm.device)
-        g = cm.index_select(0, cols)[:, :n].view(len(rows), width, n).long()
-        idx[torch.as_tensor(rows, device=cm.device)] = (g * strides[:, :, None]).sum(dim=1) \
-            + torch.as_tensor(specs.offsets[rows], device=cm.device)[:, None]
-        del g
-    flat_idx = idx.view(-1)
-    flat_w = None if weights is None else weights.repeat(len(specs))
-    lib = torch.bincount(flat_idx, weights=flat_w, minlength=specs.total)
-    lib_err = float((lib.double() - ref.double()).abs().max())
-    # torch.bincount adds float32 weights with global atomics, one per row
-    check(lib.numel() == specs.total and torch.allclose(lib.double(), ref.double(), rtol=1e-3,
-                                                          atol=1e-3),
-          f"k1 {name}: torch.bincount differs from the plain version by {lib_err}")
-    library_ms = cuda_median_ms(
-        lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total),
-        reps=5, warmup=1, device_only=True)
-    del idx, flat_idx, flat_w, lib
+    lib_err, library_ms = library_bincount(name, cm, n, specs, ref, weights)
     row = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
     log(f"k1t {name} specs={len(specs)} rows={n} codes={cm.dtype} entries={specs.total} "
@@ -2558,6 +2601,524 @@ def phase_loopy():
     return table_launches, bincount_launches
 
 
+# --------------------------------------------------------------------------- #
+# the causal and SEM lane
+# --------------------------------------------------------------------------- #
+# MUNIN's do-query: a node with two parents, 7 x 7 = 49 combinations, whose
+# state OTHER has no zero in its CPD row.  Every state of every MUNIN node
+# with three parents (R_LNLW_APB_MUSIZE among them) has a zero at some
+# combination of positive weight, so its adjusted answer is NaN in the JAX
+# package's semantics; R_LNLW_APB_MUSIZE's 100 combinations still run, and
+# the batched answer must be NaN where the loop's is.
+CAUSAL_DO = ("R_APB_EFFMUS", "OTHER")
+CAUSAL_DO_NAN = ("R_LNLW_APB_MUSIZE", "NORMAL")
+SEM_ROWS = 50_000
+IV_ROWS = 500_000
+ADJUSTMENT_PAIRS = 20
+MAG_BIDIRECTED = 6
+# lower_manipulation's visibility test walks every simple path from each
+# non-adjacent node until one qualifies: on this MAG it ends within a second
+# for these nodes only (the others take 10-25 s each on a CPU)
+MAG_MANIPULATED = ["CATECHOL", "LVEDVOLUME", "STROKEVOLUME"]
+# Frontdoor enumerates the power set of the other observed nodes: only DAGs
+# with at most this many candidates (8 of the 12 teaching DAGs)
+FRONTDOOR_MAX_CANDIDATES = 11
+# Fits on the card are held to the CPU's run of the same steps (the CPU's with
+# exit_delta=0).  Bollen's whole fit is reproducible to float32 rounding: a
+# relative 1e-7 change of its rows moves B by 1.3e-06 after 2,048 steps
+# (tools/sem_fit_sensitivity.py on a CPU).  ecoli70's is not: Adam at lr 0.05
+# is chaotic about that optimum, and the same change moves B by 9.7e-06 after
+# 128 steps but 1.8e-03 after 256 (in float64 a 1e-15 change moves it 3.4e-04
+# after 1,216).  So ecoli70 is held to the CPU over its first 64-step chunk,
+# and its whole fit to its OLS coefficients, the ML optimum of a recursive path
+# model: ten CPU fits of rows changed by 0 to 9e-7 stopped after 384 to 2,048
+# steps between 1.0e-04 and 2.3e-03 from them.
+SEM_FIT_LIMIT = 3e-5
+SEM_OLS_LIMIT = 5e-3
+# Bollen's fitted loadings and regressions against the parameters the rows
+# were drawn from, in asymptotic standard errors of the ML estimate at
+# SEM_ROWS rows: over 11 free entries, |z| > 5 has probability ~6e-6.  That
+# holds for a fit that reached its stopping rule: with the default max_iter
+# (2000) Adam stops Bollen's fit at 2,048 steps before exit_delta does, with
+# dem60 -> y2 3.1 standard errors off on average over 16 draws; so Bollen is
+# fitted with max_iter 8000 (tools/sem_fit_sensitivity.py).
+BOLLEN_Z_LIMIT = 5.0
+BOLLEN_MAX_ITER = 8000
+# estimate_ate: a pair whose backdoor enumeration ends at once (the empty set
+# is valid), and a pair that needs {eutG}, given explicitly: any ecoli70 edge
+# that needs a non-empty set enumerates 2^18 or more subsets (119 s for
+# sucA -> yfaD on a CPU)
+ATE_SMALLEST = ("asnA", "lacA")
+ATE_EXPLICIT = ("sucA", "yfaD", frozenset({"eutG"}))
+# Bollen's industrialization and political democracy model (lavaan's
+# documentation); parameters close to lavaan's published estimates
+BOLLEN_LATENTS = ["ind60", "dem60", "dem65"]
+BOLLEN_EDGES = {
+    ("ind60", "x1"): 1.0, ("ind60", "x2"): 2.180, ("ind60", "x3"): 1.819,
+    ("dem60", "y1"): 1.0, ("dem60", "y2"): 1.257, ("dem60", "y3"): 1.058, ("dem60", "y4"): 1.265,
+    ("dem65", "y5"): 1.0, ("dem65", "y6"): 1.186, ("dem65", "y7"): 1.280, ("dem65", "y8"): 1.266,
+    ("ind60", "dem60"): 1.483, ("ind60", "dem65"): 0.572, ("dem60", "dem65"): 0.837,
+}
+BOLLEN_SCALING = {("ind60", "x1"), ("dem60", "y1"), ("dem65", "y5")}
+BOLLEN_ERR_COV = {("y1", "y5"): 0.624, ("y2", "y4"): 1.313, ("y2", "y6"): 2.153,
+                  ("y3", "y7"): 0.795, ("y4", "y8"): 0.348, ("y6", "y8"): 1.356}
+BOLLEN_VARIANCES = {"x1": 0.082, "x2": 0.120, "x3": 0.467, "y1": 1.891, "y2": 7.373,
+                    "y3": 5.067, "y4": 3.148, "y5": 2.351, "y6": 4.954, "y7": 3.431,
+                    "y8": 3.254, "ind60": 0.448, "dem60": 3.956, "dem65": 0.172}
+
+
+def cpd_tuples(model):
+    return [(c.variable, c.variable_card, c.get_values(), c.variables[1:],
+             [int(x) for x in c.cardinality[1:]], c.state_names) for c in model.get_cpds()]
+
+
+def truncated_network(model, do_var, state):
+    """The network of P(. | do(do_var = state)): the edges into ``do_var``
+    cut and its CPD a point mass on ``state``."""
+    from pgmpy_tpu_torch.utils.interop import bn_from_numpy
+
+    states = list(model.states[do_var])
+    point = np.zeros((len(states), 1))
+    point[states.index(state), 0] = 1.0
+    cpds = [t if t[0] != do_var else (do_var, len(states), point, [], [], {do_var: states})
+            for t in cpd_tuples(model)]
+    return bn_from_numpy([e for e in model.edges() if e[1] != do_var], cpds,
+                         nodes=list(model.nodes()))
+
+
+def factor_diff(a, b):
+    """Max |a - b| over two factors' values (NaN where exactly one is NaN)."""
+    x, y = a.values.double().cpu(), b.values.double().cpu()
+    check(list(a.variables) == list(b.variables), "factor variables differ")
+    check(bool((x.isnan() == y.isnan()).all()), "factor NaN patterns differ")
+    both = ~x.isnan()
+    return float((x[both] - y[both]).abs().max()) if bool(both.any()) else 0.0
+
+
+def do_query_case(name, model, cpu_model, variables, do, algo, truncated_limit):
+    """A do-query on the card (one batched query), against the JAX package's
+    per-combination loop on the card, the truncated factorisation and the
+    CPU run; returns the numbers the phase prints."""
+    from pgmpy_tpu_torch.inference import BeliefPropagation, CausalInference, VariableElimination
+
+    engine = {"ve": VariableElimination, "bp": BeliefPropagation}[algo]
+    loop_engine = type(f"Loop{engine.__name__}", (engine,), {"query_batch": None})
+    ci = CausalInference(model)
+    run = lambda: ci.query(variables, do=do, inference_algo=algo)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = run()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    query_s = host_median_s(run, reps=1)
+    t0 = time.time()
+    loop = ci.query(variables, do=do, inference_algo=loop_engine)
+    torch.cuda.synchronize()
+    loop_s = time.time() - t0
+    (do_var, state), = do.items()
+    combos = int(np.prod([model.get_cardinality(p) for p in model.get_parents(do_var)]))
+    loop_err = factor_diff(got, loop)
+    check(got.values.is_cuda and loop_err <= 1e-5,
+          f"{name}: batched and per-combination answers differ by {loop_err}")
+    finite = bool(torch.isfinite(got.values).all())
+    out = {"first_s": first_s, "query_s": query_s, "loop_s": loop_s, "combos": combos,
+           "loop_err": loop_err, "finite": finite}
+    if finite:
+        truth = engine(truncated_network(model, do_var, state)).query(variables)
+        out["truncated_err"] = factor_diff(got, truth)
+        check(out["truncated_err"] <= truncated_limit,
+              f"{name}: {out['truncated_err']} from the truncated factorisation")
+    with on_device("cpu"):
+        cpu = CausalInference(cpu_model).query(variables, do=do, inference_algo=algo)
+    out["cpu_err"] = factor_diff(got, cpu)
+    check(out["cpu_err"] <= 1e-5, f"{name}: {out['cpu_err']} from the CPU run")
+    return got, out
+
+
+def teaching_dag(name):
+    """A teaching DAG with the exposure and outcome its dagitty file marks."""
+    import re
+
+    from pgmpy_tpu_torch.utils import get_example_model
+    from pgmpy_tpu_torch.utils.utils import _EXAMPLE_DIR
+
+    with open(os.path.join(_EXAMPLE_DIR, f"{name}.txt")) as fh:
+        text = fh.read()
+    dag = get_example_model(name)
+    for role in ("exposure", "outcome"):
+        dag = dag.with_role(role, [re.search(r"^(\S+) \[" + role, text, re.M).group(1)],
+                            inplace=False)
+    return dag
+
+
+def identification_outputs(munin, alarm):
+    """Adjustment and Frontdoor on the teaching DAGs, minimal adjustment sets
+    of seeded (X, Y) pairs of MUNIN and the MAG operations on ALARM: host
+    graph code, returned whole to be compared with the CPU run."""
+    import networkx as nx
+
+    from pgmpy_tpu_torch.base import MAG
+    from pgmpy_tpu_torch.identification import Adjustment, Frontdoor
+    from pgmpy_tpu_torch.inference import CausalInference
+    from pgmpy_tpu_torch.utils.utils import DAG_MODELS
+
+    out, skipped = {}, []
+    for name in sorted(DAG_MODELS):
+        dag = teaching_dag(name)
+        found, ok = Adjustment("minimal")(dag)
+        row = [ok, found.get_role("adjustment")]
+        x, y = dag.get_role("exposure")[0], dag.get_role("outcome")[0]
+        if len(set(dag.observed) - {x, y}) <= FRONTDOOR_MAX_CANDIDATES:
+            found, ok = Frontdoor("all")(dag)
+            row += [ok, sorted(map(sorted, (g.get_role("frontdoor") for g in found)))
+                    if ok else None]
+        else:
+            skipped.append(name)
+        out[name] = row
+    rng = np.random.default_rng(SEED + 11)
+    nodes = sorted(munin.nodes())
+    ci = CausalInference(munin)
+    pairs = []
+    while len(pairs) < ADJUSTMENT_PAIRS:
+        x = nodes[rng.integers(len(nodes))]
+        below = sorted(nx.descendants(munin, x))
+        if below:
+            pairs.append((x, below[rng.integers(len(below))]))
+    out["munin_minimal_adjustment"] = [(x, y, ci.get_minimal_adjustment_set(x, y))
+                                       for x, y in pairs]
+    names = sorted(alarm.nodes())
+    mag = MAG(directed_ebunch=list(alarm.edges()))
+    rng = np.random.default_rng(SEED + 12)
+    added = []
+    while len(added) < MAG_BIDIRECTED:
+        u, v = (str(n) for n in rng.choice(names, 2, replace=False))
+        if mag.has_edge(u, v):
+            continue
+        mag.add_edge(u, v, ">", ">")
+        if mag.is_ancestral():
+            added.append((u, v))
+        else:
+            mag.remove_edge(u, v)
+    triples = [(names[a], names[b], [names[c]]) for a, b, c in rng.choice(len(names), (40, 3))
+               if len({a, b, c}) == 3]
+    marks = lambda g: sorted((tuple(sorted((u, v))), tuple(sorted(d["marks"].items())))  # noqa: E731
+                             for u, v, d in g.edges(data=True))
+    out["alarm_mag"] = (added, [mag.is_mseparated(x, y, z) for x, y, z in triples],
+                        marks(mag.lower_manipulation(set(MAG_MANIPULATED))),
+                        marks(mag.upper_manipulation(set(MAG_MANIPULATED))))
+    return out, skipped, pairs
+
+
+def bollen_parameters(alg):
+    """Bollen's B and S at the parameters above, in ``alg``'s variable order."""
+    idx = {v: i for i, v in enumerate(alg.variables)}
+    n = len(idx)
+    B, S = np.zeros((n, n)), np.zeros((n, n))
+    for (u, v), w in BOLLEN_EDGES.items():
+        B[idx[v], idx[u]] = w
+    for (u, v), w in BOLLEN_ERR_COV.items():
+        S[idx[u], idx[v]] = S[idx[v], idx[u]] = w
+    for v, w in BOLLEN_VARIANCES.items():
+        S[idx[v], idx[v]] = w
+    return B, S
+
+
+def bollen_data(seed):
+    """The Bollen SEM (scaling loadings fixed at 1) and SEM_ROWS rows drawn
+    from it at the parameters above; checks that the implied covariance of
+    the draw was computed on the card."""
+    from pgmpy_tpu_torch.models import SEM
+
+    sem = SEM.from_graph(
+        ebunch=[(u, v, 1.0) if (u, v) in BOLLEN_SCALING else (u, v) for u, v in BOLLEN_EDGES],
+        latents=BOLLEN_LATENTS, err_corr=list(BOLLEN_ERR_COV))
+    alg = sem.to_lisrel()
+    alg.set_params(*bollen_parameters(alg))
+    devices, implied = [], alg.implied_covariance
+    alg.implied_covariance = lambda B, S: (devices.append(B.device), implied(B, S))[1]
+    df = alg.generate_samples(n_samples=SEM_ROWS, seed=seed)
+    check([d.type for d in devices] == ["cuda"], f"Bollen's Sigma was built on {devices}")
+    return sem, df
+
+
+def bollen_standard_errors(alg, rows):
+    """{(row, column): standard error} of the ML estimates of B's free
+    entries at the parameters the rows were drawn from: the inverse of the
+    Fisher information (rows / 2) tr(Sigma^-1 dSigma_i Sigma^-1 dSigma_j)
+    over every parameter the fit frees (B's free entries, every variance, the
+    error covariances), in float64 on the host with this script's own
+    F (I - B)^-1 S (I - B)^-T F^T."""
+    B0, S0 = (torch.tensor(m, dtype=torch.float64) for m in bollen_parameters(alg))
+    n = len(alg.variables)
+    b_at = np.argwhere(alg.B_mask & np.isnan(alg.B_fixed)).T
+    s_at = np.array([(i, j) for i, j in np.argwhere(alg.S_mask & np.isnan(alg.S_fixed))
+                     if i < j]).T
+    diag = np.arange(n)
+    observed = [alg.variables.index(v) for v in alg.observed]
+    k = b_at.shape[1]
+
+    def sigma(theta):
+        B = B0.index_put((torch.as_tensor(b_at[0]), torch.as_tensor(b_at[1])), theta[:k])
+        S = S0.index_put((torch.as_tensor(diag), torch.as_tensor(diag)), theta[k:k + n])
+        S = S.index_put((torch.as_tensor(s_at[0]), torch.as_tensor(s_at[1])), theta[k + n:])
+        S = S.index_put((torch.as_tensor(s_at[1]), torch.as_tensor(s_at[0])), theta[k + n:])
+        inv = torch.linalg.inv(torch.eye(n, dtype=torch.float64) - B)
+        return (inv @ S @ inv.T)[observed][:, observed]
+
+    theta = torch.cat([B0[tuple(b_at)], S0[diag, diag], S0[tuple(s_at)]])
+    jac = torch.autograd.functional.jacobian(sigma, theta)
+    scaled = torch.einsum("ab,bci->aci", torch.linalg.inv(sigma(theta)), jac)
+    information = rows / 2 * torch.einsum("abi,baj->ij", scaled, scaled)
+    se = torch.linalg.inv(information).diagonal()[:k].sqrt().numpy()
+    return {(int(r), int(c)): float(e) for r, c, e in zip(*b_at, se)}
+
+
+def profiled_busy(fn):
+    """(kernels, busy device ms, wall ms, {name: (count, us)}) of one call of
+    ``fn`` under ``torch.profiler``; busy time is the union of the kernels'
+    intervals (cuSOLVER's kernels overlap), of the session with the most
+    records of three (see :func:`profiled`).  User annotations that the
+    profiler also puts on the device's timeline (``Optimizer.step#Adam.step``
+    spans a whole step) are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = (0, 0.0, 0.0, {})
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        busy, end = 0.0, float("-inf")
+        by_name = {}
+        for e in sorted(kernels, key=lambda e: e.time_range.start):
+            start, stop = e.time_range.start, e.time_range.end
+            busy += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+            count, total = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, total + stop - start)
+        if len(kernels) > best[0]:
+            best = (len(kernels), busy / 1e3, wall_ms, by_name)
+    return best
+
+
+class StepCount:
+    """A loss function that counts its calls under autograd: one per
+    optimizer step (``fit`` takes its final loss without gradients)."""
+
+    def __init__(self, fn):
+        self.fn, self.steps = fn, 0
+
+    def __call__(self, params, args):
+        self.steps += torch.is_grad_enabled()
+        return self.fn(params, args)
+
+
+def sem_fit_case(name, sem, df, hold_whole_fit, max_iter=2000):
+    """``SEMEstimator.fit(method="ml")`` with its defaults but ``max_iter`` on
+    the card; the kernels, busy device time and host time per step.  The whole
+    fit (``hold_whole_fit``) or its first 64-step chunk is held to the CPU's
+    run of the same steps."""
+    from pgmpy_tpu_torch.estimators import SEMEstimator
+    from pgmpy_tpu_torch.utils.optimizer import CHUNK
+
+    estimator = SEMEstimator(sem)
+    loss = estimator.ml_loss = StepCount(estimator.ml_loss)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    summary = estimator.fit(df, method="ml", max_iter=max_iter)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    steps = loss.steps
+    t0 = time.time()
+    chunk = SEMEstimator(sem).fit(df, method="ml", max_iter=CHUNK)
+    torch.cuda.synchronize()
+    chunk_s = time.time() - t0
+    # a 16-step fit, profiled: kernels, busy device time and the busy share
+    kernels, busy_ms, wall_ms, by_name = profiled_busy(
+        lambda: SEMEstimator(sem).fit(df, method="ml", max_iter=16))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    held, held_steps = (summary, steps) if hold_whole_fit else (chunk, CHUNK)
+    with on_device("cpu"):
+        t0 = time.time()
+        cpu = SEMEstimator(sem).fit(df, method="ml", max_iter=held_steps, exit_delta=0.0)
+        cpu_s = time.time() - t0
+    err = float(np.abs(held["B"] - cpu["B"]).max())
+    check(np.isfinite(summary["B"]).all() and np.isfinite(summary["loss"]),
+          f"{name}: the fit is not finite")
+    check(err <= SEM_FIT_LIMIT, f"{name}: B after {held_steps} steps {err} from the CPU run's")
+    log(f"sem_{name} rows={len(df)} variables={len(summary['variables'])} observed="
+        f"{summary['S_emp'].shape[0]} sem_fit_s {fit_s:.3f} max_iter {max_iter} steps {steps} "
+        f"host_reads "
+        f"{-(-steps // CHUNK)} (one per {CHUNK}-step chunk) "
+        f"loss {summary['loss']:.6f} kernels_per_step {kernels / 16:.1f} device_ms_per_step "
+        f"{busy_ms / 16:.4f} step_host_ms {chunk_s / CHUNK * 1e3:.3f} idle_share "
+        f"{1 - busy_ms / wall_ms:.4f} (host ms from a {CHUNK}-step fit; kernels, busy device "
+        f"ms and the busy share from a profiled 16-step fit, whose largest device operations "
+        f"are {'; '.join(f'{n[:48]} x{c} {us / 1e3:.3f} ms' for n, (c, us) in top)}); "
+        f"B after {held_steps} steps within {err:.3e} of the CPU run's (limit "
+        f"{SEM_FIT_LIMIT}; the CPU's {held_steps} steps {cpu_s:.3f} s)")
+    return summary
+
+
+def phase_causal(munin):
+    """The causal and SEM lane: do-queries on MUNIN (BeliefPropagation) and
+    ALARM (VariableElimination), identification on the teaching DAGs, MUNIN
+    and a MAG on ALARM, SEM fits of Bollen's model and of ecoli70, 2SLS and
+    ``estimate_ate``."""
+    import networkx as nx
+
+    from pgmpy_tpu_torch.base import DAG
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.estimators import IVEstimator
+    from pgmpy_tpu_torch.inference import CausalInference, LinearEstimator
+    from pgmpy_tpu_torch.models import SEM, LinearGaussianBayesianNetwork
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.utils import get_example_model
+    from pgmpy_tpu_torch.utils.interop import bn_from_numpy
+
+    alarm = get_example_model("alarm")
+    ecoli = get_example_model("ecoli70")
+    rng = np.random.default_rng(SEED + 13)
+    n_iv = IV_ROWS
+    u, z1, z2 = rng.standard_normal((3, n_iv))
+    x_iv = 0.9 * z1 + 0.5 * z2 + u + 0.3 * rng.standard_normal(n_iv)
+    iv_frame = pd.DataFrame({"Z1": z1, "Z2": z2, "X": x_iv,
+                             "Y": 1.7 * x_iv - 2.0 * u + 0.3 * rng.standard_normal(n_iv)})
+    iv_dag = DAG([("Z1", "X"), ("Z2", "X"), ("X", "Y"), ("U", "X"), ("U", "Y")], latents={"U"})
+
+    with on_device("cpu"):
+        cpu_munin, cpu_alarm = (bn_from_numpy(list(m.edges()), cpd_tuples(m), nodes=list(m.nodes()))
+                                for m in (munin, alarm))
+
+    # ---- the main path, counted
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    phase_t0 = time.time()
+    cases = {
+        "munin_bp": do_query_case("munin_bp", munin, cpu_munin,
+                                  [sorted(munin.get_children(CAUSAL_DO[0]))[0]],
+                                  dict([CAUSAL_DO]), "bp", 1e-3),
+        "munin_bp_nan": do_query_case("munin_bp_nan", munin, cpu_munin,
+                                      [sorted(munin.get_children(CAUSAL_DO_NAN[0]))[0]],
+                                      dict([CAUSAL_DO_NAN]), "bp", 1e-3),
+        "alarm_ve_HR": do_query_case("alarm_ve_HR", alarm, cpu_alarm, ["HR"],
+                                     {"CATECHOL": "HIGH"}, "ve", 1e-5),
+        "alarm_ve_BP": do_query_case("alarm_ve_BP", alarm, cpu_alarm, ["BP"],
+                                     {"CATECHOL": "HIGH"}, "ve", 1e-5),
+    }
+    t0 = time.time()
+    ident, frontdoor_skipped, pairs = identification_outputs(munin, alarm)
+    ident_s = time.time() - t0
+    bollen, bollen_df = bollen_data(SEED + 14)
+    bollen_fit = sem_fit_case("bollen", bollen, bollen_df, hold_whole_fit=True,
+                              max_iter=BOLLEN_MAX_ITER)
+    ecoli_df = ecoli.simulate(SEM_ROWS, seed=SEED + 15)
+    ecoli_fit = sem_fit_case("ecoli70", SEM.from_graph(ebunch=list(ecoli.edges())), ecoli_df,
+                             hold_whole_fit=False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    iv_effect, iv_info = IVEstimator(iv_dag).fit("X", "Y", iv_frame)
+    iv_s = time.time() - t0
+    t0 = time.time()
+    ate = CausalInference(ecoli).estimate_ate(*ATE_SMALLEST, ecoli_df)
+    ate_s = time.time() - t0
+    ate_explicit = CausalInference(ecoli).estimate_ate(
+        *ATE_EXPLICIT[:2], ecoli_df, estimand_strategy=ATE_EXPLICIT[2])
+    table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    log(f"causal_path table_count_launches {table_launches} bincount_launches "
+        f"{bincount_launches} (no count kernel on this lane)")
+
+    # ---- do-queries
+    for name, (_, out) in cases.items():
+        log(f"causal_{name} combinations={out['combos']} causal_query_s {out['query_s']:.4f} "
+            f"(a warm call; the first {out['first_s']:.3f} s) causal_query_loop_s "
+            f"{out['loop_s']:.4f} finite {out['finite']} loop_err {out['loop_err']:.3e} "
+            f"truncated_err {out.get('truncated_err', float('nan')):.3e} cpu_err "
+            f"{out['cpu_err']:.3e}")
+    check(all(cases[k][1]["finite"] for k in ("munin_bp", "alarm_ve_HR", "alarm_ve_BP")),
+          "a do-query is not finite")
+    check(not cases["munin_bp_nan"][1]["finite"],
+          f"{CAUSAL_DO_NAN[0]}'s adjusted answer is finite")
+    ci = CausalInference(munin)
+    do_q = dict([CAUSAL_DO])
+    child = list(cases["munin_bp"][0].variables)
+    kernels, device_ms = profiled(lambda: ci.query(child, do=do_q, inference_algo="bp"))
+    log(f"causal_munin_bp kernels_per_call {kernels:.0f} device_ms {device_ms:.4f} "
+        f"(one query: the weights' query, one query_batch of the combinations, the sum)")
+    log(f"causal_query_check ok batched within 1e-5 of the per-combination loop on the card "
+        f"and of the CPU run; the truncated factorisation within 1e-3 (MUNIN, another junction "
+        f"tree) and 1e-5 (ALARM, VariableElimination)")
+
+    # ---- identification against the CPU run
+    with on_device("cpu"):
+        cpu_ident, _, _ = identification_outputs(cpu_munin, cpu_alarm)
+    check(ident == cpu_ident, "identification differs from the CPU run")
+    mas = ident["munin_minimal_adjustment"]
+    log(f"identification teaching_dags {len(ident) - 2} frontdoor_skipped {frontdoor_skipped} "
+        f"munin_pairs {len(pairs)} empty_sets {sum(1 for *_, s in mas if s == set())} "
+        f"none {sum(1 for *_, s in mas if s is None)} alarm_mag bidirected "
+        f"{len(ident['alarm_mag'][0])} mseparated {sum(ident['alarm_mag'][1])}/"
+        f"{len(ident['alarm_mag'][1])} identification_s {ident_s:.3f}; equal to the CPU run's")
+
+    # ---- ecoli70's fit against its OLS coefficients
+    ols = LinearGaussianBayesianNetwork(list(ecoli.edges()))
+    ols.add_nodes_from(ecoli.nodes())
+    ols.fit(ecoli_df)
+    names = ecoli_fit["variables"]
+    ols_err = max(abs(ecoli_fit["B"][names.index(c.variable), names.index(p)] - b)
+                  for c in ols.get_cpds() for p, b in zip(c.evidence, c.beta[1:]))
+    check(ols_err <= SEM_OLS_LIMIT, f"ecoli70: fitted B {ols_err} from OLS")
+    log(f"sem_ecoli70_ols_check ok fitted B within {ols_err:.3e} of the per-equation OLS "
+        f"coefficients (limit {SEM_OLS_LIMIT})")
+
+    # ---- Bollen's fit against the parameters its rows were drawn from
+    alg = bollen.to_lisrel()
+    check(list(alg.variables) == list(bollen_fit["variables"]), "Bollen's variables moved")
+    se = bollen_standard_errors(alg, len(bollen_df))
+    truth, _ = bollen_parameters(alg)
+    z = {at: abs(bollen_fit["B"][at] - truth[at]) / e for at, e in se.items()}
+    worst = max(z, key=z.get)
+    check(z[worst] <= BOLLEN_Z_LIMIT, f"Bollen: fitted B {z[worst]} standard errors from "
+          f"the generating {alg.variables[worst[1]]} -> {alg.variables[worst[0]]}")
+    log(f"sem_bollen_truth_check ok {len(se)} free entries of B within {z[worst]:.3f} "
+        f"standard errors of the generating parameters (worst "
+        f"{alg.variables[worst[1]]} -> {alg.variables[worst[0]]}, error "
+        f"{abs(bollen_fit['B'][worst] - truth[worst]):.3e}; standard errors "
+        f"{min(se.values()):.3e}-{max(se.values()):.3e}; limit {BOLLEN_Z_LIMIT})")
+
+    # ---- IVEstimator against numpy float64 2SLS
+    Z = np.column_stack([np.ones(n_iv), z1, z2])
+    b1 = np.linalg.lstsq(Z, x_iv, rcond=None)[0]
+    want = np.linalg.lstsq(np.column_stack([np.ones(n_iv), Z @ b1]),
+                           iv_frame["Y"].to_numpy(), rcond=None)[0][1]
+    iv_err = abs(iv_effect - want)
+    check(iv_err <= 1e-6 and iv_info["ivs"] == ["Z1", "Z2"], f"2SLS: {iv_effect} vs {want}")
+    log(f"iv_2sls rows={n_iv} iv_fit_s {iv_s:.4f} effect {iv_effect:.6f} within {iv_err:.3e} "
+        f"of numpy float64 2SLS (limit 1e-6)")
+
+    # ---- estimate_ate against LinearEstimator on the explicit set
+    sets = CausalInference(ecoli).get_all_backdoor_adjustment_sets(*ATE_SMALLEST)
+    check(sets == frozenset(), f"{ATE_SMALLEST}: backdoor sets {sets}")
+    for (x, y), effect, adjust in ((ATE_SMALLEST, ate, frozenset()),
+                                   (ATE_EXPLICIT[:2], ate_explicit, ATE_EXPLICIT[2])):
+        check(len(list(nx.all_simple_paths(ecoli, x, y))) == 1, f"{x} -> {y}: one path")
+        direct = LinearEstimator(ecoli).fit(x, y, Z=adjust, data=ecoli_df)._get_ate()
+        check(abs(effect - direct) <= 1e-9 * max(1.0, abs(direct)),
+              f"estimate_ate {effect} against LinearEstimator {direct}")
+        log(f"ate_ecoli70 {x}->{y} rows={len(ecoli_df)} ate {effect:.6f} adjustment "
+            f"{sorted(adjust)}; equal to LinearEstimator on that set")
+    log(f"ate_s {ate_s:.4f} ({ATE_SMALLEST[0]}->{ATE_SMALLEST[1]}, estimand_strategy="
+        f"'smallest': the backdoor enumeration and the regression)")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    log(f"phase_causal_main_path_s {time.time() - phase_t0:.1f}")
+    return table_launches, bincount_launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2603,6 +3164,10 @@ def main():
     t0 = time.time()
     loopy_tables, loopy_bincounts = phase_loopy()
     log(f"phase_loopy_s {time.time() - t0:.1f}")
+    # the ninth path
+    t0 = time.time()
+    causal_tables, causal_bincounts = phase_causal(model)
+    log(f"phase_causal_s {time.time() - t0:.1f}")
     for name, launches, result in (
             ("table_counts/particle_marginals_weighted", filter_launches, weighted),
             ("table_counts/pair_tables", 1, pairs),
@@ -2621,6 +3186,7 @@ def main():
         first = row is kernels[0]  # weighted_bincount's row; the others are table_counts'
         row["launches_latent"] = latent_bincounts if first else latent_tables
         row["launches_loopy"] = loopy_bincounts if first else loopy_tables
+        row["launches_causal"] = causal_bincounts if first else causal_tables
     log(f"script_s {time.time() - started:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

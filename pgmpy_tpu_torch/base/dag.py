@@ -13,7 +13,6 @@ import networkx as nx
 import numpy as np
 
 from pgmpy_tpu_torch.base.roles import GraphRolesMixin
-from pgmpy_tpu_torch.config import not_ported
 from pgmpy_tpu_torch.independencies import Independencies
 
 
@@ -50,7 +49,12 @@ class DAG(GraphRolesMixin, nx.DiGraph):
 
     def __init__(self, ebunch=None, latents=[], lavaan_str=None, dagitty_str=None, roles=None):
         if lavaan_str is not None or dagitty_str is not None:
-            not_ported("DAG(lavaan_str=..., dagitty_str=...)", "utils/parser.py")
+            from pgmpy_tpu_torch.utils.parser import parse_dagitty, parse_lavaan
+
+            if lavaan_str is not None:
+                ebunch, latents = parse_lavaan(lavaan_str)
+            else:
+                ebunch, latents = parse_dagitty(dagitty_str)
         self._init_building = True
         super().__init__(ebunch)
         self._init_building = False

@@ -67,6 +67,10 @@ __all__ = [
 
 def __getattr__(name):
     # the JAX package resolves these lazily; so does the port
+    if name in ("SEMEstimator", "IVEstimator"):
+        from pgmpy_tpu_torch.estimators import sem_estimator
+
+        return getattr(sem_estimator, name)
     if name == "MirrorDescentEstimator":
         from pgmpy_tpu_torch.estimators.mirror_descent import MirrorDescentEstimator
 

@@ -26,4 +26,12 @@ def __getattr__(name):
         from pgmpy_tpu_torch.inference.mplp import Mplp
 
         return Mplp
+    if name == "CausalInference":
+        from pgmpy_tpu_torch.inference.causal import CausalInference
+
+        return CausalInference
+    if name == "LinearEstimator":
+        from pgmpy_tpu_torch.inference.linear_model import LinearEstimator
+
+        return LinearEstimator
     raise AttributeError(name)

@@ -565,17 +565,25 @@ class VariableElimination(Inference):
         (values, state_names): values has shape (n, card_q1, ...) with each
         row normalized; state_names covers the query variables.
         """
+        values, state_names, _ = self._query_batch_masked(variables, evidence)
+        return values, state_names
+
+    def _query_batch_masked(self, variables, evidence):
+        """:meth:`query_batch`, and a bool tensor (n,) that is True on the
+        rows whose evidence has probability 0 through a CPD the contraction
+        leaves out (None when it leaves none out): ``query`` gives such a row
+        NaN, ``query_batch`` an answer."""
         if not evidence:
             raise ValueError("query_batch requires evidence; use query() otherwise")
         ev_vars = sorted(evidence.keys(), key=str)
-        run, state_names, code_maps = self._get_batch_program(
+        run, state_names, code_maps, impossible = self._get_batch_program(
             tuple(variables), tuple(ev_vars)
         )
         codes = np.empty((len(next(iter(evidence.values()))), len(ev_vars)), np.int64)
         for k, var in enumerate(ev_vars):
             codes[:, k] = evidence_codes(var, evidence[var], code_maps[k], len(code_maps[k]))
-        values = run(torch.from_numpy(codes).to(config.DEVICE))
-        return values, state_names
+        codes = torch.from_numpy(codes).to(config.DEVICE)
+        return run(codes), state_names, None if impossible is None else impossible(codes)
 
     def _get_batch_program(self, variables, ev_vars):
         """Per-signature cache for :meth:`batch_query_program`,
@@ -594,15 +602,17 @@ class VariableElimination(Inference):
         """Build the device program behind :meth:`query_batch`: a function
         ``run(codes[n, len(ev_vars)]) -> values[n, *query cards]`` (``codes``
         a long tensor on ``config.DEVICE``, every code already validated on
-        the host) plus the query state names and per-evidence-var name->code
-        maps.
+        the host) plus the query state names, per-evidence-var name->code
+        maps and ``impossible(codes) -> bool[n]`` (None when no CPD is left
+        out, see below).
 
         A CPD whose whole scope is observed contributes one number per row,
         which cancels in the row's normalization, so it is left out of the
         contraction: at MUNIN's width a thousand such numbers multiply to 0
         in float32 and the row would normalize to 0/0.  (For a row whose
         evidence has probability 0 the rows that result are therefore
-        conditional on the CPDs that remain, not NaN.)
+        conditional on the CPDs that remain, not NaN; ``impossible`` finds
+        such rows with one gather of the left-out CPDs' entries.)
 
         The gathered rows of CPDs that keep the same free scope (every
         ``P(feature | class)`` of a naive Bayes) are combined in log space
@@ -628,6 +638,7 @@ class VariableElimination(Inference):
         ev_pos = {v: k for k, v in enumerate(ev_vars)}
         fixed, fixed_scopes = [], []  # CPDs with no observed axis
         tables, ev_columns, ev_strides, free_orders = [], [], [], []
+        observed = ([], [], [])  # CPDs with every axis observed: left out
         for cpd in model.cpds:
             scope = list(cpd.variables)
             free = [v for v in scope if v not in ev_pos]
@@ -635,13 +646,18 @@ class VariableElimination(Inference):
             if len(free) == len(scope):
                 fixed.append(values)
                 fixed_scopes.append(scope)
-            elif free:
-                table, columns, strides = _GatherPlan.table_of(values, scope, ev_pos)
+                continue
+            table, columns, strides = _GatherPlan.table_of(values, scope, ev_pos)
+            if free:
                 tables.append(table)
                 ev_columns.append(columns)
                 ev_strides.append(strides)
                 free_orders.append(free)
+            else:
+                for part, item in zip(observed, (table, columns, strides)):
+                    part.append(item)
         gather = _GatherPlan(tables, ev_columns, ev_strides, len(ev_vars)) if tables else None
+        left_out = _GatherPlan(*observed, len(ev_vars)) if observed[0] else None
 
         by_scope = {}
         for j, free in enumerate(free_orders):
@@ -684,11 +700,14 @@ class VariableElimination(Inference):
             norm = values.reshape(n, -1).sum(dim=1).reshape((n,) + (1,) * n_query)
             return values / norm
 
+        def impossible(codes):
+            return torch.stack(left_out.rows(codes)).eq(0).any(dim=0)
+
         query_names = {v: state_names[v] for v in variables}
         code_maps = [
             {s: i for i, s in enumerate(state_names[v])} for v in ev_vars
         ]
-        return run, query_names, code_maps
+        return run, query_names, code_maps, impossible if left_out is not None else None
 
     # ------------------------------------------------------------------ #
     # public API

@@ -7,6 +7,7 @@ from pgmpy_tpu_torch.models.markov_chain import MarkovChain
 from pgmpy_tpu_torch.models.naive_bayes import NaiveBayes
 from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
 from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork, DynamicNode
+from pgmpy_tpu_torch.models.sem import SEM, SEMGraph, SEMAlg
 
 # deprecated aliases kept for API familiarity with the reference
 BayesianNetwork = DiscreteBayesianNetwork
@@ -23,6 +24,9 @@ __all__ = [
     "LinearGaussianBayesianNetwork",
     "DynamicBayesianNetwork",
     "DynamicNode",
+    "SEM",
+    "SEMGraph",
+    "SEMAlg",
     "BayesianNetwork",
     "MarkovNetwork",
 ]

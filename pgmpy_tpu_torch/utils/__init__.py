@@ -7,6 +7,7 @@ from pgmpy_tpu_torch.utils.utils import (
     llm_pairwise_orient,
     manual_pairwise_orient,
 )
+from pgmpy_tpu_torch.utils.optimizer import optimize, pinverse
 from pgmpy_tpu_torch.utils.mathext import (
     State,
     cartesian,
@@ -25,6 +26,8 @@ __all__ = [
     "llm_pairwise_orient",
     "manual_pairwise_orient",
     "State",
+    "optimize",
+    "pinverse",
     "cartesian",
     "sample_discrete",
     "sample_discrete_maps",

@@ -13,11 +13,14 @@ variables; :func:`dbn_from_numpy` builds it.  An undirected model is
 described by its factors: a list of scopes, a {variable: cardinality} dict and
 one table per scope (any shape with the scope's number of entries, C-order);
 :func:`factor_graph_from_numpy` and :func:`markov_network_from_numpy` build
-it.  All take numpy only.
+it.  A SEM's free parameters, ``{"B", "S", "S_diag"}`` as the JAX package's
+``SEMEstimator`` holds them, become the port's tensors through
+:func:`sem_params_from_numpy`.  All take numpy only.
 """
 
 import itertools
 
+from pgmpy_tpu_torch.config import as_tensor
 from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
 from pgmpy_tpu_torch.factors.cpd import TabularCPD
 from pgmpy_tpu_torch.factors.discrete import DiscreteFactor
@@ -111,3 +114,10 @@ def markov_network_from_numpy(scopes, cards, tables, state_names=None):
     )
     model.add_factors(*factors)
     return model
+
+
+def sem_params_from_numpy(params):
+    """The free parameters of a SEM fit, ``{"B", "S", "S_diag"}`` (or any
+    dict of arrays), as tensors on ``config.DEVICE`` in ``config.DTYPE``:
+    the ``params`` that ``SEMEstimator``'s losses take."""
+    return {name: as_tensor(values) for name, values in params.items()}

@@ -1,10 +1,10 @@
 """Example-model zoo, discretization, data preprocessing and the
 pairwise-orientation helpers.
 
-Port of ``pgmpy_tpu/utils/utils.py`` but its dagitty teaching DAGs.  The
-bundled networks are read from this package's own data directory,
-``pgmpy_tpu_torch/utils/example_models/`` (``*.bif.gz`` discrete, ``*.json``
-linear-Gaussian; byte-identical copies of the JAX package's files).
+Port of ``pgmpy_tpu/utils/utils.py``.  The bundled networks are read from
+this package's own data directory, ``pgmpy_tpu_torch/utils/example_models/``
+(``*.bif.gz`` discrete, ``*.json`` linear-Gaussian, ``*.txt`` dagitty
+teaching DAGs; byte-identical copies of the JAX package's files).
 ``llm_pairwise_orient`` imports ``litellm`` only when it is called without a
 ``completion_fn``.
 
@@ -38,11 +38,17 @@ DISCRETE_MODELS = {
     "pathfinder", "pigs", "munin",
 }
 GAUSSIAN_MODELS = {"ecoli70", "magic-niab", "magic-irri", "arth150"}
+DAG_MODELS = {
+    "M-bias", "confounding", "mediator", "paths",
+    "Sebastiani_2005", "Polzer_2012", "Schipf_2010", "Shrier_2008",
+    "Acid_1996", "Thoemmes_2013", "Kampen_2014", "Didelez_2010",
+}
 
 
 def get_example_model(model):
     """Load a bundled example network by name: discrete networks from
-    ``.bif.gz``, linear-Gaussian networks from ``.json``."""
+    ``.bif.gz``, linear-Gaussian networks from ``.json``, teaching DAGs from
+    dagitty ``.txt`` files."""
     if model in DISCRETE_MODELS:
         from pgmpy_tpu_torch.readwrite.bif import BIFReader
 
@@ -68,6 +74,11 @@ def get_example_model(model):
             cpds.append(LinearGaussianCPD(var, beta, std, evidence=parents))
         lgbn.add_cpds(*cpds)
         return lgbn
+    if model in DAG_MODELS:
+        from pgmpy_tpu_torch.base.dag import DAG
+
+        with open(os.path.join(_EXAMPLE_DIR, f"{model}.txt")) as f:
+            return DAG.from_dagitty(string=f.read())
     raise ValueError(f"Unknown example model: {model}")
 
 

@@ -24,17 +24,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # {JAX module: {name: the module it waits for, as ROADMAP.md writes it}}
 WAITING = {
-    "pgmpy_tpu.base": {
-        "ADMG": "base/admg.py", "MAG": "base/mag.py", "AncestralBase": "base/mag.py",
-    },
-    "pgmpy_tpu.estimators": {
-        "SEMEstimator": "estimators/sem_estimator.py",
-        "IVEstimator": "estimators/sem_estimator.py",
-    },
-    "pgmpy_tpu.inference": {
-        "CausalInference": "inference/causal.py",
-        "LinearEstimator": "inference/linear_model.py",
-    },
     "pgmpy_tpu.readwrite": {
         f"{fmt}{role}": f"readwrite/{module}.py"
         for fmt, module in (("NET", "net"), ("UAI", "uai"), ("XMLBIF", "xmlbif"),
@@ -48,11 +37,9 @@ WAITING = {
         "clear_param_store": "factors/hybrid.py",
     },
     "pgmpy_tpu.models": {
-        "SEM": "models/sem.py", "SEMGraph": "models/sem.py", "SEMAlg": "models/sem.py",
         "FunctionalBayesianNetwork": "models/functional_bn.py",
     },
     "pgmpy_tpu.utils": {
-        "optimize": "utils/optimizer.py", "pinverse": "utils/optimizer.py",
         "KernelTimer": "utils/profiling.py", "trace": "utils/profiling.py",
     },
 }
@@ -75,7 +62,8 @@ PAIRS = [
 def test_every_ported_package_is_compared():
     compared = {jax for _, jax in PAIRS}
     for name in ("pgmpy_tpu.base", "pgmpy_tpu.estimators", "pgmpy_tpu.inference",
-                 "pgmpy_tpu.utils", "pgmpy_tpu.metrics", "pgmpy_tpu.factors"):
+                 "pgmpy_tpu.utils", "pgmpy_tpu.metrics", "pgmpy_tpu.factors",
+                 "pgmpy_tpu.identification", "pgmpy_tpu.prediction"):
         assert name in compared
 
 
@@ -123,8 +111,10 @@ def test_lazy_names_are_compared():
         assert name in compared
     assert {"BeliefPropagationWithMessagePassing", "Mplp"} <= lazy_names(
         importlib.import_module("pgmpy_tpu.inference"))
-    assert {"MirrorDescentEstimator", "ExpertInLoop"} <= lazy_names(
+    assert {"MirrorDescentEstimator", "ExpertInLoop", "SEMEstimator", "IVEstimator"} <= lazy_names(
         importlib.import_module("pgmpy_tpu.estimators"))
+    assert {"CausalInference", "LinearEstimator"} <= lazy_names(
+        importlib.import_module("pgmpy_tpu.inference"))
 
 
 @pytest.mark.parametrize("port_name, jax_name", LAZY, ids=[p for p, _ in LAZY])

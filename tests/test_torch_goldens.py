@@ -24,7 +24,11 @@ SHD of ``_v5``, ``pillai_trace`` and ``edge_strength`` of ``_v6`` and
 
 The latent-variable lane and loopy inference run EM with a fixed init and
 Mplp's MAP of ``_v4``, ``NoisyORCPD`` of ``_v5``, and the JPD, discretize,
-``fit_update`` and partition-function suites of ``_v7``."""
+``fit_update`` and partition-function suites of ``_v7``.
+
+The causal and SEM lane runs the identification outputs and ``estimate_ate``
+of ``_v4``, the do-query goldens of ``_extras`` (atol 2e-6) and
+``NaiveAdjustmentRegressor`` and the LISREL forms of ``_v7``."""
 
 import filecmp
 import json
@@ -34,6 +38,7 @@ import numpy as np
 import pytest
 
 from _golden_data import (
+    CAUSAL_GRAPH_SPECS,
     DBN_2TBN_EDGES,
     EDGE_STRENGTH_DAG,
     LinearPillaiClassifier,
@@ -75,7 +80,8 @@ from pgmpy_tpu_torch.metrics import (
 )
 from pgmpy_tpu_torch.models import DynamicBayesianNetwork, LinearGaussianBayesianNetwork
 from pgmpy_tpu_torch.utils import get_example_model
-from pgmpy_tpu_torch.utils.utils import _EXAMPLE_DIR, DISCRETE_MODELS, GAUSSIAN_MODELS
+from pgmpy_tpu_torch.utils.utils import (_EXAMPLE_DIR, DAG_MODELS, DISCRETE_MODELS,
+                                         GAUSSIAN_MODELS)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 with open(os.path.join(HERE, "reference_goldens_v2.json")) as fh:
@@ -160,11 +166,14 @@ def test_extras_bayesian_estimator(name):
                                    np.asarray(want["k2"]), atol=2e-6, err_msg=node)
 
 
-@pytest.mark.parametrize("name", sorted(DISCRETE_MODELS) + sorted(GAUSSIAN_MODELS))
+@pytest.mark.parametrize("name", sorted(DISCRETE_MODELS) + sorted(GAUSSIAN_MODELS)
+                         + sorted(DAG_MODELS))
 def test_example_network_is_a_copy_of_the_jax_packages(name):
-    """The port ships its own example networks, discrete and Gaussian: each
-    file is byte-identical to the JAX package's."""
-    file = f"{name}.bif.gz" if name in DISCRETE_MODELS else f"{name}.json"
+    """The port ships its own example networks, discrete, Gaussian and the
+    dagitty teaching DAGs: each file is byte-identical to the JAX package's."""
+    file = {**{m: f"{m}.bif.gz" for m in DISCRETE_MODELS},
+            **{m: f"{m}.json" for m in GAUSSIAN_MODELS},
+            **{m: f"{m}.txt" for m in DAG_MODELS}}[name]
     mine = os.path.join(_EXAMPLE_DIR, file)
     theirs = os.path.join(os.path.dirname(HERE), "pgmpy_tpu", "utils", "example_models", file)
     assert os.path.dirname(mine).endswith(os.path.join("pgmpy_tpu_torch", "utils", "example_models"))
@@ -743,3 +752,144 @@ def test_v7_factor_graph_partition_function():
     finally:
         config.set_dtype(torch.float32)
     assert z == pytest.approx(V7["markov_network"]["fg_partition_function"], rel=1e-9)
+
+
+# --------------------------------------------------------------------------- #
+# the causal and SEM lane (v4, extras, v7)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", sorted(CAUSAL_GRAPH_SPECS))
+def test_v4_identification_outputs(name):
+    from pgmpy_tpu_torch.inference import CausalInference
+    from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
+
+    g = V4["causal_graphs"][name]
+    edges, latents = CAUSAL_GRAPH_SPECS[name]
+    infer = CausalInference(DiscreteBayesianNetwork(edges, latents=set(latents)))
+
+    if "minimal_adjustment_set" in g:
+        mas = infer.get_minimal_adjustment_set("X", "Y")
+        got = sorted(str(s) for s in mas) if mas is not None else None
+        assert got == g["minimal_adjustment_set"]
+    else:
+        with pytest.raises(ValueError):
+            infer.get_minimal_adjustment_set("X", "Y")
+
+    if "ivs" in g:
+        assert sorted(str(s) for s in infer.get_ivs("X", "Y")) == g["ivs"]
+    else:
+        with pytest.raises(ValueError):
+            infer.get_ivs("X", "Y")
+
+    if "conditional_ivs" in g:
+        got = sorted(
+            [str(z), sorted(str(c) for c in cond)]
+            for z, cond in infer.get_conditional_ivs("X", "Y")
+        )
+        assert got == g["conditional_ivs"]
+    else:
+        with pytest.raises(ValueError):
+            infer.get_conditional_ivs("X", "Y")
+
+
+def test_v4_estimate_ate(gauss_df):
+    from pgmpy_tpu_torch.inference import CausalInference, LinearEstimator
+
+    fitted = LinearGaussianBayesianNetwork(GAUSSIAN_FRAME_EDGES)
+    fitted.fit(gauss_df)
+    ate = CausalInference(fitted).estimate_ate(
+        "A", "C", data=gauss_df, estimand_strategy="smallest", estimator_type="linear")
+    assert float(ate) == pytest.approx(V4["gauss"]["ate_A_C"], rel=1e-8)
+    ate = LinearEstimator(fitted).fit(X="E", Y="F", Z=["D"], data=gauss_df)._get_ate()
+    assert float(ate) == pytest.approx(V4["gauss"]["ate_E_F_given_D"], rel=1e-8)
+
+
+@pytest.mark.parametrize("i", range(len(EXTRAS["do_queries"])))
+def test_extras_interventional_query(i):
+    from pgmpy_tpu_torch.inference import CausalInference
+
+    case = EXTRAS["do_queries"][i]
+    q = CausalInference(get_example_model(case["network"])).query(
+        [case["variable"]], do=case["do"], evidence=case["evidence"] or None,
+        show_progress=False)
+    assert [str(s) for s in q.state_names[case["variable"]]] == case["states"]
+    np.testing.assert_allclose(np_values(q.values), np.asarray(case["values"]), atol=2e-6,
+                               err_msg=str(case))
+
+
+def test_v7_naive_adjustment_regressor():
+    from pgmpy_tpu_torch.prediction import NaiveAdjustmentRegressor
+
+    g = V7["naive_adjustment"]
+    gdf = standalone_gaussian_frame(g["n_rows"], seed=g["seed"])
+    dag = DAG(
+        [("A", "B"), ("A", "C"), ("B", "D"), ("C", "D"), ("D", "E"), ("B", "F"), ("E", "F")],
+        roles={"exposure": "B", "outcome": "D", "adjustment": ["A", "C"],
+               "pretreatment": ["F"]},
+    )
+    reg = NaiveAdjustmentRegressor(causal_graph=dag)
+    X = gdf.drop(columns=["D"])
+    y = gdf["D"]
+    reg.fit(X, y)
+    assert reg.feature_columns_ == ["B", "A", "C", "F"]
+    np.testing.assert_allclose(reg.predict(X.iloc[:20]), np.asarray(g["predictions_first20"]),
+                               atol=1e-9)
+    assert reg.score(X, y) == pytest.approx(g["score"], rel=1e-9)
+
+
+def test_v7_naive_adjustment_role_validation():
+    from pgmpy_tpu_torch.prediction import NaiveAdjustmentRegressor
+
+    dag = DAG([("A", "B")], roles={"exposure": ["A", "B"]})
+    with pytest.raises(ValueError, match="[Ee]xactly one"):
+        NaiveAdjustmentRegressor(causal_graph=dag).fit(
+            standalone_gaussian_frame(30, seed=1)[["A", "B"]], np.zeros(30))
+
+
+SEM_DEMO = dict(
+    ebunch=[("xi1", "x1", 0.4), ("xi1", "x2", 0.5), ("xi1", "eta1", 0.3), ("eta1", "y1", 0.8),
+            ("eta1", "y2", 0.9)],
+    latents=["xi1", "eta1"],
+    err_corr=[("y1", "y2")],
+)
+STD_SHAPES = {
+    "B": ("eta", "eta"), "gamma": ("eta", "xi"), "wedge_y": ("y", "eta"),
+    "wedge_x": ("x", "xi"), "phi": ("xi", "xi"), "psi": ("eta", "eta"),
+    "theta_e": ("y", "y"), "theta_del": ("x", "x"),
+}
+
+
+def test_v7_sem_to_lisrel_edge_facts():
+    from pgmpy_tpu_torch.models.sem import SEMGraph
+
+    g = V7["sem_lisrel"]
+    alg = SEMGraph(**SEM_DEMO).to_lisrel()
+    variables = [str(v) for v in alg.variables]
+    B = np.asarray(alg.B_mask, dtype=bool)
+    Bf = np.asarray(alg.B_fixed, dtype=np.float64)
+    S = np.asarray(alg.S_mask, dtype=np.float64)
+    assert sorted(str(v) for v in alg.observed) == g["observed"]
+    assert sorted([variables[j], variables[i]] for i, j in zip(*np.nonzero(B))) == g["b_edges"]
+    assert sorted([variables[j], variables[i], float(Bf[i, j])]
+                  for i, j in zip(*np.nonzero(B & ~np.isnan(Bf)))) == g["b_fixed"]
+    assert sorted(sorted([variables[i], variables[j]])
+                  for i, j in zip(*np.nonzero(S)) if i < j) == g["zeta_offdiag"]
+    assert sorted(variables[i] for i in np.nonzero(np.diag(S))[0]) == g["zeta_diag"]
+
+
+def test_v7_sem_to_standard_lisrel():
+    from pgmpy_tpu_torch.models.sem import SEMGraph
+
+    g = V7["sem_lisrel"]
+    var_names, masks, fixed = SEMGraph(**SEM_DEMO).to_standard_lisrel()
+    assert {k: sorted(map(str, v)) for k, v in var_names.items()} == g["std_var_names"]
+
+    def keyed(M, rows, cols):
+        M = np.asarray(M, dtype=np.float64)
+        return {f"{rows[i]}|{cols[j]}": (None if np.isnan(M[i, j]) else float(M[i, j]))
+                for i in range(len(rows)) for j in range(len(cols))}
+
+    for mat, (rs, cs) in STD_SHAPES.items():
+        rows = [str(v) for v in var_names[rs]]
+        cols = [str(v) for v in var_names[cs]]
+        assert keyed(masks[mat], rows, cols) == g["std_masks"][mat], mat
+        assert keyed(fixed[mat], rows, cols) == g["std_fixed"][mat], mat

@@ -209,9 +209,13 @@ def test_model_surface():
 
 
 def test_model_strings_wait_for_the_parser():
+    """The lavaan and dagitty constructors waited for ``utils/parser.py``;
+    they now build the JAX package's graph."""
+    from pgmpy_tpu.models import LinearGaussianBayesianNetwork as JaxLGBN
+
     for kwargs in ({"lavaan_str": "y ~ x"}, {"dagitty_str": "dag { x -> y }"}):
-        with pytest.raises(NotImplementedError, match="utils/parser.py"):
-            LinearGaussianBayesianNetwork(**kwargs)
+        port, ref = LinearGaussianBayesianNetwork(**kwargs), JaxLGBN(**kwargs)
+        assert sorted(port.edges()) == sorted(ref.edges()) == [("x", "y")]
 
 
 def test_cpd_matches():

@@ -107,16 +107,19 @@ def test_import_leaves_jax_out():
 
 def test_unported_paths_raise_not_implemented():
     """What the port has not reached yet says so, and names its ROADMAP
-    item; ``simulate``, ``predict``, ``is_imap`` and the Gaussian example
-    networks are ported and run."""
+    item; ``simulate``, ``predict``, ``is_imap``, the dagitty constructor and
+    the Gaussian example networks are ported and run."""
     from pgmpy_tpu_torch.base import DAG
+    from pgmpy_tpu_torch.sampling.nuts import VectorizedNUTS
     from pgmpy_tpu_torch.utils.utils import get_example_model as example
 
     model = get_example_model("asia")
     with pytest.raises(TypeError, match="JointProbabilityDistribution"):
         model.is_imap(None)
-    with pytest.raises(NotImplementedError, match="utils/parser.py"):
-        DAG(dagitty_str="dag { a -> b }")
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        VectorizedNUTS(example("ecoli70")).sample(np.zeros((2, 46)), num_samples=1,
+                                                  axis_name="chains")
+    assert sorted(DAG(dagitty_str="dag { a -> b }").edges()) == [("a", "b")]
     assert len(example("ecoli70").nodes()) == 46
     frame = model.simulate(10, seed=0, show_progress=False)
     assert frame.shape == (10, 8)
@@ -151,6 +154,7 @@ DOCTEST_MODULES = [
     "pgmpy_tpu_torch.estimators.em",
     "pgmpy_tpu_torch.factors.noisy_or",
     "pgmpy_tpu_torch.inference.fg_bp",
+    "pgmpy_tpu_torch.inference.causal",
 ]
 
 

@@ -195,7 +195,7 @@ def main():
         print_top_kernels(name, call, top=4)
     ve = VariableElimination(fitted)
     ev_vars = sorted(test.columns, key=str)
-    run, _, code_maps = ve._get_batch_program(tuple(targets), tuple(ev_vars))
+    run, _, code_maps, _ = ve._get_batch_program(tuple(targets), tuple(ev_vars))
     codes = torch.as_tensor(
         np.stack([[code_maps[k][s] for s in test[v].tolist()]
                   for k, v in enumerate(ev_vars)], axis=1), dtype=torch.int64, device="cuda")
