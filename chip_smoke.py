@@ -93,7 +93,22 @@ Runs from the repository root and needs one CUDA card.  It
    parameters its rows were drawn from and ecoli70 against OLS), ``IVEstimator`` on
    500,000 rows against numpy 2SLS and ``estimate_ate`` against
    ``LinearEstimator``;
-12. prints the card, the timings, one JSON line describing each kernel (its
+12. drives the functional lane (``phase_functional``) on ecoli70 (46 nodes,
+   70 edges): 50,000 rows of the linear-Gaussian network, a
+   ``FunctionalBayesianNetwork`` of 162 learnable parameters fitted by SVI
+   (against numpy least squares and, over its first 50 steps, the CPU run),
+   ``simulate`` at the fit (against the closed-form joint, a ``do`` against
+   its closed form, the same seed twice), ``log_likelihood`` against numpy
+   float64, the MCMC fit of a conjugate model, the point fit against least
+   squares, and a ``trace`` of one SVI step;
+13. drives the file formats (``phase_readwrite``) on MUNIN: save and load
+   through XMLBIF, NET, UAI, XDSL and XBN (every table back exactly; UAI by
+   canonical index), the junction tree of the read-back model calibrated
+   against the original's, the read-back model fitted on the main path's
+   rows (one table-count launch, CPDs equal to the main path's), the files
+   the reference pgmpy wrote, a PomdpX round trip and ``KernelTimer`` around
+   a calibration against CUDA events;
+14. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -3118,6 +3133,534 @@ def phase_causal(munin):
     return table_launches, bincount_launches
 
 
+# --------------------------------------------------------------------------- #
+# the functional lane on ecoli70
+# --------------------------------------------------------------------------- #
+FUNCTIONAL_ROWS = 50_000
+# Adam at optax's default rate: at 0.05 it never settles on ecoli70 (one CPU
+# run swings between 0.02 and 4.7 least-squares standard errors from step 300
+# to 1000); at 0.01 it converges smoothly, 0.208 standard errors after 1,600
+# steps and 0.043 after 1,800 (CPU rehearsal; the card read 0.0427 at 1,800)
+SVI_LR = 0.01
+SVI_STEPS = 1600
+SVI_CPU_STEPS = 50
+FIT_SE_LIMIT = 0.5
+# the point fit runs all its steps (exit_delta 0): the stopping rule reads
+# two equal float32 losses before Adam has crossed ecoli70's flat directions
+# (a CPU rehearsal stopped at 1,152 steps, 0.9 standard errors off)
+POINT_MAX_ITER = 1600
+MCMC_ROWS = 1000
+MCMC_STEPS = 400
+# the NUTS chain's draws are autocorrelated; at least this many are counted
+# as independent
+MCMC_MIN_ESS = 40
+
+
+def ecoli_parents(ecoli):
+    return {v: sorted(ecoli.get_parents(v), key=str) for v in ecoli.nodes()}
+
+
+def linear_gaussian_cpds(parents):
+    """One ``FunctionalCPD`` per node, ``Normal(b0 + sum_p b_p * parent_p,
+    sigma)``, every coefficient and scale a learnable ``param``: 0 for the
+    coefficients, 1 (softplus-constrained) for the scales."""
+    from pgmpy_tpu_torch.factors import FunctionalCPD, param
+    from pgmpy_tpu_torch.factors.distributions import Normal
+
+    def make_fn(v):
+        def fn(p):
+            loc = param(f"{v}|b0", 0.0)
+            for q in parents[v]:
+                loc = loc + param(f"{v}|{q}", 0.0) * p[q]
+            return Normal(loc, param(f"{v}|sigma", 1.0, constraint="positive"))
+        return fn
+
+    return [FunctionalCPD(v, make_fn(v), parents[v]) for v in parents]
+
+
+def functional_network(ecoli, cpds=None):
+    from pgmpy_tpu_torch.models import FunctionalBayesianNetwork
+
+    fbn = FunctionalBayesianNetwork(list(ecoli.edges()))
+    fbn.add_nodes_from(ecoli.nodes())
+    if cpds:
+        fbn.add_cpds(*cpds)
+    return fbn
+
+
+def least_squares(df, parents):
+    """The closed-form maximum-likelihood fit of every node (numpy float64
+    least squares, sigma = sqrt(RSS / n)) and each parameter's standard
+    error, keyed as ``linear_gaussian_cpds`` names the parameters."""
+    n = len(df)
+    fit, se = {}, {}
+    for v, ps in parents.items():
+        X = np.column_stack([np.ones(n)] + [df[p].to_numpy(np.float64) for p in ps])
+        y = df[v].to_numpy(np.float64)
+        beta = np.linalg.lstsq(X, y, rcond=None)[0]
+        sigma = float(np.sqrt(np.sum((y - X @ beta) ** 2) / n))
+        errors = np.sqrt(np.diag(np.linalg.inv(X.T @ X))) * sigma
+        for name, b, e in zip(["b0"] + ps, beta, errors):
+            fit[f"{v}|{name}"], se[f"{v}|{name}"] = float(b), float(e)
+        fit[f"{v}|sigma"], se[f"{v}|sigma"] = sigma, sigma / np.sqrt(2 * n)
+    return fit, se
+
+
+def numpy_loglik(df, parents, params):
+    """sum over rows and nodes of log N(x_v | b0 + sum b_p x_p, sigma), float64."""
+    total = 0.0
+    for v, ps in parents.items():
+        loc = params[f"{v}|b0"] + sum(params[f"{v}|{q}"] * df[q].to_numpy(np.float64) for q in ps)
+        z = (df[v].to_numpy(np.float64) - loc) / params[f"{v}|sigma"]
+        total += float(np.sum(-0.5 * z**2 - np.log(params[f"{v}|sigma"]) - 0.5 * np.log(2 * np.pi)))
+    return total
+
+
+def linear_gaussian_joint(parents, params, order, do=None):
+    """(mean, covariance) over ``order`` of the linear-Gaussian network with
+    ``params``; ``do`` ({node: value}) cuts a node's incoming edges and pins
+    it."""
+    do = do or {}
+    index = {v: i for i, v in enumerate(order)}
+    d = len(order)
+    B, b0, noise = np.zeros((d, d)), np.zeros(d), np.zeros(d)
+    for v, ps in parents.items():
+        if v in do:
+            b0[index[v]] = do[v]
+            continue
+        b0[index[v]] = params[f"{v}|b0"]
+        noise[index[v]] = params[f"{v}|sigma"] ** 2
+        for q in ps:
+            B[index[v], index[q]] = params[f"{v}|{q}"]
+    A = np.linalg.inv(np.eye(d) - B)
+    return A @ b0, A @ np.diag(noise) @ A.T
+
+
+def standard_error_gap(got, want, se):
+    """(largest |got - want| in standard errors, its parameter)."""
+    z = {k: abs(got[k] - want[k]) / se[k] for k in want}
+    worst = max(z, key=z.get)
+    return z[worst], worst
+
+
+def host_params(fitted, names):
+    """{name: float} of a dict of 0-d tensors, in one read of the device."""
+    values = torch.stack([fitted[k].reshape(()) for k in names]).cpu().numpy().astype(np.float64)
+    return dict(zip(names, values.tolist()))
+
+
+class CallCount:
+    """A function that counts its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+def phase_functional():
+    """The functional lane on ecoli70 (46 nodes, 70 edges): SVI of the 162
+    parameters of a linear-Gaussian FunctionalBayesianNetwork on 50,000 rows,
+    ``simulate`` and ``log_likelihood`` at the fit, the MCMC fit of a
+    conjugate model, the point fit, and a trace of one SVI step.  Returns the
+    (table-count, bincount) launches of the path."""
+    import json
+
+    import networkx as nx
+
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.factors import FunctionalCPD, clear_param_store
+    from pgmpy_tpu_torch.factors.distributions import HalfNormal, Normal
+    from pgmpy_tpu_torch.models import FunctionalBayesianNetwork
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.utils import get_example_model, trace
+
+    ecoli = get_example_model("ecoli70")
+    parents = ecoli_parents(ecoli)
+    order = list(nx.topological_sort(ecoli))
+    rng = np.random.default_rng(SEED + 18)
+    xs = rng.normal(1.5, 1.0, MCMC_ROWS)
+    conjugate = FunctionalBayesianNetwork()
+    conjugate.add_node("x")
+    mcmc_fn = CallCount(lambda priors, parents=None: Normal(priors["mu"], priors["sigma"]))
+    conjugate.add_cpds(FunctionalCPD("x", mcmc_fn))
+
+    def point_cpds(params):
+        def make(v):
+            def fn(pv):
+                loc = params[f"{v}|b0"]
+                for q in parents[v]:
+                    loc = loc + params[f"{v}|{q}"] * pv[q]
+                return Normal(loc, torch.exp(params[f"{v}|logsigma"]))
+            return fn
+        return {v: make(v) for v in parents}
+
+    point_init = {}
+    for v, ps in parents.items():
+        point_init[f"{v}|b0"] = point_init[f"{v}|logsigma"] = 0.0
+        point_init.update({f"{v}|{q}": 0.0 for q in ps})
+    make_point = CallCount(point_cpds)
+
+    # ---- the path, counted
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    phase_t0 = time.time()
+    df = ecoli.simulate(FUNCTIONAL_ROWS, seed=SEED + 16)
+    fbn = functional_network(ecoli, linear_gaussian_cpds(parents))
+    clear_param_store()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fitted = fbn.fit(df, estimator="SVI", optimizer={"lr": SVI_LR}, num_steps=SVI_STEPS)
+    torch.cuda.synchronize()
+    svi_s = time.time() - t0
+    names = list(fitted)
+    check(all(fitted[k].is_cuda for k in names), "SVI parameters are not on the card")
+    svi = host_params(fitted, names)
+    t0 = time.time()
+    sim = fbn.simulate(FUNCTIONAL_ROWS, seed=SEED + 17)
+    simulate_first_s = time.time() - t0
+    simulate_s = host_median_s(lambda: fbn.simulate(FUNCTIONAL_ROWS, seed=SEED + 17))
+    again = fbn.simulate(FUNCTIONAL_ROWS, seed=SEED + 17)
+    other = fbn.simulate(FUNCTIONAL_ROWS, seed=SEED + 19)
+    do_node = max(order, key=lambda v: (len(list(ecoli.successors(v))), str(v)))
+    do_value = float(df[do_node].mean() + 2 * df[do_node].std())
+    sim_do = fbn.simulate(FUNCTIONAL_ROWS, do={do_node: do_value}, seed=SEED + 20)
+    loglik = fbn.log_likelihood(df)
+    loglik_s = host_median_s(lambda: fbn.log_likelihood(df))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    post = conjugate.fit(pd.DataFrame({"x": xs}), estimator="MCMC", seed=SEED,
+                         prior_fn=lambda: {"mu": Normal(0.0, 1.0), "sigma": HalfNormal(5.0)},
+                         num_steps=MCMC_STEPS)
+    mcmc_s = time.time() - t0
+    point = functional_network(ecoli)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    point_fit = point.fit(df, make_point, init_params=point_init, lr=SVI_LR,
+                          max_iter=POINT_MAX_ITER, exit_delta=0.0)
+    torch.cuda.synchronize()
+    point_s = time.time() - t0
+    point_steps = make_point.calls - 1  # one call per step, one for the final CPDs
+    point_host = host_params(point_fit, list(point_fit))
+    point_params = {k.replace("logsigma", "sigma"): (float(np.exp(x)) if "logsigma" in k else x)
+                    for k, x in point_host.items()}
+    traced = functional_network(ecoli, linear_gaussian_cpds(parents))
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with trace(trace_dir):
+            traced.fit(df, optimizer={"lr": SVI_LR}, num_steps=1)
+        files = os.listdir(trace_dir)
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(os.path.join(trace_dir, files[0])) as fh:
+            events = json.load(fh)["traceEvents"]
+    torch.cuda.synchronize()
+    launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    path_s = time.time() - phase_t0
+    log(f"functional_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
+        f"(no count kernel on this lane)")
+
+    # ---- SVI against least squares, and the first steps against the CPU run
+    want, se = least_squares(df, parents)
+    check(set(names) == set(want) and len(names) == 162, f"{len(names)} SVI parameters")
+    z, worst = standard_error_gap(svi, want, se)
+    gap = numpy_loglik(df, parents, want) - numpy_loglik(df, parents, svi)
+    check(z <= FIT_SE_LIMIT, f"SVI: {worst} {z} standard errors from least squares")
+    # kernels, busy device time and host reads of the steps: a 3-step fit
+    # less a 1-step fit, so the set-up of a fit drops out
+    shots = {}
+    for steps in (1, 3):
+        model = functional_network(ecoli, linear_gaussian_cpds(parents))
+        shots[steps] = profiled_busy(lambda: model.fit(df, optimizer={"lr": SVI_LR},
+                                                       num_steps=steps))
+    reads = {s: sum(c for name, (c, _) in shot[3].items() if "DtoH" in name)
+             for s, shot in shots.items()}
+    step_kernels, step_busy_ms, step_wall_ms = (
+        (shots[3][i] - shots[1][i]) / 2 for i in range(3))
+    top = sorted(shots[3][3].items(), key=lambda kv: -kv[1][1])[:4]
+    card = functional_network(ecoli, linear_gaussian_cpds(parents))
+    first = host_params(card.fit(df, optimizer={"lr": SVI_LR}, num_steps=SVI_CPU_STEPS), names)
+    with on_device("cpu"):
+        cpu_model = functional_network(ecoli, linear_gaussian_cpds(parents))
+        t0 = time.time()
+        cpu_fit = cpu_model.fit(df, optimizer={"lr": SVI_LR}, num_steps=SVI_CPU_STEPS)
+        cpu_s = time.time() - t0
+        cpu_first = {k: float(v) for k, v in cpu_fit.items()}
+    rel = max(abs(first[k] - cpu_first[k]) / max(abs(cpu_first[k]), 1e-30) for k in names)
+    check(all(np.isclose(first[k], cpu_first[k], rtol=1e-4, atol=1e-6) for k in names),
+          f"SVI after {SVI_CPU_STEPS} steps differs from the CPU run: max rel {rel}")
+    log(f"functional_svi ecoli70 rows={FUNCTIONAL_ROWS} params={len(names)} functional_svi_s "
+        f"{svi_s:.3f} steps {SVI_STEPS} lr {SVI_LR} host_reads_in_fit {reads[1]} / {reads[3]} "
+        f"(1- / 3-step fits; logging off) kernels_per_step {step_kernels:.1f} "
+        f"device_ms_per_step {step_busy_ms:.4f} step_host_ms {svi_s / SVI_STEPS * 1e3:.3f} "
+        f"idle_share {1 - step_busy_ms / step_wall_ms:.4f} (kernels, busy device ms and the busy "
+        f"share per step from profiled 3- less 1-step fits; the 3-step fit's largest device "
+        f"operations {'; '.join(f'{n[:40]} x{c} {us / 1e3:.3f} ms' for n, (c, us) in top)})")
+    log(f"functional_svi_check ok {z:.4f} standard errors from least squares at worst ({worst}; "
+        f"limit {FIT_SE_LIMIT}), log-likelihood {gap:.4f} below the optimum; after "
+        f"{SVI_CPU_STEPS} steps within max rel {rel:.3e} of the CPU run (rtol 1e-4, atol 1e-6; "
+        f"the CPU's {SVI_CPU_STEPS} steps {cpu_s:.3f} s)")
+
+    # ---- simulate against the closed-form joint of the fitted network
+    mean, cov = linear_gaussian_joint(parents, svi, order)
+    n = FUNCTIONAL_ROWS
+    rows = sim[order].to_numpy(np.float64)
+    mean_z = np.abs(rows.mean(axis=0) - mean) / np.sqrt(np.diag(cov) / n)
+    cov_se = np.sqrt((np.outer(np.diag(cov), np.diag(cov)) + cov**2) / n)
+    cov_z = np.abs(np.cov(rows.T, bias=True) - cov) / cov_se
+    check(mean_z.max() <= 5 and cov_z.max() <= 5,
+          f"simulate: means {mean_z.max()} / covariances {cov_z.max()} standard errors off")
+    check(sim.equals(again) and not sim.equals(other), "simulate: seeds do not fix the rows")
+    do_mean, do_cov = linear_gaussian_joint(parents, svi, order, do={do_node: do_value})
+    children = sorted(ecoli.successors(do_node), key=str)
+    do_z = max(abs(sim_do[c].mean() - do_mean[order.index(c)])
+               / np.sqrt(do_cov[order.index(c), order.index(c)] / n) for c in children)
+    check((sim_do[do_node] == do_value).all() and do_z <= 5,
+          f"do({do_node}): children {do_z} standard errors off")
+    log(f"functional_simulate rows={n} functional_simulate_s {simulate_s:.4f} (median of 3; the "
+        f"first {simulate_first_s:.3f}) means within {mean_z.max():.3f} and covariances within "
+        f"{cov_z.max():.3f} standard errors of the fitted closed-form joint (limit 5); the same "
+        f"seed gives equal rows; do({do_node}={do_value:.4f}) moves its {len(children)} children "
+        f"to the closed form within {do_z:.3f} standard errors")
+
+    # ---- log_likelihood against numpy float64
+    want_ll = numpy_loglik(df, parents, svi)
+    ll_err = abs(loglik - want_ll) / abs(want_ll)
+    check(ll_err <= 1e-5, f"log_likelihood {loglik} vs numpy {want_ll}")
+    log(f"functional_loglik rows={n} value {loglik:.4f} rel_err {ll_err:.3e} (limit 1e-5) "
+        f"loglik_s {loglik_s:.4f} rows_per_s {n / loglik_s:.1f}")
+
+    # ---- the MCMC fit against the conjugate posterior (sigma ~ 1 known)
+    post_mu, post_sd = MCMC_ROWS * xs.mean() / (MCMC_ROWS + 1), 1 / np.sqrt(MCMC_ROWS + 1)
+    limit = 5 * post_sd / np.sqrt(MCMC_MIN_ESS)
+    mu_err = abs(post["mu"].mean() - post_mu)
+    sigma_err = abs(post["sigma"].mean() - xs.std())
+    check(post["mu"].shape == (MCMC_STEPS,) and (post["sigma"] > 0).all(), "MCMC samples")
+    check(mu_err <= limit and sigma_err <= limit / np.sqrt(2),
+          f"MCMC: mu {mu_err} / sigma {sigma_err} from the conjugate answer")
+    log(f"functional_mcmc rows={MCMC_ROWS} samples={MCMC_STEPS} warmup={max(200, MCMC_STEPS // 2)} "
+        f"functional_mcmc_s {mcmc_s:.3f} log_density_evaluations {mcmc_fn.calls} (leapfrogs and "
+        f"the step-size search) posterior mean of mu {mu_err:.3e} and of sigma {sigma_err:.3e} "
+        f"from the conjugate answer (limits {limit:.3e}, {limit / np.sqrt(2):.3e})")
+
+    # ---- the point fit against least squares
+    pz, pworst = standard_error_gap(point_params, want, se)
+    check(pz <= FIT_SE_LIMIT, f"point fit: {pworst} {pz} standard errors from least squares")
+    log(f"functional_point_fit rows={n} point_fit_s {point_s:.3f} steps {point_steps} "
+        f"(max_iter {POINT_MAX_ITER}, lr {SVI_LR}, exit_delta 0) {pz:.4f} standard errors from "
+        f"least squares at worst ({pworst}; limit {FIT_SE_LIMIT})")
+
+    # ---- the trace
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(kernels, "the trace of one SVI step names no CUDA kernel")
+    log(f"functional_trace events {len(events)} cuda_kernels {len(kernels)} e.g. "
+        f"{sorted({e['name'][:40] for e in kernels})[:3]}")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    log(f"phase_functional_main_path_s {path_s:.1f}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# the network file formats on MUNIN
+# --------------------------------------------------------------------------- #
+READWRITE_FORMATS = ("xmlbif", "net", "uai", "xdsl", "xbn")
+
+
+def uai_names(model):
+    """{var_i: name} in the UAI writer's canonical (cardinality-string, name)
+    order."""
+    domain = {str(v): str(model.get_cpds(v).variable_card) for v in model.nodes()}
+    order = [v for v, _ in sorted(domain.items(), key=lambda x: (x[1], x[0]))]
+    return {f"var_{i}": name for i, name in enumerate(order)}
+
+
+def same_network(got, want, by_index=False, atol=0.0):
+    """The largest CPD difference of ``got`` from ``want`` (raises on another
+    structure or other states); ``by_index`` maps UAI's ``var_i`` names, and
+    compares cardinalities, not state names."""
+    names = uai_names(want) if by_index else {str(v): str(v) for v in got.nodes()}
+    check(set(names.values()) == set(map(str, want.nodes())), "nodes differ")
+    check({(names[str(u)], names[str(v)]) for u, v in got.edges()}
+          == {(str(u), str(v)) for u, v in want.edges()}, "edges differ")
+    worst = 0.0
+    for var, name in names.items():
+        g, w = got.get_cpds(var), want.get_cpds(name)
+        check([names[str(x)] for x in g.variables] == [str(x) for x in w.variables],
+              f"{name}: evidence {g.variables}")
+        if not by_index:
+            check(g.state_names == w.state_names, f"{name}: states differ")
+        check(list(g.cardinality) == list(w.cardinality), f"{name}: cardinality")
+        worst = max(worst, float(np.abs(g.get_values().astype(np.float64)
+                                        - w.get_values().astype(np.float64)).max()))
+    check(worst <= atol, f"CPDs {worst} apart (limit {atol})")
+    return worst
+
+
+def pomdpx_example():
+    """The TBL example of ``tests/test_pomdpx.py``, read from the file's
+    source (that test module imports the JAX package)."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_pomdpx.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "POMDPX":
+            return ast.literal_eval(node.value)
+    raise AssertionError("tests/test_pomdpx.py holds no POMDPX example")
+
+
+def pomdpx_data(reader):
+    """The model dict ``PomdpXWriter`` takes, as ``reader`` reads it."""
+    return {"description": reader.get_description(), "discount": reader.get_discount(),
+            "variables": reader.get_variables(),
+            "initial_state_belief": reader.get_initial_beliefs(),
+            "state_transition_function": reader.get_state_transition_function(),
+            "obs_function": reader.get_obs_function(),
+            "reward_function": reader.get_reward_function()}
+
+
+def phase_readwrite(model, df, fitted):
+    """MUNIN through the five network formats (saved and loaded by extension),
+    the junction tree of the read-back model calibrated, the read-back model
+    fitted on the main path's rows, the reference-written files, PomdpX, and
+    ``KernelTimer`` around a calibration.  Returns the (table-count, bincount)
+    launches of the path."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.estimators import BayesianEstimator
+    from pgmpy_tpu_torch.inference import BeliefPropagation
+    from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.readwrite import BIFReader, PomdpXReader, PomdpXWriter, get_reader
+    from pgmpy_tpu_torch.utils import KernelTimer
+
+    testdata = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "testdata")
+    pomdpx_text = pomdpx_example()
+
+    # ---- the path, counted
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    phase_t0 = time.time()
+    times, back = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in READWRITE_FORMATS:
+            path = os.path.join(d, f"munin.{fmt}")
+            t0 = time.time()
+            model.save(path)
+            write_s = time.time() - t0
+            t0 = time.time()
+            back[fmt] = DiscreteBayesianNetwork.load(path)
+            times[fmt] = (write_s, time.time() - t0, os.path.getsize(path))
+        # a second copy, calibrated and then fitted in place
+        read_model = DiscreteBayesianNetwork.load(os.path.join(d, "munin.xmlbif"))
+        pomdpx_path = os.path.join(d, "example.pomdpx")
+        pomdpx = pomdpx_data(PomdpXReader(string=pomdpx_text))
+        PomdpXWriter(pomdpx).write_file(pomdpx_path)
+        pomdpx_back = pomdpx_data(PomdpXReader(path=pomdpx_path))
+    original_bp = BeliefPropagation(model)
+    original_bp.calibrate()
+    read_bp = BeliefPropagation(read_model)
+    read_bp.calibrate()
+    timer = KernelTimer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with timer.time("calibrate"):
+        start.record()
+        read_bp._calibrate_junction_tree("marginalize")
+        end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end)
+    read_states = read_model.states  # from the file, before its CPDs go
+    read_model.remove_cpds(*read_model.get_cpds())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    read_model.fit(df, estimator=BayesianEstimator, state_names=read_states,
+                   prior_type="BDeu", equivalent_sample_size=5)
+    torch.cuda.synchronize()
+    refit_s = time.time() - t0
+    references = {}
+    for i in (0, 1):
+        base = BIFReader(os.path.join(testdata, f"net{i}.bif")).get_model()
+        for fmt in READWRITE_FORMATS:
+            references[(i, fmt)] = (base, get_reader(fmt)(
+                path=os.path.join(testdata, f"ref{i}.{fmt}")).get_model())
+    torch.cuda.synchronize()
+    launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    path_s = time.time() - phase_t0
+    log(f"readwrite_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
+        f"(one: the fit of the model read back from XMLBIF)")
+    check(launches == (1, 0), f"the read-back fit made {launches} count launches")
+
+    # ---- round trips: every format writes repr(float) of the float32 tables
+    for fmt in READWRITE_FORMATS:
+        check(all(c.values.is_cuda for c in back[fmt].get_cpds()), f"{fmt}: CPDs not on the card")
+        err = same_network(back[fmt], model, by_index=fmt == "uai")
+        write_s, read_s, size = times[fmt]
+        log(f"readwrite_{fmt} munin variables={len(model.nodes())} bytes {size} write_s "
+            f"{write_s:.3f} read_s {read_s:.3f} max_abs_err {err:.1e} (precision 0: the "
+            f"writer prints repr(float) of each float32 entry)"
+            + (" by canonical index, cardinalities only" if fmt == "uai" else ""))
+
+    # ---- calibration of the read-back tree
+    want_cliques, got_cliques = original_bp.get_clique_beliefs(), read_bp.get_clique_beliefs()
+    if set(want_cliques) == set(got_cliques):
+        limit = 1e-6
+        cal_err = max(float((got_cliques[c].values - phi.values).abs().max())
+                      for c, phi in want_cliques.items())
+    else:
+        # another tree: compare each variable's marginal from one clique of each
+        limit = 1e-3
+        cal_err = 0.0
+        for var in model.nodes():
+            marginals = []
+            for cliques in (want_cliques, got_cliques):
+                phi = next(p for c, p in cliques.items() if var in c)
+                marginals.append(phi.marginalize([v for v in phi.variables if v != var],
+                                                 inplace=False).normalize(inplace=False).values)
+            cal_err = max(cal_err, float((marginals[0] - marginals[1]).abs().max()))
+    check(cal_err <= limit, f"the read-back calibration is {cal_err} from the original's")
+    log(f"readwrite_calibration cliques original {len(want_cliques)} read {len(got_cliques)} "
+        f"same_tree {set(want_cliques) == set(got_cliques)} max_abs_err {cal_err:.3e} (limit "
+        f"{limit})")
+
+    # ---- the read-back model's fit against the main path's
+    for node in fitted.nodes():
+        got, want = read_model.get_cpds(node), fitted.get_cpds(node)
+        check(got.variables == want.variables and got.state_names == want.state_names
+              and torch.equal(got.values, want.values), f"refit {node} differs")
+    log(f"readwrite_refit rows={len(df)} fit_s {refit_s:.4f} every CPD equal (torch.equal) to the "
+        f"main path's fit")
+
+    # ---- files written by the reference pgmpy
+    worst = 0.0
+    for (i, fmt), (base, got) in references.items():
+        check(all(c.values.is_cuda for c in got.get_cpds()), f"ref{i}.{fmt}: not on the card")
+        if fmt == "uai":
+            worst = max(worst, same_network(got, base, by_index=True, atol=1e-6))
+            continue
+        check({tuple(map(str, e)) for e in got.edges()} == {tuple(map(str, e)) for e in base.edges()},
+              f"ref{i}.{fmt}: edges")
+        for node in base.nodes():
+            g, w = got.get_cpds(str(node)), base.get_cpds(str(node))
+            order = [list(g.variables).index(v) for v in w.variables]
+            values = g.values.permute(*order).cpu().double().numpy()
+            err = float(np.abs(values - w.values.cpu().double().numpy()).max())
+            worst = max(worst, err)
+            check(err <= 1e-6, f"ref{i}.{fmt} {node}: {err}")
+    log(f"readwrite_reference_files {len(references)} files (ref0/ref1 x {len(READWRITE_FORMATS)}) "
+        f"equal to net0/net1.bif within {worst:.1e} (limit 1e-6)")
+
+    # ---- PomdpX and the timer
+    check(pomdpx_back == pomdpx, "PomdpX: the written file reads back to other dicts")
+    kernel_ms = timer.summary()["calibrate"]["total_s"] * 1e3
+    check(kernel_ms >= event_ms, f"KernelTimer {kernel_ms} ms < CUDA events {event_ms} ms")
+    log(f"readwrite_pomdpx equal dicts; kernel_timer calibrate {kernel_ms:.4f} ms >= CUDA events "
+        f"{event_ms:.4f} ms")
+    check(config.DEVICE.type == "cuda", "device left on the CPU")
+    log(f"phase_readwrite_main_path_s {path_s:.1f}")
+    return launches
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3168,6 +3711,13 @@ def main():
     t0 = time.time()
     causal_tables, causal_bincounts = phase_causal(model)
     log(f"phase_causal_s {time.time() - t0:.1f}")
+    # the tenth and eleventh paths
+    t0 = time.time()
+    functional_tables, functional_bincounts = phase_functional()
+    log(f"phase_functional_s {time.time() - t0:.1f}")
+    t0 = time.time()
+    readwrite_tables, readwrite_bincounts = phase_readwrite(model, df, context["fitted"])
+    log(f"phase_readwrite_s {time.time() - t0:.1f}")
     for name, launches, result in (
             ("table_counts/particle_marginals_weighted", filter_launches, weighted),
             ("table_counts/pair_tables", 1, pairs),
@@ -3187,7 +3737,10 @@ def main():
         row["launches_latent"] = latent_bincounts if first else latent_tables
         row["launches_loopy"] = loopy_bincounts if first else loopy_tables
         row["launches_causal"] = causal_bincounts if first else causal_tables
+        row["launches_functional"] = functional_bincounts if first else functional_tables
+        row["launches_readwrite"] = readwrite_bincounts if first else readwrite_tables
     log(f"script_s {time.time() - started:.1f}")
+    log(smi)  # again near the end, where a reader of the output's tail finds it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,12 @@ from pgmpy_tpu_torch.factors.factor_set import (
 from pgmpy_tpu_torch.factors.jpd import JointProbabilityDistribution
 from pgmpy_tpu_torch.factors.continuous import LinearGaussianCPD
 from pgmpy_tpu_torch.factors.noisy_or import NoisyORCPD
+from pgmpy_tpu_torch.factors.hybrid import (
+    FunctionalCPD,
+    clear_param_store,
+    get_param_store,
+    param,
+)
 
 __all__ = [
     "DiscreteFactor",
@@ -29,4 +35,8 @@ __all__ = [
     "JointProbabilityDistribution",
     "LinearGaussianCPD",
     "NoisyORCPD",
+    "FunctionalCPD",
+    "param",
+    "get_param_store",
+    "clear_param_store",
 ]

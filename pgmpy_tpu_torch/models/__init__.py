@@ -8,6 +8,7 @@ from pgmpy_tpu_torch.models.naive_bayes import NaiveBayes
 from pgmpy_tpu_torch.models.linear_gaussian_bn import LinearGaussianBayesianNetwork
 from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork, DynamicNode
 from pgmpy_tpu_torch.models.sem import SEM, SEMGraph, SEMAlg
+from pgmpy_tpu_torch.models.functional_bn import FunctionalBayesianNetwork
 
 # deprecated aliases kept for API familiarity with the reference
 BayesianNetwork = DiscreteBayesianNetwork
@@ -27,6 +28,7 @@ __all__ = [
     "SEM",
     "SEMGraph",
     "SEMAlg",
+    "FunctionalBayesianNetwork",
     "BayesianNetwork",
     "MarkovNetwork",
 ]

@@ -490,22 +490,19 @@ class DiscreteBayesianNetwork(DAG):
         )
 
     def save(self, filename, filetype=None):
-        """Write the model in bif / xmlbif / xdsl / net / uai format (inferred
-        from the extension when ``filetype`` is None)."""
-        from pgmpy_tpu_torch.readwrite import get_writer
+        """Write the model in bif / xmlbif / xdsl / net / uai / xbn format
+        (inferred from the extension when ``filetype`` is None); a name
+        ending in ``.gz`` is written through gzip."""
+        from pgmpy_tpu_torch.readwrite import filetype_of, get_writer
 
-        if filetype is None:
-            filetype = filename.rsplit(".", 1)[-1].lower()
-        writer = get_writer(filetype)(model=self)
+        writer = get_writer(filetype or filetype_of(filename))(model=self)
         writer.write_file(filename)
 
     @classmethod
     def load(cls, filename, filetype=None, **kwargs):
-        from pgmpy_tpu_torch.readwrite import get_reader
+        """Read a model written in any format ``save`` writes, gzipped or
+        not."""
+        from pgmpy_tpu_torch.readwrite import filetype_of, get_reader
 
-        if filetype is None:
-            filetype = filename.rsplit(".", 1)[-1].lower()
-            if filetype == "gz":
-                filetype = filename.rsplit(".", 2)[-2].lower()
-        reader = get_reader(filetype)(path=filename, **kwargs)
+        reader = get_reader(filetype or filetype_of(filename))(path=filename, **kwargs)
         return reader.get_model()

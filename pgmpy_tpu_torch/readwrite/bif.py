@@ -33,6 +33,15 @@ _NETWORK_RE = re.compile(r"network\s+(?P<name>[^\s{]+)\s*\{")
 _PROPERTY_RE = re.compile(r"property\s+(?P<text>[^;]*);")
 
 
+def open_text(path, mode="r"):
+    """``open(path, mode)``, through gzip when ``path`` ends in ``.gz`` (text
+    modes as text, binary modes as bytes): every reader and writer of this
+    package takes ``.gz`` paths this way."""
+    if str(path).endswith(".gz"):
+        return gzip.open(path, mode if "b" in mode else mode + "t")
+    return open(path, mode)
+
+
 def _split_csv(text):
     return [t.strip() for t in text.split(",") if t.strip()]
 
@@ -43,12 +52,8 @@ class BIFReader:
     def __init__(self, path=None, string=None, include_properties=False, n_jobs=1):
         self.include_properties = include_properties
         if path is not None:
-            if str(path).endswith(".gz"):
-                with gzip.open(path, "rt") as f:
-                    self.network = f.read()
-            else:
-                with open(path) as f:
-                    self.network = f.read()
+            with open_text(path) as f:
+                self.network = f.read()
         elif string is not None:
             self.network = string
         else:
@@ -367,10 +372,5 @@ class BIFWriter(_WriterIntrospection):
         self.write_file(filename)
 
     def write_file(self, filename):
-        text = self.get_string()
-        if str(filename).endswith(".gz"):
-            with gzip.open(filename, "wt") as f:
-                f.write(text)
-        else:
-            with open(filename, "w") as f:
-                f.write(text)
+        with open_text(filename, "w") as f:
+            f.write(self.get_string())

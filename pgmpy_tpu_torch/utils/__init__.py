@@ -15,6 +15,7 @@ from pgmpy_tpu_torch.utils.mathext import (
     sample_discrete_maps,
     powerset,
 )
+from pgmpy_tpu_torch.utils.profiling import KernelTimer, trace
 from pgmpy_tpu_torch.utils._safe_import import _safe_import, _check_soft_dependencies
 
 __all__ = [
@@ -32,4 +33,6 @@ __all__ = [
     "sample_discrete",
     "sample_discrete_maps",
     "powerset",
+    "KernelTimer",
+    "trace",
 ]

@@ -15,7 +15,9 @@ one table per scope (any shape with the scope's number of entries, C-order);
 :func:`factor_graph_from_numpy` and :func:`markov_network_from_numpy` build
 it.  A SEM's free parameters, ``{"B", "S", "S_diag"}`` as the JAX package's
 ``SEMEstimator`` holds them, become the port's tensors through
-:func:`sem_params_from_numpy`.  All take numpy only.
+:func:`sem_params_from_numpy`; the learnable parameters of functional CPDs
+(``{name: array}``, as an SVI fit returns them) enter the port's param store
+through :func:`functional_params_from_numpy`.  All take numpy only.
 """
 
 import itertools
@@ -121,3 +123,16 @@ def sem_params_from_numpy(params):
     dict of arrays), as tensors on ``config.DEVICE`` in ``config.DTYPE``:
     the ``params`` that ``SEMEstimator``'s losses take."""
     return {name: as_tensor(values) for name, values in params.items()}
+
+
+def functional_params_from_numpy(params):
+    """The functional CPDs' parameters ``{name: array}`` (an SVI fit's result
+    or ``get_param_store()`` of either package, as numpy) as tensors on
+    ``config.DEVICE`` in ``config.DTYPE``, loaded into the port's param store
+    so that ``param(name)`` outside a fit, and so ``simulate`` and
+    ``log_likelihood``, use them.  Returns the dict of tensors."""
+    from pgmpy_tpu_torch.factors.hybrid import _PARAM_STORE
+
+    tensors = {name: as_tensor(values) for name, values in params.items()}
+    _PARAM_STORE.values.update(tensors)
+    return tensors

@@ -23,26 +23,7 @@ import pgmpy_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # {JAX module: {name: the module it waits for, as ROADMAP.md writes it}}
-WAITING = {
-    "pgmpy_tpu.readwrite": {
-        f"{fmt}{role}": f"readwrite/{module}.py"
-        for fmt, module in (("NET", "net"), ("UAI", "uai"), ("XMLBIF", "xmlbif"),
-                            ("XBN", "xbn"), ("XDSL", "xdsl"), ("PomdpX", "pomdpx"))
-        for role in ("Reader", "Writer")
-    },
-    "pgmpy_tpu.factors": {
-        "FunctionalCPD": "factors/hybrid.py",
-        "param": "factors/hybrid.py",
-        "get_param_store": "factors/hybrid.py",
-        "clear_param_store": "factors/hybrid.py",
-    },
-    "pgmpy_tpu.models": {
-        "FunctionalBayesianNetwork": "models/functional_bn.py",
-    },
-    "pgmpy_tpu.utils": {
-        "KernelTimer": "utils/profiling.py", "trace": "utils/profiling.py",
-    },
-}
+WAITING = {}
 
 
 def _port_modules():
@@ -63,7 +44,8 @@ def test_every_ported_package_is_compared():
     compared = {jax for _, jax in PAIRS}
     for name in ("pgmpy_tpu.base", "pgmpy_tpu.estimators", "pgmpy_tpu.inference",
                  "pgmpy_tpu.utils", "pgmpy_tpu.metrics", "pgmpy_tpu.factors",
-                 "pgmpy_tpu.identification", "pgmpy_tpu.prediction"):
+                 "pgmpy_tpu.identification", "pgmpy_tpu.prediction", "pgmpy_tpu.models",
+                 "pgmpy_tpu.readwrite", "pgmpy_tpu.sampling"):
         assert name in compared
 
 

@@ -19,7 +19,8 @@ package's tests with their assertions and tolerances: the CI tests and
 dataset log-probability of ``_v2``, all of ``_v3`` (PC skeleton and
 separating sets, ``correlation_score``, ``fisher_c``, ``implied_cis``),
 GES, MMHC and the residual CI tests of ``_v4``, ``log_likelihood_score`` and
-SHD of ``_v5``, ``pillai_trace`` and ``edge_strength`` of ``_v6`` and
+SHD of ``_v5``, ``pillai_trace``, ``edge_strength`` and ``io_interop`` (the
+port's UAI and XBN files byte for byte the JAX package's) of ``_v6`` and
 ``DAG.to_pdag`` of ``_v7``.
 
 The latent-variable lane and loopy inference run EM with a fixed init and
@@ -543,6 +544,24 @@ def test_v6_pillai_boolean_contract(v6_mixed_df):
     flag = pillai_trace(case["X"], case["Y"], case["Z"], v6_mixed_df, boolean=True,
                         significance_level=0.05, **PILLAI_FACTORIES)
     assert flag == (case["p"] >= 0.05)
+
+
+@pytest.mark.parametrize("net", sorted(V6["io_interop"]))
+def test_v6_io_interop_carries_over(net, tmp_path):
+    """The golden records that reference pgmpy reads ``pgmpy_tpu``'s UAI and
+    XBN files of ``net0`` / ``net1`` (exactly, for XBN).  The port's writers
+    give the same bytes, so the golden holds for the port's files too."""
+    from pgmpy_tpu.readwrite import BIFReader as JaxBIFReader
+    from pgmpy_tpu.readwrite import get_writer as jax_writer
+    from pgmpy_tpu_torch.readwrite import BIFReader, get_writer
+
+    assert V6["io_interop"][net] == {"uai_ref_reads_ours": True, "xbn_ref_reads_ours_exact": True}
+    path = os.path.join(HERE, "testdata", f"{net}.bif")
+    port_model, jax_model = BIFReader(path).get_model(), JaxBIFReader(path).get_model()
+    for fmt in ("uai", "xbn"):
+        get_writer(fmt)(port_model).write_file(str(tmp_path / f"port.{fmt}"))
+        jax_writer(fmt)(jax_model).write_file(str(tmp_path / f"jax.{fmt}"))
+        assert (tmp_path / f"port.{fmt}").read_bytes() == (tmp_path / f"jax.{fmt}").read_bytes()
 
 
 def test_v6_edge_strengths(v6_mixed_df, monkeypatch):
