@@ -108,7 +108,21 @@ Runs from the repository root and needs one CUDA card.  It
    rows (one table-count launch, CPDs equal to the main path's), the files
    the reference pgmpy wrote, a PomdpX round trip and ``KernelTimer`` around
    a calibration against CUDA events;
-14. prints the card, the timings, one JSON line describing each kernel (its
+14. drives the multi-device lane (``phase_parallel``) on 4 shards of one card
+   (and on every card when there are more): MUNIN's junction tree calibrated
+   in 4 connected parts against the single-device program (every clique and
+   sepset, at a tolerance derived from float32 rounding over the schedule;
+   both timed), ``sharded_sample_marginals`` of MUNIN (262,144 forward draws
+   against the exact marginals, the same seed twice; likelihood-weighted
+   draws with one leaf observed against ``BeliefPropagation.query`` at the
+   effective sample size; one ``table_counts`` launch per shard),
+   ``sharded_query_batch`` of the 2,048 prediction rows over 4, 1 and 3 shards
+   against ``query_batch``, ``sharded_gibbs_marginals`` on HEPAR2 and
+   ``sharded_nuts_moments`` on ecoli70 (1,024 chains, 30 kept steps) against
+   their exact answers, K1 at the shape of one shard's moments, and a run of
+   two processes joined by gloo on one card (NCCL, one card per rank, when
+   there are two);
+15. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time), and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -883,6 +897,7 @@ def phase_simulate_predict(model, context):
         hits += int((predicted[t].to_numpy(dtype=object)
                      == np.asarray(states[t], dtype=object)[held_out[t]]).sum())
     check(prob_err <= 1e-5, f"predict_probability against the oracle: max_abs_err {prob_err}")
+    context["predict_rows"] = (fitted, targets, test)
     log(f"predict_check ok oracle max_abs_err {prob_err:.3e} (limit 1e-5) undecided_rows "
         f"{undecided} accuracy_on_held_out {hits / (len(targets) * BATCH_ROWS):.4f}")
 
@@ -993,10 +1008,17 @@ def moment_check(name, samples, mean, cov, n_effective):
     """Pooled mean and standard deviations of ``samples`` (draws, dim) against
     the joint's, six standard errors at ``n_effective`` independent draws:
     |mean error| <= 6 sd / sqrt(n) and |sd ratio - 1| <= 6 / sqrt(2 n)."""
-    sd = np.sqrt(np.diag(cov))
     check(bool(np.isfinite(samples).all()), f"{name}: non-finite samples")
-    mean_err = float(np.abs((samples.mean(axis=0) - mean) / sd).max())
-    sd_err = float(np.abs(samples.std(axis=0) / sd - 1).max())
+    return moments_check(name, samples.mean(axis=0), samples.std(axis=0), mean, cov, n_effective)
+
+
+def moments_check(name, got_mean, got_sd, mean, cov, n_effective):
+    """:func:`moment_check` on the pooled means and standard deviations."""
+    sd = np.sqrt(np.diag(cov))
+    check(bool(np.isfinite(got_mean).all() and np.isfinite(got_sd).all()),
+          f"{name}: non-finite moments")
+    mean_err = float(np.abs((got_mean - mean) / sd).max())
+    sd_err = float(np.abs(got_sd / sd - 1).max())
     mean_limit, sd_limit = 6 / np.sqrt(n_effective), 6 / np.sqrt(2 * n_effective)
     check(mean_err <= mean_limit, f"{name}: pooled mean off by {mean_err} sd (limit {mean_limit})")
     check(sd_err <= sd_limit, f"{name}: pooled sd off by {sd_err} (limit {sd_limit})")
@@ -3661,6 +3683,303 @@ def phase_readwrite(model, df, fitted):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# the multi-device lane: model-parallel calibration, sharded samplers, queries
+# --------------------------------------------------------------------------- #
+PARALLEL_SHARDS = 4
+SHARDED_DRAWS = 262_144
+SHARDED_LW_CHECKED = 20
+# the sharded NUTS run: its shards step one after another on one card, so it
+# keeps fewer draws than phase_mcmc's run (the limits follow the draws)
+PARALLEL_NUTS_SAMPLES = 30
+WORKER_TIMEOUT_S = 240
+
+
+def schedule_rtol(program):
+    """The relative float32 rounding that a junction tree's schedule allows
+    between two calibrations that order their products differently, as
+    ``tests/test_torch_bp.py::test_munin_beliefs_match`` derives it: per message
+    ceil(log2 m) for the sum of its m entries plus 3 (the division by the
+    previous message, the product into the destination, the sepset update),
+    plus the worst clique's own factor product and normalisation, twice (both
+    calibrations round)."""
+    import math
+
+    u = 2.0 ** -24
+    per_message = [math.ceil(math.log2(max(2, math.prod(
+        program.clique_shapes[src][a] for a in axes)))) + 3
+        for src, _, axes, *_ in program.messages]
+    per_clique = max(len(specs) + math.ceil(math.log2(max(2, math.prod(shape)))) + 1
+                     for specs, shape in zip(program.potential_specs, program.clique_shapes))
+    return 2 * u * (sum(per_message) + per_clique)
+
+
+def beliefs_gap(got, want, rtol, atol=1e-6):
+    """The worst relative gap of paired belief tensors (``|a - b| / max(|b|,
+    atol)``), checked against ``|a - b| <= atol + rtol |b|``."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        diff = (a.to(b.device) - b).abs()
+        check(bool((diff <= atol + rtol * b.abs()).all()), f"beliefs differ by {float(diff.max())}")
+        worst = max(worst, float((diff / b.abs().clamp_min(atol)).max()))
+    return worst
+
+
+def sharded_calibration_case(name, program, arrays, mesh, reference, rtol):
+    """Calibrate MUNIN over ``mesh``'s parts, hold every clique and sepset to the
+    single-device ``reference`` and time 5 calibrations of each with CUDA
+    events (the host enqueue included: it is the calibration's wall time)."""
+    from pgmpy_tpu_torch.parallel.jt_mesh import ShardedJunctionTreeCalibration
+
+    sharded = ShardedJunctionTreeCalibration(program, mesh)
+    beliefs, mu = sharded.calibrate(arrays)
+    for c, b in enumerate(beliefs):
+        part = next(p for p, part in enumerate(sharded.parts) if c in part["cliques"])
+        check(b.device == sharded.device_of_part[part], f"{name}: clique {c} left its part's card")
+    clique_gap = beliefs_gap(beliefs, reference[0], rtol)
+    sepset_gap = beliefs_gap(mu, reference[1], rtol)
+    boundary = [p["boundary_edge_id"] for p in sharded.parts if p["boundary_edge_id"] is not None]
+    crossing = 2 * 4 * sum(int(np.prod(program.sepset_shapes[e])) for e in boundary)
+    moved = [arrays[i] for p, part in enumerate(sharded.parts) for i in part["factor_ids"]
+             if sharded.device_of_part[p] != arrays[i].device]
+    inputs = sum(a.numel() * a.element_size() for a in moved)
+    sharded_ms = cuda_median_ms(lambda: sharded.calibrate(arrays), reps=5, warmup=1)
+    single_ms = cuda_median_ms(lambda: program.calibrate(arrays), reps=5, warmup=1)
+    kernels, device_ms = profiled(lambda: sharded.calibrate(arrays))
+    single_kernels, single_device_ms = profiled(lambda: program.calibrate(arrays))
+    sizes = sorted(len(p["cliques"]) for p in sharded.parts)
+    log(f"parallel_jt_{name} cliques {len(program.cliques)} messages {len(program.messages)} "
+        f"shards {mesh.size} devices {sorted({str(d) for d in sharded.device_of_part})} parts "
+        f"{sharded.n_parts} part_sizes {sizes} boundary_edges {len(boundary)} "
+        f"crossing_bytes_per_calibration {crossing} (a sigma up and a ratio down per boundary "
+        f"edge, float32) input_tables_moved_per_calibration {len(moved)} "
+        f"({inputs} bytes: factor tables of parts on another card than the tables) sharded_ms {sharded_ms:.3f} single_device_ms {single_ms:.3f} (CUDA "
+        f"events, median of 5) kernels sharded {kernels:.0f} single {single_kernels:.0f} "
+        f"device_ms sharded {device_ms:.3f} single {single_device_ms:.3f} max_rel_gap cliques "
+        f"{clique_gap:.3e} sepsets {sepset_gap:.3e} (limit rtol {rtol:.3e} from float32 "
+        f"rounding over the schedule, atol 1e-6)")
+
+
+def two_process_run(backend):
+    """``tests/_torch_distributed_worker.py`` in two processes joined over a
+    localhost coordinator, 2 shards each: gloo with both ranks on cuda:0, or
+    NCCL with one card per rank."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "_torch_distributed_worker.py")
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-u", worker, str(rank), str(port), "cuda", backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"WORKER {rank} OK" in out,
+              f"two-process {backend} rank {rank} failed:\n{out[-3000:]}")
+    log(f"parallel_two_process backend {backend} ranks 2 shards_per_rank 2 wall_s "
+        f"{time.time() - t0:.1f} ok (global mesh of 4, cross-process psum of arange(8) = 28, "
+        f"distinct host_fold_key seeds, rain/wet P(rain | wet) within 0.02 of [1/3, 2/3], "
+        f"sharded query_batch equal, VectorizedNUTS.sample(axis_name='chains') ends at one "
+        f"final_stepsize on both ranks)")
+
+
+def lw_evidence(model, marginals):
+    """(leaf, state) for the likelihood-weighted draws: the first leaf, in name
+    order, whose second most probable state has probability >= 0.1 and whose
+    CPD gives that state a probability that moves by >= 0.2 with the parents
+    (so that the weights differ between draws)."""
+    for v in sorted(model.nodes(), key=str):
+        if model.get_children(v) or not model.get_parents(v):
+            continue
+        k = int(np.argsort(marginals[v])[-2])
+        row = model.get_cpds(v).get_values()[k]
+        if marginals[v][k] >= 0.1 and row.max() - row.min() >= 0.2:
+            return v, model.states[v][k]
+    raise AssertionError("no leaf suits likelihood weighting")
+
+
+def phase_parallel(model, context):
+    """The multi-device lane on 4 shards of cuda:0 (and on every card when
+    there are more): MUNIN calibrated in parts, sharded forward and
+    likelihood-weighted draws of MUNIN, the 2,048 prediction rows as a sharded
+    ``query_batch``, sharded Gibbs on HEPAR2 and NUTS on ecoli70, and a
+    two-process run.  Returns the (table-count, bincount) launches of the
+    path, the K1 row at the sharded moments' shape and its launches."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.parallel import (get_mesh, sharded_gibbs_marginals,
+                                          sharded_nuts_moments, sharded_query_batch,
+                                          sharded_sample_marginals)
+    from pgmpy_tpu_torch.parallel.jt_mesh import ShardedJunctionTreeCalibration
+    from pgmpy_tpu_torch.parallel.mesh import Mesh, _marginal_specs
+    from pgmpy_tpu_torch.sampling.core import CompiledAncestralSampler
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    card = torch.device("cuda", 0)
+    mesh = Mesh([card] * PARALLEL_SHARDS)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        log(f"parallel: {n_cards} cards: the cross-card mesh and the NCCL run follow the "
+            f"4 shards of cuda:0")
+    else:
+        log("parallel: one card: the cross-card copies and the NCCL run need more than one "
+            "card and are not run; every other check runs on 4 shards of cuda:0")
+    device_before = config.DEVICE
+
+    # ---- inputs, built before the counted path
+    bp = BeliefPropagation(model)
+    program = bp._program
+    arrays = [f.values for f in bp._input_factors]
+    bp.calibrate()
+    marginals = exact_marginals(bp)
+    leaf, state = lw_evidence(model, marginals)
+    rng = np.random.default_rng(SEED)
+    checked = sorted(rng.choice([v for v in sorted(model.nodes(), key=str) if v != leaf],
+                                SHARDED_LW_CHECKED, replace=False).tolist(), key=str)
+    fitted, targets, test = context["predict_rows"]
+    rows = {v: test[v].tolist() for v in test.columns}
+    hepar, ecoli = get_example_model("hepar2"), get_example_model("ecoli70")
+
+    # ---- the path, counted
+    per_call = {}
+
+    def counted(name, fn):
+        before = bc.TABLE_LAUNCHES
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[name] = (bc.TABLE_LAUNCHES - before, time.time() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    bc.reset_launches()
+    phase_t0 = time.time()
+    sharded = counted("partition", lambda: ShardedJunctionTreeCalibration(program, mesh))
+    beliefs, mu = counted("calibrate", lambda: sharded.calibrate(arrays))
+    forward = counted("forward", lambda: sharded_sample_marginals(
+        model, SHARDED_DRAWS, mesh=mesh, seed=SEED))
+    weighted = counted("weighted", lambda: sharded_sample_marginals(
+        model, SHARDED_DRAWS, mesh=mesh, evidence={leaf: state}, seed=SEED))
+    values, names = counted("query_batch", lambda: sharded_query_batch(
+        fitted, targets, rows, mesh=mesh))
+    gibbs = counted("gibbs", lambda: sharded_gibbs_marginals(
+        hepar, HEPAR_CHAINS, HEPAR_SWEEPS, mesh=mesh, burn_in=HEPAR_BURN_IN, seed=SEED))
+    nuts = counted("nuts", lambda: sharded_nuts_moments(
+        ecoli, NUTS_CHAINS, PARALLEL_NUTS_SAMPLES, num_adapt=NUTS_ADAPT, stepsize=0.17,
+        mesh=mesh, max_depth=6, seed=SEED))
+    torch.cuda.synchronize()
+    launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    path_s = time.time() - phase_t0
+    log(f"parallel_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
+        + " ".join(f"{k} {n} launches {s:.3f} s" for k, (n, s) in per_call.items())
+        + f" path_s {path_s:.1f} (each sampler's moments: one launch per shard)")
+    want = {"partition": 0, "calibrate": 0, "forward": PARALLEL_SHARDS,
+            "weighted": PARALLEL_SHARDS, "query_batch": 0, "gibbs": PARALLEL_SHARDS, "nuts": 0}
+    check({k: n for k, (n, _) in per_call.items()} == want and launches[1] == 0,
+          f"parallel path launches {per_call}, {launches}")
+    check(config.DEVICE == device_before, f"config.DEVICE left at {config.DEVICE}")
+    moments_launches = 3 * PARALLEL_SHARDS
+
+    # ---- model-parallel calibration against the single-device program
+    rtol = schedule_rtol(program)
+    reference = program.calibrate(arrays)
+    gap = beliefs_gap(beliefs, reference[0], rtol), beliefs_gap(mu, reference[1], rtol)
+    log(f"parallel_jt_path max_rel_gap cliques {gap[0]:.3e} sepsets {gap[1]:.3e} (limit rtol "
+        f"{rtol:.3e})")
+    sharded_calibration_case("one_card", program, arrays, mesh, reference, rtol)
+    if n_cards > 1:
+        sharded_calibration_case("all_cards", program, arrays, get_mesh(), reference, rtol)
+
+    # ---- forward draws against the exact marginals; the same seed twice
+    nodes = sorted(model.nodes(), key=str)
+    worst = 0.0
+    for v in nodes:
+        check(bool(within_mc_error(forward[v], marginals[v], SHARDED_DRAWS).all()),
+              f"sharded forward {v}: {forward[v]} against {marginals[v]}")
+        worst = max(worst, float(np.abs(forward[v] - marginals[v]).max()))
+    again = sharded_sample_marginals(model, SHARDED_DRAWS, mesh=mesh, seed=SEED)
+    check(all(np.array_equal(again[v], forward[v]) for v in nodes),
+          "sharded forward: the same seed gave other counts")
+    log(f"parallel_forward munin draws {SHARDED_DRAWS} shards {PARALLEL_SHARDS} variables "
+        f"{len(nodes)} max_abs_err {worst:.3e} (limit 5*sqrt(p(1-p)/n)+1e-4) same seed twice: "
+        f"equal counts")
+    if n_cards > 1:
+        spread = sharded_sample_marginals(model, SHARDED_DRAWS, mesh=get_mesh(), seed=SEED)
+        check(all(within_mc_error(spread[v], marginals[v], SHARDED_DRAWS).all() for v in nodes),
+              "sharded forward over every card")
+        log(f"parallel_forward_all_cards cards {n_cards} within the same limits")
+
+    # ---- likelihood-weighted draws against BP queries, at the effective size
+    sampler = CompiledAncestralSampler(model)
+    state_index = list(model.states[leaf]).index(state)
+    codes, logw = sampler.likelihood_weighted(SHARDED_DRAWS // PARALLEL_SHARDS,
+                                              {leaf: state_index}, seed=SEED)
+    w = torch.exp(logw - logw.max()).double()
+    ess = float(w.sum() ** 2 / (w * w).sum()) * PARALLEL_SHARDS
+    worst = 0.0
+    for v in checked:
+        exact = bp.query([v], evidence={leaf: state}).values.double().cpu().numpy()
+        check(bool(within_mc_error(weighted[v], exact, ess).all()),
+              f"sharded likelihood weighting {v}: {weighted[v]} against {exact}")
+        worst = max(worst, float(np.abs(weighted[v] - exact).max()))
+    log(f"parallel_weighted munin evidence {leaf}={state} draws {SHARDED_DRAWS} effective "
+        f"{ess:.0f} (one shard's weights, times the shards) variables {len(checked)} max_abs_err "
+        f"{worst:.3e} against BeliefPropagation.query (limit 5*sqrt(p(1-p)/ess)+1e-4)")
+
+    # ---- the 2,048 prediction rows: sharded query_batch against query_batch
+    ve_values, ve_names = VariableElimination(fitted).query_batch(targets, rows)
+    ve_values = ve_values.cpu().numpy()
+    gaps = {}
+    for shards, got, got_names in [(PARALLEL_SHARDS, values, names)] + [
+            (k, *sharded_query_batch(fitted, targets, rows, mesh=Mesh([card] * k)))
+            for k in (1, 3)]:
+        check(got_names == ve_names and got.shape == ve_values.shape
+              and np.allclose(got, ve_values, rtol=1e-5, atol=1e-7),
+              f"sharded query_batch over {shards} shards differs from query_batch")
+        gaps[shards] = float(np.abs(got - ve_values).max())
+    log(f"parallel_query_batch munin rows {len(test)} evidence_columns {len(rows)} query "
+        f"{targets} max_abs_err by shards {gaps} (rtol 1e-5, atol 1e-7; 3 shards pad 2 rows)")
+
+    # ---- Gibbs on HEPAR2 and NUTS on ecoli70
+    hepar_bp = BeliefPropagation(hepar)
+    hepar_bp.calibrate()
+    hepar_exact = exact_marginals(hepar_bp)
+    worst = max(float(np.abs(gibbs[v] - hepar_exact[v]).max()) for v in gibbs)
+    check(worst <= 0.02, f"sharded hepar2 Gibbs off by {worst}")
+    log(f"parallel_gibbs hepar2 chains {HEPAR_CHAINS} sweeps {HEPAR_SWEEPS} burn_in "
+        f"{HEPAR_BURN_IN} shards {PARALLEL_SHARDS} run_s {per_call['gibbs'][1]:.3f} "
+        f"max_abs_marginal_err {worst:.4e} (limit 0.02)")
+    variables, mean, cov = ecoli.joint_gaussian()
+    moments = moments_check("sharded_nuts", np.array([nuts[v][0] for v in variables]),
+                            np.array([nuts[v][1] for v in variables]), mean, cov,
+                            NUTS_CHAINS * PARALLEL_NUTS_SAMPLES / 10)
+    log(f"parallel_nuts ecoli70 chains {NUTS_CHAINS} adapt {NUTS_ADAPT} samples "
+        f"{PARALLEL_NUTS_SAMPLES} shards {PARALLEL_SHARDS} run_s {per_call['nuts'][1]:.3f} "
+        f"{moments}")
+
+    # ---- K1 at the shape of one shard's moments: MUNIN's one-column specs
+    cm = bc.column_major_codes(codes, max(sampler.cards))
+    row = k1_shape_row("sharded_moments", cm, codes.shape[0], _marginal_specs(sampler.cards),
+                       torch.exp(logw - logw.max()))
+
+    # ---- two processes
+    two_process_run("gloo")
+    if n_cards > 1:
+        two_process_run("nccl")
+    check(config.DEVICE == device_before, f"config.DEVICE left at {config.DEVICE}")
+    log(f"phase_parallel_main_path_s {path_s:.1f}")
+    return launches, row, moments_launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3718,12 +4037,18 @@ def main():
     t0 = time.time()
     readwrite_tables, readwrite_bincounts = phase_readwrite(model, df, context["fitted"])
     log(f"phase_readwrite_s {time.time() - t0:.1f}")
+    # the twelfth path, and K1 at the shape of one shard's moments
+    t0 = time.time()
+    (parallel_tables, parallel_bincounts), moments_row, moments_launches = phase_parallel(
+        model, context)
+    log(f"phase_parallel_s {time.time() - t0:.1f}")
     for name, launches, result in (
             ("table_counts/particle_marginals_weighted", filter_launches, weighted),
             ("table_counts/pair_tables", 1, pairs),
             ("table_counts/pc_level1", 1, level1),
             ("table_counts/em_mstep_weighted", em_launches, em_row),
-            ("table_counts/naive_bayes_fit", nb_fit_launches, nb_row)):
+            ("table_counts/naive_bayes_fit", nb_fit_launches, nb_row),
+            ("table_counts/sharded_moments", moments_launches, moments_row)):
         kernels.append({
             "name": name, "route": "cuda", "source": kernels[1]["source"],
             "replaces": kernels[1]["replaces"], "launches": launches,
@@ -3739,6 +4064,7 @@ def main():
         row["launches_causal"] = causal_bincounts if first else causal_tables
         row["launches_functional"] = functional_bincounts if first else functional_tables
         row["launches_readwrite"] = readwrite_bincounts if first else readwrite_tables
+        row["launches_parallel"] = parallel_bincounts if first else parallel_tables
     log(f"script_s {time.time() - started:.1f}")
     log(smi)  # again near the end, where a reader of the output's tail finds it
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,6 +8,9 @@ PyTorch counterpart of ``pgmpy_tpu.config``.  The config controls
   ``"cuda"``; ``set_device("cpu")`` selects the CPU on purpose.  Nothing
   switches to the CPU on its own when no GPU is found: a factor built for
   ``"cuda"`` without a card raises.
+* ``MESH`` — a :class:`pgmpy_tpu_torch.parallel.mesh.Mesh` kept for the
+  caller (store only: the sharded entry points take their mesh as an
+  argument).
 * ``SHOW_PROGRESS`` — progress bars for long host-side loops.
 
 Float32 matrix products are pinned to full f32 (no TF32), the counterpart of
@@ -55,6 +58,7 @@ class Config:
         self._device = torch.device("cuda")
         self._show_progress = True
         self._default_einsum_optimize = "greedy"
+        self._mesh = None
 
     # -- dtype ------------------------------------------------------------
     @property
@@ -109,6 +113,16 @@ class Config:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("config.set_device('cuda'): no CUDA device is available")
         self._device = device
+
+    # -- mesh -------------------------------------------------------------
+    @property
+    def MESH(self):
+        """The mesh stored by :meth:`set_mesh`.  Nothing in the package reads
+        it: every sharded entry point takes its mesh as an argument."""
+        return self._mesh
+
+    def set_mesh(self, mesh):
+        self._mesh = mesh
 
     # -- progress ---------------------------------------------------------
     @property

@@ -27,7 +27,6 @@ acceptance statistic pooled over the chains.
 import numpy as np
 import torch
 
-from pgmpy_tpu_torch.config import not_ported
 from pgmpy_tpu_torch.sampling.hmc import _Density, _initial_chains, _resolve_log_pdf
 from pgmpy_tpu_torch.utils.mathext import normal_draw, seeded_generator
 
@@ -63,9 +62,32 @@ def _ckpt_range(n):
     return idx_max - trailing_ones + 1, idx_max
 
 
-def _require_one_device(axis_name):
-    if axis_name is not None:
-        not_ported("VectorizedNUTS under a device mesh (axis_name)", "parallel/")
+class _StepSize:
+    """Hoffman-Gelman dual averaging of the log step size on the mean
+    acceptance statistic, on the host: ``update(m, accept)`` after step ``m``
+    adapts while ``m < num_adapt``, and fixes the averaged step size after."""
+
+    def __init__(self, stepsize, num_adapt, delta):
+        self.mu = np.log(10.0 * stepsize)
+        self.num_adapt = int(num_adapt)
+        self.delta = delta
+        self.log_eps = self.log_eps_bar = float(np.log(stepsize))
+        self.h_bar = 0.0
+
+    @property
+    def eps(self):
+        return float(np.exp(self.log_eps))
+
+    def update(self, m, mean_accept):
+        gamma, t0, kappa = 0.05, 10.0, 0.75
+        if m < self.num_adapt:
+            self.h_bar = ((1 - 1 / (m + 1 + t0)) * self.h_bar
+                          + (self.delta - mean_accept) / (m + 1 + t0))
+            self.log_eps = self.mu - np.sqrt(m + 1) / gamma * self.h_bar
+            eta = (m + 1) ** -kappa
+            self.log_eps_bar = eta * self.log_eps + (1 - eta) * self.log_eps_bar
+        else:
+            self.log_eps = self.log_eps_bar
 
 
 class VectorizedNUTS:
@@ -101,8 +123,10 @@ class VectorizedNUTS:
         orientation (the caller flips signs for backward growth).  A chain
         stops early on an internal U-turn or a divergence.  Returns the dict
         of the JAX package's loop carry, every field with a leading chain
-        axis (without ``key`` and ``r_first``, which nothing reads)."""
-        _require_one_device(axis_name)
+        axis (without ``key`` and ``r_first``, which nothing reads).
+
+        ``axis_name`` is accepted and has no effect: the JAX package uses it
+        only to mark loop carries as device-varying under ``shard_map``."""
         n_chains, dim = z.shape
         md = self.max_depth
         dt, device = z.dtype, z.device
@@ -169,7 +193,8 @@ class VectorizedNUTS:
     # ------------------------------------------------------------------ #
     def _nuts_step(self, gen, z, eps, axis_name=None):
         """One NUTS transition of every chain: z (n_chains, dim) ->
-        (new positions, mean leaf acceptance statistic per chain)."""
+        (new positions, mean leaf acceptance statistic per chain).
+        ``axis_name`` has no effect, as in :meth:`_build_subtree`."""
         n_chains = z.shape[0]
         dt, device = z.dtype, z.device
         r0 = normal_draw(z.shape, gen, dt)
@@ -244,36 +269,41 @@ class VectorizedNUTS:
         acceptance) and sampling run in one loop.  Returns a
         (num_samples, n_chains, dim) array (or a chain-0 DataFrame), and
         sets ``acceptance_rate`` and ``final_stepsize``.
+
+        ``axis_name`` names a mesh axis that spans processes
+        (:mod:`pgmpy_tpu_torch.parallel.distributed`): each step's mean
+        acceptance is averaged over that axis's process group before dual
+        averaging, so every process adapts to the same step size.  Without
+        an initialized group carrying the axis it raises ``ValueError``.
         """
-        _require_one_device(axis_name)
+        group = None
+        if axis_name is not None:
+            from pgmpy_tpu_torch.parallel.distributed import axis_group
+
+            group = axis_group(axis_name)
         positions = _initial_chains(initial_pos, n_chains)
         gen = seeded_generator(seed)
         self.leaf_iterations = 0
         self.host_reads = 0
 
-        mu = np.log(10.0 * stepsize)
-        gamma, t0, kappa = 0.05, 10.0, 0.75
         num_adapt, num_samples = int(num_adapt), int(num_samples)
-        log_eps = log_eps_bar = float(np.log(stepsize))
-        h_bar = 0.0
+        adapt = _StepSize(stepsize, num_adapt, self.delta)
         samples = torch.empty((num_samples,) + tuple(positions.shape),
                               dtype=positions.dtype, device=positions.device)
         accepts = []
         for m in range(num_adapt + num_samples):
-            positions, accept_stats = self._nuts_step(gen, positions, float(np.exp(log_eps)))
-            mean_accept = float(accept_stats.mean())
+            positions, accept_stats = self._nuts_step(gen, positions, adapt.eps)
+            mean_accept = accept_stats.mean()
+            if group is not None:
+                mean_accept = _group_mean(mean_accept, group)
+            mean_accept = float(mean_accept)
             self.host_reads += 1
-            if m < num_adapt:
-                h_bar = (1 - 1 / (m + 1 + t0)) * h_bar + (self.delta - mean_accept) / (m + 1 + t0)
-                log_eps = mu - np.sqrt(m + 1) / gamma * h_bar
-                eta = (m + 1) ** -kappa
-                log_eps_bar = eta * log_eps + (1 - eta) * log_eps_bar
-            else:
-                log_eps = log_eps_bar
+            adapt.update(m, mean_accept)
+            if m >= num_adapt:
                 samples[m - num_adapt] = positions
                 accepts.append(mean_accept)
         self.acceptance_rate = float(np.mean(accepts)) if accepts else float("nan")
-        self.final_stepsize = float(np.exp(log_eps))
+        self.final_stepsize = adapt.eps
         samples = samples.cpu().numpy()
         if return_type == "dataframe":
             import pandas as pd
@@ -281,3 +311,11 @@ class VectorizedNUTS:
             cols = self.variables or [f"x{i}" for i in range(samples.shape[-1])]
             return pd.DataFrame(samples[:, 0, :], columns=cols)
         return samples
+
+
+def _group_mean(value, group):
+    """The mean of a scalar tensor over the processes of ``group``."""
+    from pgmpy_tpu_torch.parallel.mesh import _all_reduce
+    import torch.distributed as dist
+
+    return _all_reduce(value, group, dist.ReduceOp.SUM) / dist.get_world_size(group)

@@ -45,7 +45,8 @@ def test_every_ported_package_is_compared():
     for name in ("pgmpy_tpu.base", "pgmpy_tpu.estimators", "pgmpy_tpu.inference",
                  "pgmpy_tpu.utils", "pgmpy_tpu.metrics", "pgmpy_tpu.factors",
                  "pgmpy_tpu.identification", "pgmpy_tpu.prediction", "pgmpy_tpu.models",
-                 "pgmpy_tpu.readwrite", "pgmpy_tpu.sampling"):
+                 "pgmpy_tpu.readwrite", "pgmpy_tpu.sampling",
+                 "pgmpy_tpu.parallel"):
         assert name in compared
 
 

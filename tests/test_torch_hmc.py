@@ -266,9 +266,18 @@ def test_build_subtree_deterministic_fields_match(chain, max_depth, eps):
 
 
 def test_axis_name_waits_for_the_parallel_package(chain):
+    """``axis_name`` has no effect on a NUTS step (the JAX package uses it only
+    to mark loop carries for ``shard_map``); ``sample`` with an axis name that
+    no initialized process group carries raises ValueError."""
     port, _ = chain
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        VectorizedNUTS(port).sample(np.zeros(3), num_samples=1, axis_name="chains")
+    a = VectorizedNUTS(port, max_depth=4)
+    z = as_tensor(points(5, 16, 3, scale=2.0)[0])
+    plain = a._nuts_step(seeded_generator(3), z, 0.4)
+    named = a._nuts_step(seeded_generator(3), z, 0.4, axis_name="chains")
+    for got, want in zip(named, plain):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="chains"):
+        a.sample(np.zeros(3), num_samples=1, axis_name="chains")
 
 
 # ---------------------------------------------------------------------- #

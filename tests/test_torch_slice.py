@@ -106,19 +106,16 @@ def test_import_leaves_jax_out():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What the port has not reached yet says so, and names its ROADMAP
-    item; ``simulate``, ``predict``, ``is_imap``, the dagitty constructor and
-    the Gaussian example networks are ported and run."""
+    """Paths that once waited for a module run now: ``simulate``,
+    ``predict``, ``is_imap``, the dagitty constructor and the Gaussian example
+    networks (``VectorizedNUTS(axis_name=...)`` since ``parallel/``,
+    ``tests/test_torch_hmc.py``)."""
     from pgmpy_tpu_torch.base import DAG
-    from pgmpy_tpu_torch.sampling.nuts import VectorizedNUTS
     from pgmpy_tpu_torch.utils.utils import get_example_model as example
 
     model = get_example_model("asia")
     with pytest.raises(TypeError, match="JointProbabilityDistribution"):
         model.is_imap(None)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        VectorizedNUTS(example("ecoli70")).sample(np.zeros((2, 46)), num_samples=1,
-                                                  axis_name="chains")
     assert sorted(DAG(dagitty_str="dag { a -> b }").edges()) == [("a", "b")]
     assert len(example("ecoli70").nodes()) == 46
     frame = model.simulate(10, seed=0, show_progress=False)
@@ -155,6 +152,7 @@ DOCTEST_MODULES = [
     "pgmpy_tpu_torch.factors.noisy_or",
     "pgmpy_tpu_torch.inference.fg_bp",
     "pgmpy_tpu_torch.inference.causal",
+    "pgmpy_tpu_torch.parallel.distributed",
 ]
 
 
