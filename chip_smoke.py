@@ -11,8 +11,15 @@ Runs from the repository root and needs one CUDA card.  It
 2. drives the port's main path at full width: load MUNIN (1041 variables),
    draw 50,000 rows with a seeded numpy ancestral sampler, fit every CPD with
    the BDeu Bayesian estimator (one table-count launch for all 1041 tables),
-   calibrate the junction tree, then run ``query`` and ``query_batch`` (2048
-   rows).  The fit no longer calls ``weighted_bincount``, so that entry point
+   calibrate the junction tree on the hand-written calibration kernels
+   (``pgmpy_tpu_torch/csrc/jt_calibrate.cu``, K2: one ``clique_potentials``
+   launch, then ``sepset_wave`` and ``absorb_wave`` per wave of independent
+   messages), then run ``query`` and ``query_batch`` (2048 rows).  Every K2
+   kernel must launch on the path; the profiler's device operations per
+   calibration must equal the kernels' launches; each kernel is held against
+   its plain version on the card (MUNIN, both operations, at the float32
+   rounding the schedule allows; a float64 ALARM; ALARM's Markov model with
+   normalised messages) and timed beside it and its bound.  The fit no longer calls ``weighted_bincount``, so that entry point
    is driven, counted, checked and timed on its own: one direct call that
    tabulates the evidence variable's observed states over the 50,000 rows;
 3. checks the fit against host ``np.bincount`` counts, the calibration
@@ -200,6 +207,27 @@ def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def reset_launches():
+    """Zero the launch counters of both kernel sources (K1 and K2)."""
+    from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.ops import jt
+
+    bc.reset_launches()
+    jt.reset_launches()
+
+
+# path -> launches of each K2 kernel in that path's counted run
+JT_PATH_LAUNCHES = {}
+
+
+def record_jt(path):
+    """Keep the K2 kernels' launch counts of ``path``'s counted run (read
+    where the path's K1 counts are read)."""
+    from pgmpy_tpu_torch.ops import jt
+
+    JT_PATH_LAUNCHES[path] = dict(jt.LAUNCHES)
 
 
 def bound(nbytes, operations):
@@ -565,6 +593,228 @@ def calibration_check(bp):
     return worst
 
 
+# --------------------------------------------------------------------------- #
+# K2: the junction-tree calibration kernels
+# --------------------------------------------------------------------------- #
+JT_SOURCE = "pgmpy_tpu_torch/csrc/jt_calibrate.cu"
+JT_REPLACES = "pgmpy_tpu/inference/bp.py:396"
+
+
+def jt_case(name, program, arrays, operation, rtol, atol=0.0):
+    """One calibration on the kernels and one with the plain version, on the
+    card, held entry by entry to ``|a - b| <= atol + rtol |b|``, or, where
+    ``rtol`` is None, equal to the bit.  Logs the magnitudes of the plain
+    version's entries beside the tolerance.  Returns the max abs errors of
+    (beliefs, sepsets)."""
+    from pgmpy_tpu_torch.ops import jt
+
+    plan = program.wave_plan()
+    normalize = program.normalize_messages
+    got = jt.calibrate_waves_cuda(plan, arrays, operation, normalize)
+    want = jt.calibrate_waves_reference(plan, arrays, operation, normalize)
+    torch.cuda.synchronize()
+    errs = []
+    held = "equal to the bit" if rtol is None else f"rtol {rtol:.3e}, atol {atol:g}"
+    for a, b, what in zip(got, want, ("beliefs", "sepsets")):
+        check(a.dtype == b.dtype == arrays[0].dtype and a.is_cuda, f"k2 {name}: {what} type")
+        check(bool(torch.isfinite(a).all()), f"k2 {name}: non-finite {what}")
+        diff = (a - b).abs()
+        same = torch.equal(a, b) if rtol is None else bool((diff <= atol + rtol * b.abs()).all())
+        check(same, f"k2 {name} {operation}: {what} differ by {float(diff.max())} ({held})")
+        errs.append(float(diff.max()))
+        mags = b.abs()
+        nonzero = mags[mags > 0]
+        log(f"k2 {name} {operation} {what} |b| largest {float(mags.max()):.3e} median "
+            f"{float(mags.median()):.3e} zero {mags.numel() - nonzero.numel()} of {mags.numel()} "
+            f"smallest nonzero {float(nonzero.min()) if nonzero.numel() else 0.0:.3e} worst "
+            f"relative gap {float((diff[mags > 0] / nonzero).max()) if nonzero.numel() else 0.0:.3e}")
+    log(f"k2 {name} {operation} dtype {str(arrays[0].dtype)[6:]} normalize_messages {normalize} "
+        f"cliques {len(program.cliques)} messages {len(program.messages)} waves {plan.n_waves} "
+        f"max_abs_err beliefs {errs[0]:.3e} sepsets {errs[1]:.3e} against the plain version on "
+        f"the card ({held})")
+    return errs
+
+
+def kernel_name(signature):
+    """``sepset_wave_kernel<float, false, 16>`` of a profiler's kernel signature."""
+    import re
+
+    found = re.search(r"(\w+)(<[^()]*>)?\(", signature)
+    return found.group(1) + (found.group(2) or "") if found else signature
+
+
+def jt_bounds(plan, elem):
+    """{kernel: (bytes, operations)} one calibration must move and do: every
+    clique written once in stage 0 and every factor read once; per wave each
+    of its sources read once (a downward wave's messages from one parent
+    share it), per message its ratio and sepset written and the previous
+    sepset read; per wave every destination read and written once and its
+    ratios read; the descriptor tables each kernel reads.  Operations count
+    every message's own walk of its source."""
+    sizes = plan.cliques[:, 1]
+    rows = plan.messages
+    src = sizes[rows[:, 0]]
+    src_reads = sum(int(sizes[np.unique(rows[plan.wave_messages[lo:hi], 0])].sum())
+                    for lo, hi in zip(plan.wave_message_start[:-1], plan.wave_message_start[1:]))
+    sep = rows[:, 4]
+    stale = sep * (1 - rows[:, 3])
+    n_factors = np.diff(plan.clique_factors)
+    absorb_bytes = absorb_ops = 0
+    for dst, lo, hi in plan.groups:
+        absorb_bytes += elem * (2 * int(sizes[dst]) + int(sep[plan.group_messages[lo:hi]].sum()))
+        absorb_ops += int(sizes[dst]) * int(hi - lo)
+    return {
+        "clique_potentials": (
+            elem * (plan.total + sum(plan.factor_sizes))
+            + 8 * (plan.cliques.size + plan.clique_blocks.size + plan.clique_factors.size
+                   + plan.factors.size),
+            int((sizes * np.maximum(n_factors - 1, 0)).sum())),
+        "sepset_wave": (
+            elem * int(src_reads + 2 * sep.sum() + stale.sum())
+            + 8 * (rows.size + plan.wave_messages.size + plan.message_blocks.size),
+            int(src.sum() + sep.sum() + stale.sum())),
+        "absorb_wave": (
+            absorb_bytes + 8 * (plan.groups.size + plan.group_blocks.size
+                                + plan.group_messages.size + plan.cliques.size + rows.size),
+            absorb_ops),
+    }
+
+
+def phase_jt_kernels(bp):
+    """K2 on the main path's calibrated MUNIN: launches and the profiler's
+    kernels per calibration, every kernel against the plain version (both
+    operations on MUNIN, a float64 ALARM, ALARM's Markov model with its
+    messages normalised), and each kernel's time beside its plain version and
+    its bound.  Returns per kernel the numbers of its JSON row."""
+    from pgmpy_tpu_torch.inference import BeliefPropagation
+    from pgmpy_tpu_torch.ops import jt
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    program = bp._program
+    plan = program.wave_plan()
+    arrays = [f.values.contiguous() for f in bp._input_factors]
+    waves = plan.n_waves
+
+    # ---- launches and device operations per calibration
+    jt.reset_launches()
+    bp._calibrate_junction_tree("marginalize")
+    torch.cuda.synchronize()
+    per_cal, by_kernel = jt.JT_LAUNCHES, dict(jt.LAUNCHES)
+    check(by_kernel == {"clique_potentials": 1, "sepset_wave": waves, "absorb_wave": waves},
+          f"k2 launches per calibration {by_kernel} for {waves} waves")
+    # the wrapper's own copies (the descriptor tables once per card, the
+    # factor-pointer table when an address changes) are none in steady state;
+    # a profiling session can lose device records, so up to three tries
+    for _ in range(3):
+        kernels, device_ms = profiled(lambda: bp._calibrate_junction_tree("marginalize"))
+        if kernels >= per_cal:
+            break
+    check(kernels == per_cal, f"k2: the profiler saw {kernels} device operations per "
+          f"calibration, the kernels launched {per_cal}")
+    names = kernels_by_name(lambda: bp._calibrate_junction_tree("marginalize"))
+    dev_ms = cuda_median_ms(lambda: bp._calibrate_junction_tree("marginalize"), reps=15,
+                            warmup=1, device_only=True)
+    log(f"k2 calibration waves {waves} (upward {plan.n_up_waves}) jt_launches_per_calibration "
+        f"{per_cal} profiler_kernels_per_calibration {kernels:.0f} device_ms {device_ms:.4f} "
+        f"(profiler) device_only_ms {dev_ms:.4f} (CUDA events behind a device sleep, median of "
+        f"15) by_name " + "; ".join(f"{kernel_name(k)} x{c} {us / 1e3:.4f} ms"
+                                   for k, (c, us) in names.items()))
+
+    # ---- every kernel against the plain version
+    rtol = schedule_rtol(program)
+    errs = {"sepset_wave": 0.0, "absorb_wave": 0.0}
+
+    def keep(e):
+        errs["absorb_wave"] = max(errs["absorb_wave"], e[0])
+        errs["sepset_wave"] = max(errs["sepset_wave"], e[1])
+
+    # the sums differ by rounding only (the kernel sums in double), so every
+    # entry is held relative to itself, with no absolute slack: most beliefs
+    # lie far below 1e-6.  Max is exact and both multiply in schedule order,
+    # so maximize is equal to the bit
+    keep(jt_case("munin", program, arrays, "marginalize", rtol))
+    keep(jt_case("munin", program, arrays, "maximize", None))
+    stage0 = torch.empty(plan.total, dtype=arrays[0].dtype, device="cuda")
+    jt.clique_potentials_cuda(plan, arrays, stage0)
+    ref0 = torch.empty_like(stage0)
+    jt.clique_potentials_reference(plan, arrays, jt.arena_views(
+        plan, ref0, torch.empty(plan.sepset_total, dtype=ref0.dtype, device="cuda"))[0])
+    torch.cuda.synchronize()
+    errs["clique_potentials"] = float((stage0 - ref0).abs().max())
+    check(bool(torch.equal(stage0, ref0)),
+          f"k2 clique_potentials differs from the plain version by {errs['clique_potentials']} "
+          f"(both multiply the factors in potential_specs order: equal to the bit)")
+    log("k2 munin clique_potentials equal to the plain version to the bit")
+    alarm = get_example_model("alarm")
+    bp64 = BeliefPropagation(alarm)
+    arrays64 = [f.values.double().contiguous() for f in bp64._input_factors]
+    for operation in ("marginalize", "maximize"):
+        keep(jt_case("alarm", bp64._program, arrays64, operation,
+                     schedule_rtol(bp64._program, u=2.0 ** -53), 1e-14))
+    markov = BeliefPropagation(alarm.to_markov_model())
+    check(markov._program.normalize_messages, "ALARM's Markov model does not normalise")
+    rng = np.random.default_rng(SEED)
+    scaled = [(f.values * float(rng.uniform(0.25, 4.0))).contiguous()
+              for f in markov._input_factors]
+    for operation in ("marginalize", "maximize"):
+        keep(jt_case("alarm_markov", markov._program, scaled, operation,
+                     schedule_rtol(markov._program, normalized=True), 1e-6))
+
+    # ---- times: each kernel launch alone behind a device sleep (device
+    # time), summed over a calibration; the plain version's pieces with CUDA
+    # events around their eager ops (its time is the host's enqueue)
+    arena, sepsets = jt.calibrate_waves_cuda(plan, arrays)
+    scratch = torch.empty(max(plan.scratch_size, 1), dtype=arena.dtype, device="cuda")
+    work, sep_work = arena.clone(), sepsets.clone()
+    ms = {
+        "clique_potentials": cuda_median_ms(
+            lambda: jt.clique_potentials_cuda(plan, arrays, work), reps=10, warmup=1,
+            device_only=True),
+        "sepset_wave": sum(cuda_median_ms(
+            lambda w=w: jt.sepset_wave_cuda(plan, w, arena, sep_work, scratch), reps=5,
+            warmup=1, device_only=True) for w in range(waves)),
+        "absorb_wave": sum(cuda_median_ms(
+            lambda w=w: jt.absorb_wave_cuda(plan, w, work, scratch), reps=5, warmup=1,
+            device_only=True) for w in range(waves)),
+    }
+    p_arena, p_sepsets = torch.empty_like(arena), torch.empty_like(sepsets)
+    beliefs, mu = jt.arena_views(plan, p_arena, p_sepsets)
+    jt.clique_potentials_reference(plan, arrays, beliefs)
+    ratios = []
+    for w in range(waves):
+        ratios.append(jt.sepset_wave_reference(plan, w, beliefs, mu))
+        jt.absorb_wave_reference(plan, w, beliefs, ratios[-1])
+    plain = {
+        "clique_potentials": cuda_median_ms(
+            lambda: jt.clique_potentials_reference(plan, arrays, beliefs), reps=3, warmup=1),
+        "sepset_wave": cuda_median_ms(
+            lambda: [jt.sepset_wave_reference(plan, w, beliefs, mu) for w in range(waves)],
+            reps=3, warmup=1),
+        "absorb_wave": cuda_median_ms(
+            lambda: [jt.absorb_wave_reference(plan, w, beliefs, ratios[w]) for w in range(waves)],
+            reps=3, warmup=1),
+    }
+    plain_cal = cuda_median_ms(lambda: jt.calibrate_waves_reference(plan, arrays), reps=5,
+                               warmup=1)
+    out = {}
+    total_bound = 0.0
+    for name, (nbytes, ops) in jt_bounds(plan, arena.element_size()).items():
+        bound_ms, bound_by = bound(nbytes, ops)
+        total_bound += bound_ms
+        out[name] = {"err": errs[name], "ms": ms[name], "plain_ms": plain[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        log(f"k2 {name} munin launches_per_calibration {by_kernel[name]} kernel_ms "
+            f"{ms[name]:.5f} (device time, the launches of one calibration each alone behind "
+            f"a device sleep, medians summed) plain_ms {plain[name]:.3f} (CUDA events around "
+            f"the plain version's eager ops) bound_ms {bound_ms:.6f} ({bound_by}: {nbytes} "
+            f"bytes, {ops} operations) max_abs_err {errs[name]:.3e}")
+    log(f"k2 calibration munin kernels_sum_ms {sum(ms.values()):.5f} plain_calibration_ms "
+        f"{plain_cal:.3f} bound_ms {total_bound:.6f}; library_ms null: no single PyTorch call "
+        f"computes a calibration, a wave of messages or a clique potential table")
+    return {"waves": waves, "per_calibration": per_cal, "device_ms": device_ms,
+            "plain_calibration_ms": plain_cal, "kernels": out}
+
+
 def load_and_sample():
     from pgmpy_tpu_torch.utils import get_example_model
 
@@ -583,7 +833,7 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     from pgmpy_tpu_torch.inference import BeliefPropagation
     from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
     from pgmpy_tpu_torch.ops import bincount as bc
-    from pgmpy_tpu_torch.ops import weighted_bincount
+    from pgmpy_tpu_torch.ops import jt, weighted_bincount
     from pgmpy_tpu_torch.utils.interop import bn_from_numpy
 
     states = model.states
@@ -596,7 +846,7 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     batch_ev = {e_var: [e_states[i % len(e_states)] for i in range(BATCH_ROWS)]}
 
     # ---- the main path, counted: fit -> calibrate -> query -> query_batch
-    bc.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     fitted.fit(df, estimator=BayesianEstimator, state_names=states,
@@ -604,6 +854,7 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     fit_launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    fit_jt_launches = jt.JT_LAUNCHES
     t0 = time.time()
     bp = BeliefPropagation(fitted)
     build_s = time.time() - t0
@@ -617,6 +868,14 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     torch.cuda.synchronize()
     first_query_s = time.time() - t0
     table_launches, path_bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("main")
+    log(f"main_path jt_launches {jt.JT_LAUNCHES} by kernel {JT_PATH_LAUNCHES['main']} (the "
+        f"calibration and the query program's own calibration of its pruned tree) waves "
+        f"{bp._program.wave_plan().n_waves} (upward {bp._program.wave_plan().n_up_waves}) "
+        f"fit_jt_launches {fit_jt_launches}")
+    check(fit_jt_launches == 0, "fit launched a junction-tree kernel")
+    for name, n in JT_PATH_LAUNCHES["main"].items():
+        check(n > 0, f"the main path did not launch the junction-tree kernel {name}")
     log(f"main_path fit_s {fit_s:.4f} jt_build_s {build_s:.3f} first_calibrate_s "
         f"{first_cal_s:.4f} first_queries_s {first_query_s:.3f} fit_table_count_launches "
         f"{fit_launches[0]} fit_bincount_launches {fit_launches[1]} "
@@ -631,7 +890,7 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     # and timed, so every number of the kernel's line belongs to this shape.
     idx = torch.as_tensor(codes[e_var], dtype=torch.int32, device="cuda")
     ones = torch.ones(N_ROWS, device="cuda")
-    bc.reset_launches()
+    reset_launches()
     observed = weighted_bincount(idx, ones, len(e_states))
     launches = bc.LAUNCHES
     check(launches == 1 and bc.TABLE_LAUNCHES == 0,
@@ -650,7 +909,9 @@ def phase_slice(model, df, codes, bincount_results, table_result):
 
     # ---- timings
     cal_ms = cuda_median_ms(lambda: bp._calibrate_junction_tree("marginalize"), reps=15, warmup=1)
-    log(f"calibrate_median_ms {cal_ms:.4f} (15 runs, CUDA events)")
+    log(f"calibrate_median_ms {cal_ms:.4f} (15 runs, CUDA events; the K2 kernels, the host's "
+        f"enqueue included)")
+    k2 = phase_jt_kernels(bp)
     qb = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -694,7 +955,7 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     check(config.DEVICE.type == "cuda", "device left on the CPU")
 
     source = "pgmpy_tpu_torch/csrc/bincount.cu"
-    context = {"fitted": fitted, "q_var": q_var, "e_var": e_var, "bp_single": single}
+    context = {"fitted": fitted, "q_var": q_var, "e_var": e_var, "bp_single": single, "k2": k2}
     return context, [
         {
             "name": "weighted_bincount",
@@ -836,7 +1097,7 @@ def phase_simulate_predict(model, context):
     fitted = DiscreteBayesianNetwork()
     fitted.add_nodes_from(model.nodes())
     fitted.add_edges_from(model.edges())
-    bc.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     fitted.fit(train, estimator=BayesianEstimator, state_names=states,
@@ -844,6 +1105,7 @@ def phase_simulate_predict(model, context):
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("simulate_fit_predict")
     check(table_launches == 1 and bincount_launches == 0,
           f"fit on the simulated frame: {table_launches} table-count and "
           f"{bincount_launches} bincount launches")
@@ -1251,13 +1513,14 @@ def phase_mcmc(model):
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.ops import bincount as bc
 
-    bc.reset_launches()
+    reset_launches()
     phase_gibbs_munin(model)
     phase_gibbs_hepar2()
     phase_nuts_ecoli70()
     check(config.DEVICE.type == "cuda", "device left on the CPU")
     log(f"mcmc_path table_count_launches {bc.TABLE_LAUNCHES} bincount_launches {bc.LAUNCHES} "
         f"(no module of the lane counts)")
+    record_jt("mcmc")
     return bc.TABLE_LAUNCHES, bc.LAUNCHES
 
 
@@ -1396,7 +1659,7 @@ def phase_temporal():
         f"build_s {time.time() - t0:.3f}")
 
     # ---- the main path, counted: filter twice, simulate, fit
-    bc.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     rain_marg, rain_particles, rain_ess = rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED)
@@ -1431,6 +1694,7 @@ def phase_temporal():
     dbn_fit_s = time.time() - t0
     fit_launches = bc.TABLE_LAUNCHES - before
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("temporal")
     check(fit_launches == DBN_SIM_SLICES - 1,
           f"DynamicBayesianNetwork.fit made {fit_launches} count launches for "
           f"{DBN_SIM_SLICES - 1} slice pairs")
@@ -1647,7 +1911,7 @@ def phase_structure(munin_df):
         real_prime(self, specs)
 
     # ---- the main path, counted: one hill climb, one Chow-Liu tree
-    bc.reset_launches()
+    reset_launches()
     scorer = BIC(frame)
     ScoreCache.prime = counting_prime
     try:
@@ -1675,6 +1939,7 @@ def phase_structure(munin_df):
     check(bc.TABLE_LAUNCHES == hill_launches + 1 and search._coded.n_dispatches == 1,
           f"Chow-Liu made {bc.TABLE_LAUNCHES - hill_launches} count launches")
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("structure")
     log(f"structure_path table_count_launches {table_launches} (hill climb {hill_launches}, "
         f"Chow-Liu 1) bincount_launches {bincount_launches}")
 
@@ -1882,7 +2147,7 @@ def phase_constraint(fitted_munin, munin_df):
     pc_kwargs = dict(ci_test="chi_square", significance_level=0.01,
                      max_cond_vars=PC_MAX_COND_VARS, show_progress=False)
     # ---- the main path, counted: PC, the bench's skeleton, GES, MMHC, K13
-    bc.reset_launches()
+    reset_launches()
     citests.power_divergence_batch = recording_batch
     try:
         est = PC(frame)
@@ -1927,6 +2192,7 @@ def phase_constraint(fitted_munin, munin_df):
     loglik = log_likelihood_score(fitted_munin, munin_df)
     loglik_first_s = time.time() - t0
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("constraint")
     log(f"constraint_path table_count_launches {table_launches} (PC {pc_launches}, PC skeleton "
         f"{bench_launches}, GES {ges_launches}, MMHC {mmhc_launches} of which mmpc "
         f"{mmpc_launches}, K13 0) bincount_launches {bincount_launches}")
@@ -2250,7 +2516,7 @@ def phase_latent(model, df, host_codes):
     torch.cuda.synchronize()
     # ---- the main path, counted: NaiveBayes fit and predict, EM, mirror
     # descent, ExpertInLoop, is_imap and a noisy-OR query
-    bc.reset_launches()
+    reset_launches()
     estimators_base._CodedData._count_specs = recording_count
     try:
         t0 = time.time()
@@ -2319,6 +2585,7 @@ def phase_latent(model, df, host_codes):
                      for v, p in (("flu", 0.1), ("cold", 0.3))])
     fever = VariableElimination(noisy).query(["fever"], evidence={"flu": "True"})
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("latent")
     log(f"latent_path table_count_launches {table_launches} (NaiveBayes fit {nb_fit_launches}, "
         f"EM {em_launches}, ExpertInLoop {expert_launches}) bincount_launches "
         f"{bincount_launches}")
@@ -2545,7 +2812,7 @@ def phase_loopy():
     # ---- the main path, counted: loopy BP on the grid, the star, the 8 x 8
     # grid, Mplp on both grids
     torch.cuda.synchronize()
-    bc.reset_launches()
+    reset_launches()
     t0 = time.time()
     fg = factor_graph_from_numpy(scopes, cards, tables)
     bp = BeliefPropagationWithMessagePassing(fg)
@@ -2570,6 +2837,7 @@ def phase_loopy():
         mplp_results[name] = (assignment, mplp.get_integrality_gap(), time.time() - t0,
                               len(mplp.triplets))
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("loopy")
     log(f"loopy_path table_count_launches {table_launches} bincount_launches {bincount_launches}")
 
     # ---- the grid: the CPU run, rounds, kernels per round
@@ -3033,7 +3301,7 @@ def phase_causal(munin):
 
     # ---- the main path, counted
     torch.cuda.synchronize()
-    bc.reset_launches()
+    reset_launches()
     phase_t0 = time.time()
     cases = {
         "munin_bp": do_query_case("munin_bp", munin, cpu_munin,
@@ -3066,6 +3334,7 @@ def phase_causal(munin):
     ate_explicit = CausalInference(ecoli).estimate_ate(
         *ATE_EXPLICIT[:2], ecoli_df, estimand_strategy=ATE_EXPLICIT[2])
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
+    record_jt("causal")
     log(f"causal_path table_count_launches {table_launches} bincount_launches "
         f"{bincount_launches} (no count kernel on this lane)")
 
@@ -3327,7 +3596,7 @@ def phase_functional():
 
     # ---- the path, counted
     torch.cuda.synchronize()
-    bc.reset_launches()
+    reset_launches()
     phase_t0 = time.time()
     df = ecoli.simulate(FUNCTIONAL_ROWS, seed=SEED + 16)
     fbn = functional_network(ecoli, linear_gaussian_cpds(parents))
@@ -3378,6 +3647,7 @@ def phase_functional():
             events = json.load(fh)["traceEvents"]
     torch.cuda.synchronize()
     launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    record_jt("functional")
     path_s = time.time() - phase_t0
     log(f"functional_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
         f"(no count kernel on this lane)")
@@ -3561,7 +3831,7 @@ def phase_readwrite(model, df, fitted):
 
     # ---- the path, counted
     torch.cuda.synchronize()
-    bc.reset_launches()
+    reset_launches()
     phase_t0 = time.time()
     times, back = {}, {}
     with tempfile.TemporaryDirectory() as d:
@@ -3608,6 +3878,7 @@ def phase_readwrite(model, df, fitted):
                 path=os.path.join(testdata, f"ref{i}.{fmt}")).get_model())
     torch.cuda.synchronize()
     launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    record_jt("readwrite")
     path_s = time.time() - phase_t0
     log(f"readwrite_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
         f"(one: the fit of the model read back from XMLBIF)")
@@ -3695,20 +3966,22 @@ PARALLEL_NUTS_SAMPLES = 30
 WORKER_TIMEOUT_S = 240
 
 
-def schedule_rtol(program):
-    """The relative float32 rounding that a junction tree's schedule allows
-    between two calibrations that order their products differently, as
-    ``tests/test_torch_bp.py::test_munin_beliefs_match`` derives it: per message
-    ceil(log2 m) for the sum of its m entries plus 3 (the division by the
-    previous message, the product into the destination, the sepset update),
-    plus the worst clique's own factor product and normalisation, twice (both
-    calibrations round)."""
+def schedule_rtol(program, u=2.0 ** -24, normalized=False):
+    """The relative rounding (unit ``u``: float32 by default) that a junction
+    tree's schedule allows between two calibrations that order their products
+    differently, as ``tests/test_torch_bp.py::test_munin_beliefs_match``
+    derives it: per message ceil(log2 m) for the sum of its m entries plus 3
+    (the division by the previous message, the product into the destination,
+    the sepset update), with ``normalized`` also ceil(log2 s) + 1 for the total
+    of its s sepset entries and the division by it, plus the worst clique's
+    own factor product and normalisation, twice (both calibrations round)."""
     import math
 
-    u = 2.0 ** -24
     per_message = [math.ceil(math.log2(max(2, math.prod(
         program.clique_shapes[src][a] for a in axes)))) + 3
-        for src, _, axes, *_ in program.messages]
+        + (math.ceil(math.log2(max(2, math.prod(program.sepset_shapes[edge])))) + 1
+           if normalized else 0)
+        for src, _, axes, _, _, edge, _ in program.messages]
     per_clique = max(len(specs) + math.ceil(math.log2(max(2, math.prod(shape)))) + 1
                      for specs, shape in zip(program.potential_specs, program.clique_shapes))
     return 2 * u * (sum(per_message) + per_clique)
@@ -3862,7 +4135,7 @@ def phase_parallel(model, context):
         return out
 
     torch.cuda.synchronize()
-    bc.reset_launches()
+    reset_launches()
     phase_t0 = time.time()
     sharded = counted("partition", lambda: ShardedJunctionTreeCalibration(program, mesh))
     beliefs, mu = counted("calibrate", lambda: sharded.calibrate(arrays))
@@ -3879,6 +4152,7 @@ def phase_parallel(model, context):
         mesh=mesh, max_depth=6, seed=SEED))
     torch.cuda.synchronize()
     launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
+    record_jt("parallel")
     path_s = time.time() - phase_t0
     log(f"parallel_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
         + " ".join(f"{k} {n} launches {s:.3f} s" for k, (n, s) in per_call.items())
@@ -3981,6 +4255,21 @@ def phase_parallel(model, context):
     return launches, row, moments_launches
 
 
+def build_kernels():
+    """Build every kernel source of the port at once: one nvcc per source,
+    all started together (the builds wait on nvcc, not on Python)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pgmpy_tpu_torch.ops import bincount, jt
+
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for built in [pool.submit(bincount._library), pool.submit(jt._library)]:
+            built.result()
+    log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu and csrc/jt_calibrate.cu, "
+        f"one nvcc each, side by side)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3995,6 +4284,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    build_kernels()
     bincount_results = phase_bincount()
     model, df, codes = load_and_sample()
     context, kernels = phase_slice(model, df, codes, bincount_results,
@@ -4065,6 +4355,20 @@ def main():
         row["launches_functional"] = functional_bincounts if first else functional_tables
         row["launches_readwrite"] = readwrite_bincounts if first else readwrite_tables
         row["launches_parallel"] = parallel_bincounts if first else parallel_tables
+    # K2's rows: one per kernel, its launches on the main path and on each
+    # other path, counted in the same runs as K1's
+    k2 = context["k2"]
+    for name, result in k2["kernels"].items():
+        kernels.append({
+            "name": f"jt_calibrate/{name}", "route": "cuda", "source": JT_SOURCE,
+            "replaces": JT_REPLACES, "launches": JT_PATH_LAUNCHES["main"][name],
+            "max_abs_err": result["err"],
+            **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"launches_{path}": counts[name] for path, counts in JT_PATH_LAUNCHES.items()
+               if path != "main"},
+        })
+    log("k2_launches_by_path " + " ".join(
+        f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
     log(f"script_s {time.time() - started:.1f}")
     log(smi)  # again near the end, where a reader of the output's tail finds it
     print(json.dumps({"kernels": kernels}), flush=True)

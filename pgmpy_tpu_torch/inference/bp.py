@@ -9,11 +9,14 @@ host compiles the clique tree into a *static program*:
   stage 1: two-pass message schedule (leaves->root, root->leaves — exact in
            one sweep, no convergence checks),
 
-and calibration runs it as eager torch ops on ``config.DEVICE``: per message
-a sum (or max) down to the sepset, an optional normalization, the ratio
-against the edge's previous message with a ``TINY`` clamp (0/0 = 0), and a
-broadcast product into the receiving clique.  Disconnected clique forests
-(from pruned models) are supported throughout.
+and calibration runs it through ``ops/jt.py`` (K2) on the factors' device:
+the messages grouped into independent waves, the cliques and sepsets in two
+flat arenas, stage 0 as one launch of a hand-written CUDA kernel and each
+wave as two (per message a sum or max down to the sepset, an
+optional normalization, the ratio against the edge's previous message with a
+``TINY`` clamp (0/0 = 0), and a broadcast product into the receiving
+clique); a CPU tensor takes the kernels' plain torch version.  Disconnected
+clique forests (from pruned models) are supported throughout.
 
 Left out from the JAX package: the chunked XLA programs, the background
 "monolithic upgrade" compile (PyTorch has no compile step to hide), and the
@@ -26,13 +29,15 @@ import networkx as nx
 import numpy as np
 import torch
 
-from pgmpy_tpu_torch.config import TINY, config
+from pgmpy_tpu_torch.config import config
 from pgmpy_tpu_torch.factors.discrete import DiscreteFactor
 from pgmpy_tpu_torch.inference.base import Inference, evidence_code, evidence_codes
 from pgmpy_tpu_torch.models.discrete_bn import DiscreteBayesianNetwork
 from pgmpy_tpu_torch.models.factor_graph import FactorGraph
 from pgmpy_tpu_torch.models.junction_tree import JunctionTree
 from pgmpy_tpu_torch.models.markov_network import DiscreteMarkovNetwork, greedy_elimination_order
+from pgmpy_tpu_torch.ops import jt
+from pgmpy_tpu_torch.ops.jt import _expand
 from pgmpy_tpu_torch.ops.einsum import make_axis_map, sum_product_planned
 
 
@@ -50,21 +55,6 @@ def _broadcast_spec(src_vars, dst_vars):
         in_dst_order.index(v) if v in src_vars else None for v in dst_vars
     )
     return perm, shape_spec
-
-
-def _expand(arr, perm, shape_spec):
-    """Transpose by ``perm`` then insert singleton axes per ``shape_spec``.
-    Identity transposes/reshapes are elided."""
-    if perm != tuple(range(len(perm))):
-        arr = arr.permute(perm)
-    shape = []
-    it = iter(arr.shape)
-    for spec in shape_spec:
-        shape.append(next(it) if spec is not None else 1)
-    shape = tuple(shape)
-    if shape != tuple(arr.shape):
-        arr = arr.reshape(shape)
-    return arr
 
 
 def _merge_cliques(cliques, edges, cards, max_table=1 << 14, budget_ratio=1.5):
@@ -161,7 +151,7 @@ def _merge_cliques(cliques, edges, cards, max_table=1 << 14, budget_ratio=1.5):
 
 class JunctionTreeProgram:
     """Host compile artifact: clique structure, factor assignment, message
-    schedule — plus the eager device executor."""
+    schedule — plus the device executor (the wave plan of ``ops/jt.py``)."""
 
     def __init__(
         self, cliques, edges, cards, factor_scopes, assignment,
@@ -250,6 +240,7 @@ class JunctionTreeProgram:
             c1, c2 = tuple(edge_key)
             sepset = sorted(set(c1) & set(c2), key=str)
             self.sepset_shapes[edge_id] = tuple(int(cards[v]) for v in sepset)
+        self._wave_plan = None
 
     # Clique agglomeration (``_merge_cliques``) kicks in automatically on
     # trees this large: it trades a bounded growth in table bytes for fewer
@@ -321,55 +312,42 @@ class JunctionTreeProgram:
         )
 
     # -- device executor ----------------------------------------------- #
+    def wave_plan(self):
+        """The program's :class:`pgmpy_tpu_torch.ops.jt.WavePlan`, built on
+        first use and kept (its device copies too)."""
+        if self._wave_plan is None:
+            self._wave_plan = jt.build_plan(self)
+        return self._wave_plan
+
+    def executor(self, operation, one_shot=False):
+        """A calibrate function ``factor_arrays -> (beliefs, mu)`` bound to
+        the program's wave plan: on CUDA tensors the K2 kernels, on CPU
+        tensors their plain version.  Each call fills a fresh pair of arenas;
+        the beliefs (one tensor per clique, ``clique_shapes[i]``) and mu (one
+        per edge, canonical sepset order) are views into them.
+
+        ``one_shot`` is the JAX package's hint that a program calibrates once
+        (there, stage 0 and the segments then compile as separate programs);
+        nothing is compiled per program here, so it changes nothing."""
+        if operation not in ("marginalize", "maximize"):
+            raise ValueError(f"Unknown operation: {operation}")
+        plan = self.wave_plan()
+        normalize = self.normalize_messages
+
+        def calibrate(factor_arrays):
+            arena, sepsets = jt.calibrate_waves(plan, factor_arrays, operation, normalize)
+            return jt.arena_views(plan, arena, sepsets)
+
+        return calibrate
+
     def wait_for_upgrade(self, operation="marginalize", timeout=None):
         """No-op kept for callers of the JAX package's API: there is no
         background compile to wait for."""
 
-    def stage0(self, factor_arrays):
-        """Clique potentials as broadcast products of the assigned factor
-        tensors."""
-        beliefs = []
-        for c_idx, specs in enumerate(self.potential_specs):
-            shape = self.clique_shapes[c_idx]
-            if not specs:
-                beliefs.append(
-                    torch.ones(shape, dtype=config.DTYPE, device=config.DEVICE)
-                )
-                continue
-            f_idx, perm, spec = specs[0]
-            pot = _expand(factor_arrays[f_idx], perm, spec).expand(shape)
-            for f_idx, perm, spec in specs[1:]:
-                pot = pot * _expand(factor_arrays[f_idx], perm, spec)
-            beliefs.append(pot.contiguous())
-        return beliefs
-
     def calibrate(self, factor_arrays, operation="marginalize"):
-        """Run stage 0 and the two-pass schedule eagerly.  Returns
-        (beliefs, mu): one tensor per clique and one per edge."""
-        beliefs = self.stage0(factor_arrays)
-        mu = [None] * self.n_edges
-        for src, dst, reduce_axes, perm, (bperm, bspec), edge, fresh in self.messages:
-            sigma = beliefs[src]
-            # torch.sum/amax over dim=() would reduce every axis
-            if reduce_axes:
-                if operation == "marginalize":
-                    sigma = torch.sum(sigma, dim=reduce_axes)
-                else:
-                    sigma = torch.amax(sigma, dim=reduce_axes)
-            if perm != tuple(range(len(perm))):
-                sigma = sigma.permute(perm)
-            if self.normalize_messages:
-                # scale control for arbitrary-scale factors
-                sigma = sigma / torch.clamp_min(torch.sum(sigma), TINY)
-            if fresh:
-                ratio = sigma
-            else:
-                # mu is a non-negative message that is zero only where sigma
-                # is zero, so the clamped division gives 0/0 = 0
-                ratio = sigma / torch.clamp_min(mu[edge], TINY)
-            beliefs[dst] = beliefs[dst] * _expand(ratio, bperm, bspec)
-            mu[edge] = sigma
-        return beliefs, mu
+        """Run stage 0 and the two-pass schedule.  Returns (beliefs, mu):
+        one tensor per clique and one per edge."""
+        return self.executor(operation)(factor_arrays)
 
 
 class _CompiledBPQuery:

@@ -23,7 +23,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts below
+_building = {}  # name -> the lock its build holds, so that two sources build at once
 _loaded = {}
 
 
@@ -42,8 +43,13 @@ def _nvcc():
 
 def load_library(name, sources):
     """Compile ``sources`` (file names under ``csrc/``) into one shared
-    library, once per process, and return it as a ``ctypes.CDLL``."""
+    library, once per process, and return it as a ``ctypes.CDLL``.  Builds of
+    different libraries may run at once, from different threads."""
     with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        building = _building.setdefault(name, threading.Lock())
+    with building:
         if name in _loaded:
             return _loaded[name]
         paths = [os.path.join(CSRC, s) for s in sources]
@@ -64,5 +70,6 @@ def load_library(name, sources):
                 )
             os.replace(tmp, target)
         lib = ctypes.CDLL(target)
-        _loaded[name] = lib
+        with _lock:
+            _loaded[name] = lib
         return lib

@@ -1,5 +1,10 @@
 """The reference-pgmpy goldens against the port.
 
+The v1 goldens (``reference_goldens.json``: posteriors of 8 networks) run
+through the port's VariableElimination and BeliefPropagation at atol 2e-5,
+the tolerance of ``test_parity_predict.py``, which runs them through
+``pgmpy_tpu``.
+
 ``reference_goldens_v2.json`` and ``reference_goldens_extras.json`` hold
 outputs of the reference pgmpy library.  Their posterior, MAP and
 virtual-evidence cases run here through the port's VariableElimination and
@@ -85,6 +90,8 @@ from pgmpy_tpu_torch.utils.utils import (_EXAMPLE_DIR, DAG_MODELS, DISCRETE_MODE
                                          GAUSSIAN_MODELS)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+with open(os.path.join(HERE, "reference_goldens.json")) as fh:
+    V1 = json.load(fh)
 with open(os.path.join(HERE, "reference_goldens_v2.json")) as fh:
     V2 = json.load(fh)
 with open(os.path.join(HERE, "reference_goldens_extras.json")) as fh:
@@ -101,6 +108,22 @@ with open(os.path.join(HERE, "reference_goldens_v6.json")) as fh:
     V6 = json.load(fh)
 
 ENGINES = {"ve": VariableElimination, "bp": BeliefPropagation}
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+@pytest.mark.parametrize("name", sorted(V1))
+def test_v1_posteriors(name, engine):
+    """The v1 goldens (``tests/test_parity_predict.py``'s, run there through
+    ``pgmpy_tpu``'s VariableElimination) through both of the port's engines,
+    at that test's atol 2e-5, states aligned by name."""
+    infer = ENGINES[engine](get_example_model(name))
+    for case in V1[name]:
+        phi = infer.query([case["variable"]], evidence=case["evidence"] or None,
+                          show_progress=False)
+        states = [str(s) for s in phi.state_names[case["variable"]]]
+        got = np_values(phi.values)[[states.index(s) for s in case["states"]]]
+        np.testing.assert_allclose(got, np.asarray(case["values"]), atol=2e-5,
+                                   err_msg=f"{name}: {case['variable']} | {case['evidence']}")
 
 
 @pytest.mark.parametrize("engine", sorted(ENGINES))
