@@ -4,10 +4,12 @@
 
 Runs from the repository root and needs one CUDA card.  It
 
-1. builds the hand-written count kernels (``pgmpy_tpu_torch/csrc/bincount.cu``)
-   and holds both entry points against their plain PyTorch versions on the
-   card: ``weighted_bincount`` on index vectors, ``table_counts`` on MUNIN's
-   1041 (node, parents) tables over the 50,000-row code matrix;
+1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu`` and
+   ``csrc/jt_calibrate.cu``, one after the other, each build's time and what
+   ptxas says of each kernel logged), and holds both count entry points
+   against their plain PyTorch versions on the card: ``weighted_bincount``
+   on index vectors, ``table_counts`` on MUNIN's 1041 (node, parents) tables
+   over the 50,000-row code matrix;
 2. drives the port's main path at full width: load MUNIN (1041 variables),
    draw 50,000 rows with a seeded numpy ancestral sampler, fit every CPD with
    the BDeu Bayesian estimator (one table-count launch for all 1041 tables),
@@ -19,7 +21,12 @@ Runs from the repository root and needs one CUDA card.  It
    calibration must equal the kernels' launches; each kernel is held against
    its plain version on the card (MUNIN, both operations, at the float32
    rounding the schedule allows; a float64 ALARM; ALARM's Markov model with
-   normalised messages) and timed beside it and its bound.  The fit no longer calls ``weighted_bincount``, so that entry point
+   normalised messages), two successive MUNIN calibrations are held equal to
+   the bit, and each kernel is timed beside it and its bound, the wave
+   kernels wave by wave (the five slowest waves logged).  MUNIN's junction
+   tree follows the string hash seed: the script runs itself again under
+   ``PYTHONHASHSEED=0`` when the variable is unset, so that every run times
+   the same tree.  The fit no longer calls ``weighted_bincount``, so that entry point
    is driven, counted, checked and timed on its own: one direct call that
    tabulates the evidence variable's observed states over the 50,000 rows;
 3. checks the fit against host ``np.bincount`` counts, the calibration
@@ -238,18 +245,19 @@ def bound(nbytes, operations):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def profiled(fn, reps=1):
+def profiled(fn, reps=1, sessions=3):
     """(kernels per call, device ms per call) of ``fn`` from ``torch.profiler``:
     the device operations it starts and the sum of their times.
 
     A profiling session can come back without some of its device records (in
     one process the same call of K13 read 5, 33, 5, 33, 5 kernels in five
     sessions, 33 being what it launches), so each count is a lower bound: this
-    takes the session with the most records of three."""
+    takes the session with the most records of ``sessions``.  A session of
+    tens of thousands of kernels takes the host about a minute to read."""
     from torch.profiler import ProfilerActivity, profile
 
     best = (0, 0.0)
-    for _ in range(3):
+    for _ in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -643,26 +651,33 @@ def kernel_name(signature):
     return found.group(1) + (found.group(2) or "") if found else signature
 
 
+def jt_wave_bytes(plan, elem, w):
+    """(sepset_wave's, absorb_wave's) data bytes of wave ``w``: each of its
+    sources read once (a downward wave's messages from one parent share it),
+    per message its ratio and sepset written and the previous sepset read;
+    every destination read and written once and its ratios read."""
+    sizes = plan.cliques[:, 1]
+    lo, hi = plan.wave_message_start[w:w + 2]
+    rows = plan.messages[plan.wave_messages[lo:hi]]
+    sep = rows[:, 4]
+    sepset = int(sizes[np.unique(rows[:, 0])].sum() + 2 * sep.sum() + (sep * (1 - rows[:, 3])).sum())
+    dsts = np.unique(rows[:, 1])
+    return elem * sepset, elem * int(2 * sizes[dsts].sum() + sep.sum())
+
+
 def jt_bounds(plan, elem):
     """{kernel: (bytes, operations)} one calibration must move and do: every
-    clique written once in stage 0 and every factor read once; per wave each
-    of its sources read once (a downward wave's messages from one parent
-    share it), per message its ratio and sepset written and the previous
-    sepset read; per wave every destination read and written once and its
-    ratios read; the descriptor tables each kernel reads.  Operations count
-    every message's own walk of its source."""
+    clique written once in stage 0 and every factor read once; the waves'
+    data bytes (:func:`jt_wave_bytes`); the descriptor tables each kernel
+    reads.  Operations count every message's own walk of its source."""
     sizes = plan.cliques[:, 1]
     rows = plan.messages
     src = sizes[rows[:, 0]]
-    src_reads = sum(int(sizes[np.unique(rows[plan.wave_messages[lo:hi], 0])].sum())
-                    for lo, hi in zip(plan.wave_message_start[:-1], plan.wave_message_start[1:]))
     sep = rows[:, 4]
     stale = sep * (1 - rows[:, 3])
     n_factors = np.diff(plan.clique_factors)
-    absorb_bytes = absorb_ops = 0
-    for dst, lo, hi in plan.groups:
-        absorb_bytes += elem * (2 * int(sizes[dst]) + int(sep[plan.group_messages[lo:hi]].sum()))
-        absorb_ops += int(sizes[dst]) * int(hi - lo)
+    wave_bytes = np.array([jt_wave_bytes(plan, elem, w) for w in range(plan.n_waves)])
+    absorb_ops = int(sum(int(sizes[row[0]]) * int(row[2] - row[1]) for row in plan.groups))
     return {
         "clique_potentials": (
             elem * (plan.total + sum(plan.factor_sizes))
@@ -670,14 +685,34 @@ def jt_bounds(plan, elem):
                    + plan.factors.size),
             int((sizes * np.maximum(n_factors - 1, 0)).sum())),
         "sepset_wave": (
-            elem * int(src_reads + 2 * sep.sum() + stale.sum())
-            + 8 * (rows.size + plan.wave_messages.size + plan.message_blocks.size),
+            int(wave_bytes[:, 0].sum()) + 8 * (rows.size + plan.message_blocks.size),
             int(src.sum() + sep.sum() + stale.sum())),
         "absorb_wave": (
-            absorb_bytes + 8 * (plan.groups.size + plan.group_blocks.size
-                                + plan.group_messages.size + plan.cliques.size + rows.size),
+            int(wave_bytes[:, 1].sum())
+            + 8 * (plan.groups.size + plan.group_blocks.size + plan.absorb_rows.size),
             absorb_ops),
     }
+
+
+def log_slowest_waves(plan, wave_ms, elem):
+    """The five slowest waves of each wave kernel: device ms beside the
+    wave's bound, its messages, largest source and that message's sepset,
+    data bytes and blocks."""
+    sizes = plan.cliques[:, 1]
+    for k, (name, times) in enumerate(wave_ms.items()):
+        parts = []
+        for w in sorted(range(plan.n_waves), key=lambda w: -times[w])[:5]:
+            lo, hi = plan.wave_message_start[w:w + 2]
+            rows = plan.messages[plan.wave_messages[lo:hi]]
+            big = int(np.argmax(sizes[rows[:, 0]]))
+            nbytes = jt_wave_bytes(plan, elem, w)[k]
+            blocks = (plan.sepset_blocks if k == 0 else plan.absorb_blocks)[w]
+            parts.append(f"wave {w}{' (down)' if w >= plan.n_up_waves else ''} {times[w]:.5f} ms "
+                         f"(bound {bound(nbytes, 0)[0]:.5f}) messages {hi - lo} largest source "
+                         f"{int(sizes[rows[big, 0]])} onto sepset {int(rows[big, 4])} bytes "
+                         f"{nbytes} blocks {int(blocks)}")
+        log(f"k2 {name} slowest waves (device ms, each launch alone behind a device sleep, "
+            f"median of 5): " + "; ".join(parts))
 
 
 def phase_jt_kernels(bp):
@@ -694,6 +729,15 @@ def phase_jt_kernels(bp):
     plan = program.wave_plan()
     arrays = [f.values.contiguous() for f in bp._input_factors]
     waves = plan.n_waves
+    split = plan.messages[:, jt.MSG_CHUNKS] > 1
+    log(f"k2 tree PYTHONHASHSEED={os.environ.get('PYTHONHASHSEED')} cliques "
+        f"{len(program.cliques)} messages {len(program.messages)} waves {waves} (upward "
+        f"{plan.n_up_waves}) messages cut into chunks {int(split.sum())} sepset_wave blocks "
+        f"{int(plan.sepset_blocks.sum())} absorb_wave blocks {int(plan.absorb_blocks.sum())} "
+        f"largest block walk {int(jt.block_walks(plan.messages).max())} source entries (limit "
+        f"{jt.MAX_BLOCK_WALK})")
+    check(jt.block_walks(plan.messages).max() <= jt.MAX_BLOCK_WALK,
+          "k2: a sepset_wave block reads past the limit")
 
     # ---- launches and device operations per calibration
     jt.reset_launches()
@@ -734,6 +778,16 @@ def phase_jt_kernels(bp):
     # so maximize is equal to the bit
     keep(jt_case("munin", program, arrays, "marginalize", rtol))
     keep(jt_case("munin", program, arrays, "maximize", None))
+    # the partials of a message cut into chunks combine in a fixed order:
+    # two calibrations are equal to the bit
+    for operation in ("marginalize", "maximize"):
+        first = jt.calibrate_waves_cuda(plan, arrays, operation)
+        again = jt.calibrate_waves_cuda(plan, arrays, operation)
+        torch.cuda.synchronize()
+        check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
+              f"k2 munin {operation}: two calibrations differ")
+        log(f"k2 munin {operation} two successive calibrations equal to the bit")
+    del first, again
     stage0 = torch.empty(plan.total, dtype=arrays[0].dtype, device="cuda")
     jt.clique_potentials_cuda(plan, arrays, stage0)
     ref0 = torch.empty_like(stage0)
@@ -764,19 +818,23 @@ def phase_jt_kernels(bp):
     # time), summed over a calibration; the plain version's pieces with CUDA
     # events around their eager ops (its time is the host's enqueue)
     arena, sepsets = jt.calibrate_waves_cuda(plan, arrays)
-    scratch = torch.empty(max(plan.scratch_size, 1), dtype=arena.dtype, device="cuda")
+    scratch, partial = jt.wave_scratch(plan, arena)
     work, sep_work = arena.clone(), sepsets.clone()
+    wave_ms = {
+        "sepset_wave": [cuda_median_ms(
+            lambda w=w: jt.sepset_wave_cuda(plan, w, arena, sep_work, scratch, partial), reps=5,
+            warmup=1, device_only=True) for w in range(waves)],
+        "absorb_wave": [cuda_median_ms(
+            lambda w=w: jt.absorb_wave_cuda(plan, w, work, scratch), reps=5, warmup=1,
+            device_only=True) for w in range(waves)],
+    }
     ms = {
         "clique_potentials": cuda_median_ms(
             lambda: jt.clique_potentials_cuda(plan, arrays, work), reps=10, warmup=1,
             device_only=True),
-        "sepset_wave": sum(cuda_median_ms(
-            lambda w=w: jt.sepset_wave_cuda(plan, w, arena, sep_work, scratch), reps=5,
-            warmup=1, device_only=True) for w in range(waves)),
-        "absorb_wave": sum(cuda_median_ms(
-            lambda w=w: jt.absorb_wave_cuda(plan, w, work, scratch), reps=5, warmup=1,
-            device_only=True) for w in range(waves)),
+        **{name: sum(times) for name, times in wave_ms.items()},
     }
+    log_slowest_waves(plan, wave_ms, arena.element_size())
     p_arena, p_sepsets = torch.empty_like(arena), torch.empty_like(sepsets)
     beliefs, mu = jt.arena_views(plan, p_arena, p_sepsets)
     jt.clique_potentials_reference(plan, arrays, beliefs)
@@ -812,7 +870,7 @@ def phase_jt_kernels(bp):
         f"{plain_cal:.3f} bound_ms {total_bound:.6f}; library_ms null: no single PyTorch call "
         f"computes a calibration, a wave of messages or a clique potential table")
     return {"waves": waves, "per_calibration": per_cal, "device_ms": device_ms,
-            "plain_calibration_ms": plain_cal, "kernels": out}
+            "plain_calibration_ms": plain_cal, "kernels": out, "wave_ms": wave_ms}
 
 
 def load_and_sample():
@@ -1233,7 +1291,7 @@ HEPAR_CHAINS = 10_000
 HEPAR_SWEEPS = 120
 HEPAR_BURN_IN = 20
 NUTS_CHAINS = 1024
-NUTS_SAMPLES = 120
+NUTS_SAMPLES = 40
 NUTS_ADAPT = 20
 HMC_CHAINS = 64
 
@@ -1722,8 +1780,10 @@ def phase_temporal():
     other = rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED + 1)
     check(not np.array_equal(rain_particles, other[1]), "particle filter: another seed, same result")
     rain_s = host_median_s(lambda: rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED))
+    # one profiling session for each of this phase's long runs (a lower bound
+    # on their kernels): three took minutes of host time
     kernels, device_ms = profiled(
-        lambda: rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED))
+        lambda: rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED), sessions=1)
     log(f"particle_filter_rain particles={PF_PARTICLES} slices={PF_SLICES} filter_s {rain_s:.4f} "
         f"(median of 3; first call {rain_first_s:.4f}) particle_steps_per_s "
         f"{PF_PARTICLES * PF_SLICES / rain_s:.1f} kernels_per_slice {kernels / PF_SLICES:.1f} "
@@ -1743,7 +1803,7 @@ def phase_temporal():
     exact = alarm_infer.forward_scan(persistent, alarm_ev, n_time_slices=ALARM_SLICES)
     scan_s = time.time() - t0
     scan_kernels, scan_device_ms = profiled(lambda: alarm_infer.forward_scan(
-        persistent, alarm_ev, n_time_slices=ALARM_SLICES))
+        persistent, alarm_ev, n_time_slices=ALARM_SLICES), sessions=1)
     log(f"forward_scan_alarm slices={ALARM_SLICES} queries={len(persistent)} scan_s {scan_s:.4f} "
         f"forward_scan_slices_per_s {(ALARM_SLICES - 1) / scan_s:.1f} kernels_per_slice "
         f"{scan_kernels / (ALARM_SLICES - 1):.1f} device_ms_per_slice "
@@ -1759,7 +1819,7 @@ def phase_temporal():
     alarm_s = host_median_s(
         lambda: alarm_pf.filter(alarm_ev, n_time_slices=ALARM_SLICES, seed=SEED), reps=2)
     kernels, device_ms = profiled(
-        lambda: alarm_pf.filter(alarm_ev, n_time_slices=ALARM_SLICES, seed=SEED))
+        lambda: alarm_pf.filter(alarm_ev, n_time_slices=ALARM_SLICES, seed=SEED), sessions=1)
     log(f"particle_filter_alarm particles={ALARM_PARTICLES} slices={ALARM_SLICES} filter_s "
         f"{alarm_s:.4f} (median of 2; first call {alarm_first_s:.4f}) particle_steps_per_s "
         f"{ALARM_PARTICLES * ALARM_SLICES / alarm_s:.1f} kernels_per_slice "
@@ -4255,22 +4315,55 @@ def phase_parallel(model, context):
     return launches, row, moments_launches
 
 
-def build_kernels():
-    """Build every kernel source of the port at once: one nvcc per source,
-    all started together (the builds wait on nvcc, not on Python)."""
-    from concurrent.futures import ThreadPoolExecutor
+def ptxas_summary(text):
+    """One line per kernel of ``nvcc -Xptxas -v``'s output: registers,
+    shared memory, stack and spills."""
+    import re
 
-    from pgmpy_tpu_torch.ops import bincount, jt
+    types = {"f": "float", "d": "double"}
+    out, name = [], None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?([a-z]+(?:_[a-z]+)*)I(\w*?)EEv", line)
+        if entry:
+            args = re.findall(r"Lb(\d)E|Li(\d+)E|^([fd])|(?<=E)([fd])", entry.group(2))
+            name = entry.group(1) + "<" + ", ".join(
+                types.get(t or u, "") or ("true" if b == "1" else "false" if b else i)
+                for b, i, t, u in args) + ">"
+        elif name and "bytes spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, {smem.group(1) if smem else 0} bytes smem, "
+                       f"{spills}")
+            name = None
+    return out
+
+
+def build_kernels():
+    """Build every kernel source of the port at once (one nvcc per source,
+    all started together), then load each, and log each build's time and
+    what ptxas says of each kernel."""
+    from pgmpy_tpu_torch.ops import _build, bincount, jt
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for built in [pool.submit(bincount._library), pool.submit(jt._library)]:
-            built.result()
+    _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"]})
+    for load in (bincount._library, jt._library):
+        load()
     log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu and csrc/jt_calibrate.cu, "
-        f"one nvcc each, side by side)")
+        f"one nvcc each, started together)")
+    for name, built in _build.BUILDS.items():
+        log(f"kernels_built {name} nvcc_s {built['seconds']:.2f}")
+        for line in ptxas_summary(built["ptxas"]):
+            log(f"ptxas {name} {line}")
 
 
 def main():
+    if "PYTHONHASHSEED" not in os.environ:
+        # MUNIN's junction tree follows the string hash seed: pin it, so that
+        # every run times the same tree
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -4284,24 +4377,36 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t0 = time.time()
     build_kernels()
     bincount_results = phase_bincount()
     model, df, codes = load_and_sample()
     context, kernels = phase_slice(model, df, codes, bincount_results,
                                    phase_table_counts(model, codes))
+    log(f"phase_main_s {time.time() - t0:.1f} (builds, K1's checks, the main path and K2)")
     # the second path: its launches are counted on their own, from zero
+    t0 = time.time()
     table_launches, bincount_launches = phase_simulate_predict(model, context)
     kernels[0]["launches_simulate_fit_predict"] = bincount_launches
     kernels[1]["launches_simulate_fit_predict"] = table_launches
+    log(f"phase_simulate_predict_s {time.time() - t0:.1f}")
     # the third path
+    t0 = time.time()
     table_launches, bincount_launches = phase_mcmc(model)
     kernels[0]["launches_mcmc"] = bincount_launches
     kernels[1]["launches_mcmc"] = table_launches
+    log(f"phase_mcmc_s {time.time() - t0:.1f}")
     # the fourth and fifth paths, and K1 at the two shapes they give it
+    t0 = time.time()
     (temporal_tables, temporal_bincounts), weighted, filter_launches = phase_temporal()
+    log(f"phase_temporal_s {time.time() - t0:.1f}")
+    t0 = time.time()
     (structure_tables, structure_bincounts), pairs = phase_structure(df)
+    log(f"phase_structure_s {time.time() - t0:.1f}")
     # the sixth path, and K1 at the shape of a PC level
+    t0 = time.time()
     (constraint_tables, constraint_bincounts), level1 = phase_constraint(context["fitted"], df)
+    log(f"phase_constraint_s {time.time() - t0:.1f}")
     for row, temporal, structure, constraint in (
             (kernels[0], temporal_bincounts, structure_bincounts, constraint_bincounts),
             (kernels[1], temporal_tables, structure_tables, constraint_tables)):

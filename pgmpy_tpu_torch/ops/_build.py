@@ -5,7 +5,9 @@ Each library is compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
 its sources and flags, so a stale library is never loaded.  The sources
 expose plain ``extern "C"`` launchers that ``ctypes`` calls with raw device
 pointers and the current CUDA stream; nothing includes PyTorch's headers, so
-a build takes seconds.  Nothing here runs at import time.
+a build takes seconds.  Nothing here runs at import time.  ``BUILDS`` keeps
+each library built in this process: its build's seconds and what ``ptxas -v``
+said of every kernel (registers, shared memory, spills).
 """
 
 import ctypes
@@ -14,18 +16,19 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()  # guards the two dicts below
-_building = {}  # name -> the lock its build holds, so that two sources build at once
+_lock = threading.Lock()  # one build or load at a time
 _loaded = {}
+BUILDS = {}  # name -> {"seconds": ..., "ptxas": ...} of each library built in this process
 
 
 def _nvcc():
@@ -41,35 +44,64 @@ def _nvcc():
     )
 
 
-def load_library(name, sources):
-    """Compile ``sources`` (file names under ``csrc/``) into one shared
-    library, once per process, and return it as a ``ctypes.CDLL``.  Builds of
-    different libraries may run at once, from different threads."""
+def _target(name, sources):
+    """(the library's path, keyed on its sources and flags; the source paths)."""
+    paths = [os.path.join(CSRC, s) for s in sources]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in paths:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so"), paths
+
+
+def build_libraries(libraries):
+    """Compile every library of ``libraries`` ({name: source file names under
+    ``csrc/``}) that is not built yet: one ``nvcc`` each, all started
+    together.  Records each build's seconds and ptxas report in ``BUILDS``."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        building = _building.setdefault(name, threading.Lock())
-    with building:
-        if name in _loaded:
-            return _loaded[name]
-        paths = [os.path.join(CSRC, s) for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in paths:
-            with open(path, "rb") as fh:
-                digest.update(fh.read())
-        target = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-        if not os.path.exists(target):
+        running = {}
+        for name, sources in libraries.items():
+            if name in _loaded:
+                continue
+            target, paths = _target(name, sources)
+            if os.path.exists(target):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{target}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = open(f"{tmp}.log", "w+")
+            running[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                             cmd, log, tmp, target)
+        started = time.time()
+        while any(proc.poll() is None for proc, *_ in running.values()):
+            for name, (proc, *_) in running.items():
+                if proc.poll() is not None and name not in BUILDS:
+                    BUILDS[name] = {"seconds": time.time() - started}
+            time.sleep(0.02)
+        failed = []
+        for name, (proc, cmd, log, tmp, target) in running.items():
+            log.seek(0)
+            out = log.read().strip()
+            log.close()
+            os.remove(f"{tmp}.log")
+            BUILDS.setdefault(name, {"seconds": time.time() - started})["ptxas"] = out
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {name} ({' '.join(cmd)}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, target)
-        lib = ctypes.CDLL(target)
-        with _lock:
-            _loaded[name] = lib
-        return lib
+                failed.append(f"nvcc failed building {name} ({' '.join(cmd)}):\n{out}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load_library(name, sources):
+    """Compile ``sources`` (file names under ``csrc/``) into one shared
+    library if it is not built yet, once per process, and return it as a
+    ``ctypes.CDLL``."""
+    with _lock:
+        if name in _loaded:  # every launch comes here: no hashing of the sources
+            return _loaded[name]
+    build_libraries({name: sources})
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(_target(name, sources)[0])
+        return _loaded[name]

@@ -40,18 +40,37 @@ from pgmpy_tpu_torch.ops._build import load_library
 WIDTHS = (16, 24)  # the table widths jt_calibrate.cu is compiled for (MUNIN needs 16)
 MAX_AXES = WIDTHS[-1]  # the most axes a clique may have on the card
 BLOCK = 256  # kBlock: threads per block of every kernel
-ENTRIES_PER_BLOCK = 1024  # arena entries one block of clique_potentials / absorb_wave owns
-MIN_WALK = 32  # a lane of sepset_wave walks at least this many reduced entries
+ENTRIES_PER_BLOCK = 1024  # arena entries one block of clique_potentials owns
+ABSORB_ENTRIES = 2048  # kAbsorbEntries: arena entries one block of absorb_wave owns
+ALIGN = 4  # kAlign: an absorb_wave block starts on a multiple of 4 arena entries
+MIN_WALK = 16  # a lane of sepset_wave walks at least this many reduced entries, where it can
+MAX_WALK = 32  # ... and at most this many: a longer reduction is cut into chunks
 MAX_LANES_LOG2 = 8  # at most BLOCK lanes reduce one sepset entry
+# the most source entries one block of sepset_wave reads: a lane walks fewer
+# than 2 MIN_WALK entries (of one entry, or of MIN_WALK // reduced entries
+# when an entry has one lane) unless a whole block reduces one entry, and
+# then at most MAX_WALK
+MAX_BLOCK_WALK = BLOCK * max(2 * MIN_WALK, MAX_WALK)
 
 # clique rows: offset into the belief arena, size, axis count, then the axes' sizes
 CLIQUE_OFFSET, CLIQUE_SIZE, CLIQUE_NDIM, CLIQUE_HEADER = 0, 1, 2, 3
-# message rows (kMsg* in jt_calibrate.cu), then five blocks of ``width`` values:
-# the kept axes' sizes and source strides (canonical sepset order, adjacent
-# axes merged), the reduced axes' sizes and source strides (merged), and the
-# ratio's stride along each destination-clique axis (0 where the sepset lacks it)
-(MSG_SRC, MSG_DST, MSG_EDGE, MSG_FRESH, MSG_SIZE, MSG_REDUCED, MSG_LANES_LOG2,
- MSG_RATIO, MSG_SEPSET, MSG_NKEEP, MSG_NRED, MSG_HEADER) = range(12)
+# message rows (kMsg* in jt_calibrate.cu), then seven blocks of ``width``
+# values, innermost axis first: the kept axes' sizes, source strides,
+# canonical sepset strides and multiply-shift constants (source order,
+# adjacent axes merged), the reduced axes' sizes, source strides and
+# multiply-shift constants (merged)
+(MSG_SRC, MSG_DST, MSG_EDGE, MSG_FRESH, MSG_SIZE, MSG_REDUCED, MSG_RATIO, MSG_SEPSET,
+ MSG_NKEEP, MSG_NRED, MSG_LANES_LOG2, MSG_ENTRY_MAJOR, MSG_CHUNKS, MSG_CHUNK_LEN, MSG_RUNS,
+ MSG_PARTIAL, MSG_SRC_OFFSET, MSG_PER_THREAD, MSG_HEADER) = range(19)
+KEEP_DIMS, KEEP_STRIDES, KEEP_SEPSET, KEEP_MAGIC, RED_DIMS, RED_STRIDES, RED_MAGIC = range(7)
+# group rows (one destination of a wave): kGroup*, then the destination's
+# axes merged for all its incoming messages (innermost first): sizes, and
+# multiply-shift constants
+(GROUP_DST, GROUP_BEGIN, GROUP_END, GROUP_NDIM, GROUP_NDECODE, GROUP_OFFSET, GROUP_SIZE,
+ GROUP_HEADER) = range(8)
+# absorb rows (one per incoming message of a group, schedule order): the
+# message, its ratio's offset in the scratch, its stride along each merged axis
+ABSORB_MSG, ABSORB_RATIO, ABSORB_HEADER = range(3)
 
 JT_LAUNCHES = 0  # every launch of the three kernels
 LAUNCHES = {"clique_potentials": 0, "sepset_wave": 0, "absorb_wave": 0}  # by kernel
@@ -83,17 +102,18 @@ class WavePlan:
     potential_blocks: int
     clique_factors: np.ndarray  # (C + 1,) CSR into ``factors``
     factors: np.ndarray  # (F, 1 + width): factor id, its stride along each clique axis
-    messages: np.ndarray  # (M, MSG_HEADER + 5 * width)
+    messages: np.ndarray  # (M, MSG_HEADER + 7 * width), by message id (uploaded in wave order)
     wave_messages: np.ndarray  # (M,) message ids, wave by wave, schedule order within
     wave_message_start: np.ndarray  # (W + 1,)
     message_blocks: np.ndarray  # (M,) by wave_messages: first block in its wave's grid
     sepset_blocks: np.ndarray  # (W,) blocks of each wave's sepset_wave launch
-    groups: np.ndarray  # (G, 3): destination clique, its messages' [begin, end) in group_messages
-    group_messages: np.ndarray  # message ids, schedule order within a group
+    groups: np.ndarray  # (G, GROUP_HEADER + 2 * width)
+    absorb_rows: np.ndarray  # (M, ABSORB_HEADER + width), group by group
     wave_group_start: np.ndarray  # (W + 1,)
     group_blocks: np.ndarray  # (G,) first block in its wave's absorb_wave grid
     absorb_blocks: np.ndarray  # (W,)
     scratch_size: int  # ratio entries of the largest wave
+    partial_size: int  # double partials of the largest wave (MSG_PARTIAL)
     n_up_waves: int
     potential_specs: list  # the program's, for the plain version
     message_specs: list  # the program's messages, for the plain version
@@ -111,8 +131,9 @@ class WavePlan:
         """(message ids, [(destination clique, message ids)]) of wave ``w``."""
         lo, hi = self.wave_message_start[w], self.wave_message_start[w + 1]
         glo, ghi = self.wave_group_start[w], self.wave_group_start[w + 1]
-        groups = [(int(d), self.group_messages[b:e].tolist())
-                  for d, b, e in self.groups[glo:ghi]]
+        groups = [(int(row[GROUP_DST]),
+                   self.absorb_rows[row[GROUP_BEGIN]:row[GROUP_END], ABSORB_MSG].tolist())
+                  for row in self.groups[glo:ghi]]
         return self.wave_messages[lo:hi].tolist(), groups
 
 
@@ -124,31 +145,56 @@ def row_major_strides(shape):
     return strides[::-1]
 
 
-def merge_axes(dims, strides):
+def merge_axes(dims, *strides):
     """Drop size-1 axes and merge each axis into the one before it where the
-    two are adjacent in memory (``stride[k] == stride[k + 1] * dim[k + 1]``):
-    a row-major walk over the merged axes visits the same offsets in the same
-    order, with fewer digits to decode."""
-    out_d, out_s = [], []
-    for d, s in zip(dims, strides):
+    two are adjacent in memory in every stride list (``stride[k] ==
+    stride[k + 1] * dim[k + 1]``): a row-major walk over the merged axes
+    visits the same offsets in the same order, with fewer digits to decode.
+    Returns (dims, *strides)."""
+    out_d, out_s = [], [[] for _ in strides]
+    for k, d in enumerate(dims):
         if d == 1:
             continue
-        if out_d and out_s[-1] == s * d:
-            out_d[-1] *= d
-            out_s[-1] = s
+        if out_d and all(o[-1] == s[k] * d for o, s in zip(out_s, strides)):
+            out_d[-1] *= int(d)
+            for o, s in zip(out_s, strides):
+                o[-1] = int(s[k])
         else:
             out_d.append(int(d))
-            out_s.append(int(s))
-    return out_d, out_s
+            for o, s in zip(out_s, strides):
+                o.append(int(s[k]))
+    return (out_d, *out_s)
 
 
-def lanes_log2(reduced):
-    """log2 of the lanes that reduce one sepset entry of a message whose
-    entries each sum ``reduced`` source entries: enough that a lane walks at
-    least ``MIN_WALK`` of them, at most a block."""
-    if reduced < 2 * MIN_WALK:
-        return 0
-    return min(MAX_LANES_LOG2, int(np.log2(reduced // MIN_WALK)))
+def magic(d):
+    """The multiply-shift constants of a divisor ``2 <= d < 2**31``, packed as
+    ``mul | shift << 32``: ``n // d == (n * mul) >> (32 + shift)`` for every
+    ``0 <= n < 2**31`` (``__umulhi(n, mul) >> shift``; with ``l =
+    ceil(log2 d)``, ``mul = ceil(2**(31 + l) / d)`` fits 32 bits)."""
+    l = (int(d) - 1).bit_length()
+    return -(-(1 << (31 + l)) // int(d)) | ((l - 1) << 32)
+
+
+def message_cut(reduced):
+    """(lanes_log2, chunks, chunk_len, per_thread) of a message whose sepset
+    entries each reduce ``reduced`` source entries: 2^k lanes per entry so
+    that a lane walks at least ``MIN_WALK`` of them (at most a block), the
+    reduced space cut into chunks of at most ``MAX_WALK`` entries per lane,
+    and a lone lane given ``MIN_WALK // reduced`` entries when their
+    reductions are short."""
+    log2 = 0 if reduced < 2 * MIN_WALK else min(
+        MAX_LANES_LOG2, (reduced // MIN_WALK).bit_length() - 1)
+    chunk_len = -(-reduced // -(-reduced // ((1 << log2) * MAX_WALK)))
+    per_thread = max(1, MIN_WALK // reduced) if log2 == 0 else 1
+    return log2, -(-reduced // chunk_len), chunk_len, per_thread
+
+
+def block_walks(rows):
+    """The most source entries one ``sepset_wave`` block of each message
+    (rows of ``WavePlan.messages``) reads: its sepset entries (``per_thread``
+    runs of a block's) times its chunk of the reduced space."""
+    return (np.minimum((BLOCK >> rows[:, MSG_LANES_LOG2]) * rows[:, MSG_PER_THREAD],
+                       rows[:, MSG_SIZE]) * rows[:, MSG_CHUNK_LEN])
 
 
 def _waves(program):
@@ -217,47 +263,61 @@ def build_plan(program):
     # messages
     waves, n_up_waves = _waves(program)
     n_waves = 1 + max(waves, default=-1)
-    messages = np.zeros((len(program.messages), MSG_HEADER + 5 * width), dtype=np.int64)
-    keep_d, keep_s, red_d, red_s, dst_s = (MSG_HEADER + k * width for k in range(5))
+    messages = np.zeros((len(program.messages), MSG_HEADER + 7 * width), dtype=np.int64)
+    ratio_strides = {}  # message -> its ratio's stride along each destination axis
     for m, (src, dst, reduce_axes, perm, (bperm, bspec), edge, fresh) in enumerate(
             program.messages):
         src_shape, src_strides = shapes[src], row_major_strides(shapes[src])
+        reduce_axes = sorted(reduce_axes)
         kept = [a for a in range(len(src_shape)) if a not in reduce_axes]
         canon = [kept[p] for p in perm]  # source axis of each canonical sepset axis
-        kd, ks = merge_axes([src_shape[a] for a in canon], [src_strides[a] for a in canon])
+        canon_strides = row_major_strides([src_shape[a] for a in canon])
+        sep_stride = {a: canon_strides[k] for k, a in enumerate(canon)}
+        # kept axes in source order (consecutive threads, consecutive addresses),
+        # each with its source stride and its canonical sepset stride
+        kd, ks, kj = merge_axes([src_shape[a] for a in kept], [src_strides[a] for a in kept],
+                                [sep_stride[a] for a in kept])
         rd, rs = merge_axes([src_shape[a] for a in reduce_axes],
                             [src_strides[a] for a in reduce_axes])
         reduced = int(np.prod([src_shape[a] for a in reduce_axes]))
+        log2, chunks, chunk_len, per_thread = message_cut(reduced)
+        inner = next((a for a in reversed(range(len(src_shape))) if src_shape[a] > 1), None)
         row = messages[m]
-        row[[MSG_SRC, MSG_DST, MSG_EDGE, MSG_FRESH, MSG_SIZE, MSG_REDUCED, MSG_LANES_LOG2,
-             MSG_SEPSET, MSG_NKEEP, MSG_NRED]] = [
-            src, dst, edge, int(fresh), sep_sizes[edge], reduced, lanes_log2(reduced),
-            edge_offsets[edge], len(kd), len(rd)]
-        row[keep_d:keep_d + len(kd)] = kd
-        row[keep_s:keep_s + len(ks)] = ks
-        row[red_d:red_d + len(rd)] = rd
-        row[red_s:red_s + len(rs)] = rs
-        ratio_strides = row_major_strides(sep_shapes[edge])
-        for a, s in enumerate(bspec):
-            if s is not None:
-                row[dst_s + a] = ratio_strides[bperm[s]]
+        row[[MSG_SRC, MSG_DST, MSG_EDGE, MSG_FRESH, MSG_SIZE, MSG_REDUCED, MSG_SEPSET,
+             MSG_NKEEP, MSG_NRED, MSG_LANES_LOG2, MSG_ENTRY_MAJOR, MSG_CHUNKS, MSG_CHUNK_LEN,
+             MSG_RUNS, MSG_SRC_OFFSET, MSG_PER_THREAD]] = [
+            src, dst, edge, int(fresh), sep_sizes[edge], reduced, edge_offsets[edge],
+            len(kd), len(rd), log2, int(inner is not None and inner in kept), chunks, chunk_len,
+            -(-int(sep_sizes[edge]) // ((BLOCK >> log2) * per_thread)), clique_offsets[src],
+            per_thread]
+        for column, values in ((KEEP_DIMS, kd), (KEEP_STRIDES, ks), (KEEP_SEPSET, kj),
+                               (KEEP_MAGIC, [magic(d) for d in kd]), (RED_DIMS, rd),
+                               (RED_STRIDES, rs), (RED_MAGIC, [magic(d) for d in rd])):
+            start = MSG_HEADER + column * width
+            row[start:start + len(values)] = values[::-1]
+        canon_ratio = row_major_strides(sep_shapes[edge])
+        ratio_strides[m] = [0 if s is None else canon_ratio[bperm[s]] for s in bspec]
 
     wave_messages, wave_message_start, message_blocks = [], [0], []
-    sepset_blocks, absorb_blocks, scratch_size = [], [], 0
-    groups, group_messages, wave_group_start, group_blocks = [], [], [0], []
+    sepset_blocks, absorb_blocks, scratch_size, partial_size = [], [], 0, 0
+    groups, absorb_rows, wave_group_start, group_blocks = [], [], [0], []
     by_wave = [[] for _ in range(n_waves)]
     for m, w in enumerate(waves):
         by_wave[w].append(m)
     for ids in by_wave:
-        ratio, nblocks = 0, 0
+        ratio, partial, nblocks = 0, 0, 0
         for m in ids:
             row = messages[m]
             row[MSG_RATIO] = ratio
             ratio += row[MSG_SIZE]
+            # every message has its partials' slot: with normalize_messages
+            # all of them combine through it
+            row[MSG_PARTIAL] = partial
+            partial += row[MSG_CHUNKS] * row[MSG_SIZE]
             message_blocks.append(nblocks)
-            per_block = BLOCK >> int(row[MSG_LANES_LOG2])
-            nblocks += -(-int(row[MSG_SIZE]) // per_block)
+            nblocks += int(row[MSG_RUNS] * row[MSG_CHUNKS])
         scratch_size = max(scratch_size, ratio)
+        partial_size = max(partial_size, partial)
         wave_messages.extend(ids)
         wave_message_start.append(len(wave_messages))
         sepset_blocks.append(nblocks)
@@ -266,16 +326,34 @@ def build_plan(program):
             order.setdefault(int(messages[m, MSG_DST]), []).append(m)
         nblocks = 0
         for dst, incoming in order.items():
-            groups.append((dst, len(group_messages), len(group_messages) + len(incoming)))
-            group_messages.extend(incoming)
+            # the destination's axes, merged where every incoming ratio treats
+            # two of them alike, innermost first
+            dims, *strides = merge_axes(shapes[dst], *(ratio_strides[m] for m in incoming))
+            used = [k for k in range(len(dims)) if any(s[len(dims) - 1 - k] for s in strides)]
+            row = np.zeros(GROUP_HEADER + 2 * width, dtype=np.int64)
+            row[:GROUP_HEADER] = [dst, len(absorb_rows), len(absorb_rows) + len(incoming),
+                                  len(dims), 1 + max(used, default=-1), clique_offsets[dst],
+                                  sizes[dst]]
+            row[GROUP_HEADER:GROUP_HEADER + len(dims)] = dims[::-1]
+            row[GROUP_HEADER + width:GROUP_HEADER + width + len(dims)] = [
+                magic(d) for d in dims[::-1]]
+            groups.append(row)
+            for m, st in zip(incoming, strides):
+                arow = np.zeros(ABSORB_HEADER + width, dtype=np.int64)
+                arow[:ABSORB_HEADER] = [m, messages[m, MSG_RATIO]]
+                arow[ABSORB_HEADER:ABSORB_HEADER + len(st)] = st[::-1]
+                absorb_rows.append(arow)
             group_blocks.append(nblocks)
-            nblocks += int(blocks[dst])
+            offset = int(clique_offsets[dst])
+            nblocks += -(-(offset + int(sizes[dst]) - offset // ALIGN * ALIGN) // ABSORB_ENTRIES)
         wave_group_start.append(len(groups))
         absorb_blocks.append(nblocks)
 
-    def i64(values, shape=None):
-        out = np.asarray(values, dtype=np.int64)
-        return out.reshape(shape) if shape is not None else out
+    def i64(values, columns=None):
+        if columns is not None:
+            return (np.stack(values) if values
+                    else np.zeros((0, columns), dtype=np.int64)).astype(np.int64)
+        return np.asarray(values, dtype=np.int64)
 
     return WavePlan(
         width=width,
@@ -293,12 +371,13 @@ def build_plan(program):
         wave_message_start=i64(wave_message_start),
         message_blocks=i64(message_blocks),
         sepset_blocks=i64(sepset_blocks),
-        groups=i64(groups, (-1, 3)),
-        group_messages=i64(group_messages),
+        groups=i64(groups, GROUP_HEADER + 2 * width),
+        absorb_rows=i64(absorb_rows, ABSORB_HEADER + width),
         wave_group_start=i64(wave_group_start),
         group_blocks=i64(group_blocks),
         absorb_blocks=i64(absorb_blocks),
         scratch_size=int(scratch_size),
+        partial_size=int(partial_size),
         n_up_waves=n_up_waves,
         potential_specs=[list(s) for s in program.potential_specs],
         message_specs=list(program.messages),
@@ -430,15 +509,15 @@ def _library():
     lib.pgmpy_jt_sepset_wave.argtypes = [
         i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i64, i32, ctypes.c_double, vp]
     lib.pgmpy_jt_absorb_wave.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, i32, vp, i64, i32, i32, vp]
+        i32, vp, vp, vp, vp, i32, vp, i64, i32, vp]
     for fn in (lib.pgmpy_jt_clique_potentials, lib.pgmpy_jt_sepset_wave,
                lib.pgmpy_jt_absorb_wave):
         fn.restype = ctypes.c_int
     return lib
 
 
-_TABLES = ("cliques", "clique_blocks", "clique_factors", "factors", "messages",
-           "wave_messages", "message_blocks", "groups", "group_messages", "group_blocks")
+_TABLES = ("cliques", "clique_blocks", "clique_factors", "factors", "wave_rows",
+           "message_blocks", "groups", "group_blocks", "absorb_rows")
 
 
 def _device_tables(plan, device):
@@ -450,26 +529,42 @@ def _device_tables(plan, device):
         # order this stream behind the upload, whichever stream made it
         torch.cuda.current_stream(device).wait_event(entry["uploaded"])
         return entry
-    arrays = [np.ascontiguousarray(getattr(plan, name), dtype=np.int64).ravel()
-              for name in _TABLES]
+    tables = {name: getattr(plan, name) for name in _TABLES if name != "wave_rows"}
+    tables["wave_rows"] = plan.messages[plan.wave_messages]  # a wave's rows are one slice
+    arrays = [np.ascontiguousarray(tables[name], dtype=np.int64).ravel() for name in _TABLES]
     starts = np.concatenate([[0], np.cumsum([a.size for a in arrays])])
     flat = np.concatenate(arrays + [np.zeros(1, dtype=np.int64)])
     buf = torch.from_numpy(flat).pin_memory().to(device, non_blocking=True)
     uploaded = torch.cuda.Event()
     uploaded.record(torch.cuda.current_stream(device))
     ptr = {name: buf.data_ptr() + 8 * int(s) for name, s in zip(_TABLES, starts)}
+    message_row, group_row = 8 * plan.messages.shape[1], 8 * plan.groups.shape[1]
     waves = []
     for w in range(plan.n_waves):
         lo, hi = (int(x) for x in plan.wave_message_start[w:w + 2])
         glo, ghi = (int(x) for x in plan.wave_group_start[w:w + 2])
-        waves.append({"messages": (ptr["wave_messages"] + 8 * lo, ptr["message_blocks"] + 8 * lo,
-                                   hi - lo, int(plan.sepset_blocks[w])),
-                      "groups": (ptr["groups"] + 24 * glo, ptr["group_blocks"] + 8 * glo,
+        waves.append({"messages": (ptr["wave_rows"] + message_row * lo,
+                                   ptr["message_blocks"] + 8 * lo, lo, hi - lo,
+                                   int(plan.sepset_blocks[w])),
+                      "groups": (ptr["groups"] + group_row * glo, ptr["group_blocks"] + 8 * glo,
                                  ghi - glo, int(plan.absorb_blocks[w]))})
-    entry = {"buffer": buf, "uploaded": uploaded, "ptr": ptr, "waves": waves,
+    entry = {"buffer": buf, "uploaded": uploaded, "ptr": ptr, "waves": waves, "tickets": {},
              "factor_pointers": (None, None, None)}
     plan.device_tables[device] = entry
     return entry
+
+
+def _tickets(plan, entry, tensor):
+    """``sepset_wave``'s per-message tickets (in wave order) for the current
+    stream: zeroed once (every launch leaves them zero), one set per stream,
+    so that two streams calibrating one plan at once do not share them."""
+    stream = torch.cuda.current_stream(tensor.device)
+    tickets = entry["tickets"].get(stream.cuda_stream)
+    if tickets is None:
+        tickets = torch.zeros(max(len(plan.messages), 1), dtype=torch.int32,
+                              device=tensor.device)
+        entry["tickets"][stream.cuda_stream] = tickets
+    return tickets
 
 
 def _factor_pointers(entry, arrays, device):
@@ -516,32 +611,38 @@ def clique_potentials_cuda(plan, factor_arrays, arena):
             "clique_potentials")
 
 
-def sepset_wave_cuda(plan, w, arena, sepsets, scratch, operation="marginalize", normalize=False):
+def sepset_wave_cuda(plan, w, arena, sepsets, scratch, partial, operation="marginalize",
+                     normalize=False):
     """``sepset_wave``: every message of wave ``w`` in one launch; sigma into
-    ``sepsets``, the ratio into the message's slot of ``scratch``.  With
-    ``normalize`` the launch runs one block per message (the total is a
-    dependency across the message)."""
+    ``sepsets``, the ratio into the message's slot of ``scratch``.  A message
+    cut into chunks (every message, with ``normalize``) combines its double
+    partials in ``partial`` (``plan.partial_size`` float64 entries)."""
     with torch.cuda.device(arena.device):
         entry = _device_tables(plan, arena.device)
-        wave_msgs, msg_blocks, n_msgs, n_blocks = entry["waves"][w]["messages"]
+        rows, msg_blocks, lo, n_msgs, n_blocks = entry["waves"][w]["messages"]
         _launched(_library().pgmpy_jt_sepset_wave(
             arena.element_size(), int(operation == "maximize"), int(normalize),
-            arena.data_ptr(), sepsets.data_ptr(), scratch.data_ptr(), entry["ptr"]["cliques"],
-            entry["ptr"]["messages"], wave_msgs, msg_blocks, n_msgs,
-            n_msgs if normalize else n_blocks, plan.width, TINY, _stream(arena)), "sepset_wave")
+            arena.data_ptr(), sepsets.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+            _tickets(plan, entry, arena).data_ptr() + 4 * lo, rows, msg_blocks, n_msgs,
+            n_blocks, plan.width, TINY, _stream(arena)), "sepset_wave")
 
 
 def absorb_wave_cuda(plan, w, arena, scratch):
     """``absorb_wave``: wave ``w``'s ratios multiplied into their
-    destinations in one launch, one thread per destination entry."""
+    destinations in one launch, 2,048 destination entries per block."""
     with torch.cuda.device(arena.device):
         entry = _device_tables(plan, arena.device)
         groups, group_blocks, n_groups, n_blocks = entry["waves"][w]["groups"]
         _launched(_library().pgmpy_jt_absorb_wave(
-            arena.element_size(), arena.data_ptr(), scratch.data_ptr(), entry["ptr"]["cliques"],
-            entry["ptr"]["messages"], groups, group_blocks, n_groups,
-            entry["ptr"]["group_messages"], n_blocks, ENTRIES_PER_BLOCK, plan.width,
-            _stream(arena)), "absorb_wave")
+            arena.element_size(), arena.data_ptr(), scratch.data_ptr(), groups, group_blocks,
+            n_groups, entry["ptr"]["absorb_rows"], n_blocks, plan.width, _stream(arena)),
+            "absorb_wave")
+
+
+def wave_scratch(plan, arena):
+    """(ratio scratch, double partials) for a calibration on ``arena``'s card."""
+    return (torch.empty(max(plan.scratch_size, 1), dtype=arena.dtype, device=arena.device),
+            torch.empty(max(plan.partial_size, 1), dtype=torch.float64, device=arena.device))
 
 
 def calibrate_waves_cuda(plan, factor_arrays, operation="marginalize", normalize=False):
@@ -563,10 +664,10 @@ def calibrate_waves_cuda(plan, factor_arrays, operation="marginalize", normalize
     sepsets = torch.empty(plan.sepset_total, dtype=dtype, device=device)
     if plan.total == 0:
         return arena, sepsets
-    scratch = torch.empty(max(plan.scratch_size, 1), dtype=dtype, device=device)
+    scratch, partial = wave_scratch(plan, arena)
     clique_potentials_cuda(plan, arrays, arena)
     for w in range(plan.n_waves):
-        sepset_wave_cuda(plan, w, arena, sepsets, scratch, operation, normalize)
+        sepset_wave_cuda(plan, w, arena, sepsets, scratch, partial, operation, normalize)
         absorb_wave_cuda(plan, w, arena, scratch)
     return arena, sepsets
 

@@ -6,10 +6,13 @@
   it before it sends, no clique is a source and a destination of one wave, and
   the launch grids cover every arena and sepset entry exactly once (ASIA,
   ALARM, INSURANCE, CHILD, a forest, MUNIN's tree).
-* A numpy walk of the descriptor tables, block by block and thread by thread
-  as the CUDA kernels read them, agrees with the plain version (rtol 1e-5 in
-  float32: the walk sums in float64 as the kernels do, the plain version in
-  float32).
+* A numpy walk of the descriptor tables, block by block (in a random order)
+  and thread by thread as the CUDA kernels read them, agrees with the plain
+  version (rtol 1e-5 in float32: the walk sums in float64 as the kernels do,
+  the plain version in float32); no ``sepset_wave`` block reads more than
+  ``MAX_BLOCK_WALK`` source entries, on MUNIN's tree too; the host's
+  multiply-shift constants divide exactly, and the absorb odometer gives the
+  indices a full decode gives.
 * The plain version agrees with ``pgmpy_tpu``'s ``JunctionTreeProgram`` on
   the same numpy tables at the beliefs' tolerance of ``test_torch_bp.py``
   (atol 1e-6, rtol 1e-4): both operations, messages normalised or not.
@@ -111,27 +114,47 @@ def _assert_plan_valid(program, plan):
         pair = [m for m in range(n_msgs) if messages[m][5] == edge]
         assert len(pair) == 2 and messages[pair[0]][6] and not messages[pair[1]][6]
         assert wave_of[pair[0]] < wave_of[pair[1]]
-    # the grids: blocks of clique_potentials and absorb_wave cover their
-    # cliques, and sepset_wave's cover every sepset entry, exactly once
+    # the grids: clique_potentials' blocks cover their cliques; absorb_wave's
+    # cover their destinations from the 4-entry boundary at or below each
+    # offset; sepset_wave's cover every (run of sepset entries, chunk of the
+    # reduced space) of every message
     sizes = plan.cliques[:, jt.CLIQUE_SIZE]
     per = -(-sizes // jt.ENTRIES_PER_BLOCK)
     assert plan.potential_blocks == per.sum()
     assert (plan.clique_blocks == np.concatenate([[0], np.cumsum(per)[:-1]])).all()
+    offsets = plan.cliques[:, jt.CLIQUE_OFFSET]
+    absorb_per = -(-(offsets + sizes - offsets // jt.ALIGN * jt.ALIGN) // jt.ABSORB_ENTRIES)
     for w in range(plan.n_waves):
         glo, ghi = plan.wave_group_start[w:w + 2]
-        dsts = plan.groups[glo:ghi, 0]
-        counts = per[dsts]
+        dsts = plan.groups[glo:ghi, jt.GROUP_DST]
+        counts = absorb_per[dsts]
         assert (plan.group_blocks[glo:ghi] == np.concatenate([[0], np.cumsum(counts)[:-1]])).all()
         assert plan.absorb_blocks[w] == counts.sum()
         lo, hi = plan.wave_message_start[w:w + 2]
         rows = plan.messages[plan.wave_messages[lo:hi]]
-        blocks = -(-rows[:, jt.MSG_SIZE] // (jt.BLOCK >> rows[:, jt.MSG_LANES_LOG2]))
+        runs = -(-rows[:, jt.MSG_SIZE] // ((jt.BLOCK >> rows[:, jt.MSG_LANES_LOG2])
+                                            * rows[:, jt.MSG_PER_THREAD]))
+        assert (rows[:, jt.MSG_RUNS] == runs).all()
+        assert (rows[:, jt.MSG_CHUNKS] * rows[:, jt.MSG_CHUNK_LEN] >= rows[:, jt.MSG_REDUCED]).all()
+        assert ((rows[:, jt.MSG_CHUNKS] - 1) * rows[:, jt.MSG_CHUNK_LEN]
+                < rows[:, jt.MSG_REDUCED]).all(), "an empty chunk"
+        blocks = runs * rows[:, jt.MSG_CHUNKS]
         assert (plan.message_blocks[lo:hi] == np.concatenate([[0], np.cumsum(blocks)[:-1]])).all()
         assert plan.sepset_blocks[w] == blocks.sum()
-        # each message's ratio slot lies inside the wave's scratch, apart
+        # each message's ratio and partial slots lie inside the wave's
+        # scratch, apart
         ends = rows[:, jt.MSG_RATIO] + rows[:, jt.MSG_SIZE]
         assert (rows[:, jt.MSG_RATIO] == np.concatenate([[0], ends[:-1]])).all()
         assert ends[-1] <= plan.scratch_size
+        ends = rows[:, jt.MSG_PARTIAL] + rows[:, jt.MSG_CHUNKS] * rows[:, jt.MSG_SIZE]
+        assert (rows[:, jt.MSG_PARTIAL] == np.concatenate([[0], ends[:-1]])).all()
+        assert ends[-1] <= plan.partial_size
+        # no block reads more source entries than the design's maximum
+        assert (jt.block_walks(rows) <= jt.MAX_BLOCK_WALK).all()
+        # the offsets folded into the rows are the cliques'
+        assert (rows[:, jt.MSG_SRC_OFFSET] == offsets[rows[:, jt.MSG_SRC]]).all()
+        assert (plan.groups[glo:ghi, jt.GROUP_OFFSET] == offsets[dsts]).all()
+        assert (plan.groups[glo:ghi, jt.GROUP_SIZE] == sizes[dsts]).all()
     assert plan.total == sum(int(np.prod(s)) for s in program.clique_shapes)
     assert plan.sepset_total == sum(int(np.prod(s)) for s in program.sepset_shapes)
 
@@ -199,13 +222,21 @@ def _find_slot(starts, b):
     return int(np.searchsorted(starts, b, side="right")) - 1
 
 
-def _walk_offsets(index, n, dims, strides):
-    """``walk_offset`` of jt_calibrate.cu, for an array of indices."""
+def _split_digit(index, size, packed):
+    """``split_digit`` of jt_calibrate.cu: (digit, rest) by multiply-shift."""
+    mul, shift = packed & 0xFFFFFFFF, packed >> 32
+    rest = ((index * mul) >> 32) >> shift
+    return index - rest * size, rest
+
+
+def _walk(index, n, dims, magics, strides):
+    """``walk`` of jt_calibrate.cu for an array of indices: a row-major walk
+    over ``n`` axes given innermost first."""
     off = np.zeros_like(index)
-    for a in range(n - 1, -1, -1):
-        off += (index % dims[a]) * strides[a]
-        index = index // dims[a]
-    return off
+    for a in range(n - 1):
+        digit, index = _split_digit(index, dims[a], magics[a])
+        off += digit * strides[a]
+    return off + index * strides[n - 1] if n else off
 
 
 def _digits(index, row, width):
@@ -218,29 +249,72 @@ def _digits(index, row, width):
     return digit
 
 
-def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32):
-    """The kernels' arithmetic over their grids and descriptor tables: every
-    block finds its slot by the block prefix, every thread its entry.  Returns
-    (belief arena, sepset arena, writes per arena entry)."""
+def _group_axes(plan, grow):
     W = plan.width
-    kd, ks, rd, rs, ds = (jt.MSG_HEADER + k * W for k in range(5))
+    return (grow[jt.GROUP_HEADER:jt.GROUP_HEADER + W],
+            grow[jt.GROUP_HEADER + W:jt.GROUP_HEADER + 2 * W])
+
+
+def _ratio_index(index, ndec, dims, magics, strides):
+    """The ratio entry of destination entries ``index``: the digits of the
+    merged axes by multiply-shift, innermost first, up to the last axis any
+    incoming ratio uses."""
+    idx = np.zeros_like(index)
+    for a in range(ndec):
+        digit, index = _split_digit(index, dims[a], magics[a])
+        idx += digit * strides[a]
+    return idx
+
+
+def absorb_indices(at, offset, vec, nd, ndec, dims, magics, strides):
+    """``absorb_wave``'s ratio indices for one block's consecutive arena
+    addresses ``at`` of a destination at ``offset``, as the threads compute
+    them: a whole slot of ``vec`` entries on a ``vec``-aligned address decodes
+    its first entry by multiply-shift, and each next entry steps the innermost
+    digit (adds its stride) unless that digit carries, and then decodes
+    again; a slot at either end of the run decodes every entry."""
+    i = at - offset
+    size0 = int(dims[0]) if nd else 1
+    slot = at - at % vec
+    whole = (slot >= at[0]) & (slot + vec <= at[-1] + 1)  # a slot at either end decodes all
+    decoded = ~whole | (at % vec == 0) | (i % size0 == 0)
+    k = np.arange(at.size)
+    last = np.maximum.accumulate(np.where(decoded, k, 0))
+    full = _ratio_index(i, ndec, dims, magics, strides)
+    return full[last] + (k - last) * (int(strides[0]) if ndec else 0)
+
+
+def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32, seed=0):
+    """The kernels' arithmetic over their grids and descriptor tables: every
+    block finds its slot by the block prefix, every thread its entries, and
+    the blocks of a launch run in a random order (the card runs them in
+    none).  Asserts as it goes that every sepset entry of a message that
+    combines partials is combined once, from every chunk, in chunk order;
+    that every destination entry is read and written once per wave; that every
+    ticket is back at 0 after each wave; and that no block reads more than
+    ``MAX_BLOCK_WALK`` source entries.  Returns (belief arena, sepset arena,
+    writes per arena entry in stage 0)."""
+    W = plan.width
+    col = {k: jt.MSG_HEADER + k * W for k in range(7)}
     tiny = dtype(TINY)
+    rng = np.random.default_rng(seed)
+    maximize = operation == "maximize"
+    combine = np.maximum if maximize else np.add
     flat = [np.asarray(a, dtype=dtype).ravel() for a in arrays]
     arena = np.full(plan.total, np.nan, dtype=dtype)
     mu = np.full(plan.sepset_total, np.nan, dtype=dtype)
     writes = np.zeros(plan.total, dtype=np.int64)
     sep_writes = np.zeros(plan.sepset_total, dtype=np.int64)
+    tickets = np.zeros(len(plan.messages), dtype=np.int64)  # by position in wave order
     threads = np.arange(jt.BLOCK)
-
-    def owned(b, starts, slot, size):
-        begin = (b - starts[slot]) * jt.ENTRIES_PER_BLOCK
-        return np.arange(begin, min(size, begin + jt.ENTRIES_PER_BLOCK))
+    vec = 16 // np.dtype(dtype).itemsize  # entries per 16-byte slot of absorb_wave
 
     # clique_potentials
     for b in range(plan.potential_blocks):
         c = _find_slot(plan.clique_blocks, b)
         row = plan.cliques[c]
-        i = owned(b, plan.clique_blocks, c, row[jt.CLIQUE_SIZE])
+        begin = (b - plan.clique_blocks[c]) * jt.ENTRIES_PER_BLOCK
+        i = np.arange(begin, min(row[jt.CLIQUE_SIZE], begin + jt.ENTRIES_PER_BLOCK))
         digit = _digits(i.copy(), row, W)
         x = np.ones(i.size, dtype=dtype)
         for f in range(plan.clique_factors[c], plan.clique_factors[c + 1]):
@@ -249,73 +323,115 @@ def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32):
             x = v if f == plan.clique_factors[c] else x * v
         arena[row[jt.CLIQUE_OFFSET] + i] = x
         writes[row[jt.CLIQUE_OFFSET] + i] += 1
+
+    def finish(row, j, sigma):
+        """A message's final sigma for its sepset entries j: normalised,
+        ratio into the scratch, sigma into mu."""
+        ratio_at, sep_at = row[jt.MSG_RATIO] + j, row[jt.MSG_SEPSET] + j
+        old = mu[sep_at]
+        scratch[ratio_at] = sigma if row[jt.MSG_FRESH] else sigma / np.maximum(old, tiny)
+        mu[sep_at] = sigma
+        sep_writes[sep_at] += 1
+
+    wave_rows = plan.messages[plan.wave_messages]  # the device copy: rows in wave order
     for w in range(plan.n_waves):
         lo, hi = plan.wave_message_start[w:w + 2]
         starts = plan.message_blocks[lo:hi]
+        rows, wave_tickets = wave_rows[lo:hi], tickets[lo:hi]
         scratch = np.full(max(plan.scratch_size, 1), np.nan, dtype=dtype)
-        # sepset_wave: blocks over (message, run of entries); with normalize
-        # one block per message, walking its runs one after another
-        if normalize:
-            runs = [(plan.wave_messages[m], j0) for m in range(lo, hi)
-                    for j0 in range(0, plan.messages[plan.wave_messages[m], jt.MSG_SIZE],
-                                    jt.BLOCK >> plan.messages[plan.wave_messages[m],
-                                                              jt.MSG_LANES_LOG2])]
-        else:
-            runs = []
-            for b in range(plan.sepset_blocks[w]):
-                slot = _find_slot(starts, b)
-                m = plan.wave_messages[lo + slot]
-                runs.append((m, (b - starts[slot]) * (jt.BLOCK >> plan.messages[
-                    m, jt.MSG_LANES_LOG2])))
-        for m, j0 in runs:
-            row = plan.messages[m]
+        partial = np.full(max(plan.partial_size, 1), np.nan)
+        partial_writes = np.zeros(max(plan.partial_size, 1), dtype=np.int64)
+        # sepset_wave: blocks over (message, chunk, run of sepset entries)
+        for b in rng.permutation(int(plan.sepset_blocks[w])):
+            slot = _find_slot(starts, b)
+            row = rows[slot]
+            m = plan.wave_messages[lo + slot]  # for the messages below only
+            size, reduced = int(row[jt.MSG_SIZE]), int(row[jt.MSG_REDUCED])
+            runs, chunks, chunk_len = (int(row[k]) for k in (jt.MSG_RUNS, jt.MSG_CHUNKS,
+                                                            jt.MSG_CHUNK_LEN))
             log2 = int(row[jt.MSG_LANES_LOG2])
-            lanes = 1 << log2
-            j = j0 + (threads >> log2)
-            lane = threads & (lanes - 1)
-            part = np.zeros(jt.BLOCK) if operation == "marginalize" else np.full(jt.BLOCK, -np.inf)
-            live = j < row[jt.MSG_SIZE]
-            src = plan.cliques[row[jt.MSG_SRC], jt.CLIQUE_OFFSET]
-            base = _walk_offsets(j[live], int(row[jt.MSG_NKEEP]), row[kd:], row[ks:])
-            for t, jb in zip(np.flatnonzero(live), base):
-                r = np.arange(lane[t], row[jt.MSG_REDUCED], lanes)
-                vals = arena[src + jb + _walk_offsets(r, int(row[jt.MSG_NRED]), row[rd:], row[rs:])]
-                vals = vals.astype(np.float64)
-                part[t] = vals.sum() if operation == "marginalize" else max(vals.max(), -np.inf)
-            for t in np.flatnonzero(live & (lane == 0)):
-                group = part[t:t + lanes]
-                sigma = dtype(group.sum() if operation == "marginalize" else group.max())
-                ratio_at, sep_at = row[jt.MSG_RATIO] + j[t], row[jt.MSG_SEPSET] + j[t]
-                if normalize:
-                    scratch[ratio_at] = sigma
-                    continue
-                scratch[ratio_at] = sigma if row[jt.MSG_FRESH] else sigma / max(mu[sep_at], tiny)
-                mu[sep_at] = sigma
-                sep_writes[sep_at] += 1
-        if normalize:  # the end of each message's block: divide by the total
-            for m in plan.wave_messages[lo:hi]:
-                row = plan.messages[m]
-                r0, s0, n = row[jt.MSG_RATIO], row[jt.MSG_SEPSET], row[jt.MSG_SIZE]
-                sigma = scratch[r0:r0 + n] / max(dtype(scratch[r0:r0 + n].astype(np.float64).sum()),
-                                                 tiny)
-                scratch[r0:r0 + n] = (sigma if row[jt.MSG_FRESH]
-                                      else sigma / np.maximum(mu[s0:s0 + n], tiny))
-                mu[s0:s0 + n] = sigma
-                sep_writes[s0:s0 + n] += 1
-        # absorb_wave
+            lanes, per_block = 1 << log2, jt.BLOCK >> log2
+            run, chunk = (b - starts[slot]) % runs, (b - starts[slot]) // runs
+            if row[jt.MSG_ENTRY_MAJOR]:
+                lane, entry, step = threads >> (8 - log2), threads & (per_block - 1), per_block
+            else:
+                lane, entry, step = threads & (lanes - 1), threads >> log2, 1
+            keep = (int(row[jt.MSG_NKEEP]), row[col[jt.KEEP_DIMS]:], row[col[jt.KEEP_MAGIC]:])
+            red = (int(row[jt.MSG_NRED]), row[col[jt.RED_DIMS]:], row[col[jt.RED_MAGIC]:])
+            src = row[jt.MSG_SRC_OFFSET]
+            r_end = min(reduced, (chunk + 1) * chunk_len)
+            per_thread = int(row[jt.MSG_PER_THREAD])
+            assert per_thread == 1 or lanes == 1
+            read, sigmas, cells_j = 0, [], []
+            for n in range(per_thread):  # a lone lane's entries, one block apart
+                q = (run * per_thread + n) * per_block + entry
+                live = q < size
+                base = _walk(q[live], *keep, row[col[jt.KEEP_STRIDES]:])
+                part = np.full(jt.BLOCK, -np.inf if maximize else 0.0)
+                for t, jb in zip(np.flatnonzero(live), base):
+                    r = np.arange(chunk * chunk_len + lane[t], r_end, lanes)
+                    read += r.size
+                    vals = arena[src + jb + _walk(r, *red, row[col[jt.RED_STRIDES]:])]
+                    if vals.size:  # in walk order, as the thread adds
+                        vals = vals.astype(np.float64)
+                        part[t] = vals.max() if maximize else np.cumsum(vals)[-1]
+                for s in 1 << np.arange(log2)[::-1]:  # the lanes' fixed tree
+                    t = threads[lane < s]
+                    part[t] = combine(part[t], part[t + s * step])
+                lead = live & (lane == 0)
+                cells_j.append(_walk(q[lead], *keep, row[col[jt.KEEP_SEPSET]:]))
+                sigmas.append(part[lead])
+            assert read <= jt.MAX_BLOCK_WALK, f"a block of message {m} reads {read}"
+            j, part = np.concatenate(cells_j), np.concatenate(sigmas)
+            if not normalize and chunks == 1:
+                finish(row, j, part.astype(dtype))
+                continue
+            cells = row[jt.MSG_PARTIAL] + chunk * size + j
+            partial[cells] = part
+            partial_writes[cells] += 1
+            wave_tickets[slot] += 1
+            if wave_tickets[slot] < runs * chunks:
+                continue
+            # the message's last block: its partials, in chunk order
+            cells = row[jt.MSG_PARTIAL] + np.arange(chunks * size).reshape(chunks, size)
+            assert (partial_writes[cells] == 1).all(), \
+                f"message {m}: every sepset entry takes one partial from every chunk"
+            sigma = partial[cells[0]]
+            for c in range(1, chunks):
+                sigma = combine(sigma, partial[cells[c]])
+            sigma = sigma.astype(dtype)
+            if normalize:
+                sigma = sigma / max(dtype(sigma.astype(np.float64).sum()), tiny)
+            finish(row, np.arange(size), sigma)
+            wave_tickets[slot] = 0
+        assert not tickets.any(), f"wave {w}: a ticket is not back at 0"
+        # absorb_wave: blocks over (destination, run of ABSORB_ENTRIES entries
+        # from the 4-entry boundary at or below its offset)
         glo, ghi = plan.wave_group_start[w:w + 2]
         gstarts = plan.group_blocks[glo:ghi]
-        for b in range(plan.absorb_blocks[w]):
+        touched = np.zeros(plan.total, dtype=np.int64)
+        for b in rng.permutation(int(plan.absorb_blocks[w])):
             g = _find_slot(gstarts, b)
-            dst, in_lo, in_hi = plan.groups[glo + g]
-            row = plan.cliques[dst]
-            i = owned(b, gstarts, g, row[jt.CLIQUE_SIZE])
-            digit = _digits(i.copy(), row, W)
-            x = arena[row[jt.CLIQUE_OFFSET] + i]
-            for m in plan.group_messages[in_lo:in_hi]:
-                mrow = plan.messages[m]
-                x = x * scratch[mrow[jt.MSG_RATIO] + (digit * mrow[ds:ds + W, None]).sum(axis=0)]
-            arena[row[jt.CLIQUE_OFFSET] + i] = x
+            grow = plan.groups[glo + g]
+            offset, size = int(grow[jt.GROUP_OFFSET]), int(grow[jt.GROUP_SIZE])
+            base = offset // jt.ALIGN * jt.ALIGN + (b - gstarts[g]) * jt.ABSORB_ENTRIES
+            at = np.arange(max(offset, base), min(offset + size, base + jt.ABSORB_ENTRIES))
+            touched[at] += 1
+            x = arena[at]
+            dims, magics = _group_axes(plan, grow)
+            nd, ndec = int(grow[jt.GROUP_NDIM]), int(grow[jt.GROUP_NDECODE])
+            for arow in plan.absorb_rows[grow[jt.GROUP_BEGIN]:grow[jt.GROUP_END]]:
+                strides = arow[jt.ABSORB_HEADER:]
+                idx = absorb_indices(at, offset, vec, nd, ndec, dims, magics, strides)
+                assert (idx == _ratio_index(at - offset, ndec, dims, magics, strides)).all()
+                x = x * scratch[arow[jt.ABSORB_RATIO] + idx]
+            arena[at] = x
+        want = np.zeros(plan.total, dtype=np.int64)
+        for dst in plan.groups[glo:ghi, jt.GROUP_DST]:
+            offset, size = plan.cliques[dst, [jt.CLIQUE_OFFSET, jt.CLIQUE_SIZE]]
+            want[offset:offset + size] = 1
+        assert (touched == want).all(), \
+            f"wave {w}: every destination entry is read and written once, no other entry"
     assert (sep_writes == 2).all(), "every sepset entry is written by both its messages"
     return arena, mu, writes
 
@@ -332,10 +448,10 @@ def wide_tables(seed=0):
 
 @pytest.mark.parametrize("operation", ["marginalize", "maximize"])
 @pytest.mark.parametrize("normalize", [False, True])
-@pytest.mark.parametrize("case", ["asia", "random", "wide"])
+@pytest.mark.parametrize("case", ["asia", "alarm", "random", "wide"])
 def test_numpy_walk_matches_plain(tables, case, operation, normalize):
-    if case == "asia":
-        scopes, cards, arrays = tables["asia"]
+    if case in ("asia", "alarm"):
+        scopes, cards, arrays = tables[case]
     elif case == "wide":
         scopes, cards, arrays = wide_tables()
     else:
@@ -357,7 +473,31 @@ def test_numpy_walk_matches_plain(tables, case, operation, normalize):
     np.testing.assert_allclose(mu, ref_mu.numpy(), rtol=1e-5, atol=0)
 
 
+def test_numpy_walk_cases_cover_every_form(tables):
+    """The walk's cases reach every form the kernels take: messages cut into
+    chunks, lone lanes owning several entries, lanes of an entry adjacent and
+    entries adjacent, destinations
+    that start off a 16-byte boundary, and groups of several messages."""
+    port_model, _ = random_bn_pair(7, n_nodes=10, edge_prob=0.45)
+    factors = [cpd.to_factor() for cpd in port_model.get_cpds()]
+    random_case = ([list(f.variables) for f in factors],
+                   {v: int(c) for f in factors for v, c in zip(f.variables, f.cardinality)})
+    plans = [JunctionTreeProgram.from_factors(*case[:2]).wave_plan()
+             for case in (tables["asia"], tables["alarm"], random_case, wide_tables())]
+    rows = np.concatenate([p.messages[:, :jt.MSG_HEADER] for p in plans])
+    lanes = rows[:, jt.MSG_LANES_LOG2] > 0
+    assert (rows[:, jt.MSG_CHUNKS] > 1).any() and (rows[:, jt.MSG_PER_THREAD] > 1).any()
+    assert (lanes & (rows[:, jt.MSG_ENTRY_MAJOR] == 1)).any()
+    assert (lanes & (rows[:, jt.MSG_ENTRY_MAJOR] == 0)).any()
+    assert any((p.cliques[p.groups[:, jt.GROUP_DST], jt.CLIQUE_OFFSET] % jt.ALIGN).any()
+               for p in plans)
+    assert any((p.groups[:, jt.GROUP_END] - p.groups[:, jt.GROUP_BEGIN] > 1).any() for p in plans)
+
+
 def test_merged_walk_visits_the_same_offsets():
+    """Merged axes (adjacent in every stride list) walked innermost first by
+    multiply-shift, as ``walk`` does, visit the offsets of the unmerged
+    row-major walk, in both stride lists (a source's and a sepset's)."""
     rng = np.random.default_rng(0)
     for _ in range(50):
         shape = tuple(int(n) for n in rng.integers(1, 4, size=int(rng.integers(1, 7))))
@@ -367,20 +507,91 @@ def test_merged_walk_visits_the_same_offsets():
         if rng.random() < 0.5:
             axes = list(rng.permutation(axes))
         dims, st = [shape[a] for a in axes], [strides[a] for a in axes]
-        md, ms = jt.merge_axes(dims, st)
+        other = jt.row_major_strides([shape[a] for a in sorted(axes)])
+        other = [other[sorted(axes).index(a)] for a in axes]
+        md, ms, mo = jt.merge_axes(dims, st, other)
         n = int(np.prod(dims))
         idx = np.arange(n)
-        assert (_walk_offsets(idx.copy(), len(dims), dims, st)
-                == _walk_offsets(idx.copy(), len(md), md, ms)).all()
+        digits = np.unravel_index(idx, dims)
+        magics = [jt.magic(d) for d in md[::-1]]
+        for plain, merged in ((st, ms), (other, mo)):
+            want = sum(d * s for d, s in zip(digits, plain))
+            assert (_walk(idx.copy(), len(md), md[::-1], magics, merged[::-1]) == want).all()
         assert len(md) <= len(dims) and 1 not in md
 
 
-def test_lanes_per_entry():
-    assert [jt.lanes_log2(r) for r in (1, 63, 64, 127, 128, 8191, 8192, 400_000)] == \
-        [0, 0, 1, 1, 2, 7, 8, 8]
-    for r in range(1, 5000, 37):
-        lanes = 1 << jt.lanes_log2(r)
-        assert lanes <= jt.BLOCK and (lanes == 1 or r // lanes >= jt.MIN_WALK)
+@pytest.mark.parametrize("reduced", [1, 15, 16, 17, 343, 4095, 8192, 8193, 98_000, 392_000])
+def test_message_cut(reduced):
+    """The host's cut of one message: 2^k lanes per sepset entry, each walking
+    at least MIN_WALK reduced entries where there are that many (fewer than
+    2 MIN_WALK unless a whole block reduces one entry), and the reduced space
+    in chunks of at most MAX_WALK entries per lane, none empty."""
+    log2, chunks, chunk_len, per_thread = jt.message_cut(reduced)
+    lanes = 1 << log2
+    assert 0 <= log2 <= jt.MAX_LANES_LOG2
+    assert chunks * chunk_len >= reduced > (chunks - 1) * chunk_len
+    assert -(-chunk_len // lanes) <= jt.MAX_WALK
+    if lanes > 1:
+        assert reduced // lanes >= jt.MIN_WALK
+    if lanes < jt.BLOCK:
+        assert chunks == 1 and reduced < 2 * jt.MIN_WALK * lanes
+    assert per_thread >= 1 and (per_thread == 1 or (lanes == 1 and per_thread * reduced
+                                                    <= jt.MIN_WALK))
+    assert (jt.BLOCK >> log2) * per_thread * chunk_len <= jt.MAX_BLOCK_WALK
+
+
+@pytest.mark.parametrize("low, high", [(2, 2**12), (2**12, 2**20), (2**20, 2**31)])
+def test_multiply_shift_divides(low, high):
+    """``magic``'s constants divide every numerator below 2^31 exactly."""
+    rng = np.random.default_rng(low)
+    divisors = np.unique(np.concatenate([rng.integers(low, high, 300), [low, high - 1]]))
+    for d in divisors.tolist():
+        packed = jt.magic(d)
+        assert packed & 0xFFFFFFFF < 2**32 and 0 <= packed >> 32 < 31
+        n = np.concatenate([rng.integers(0, 2**31, 500), [0, 1, d - 1, d, 2**31 - 1,
+                                                          (2**31 - 1) // d * d - 1]])
+        n = n[(n >= 0) & (n < 2**31)].astype(np.int64)
+        digit, rest = _split_digit(n, d, packed)
+        assert (rest == n // d).all() and (digit == n % d).all(), d
+
+
+def test_absorb_odometer_matches_decode():
+    """Stepping the innermost digit within a 16-byte slot gives the ratio
+    index a full decode gives, for unaligned offsets, both element sizes and
+    merged axes whose innermost size is 2 to 7."""
+    rng = np.random.default_rng(5)
+    for _ in range(60):
+        shape = [int(n) for n in rng.integers(2, 8, size=int(rng.integers(1, 5)))]
+        strides = [int(s) if rng.random() < 0.7 else 0 for s in jt.row_major_strides(shape)]
+        dims, st = shape[::-1], strides[::-1]
+        magics = [jt.magic(d) for d in dims]
+        ndec = 1 + max([k for k, s in enumerate(st) if s], default=-1)
+        offset = int(rng.integers(0, 64))
+        at = np.arange(offset, offset + int(np.prod(shape)))
+        full = _ratio_index(at - offset, ndec, dims, magics, st)
+        for vec in (2, 4):
+            got = absorb_indices(at, offset, vec, len(dims), ndec, dims, magics, st)
+            assert (got == full).all()
+
+
+def test_munin_no_block_reads_more_than_the_maximum():
+    """Build only: on MUNIN's tree no block of any wave reads more than
+    MAX_BLOCK_WALK source entries (a plan of one block per run of sepset
+    entries had a block reading 392,000 at PYTHONHASHSEED=0), large messages
+    are cut into chunks, and every wave's
+    sepset_wave launch has at least as many blocks as its largest message
+    needs at that maximum."""
+    plan = _munin_program().wave_plan()
+    walks = jt.block_walks(plan.messages)
+    assert walks.max() <= jt.MAX_BLOCK_WALK
+    sources = plan.cliques[plan.messages[:, jt.MSG_SRC], jt.CLIQUE_SIZE]
+    assert (plan.messages[sources >= 1_000_000, jt.MSG_SIZE] <= 64).any()
+    split = plan.messages[:, jt.MSG_CHUNKS] > 1
+    assert split.any() and (plan.messages[split, jt.MSG_LANES_LOG2] == jt.MAX_LANES_LOG2).all()
+    for w in range(plan.n_waves):
+        lo, hi = plan.wave_message_start[w:w + 2]
+        largest = int(sources[plan.wave_messages[lo:hi]].max())
+        assert plan.sepset_blocks[w] * jt.MAX_BLOCK_WALK >= largest
 
 
 # --------------------------------------------------------------------------- #

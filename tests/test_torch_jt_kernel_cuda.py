@@ -42,10 +42,24 @@ def _wide_tables(normalize, dtype, seed=0):
     return scopes, {v: 2 for v in names}, arrays
 
 
+def _split_tables(normalize, dtype, seed=0):
+    """One clique of 4^10 = 1,048,576 entries (ten 4-state axes) beside two
+    small ones: its messages onto 4-entry sepsets are cut into chunks."""
+    names = [f"S{i:02d}" for i in range(12)]
+    scopes = [names[:10], [names[0], names[10]], [names[9], names[11]]]
+    rng = np.random.default_rng(seed)
+    arrays = [torch.from_numpy(rng.random((4,) * len(s))).to(device="cuda", dtype=dtype)
+              * (float(rng.uniform(0.25, 4.0)) if normalize else 1.0) for s in scopes]
+    return scopes, {v: 4 for v in names}, arrays
+
+
 def _case(name, normalize, dtype):
     """(program, factor tables); "forest" is ASIA beside a renamed CANCER,
-    "wide" a clique of 18 axes (the kernels' 24-axis instances)."""
-    if name == "wide":
+    "wide" a clique of 18 axes (the kernels' 24-axis instances), "split" a
+    clique of 1 M entries whose messages are cut into chunks."""
+    if name == "split":
+        scopes, cards, arrays = _split_tables(normalize, dtype)
+    elif name == "wide":
         scopes, cards, arrays = _wide_tables(normalize, dtype)
     elif name == "forest":
         a = _tables("asia", normalize, dtype)
@@ -68,7 +82,8 @@ class TestCudaKernels:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
     @pytest.mark.parametrize("normalize", [False, True])
     @pytest.mark.parametrize("operation", ["marginalize", "maximize"])
-    @pytest.mark.parametrize("name", ["asia", "alarm", "insurance", "child", "forest", "wide"])
+    @pytest.mark.parametrize("name", ["asia", "alarm", "insurance", "child", "forest", "wide",
+                                      "split"])
     def test_kernels_match_plain(self, name, operation, normalize, dtype):
         program, arrays = _case(name, normalize, dtype)
         plan = program.wave_plan()
@@ -84,6 +99,25 @@ class TestCudaKernels:
         torch.testing.assert_close(arena, ref_arena, **TOL[dtype])
         torch.testing.assert_close(sepsets, ref_sepsets, **TOL[dtype])
         assert bool(torch.isfinite(arena).all())
+
+    @pytest.mark.parametrize("normalize", [False, True])
+    @pytest.mark.parametrize("operation", ["marginalize", "maximize"])
+    def test_split_messages_same_run_to_run(self, operation, normalize):
+        """Messages cut into chunks combine their partials in a fixed order:
+        two calibrations are equal to the bit, and agree with the plain
+        version; the tickets are left at 0."""
+        program, arrays = _case("split", normalize, torch.float32)
+        plan = program.wave_plan()
+        assert (plan.messages[:, jt.MSG_CHUNKS] > 1).any()
+        first = jt.calibrate_waves(plan, arrays, operation, normalize)
+        again = jt.calibrate_waves(plan, arrays, operation, normalize)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        tickets = plan.device_tables[first[0].device]["tickets"]
+        assert all(int(t.abs().sum()) == 0 for t in tickets.values())
+        ref = jt.calibrate_waves_reference(plan, arrays, operation, normalize)
+        for got, want in zip(first, ref):
+            torch.testing.assert_close(got, want, **TOL[torch.float32])
 
     def test_same_result_run_to_run(self):
         program, arrays = _case("alarm", False, torch.float32)
