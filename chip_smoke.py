@@ -669,20 +669,22 @@ def jt_bounds(plan, elem):
     """{kernel: (bytes, operations)} one calibration must move and do: every
     clique written once in stage 0 and every factor read once; the waves'
     data bytes (:func:`jt_wave_bytes`); the descriptor tables each kernel
-    reads.  Operations count every message's own walk of its source."""
+    reads (stage 0: its potential rows and block prefix, its factor rows and
+    the factor pointers).  Operations count a product per factor after the
+    first of each clique entry, and every message's own walk of its source."""
     sizes = plan.cliques[:, 1]
     rows = plan.messages
     src = sizes[rows[:, 0]]
     sep = rows[:, 4]
     stale = sep * (1 - rows[:, 3])
-    n_factors = np.diff(plan.clique_factors)
+    n_factors = np.array([len(specs) for specs in plan.potential_specs])
     wave_bytes = np.array([jt_wave_bytes(plan, elem, w) for w in range(plan.n_waves)])
     absorb_ops = int(sum(int(sizes[row[0]]) * int(row[2] - row[1]) for row in plan.groups))
     return {
         "clique_potentials": (
             elem * (plan.total + sum(plan.factor_sizes))
-            + 8 * (plan.cliques.size + plan.clique_blocks.size + plan.clique_factors.size
-                   + plan.factors.size),
+            + 8 * (plan.potentials.size + plan.potential_starts.size
+                   + plan.potential_factors.size + len(plan.factor_sizes)),
             int((sizes * np.maximum(n_factors - 1, 0)).sum())),
         "sepset_wave": (
             int(wave_bytes[:, 0].sum()) + 8 * (rows.size + plan.message_blocks.size),
@@ -834,6 +836,18 @@ def phase_jt_kernels(bp):
             device_only=True),
         **{name: sum(times) for name, times in wave_ms.items()},
     }
+    # the card's write rate for stage 0's bytes: a yardstick of stores, not a
+    # call that computes clique potentials (library_ms stays null)
+    fill_ms = cuda_median_ms(lambda: work.fill_(1.0), reps=10, warmup=1, device_only=True)
+    factorless = int(plan.potentials[:plan.fill_rows, jt.POT_SIZE].sum())
+    log(f"k2 clique_potentials munin kernel_ms {ms['clique_potentials']:.5f} arena entries "
+        f"{plan.total} factorless {factorless} factored {plan.total - factorless} (rows "
+        f"{len(plan.potentials)}, {plan.fill_rows} runs of ones; blocks {plan.potential_blocks} "
+        f"of up to {jt.ENTRIES_PER_BLOCK} entries, {jt.potential_shared(plan)} shared bytes) "
+        f"arena_fill_ms {fill_ms:.5f} (one arena.fill_(1.0) over the whole arena, "
+        f"{plan.total * arena.element_size()} bytes: the card's measured store rate "
+        f"{plan.total * arena.element_size() / fill_ms / 1e6:.1f} GB/s, a yardstick of stores "
+        f"and no library call for the function)")
     log_slowest_waves(plan, wave_ms, arena.element_size())
     p_arena, p_sepsets = torch.empty_like(arena), torch.empty_like(sepsets)
     beliefs, mu = jt.arena_views(plan, p_arena, p_sepsets)

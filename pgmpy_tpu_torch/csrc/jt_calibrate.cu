@@ -32,10 +32,36 @@
 // (wgmma) have no part here.
 //
 // What bounds each kernel in practice, and what the design does about it:
-//   1. clique_potentials: every arena entry is owned by one thread, which
-//      decodes its clique-axis digits once (loops unrolled to the tables'
-//      width) and gathers each factor entry through per-axis strides (0 where
-//      the table lacks the axis).  No entry has two writers, no atomics.
+//   1. clique_potentials.  Its first form (one thread per entry, a full
+//      decode of up to 16 digits by division, then per factor an int64 row of
+//      1 + W strides read from device memory and a pointer chased) took 1.27
+//      ms on MUNIN, 14x its byte bound: integer instructions and descriptor
+//      loads, not bytes, bounded it.  Now the host merges each clique's
+//      adjacent axes wherever every one of its factors treats them alike (6.1
+//      merged axes per factored entry on MUNIN's seed-0 tree, against 8.6)
+//      and lays out one row per clique: merged sizes with multiply-shift
+//      constants, per factor its stride along each merged axis.  Runs of
+//      factorless cliques (26% of MUNIN's entries) are rows of their own at
+//      the grid's head, whose blocks only store ones, 16 bytes a thread.
+//      Each thread of a factored block owns 16-byte slots of consecutive
+//      entries: a slot's first entry splits off its innermost digit, the next
+//      entries step it (each factor its innermost stride on), and 16 bytes
+//      are stored; the factors multiply in potential_specs order, as the
+//      plain version does, so the two are equal to the bit.  A carry of the
+//      innermost digit used to decode the rest of the entry again; on MUNIN
+//      most innermost runs are shorter than a warp's 128 entries, so some
+//      lane carried at nearly every step and the warp paid a full decode per
+//      entry (0.44-0.50 ms).  So a block first decodes, once and together,
+//      every row of the innermost axis that its run touches into a shared
+//      table of each factor's row offset, and a carry reads the next row's
+//      offsets.  A row splits as low + R high (R the product of the merged
+//      axes next to the innermost, chosen per clique): the block decodes the
+//      R low rows and the few high rows it touches, 101 rows per block on
+//      MUNIN where one table of rows took 2,293, and a carry reads two table
+//      entries per factor.  Measured on an H100 (700 W): 0.174-0.176 ms, 1.9x
+//      the byte bound and 1.8x one fill of the arena; staging the factors'
+//      values in shared memory gained nothing over L1 and was left out.  A
+//      clique whose tables would outgrow TABLE_BYTES gets smaller blocks.
 //   2. sepset_wave: a wave cannot end before its longest block, so the host
 //      cuts every message (ops/jt.py:message_cut) into blocks that each read
 //      at most BLOCK * max(2 MIN_WALK, MAX_WALK) source entries (8,192),
@@ -80,9 +106,9 @@
 //      different axes, so one walk that serves them all needs a common order
 //      and per-child partials, and MUNIN's largest clique, 16.5 MB, fits the
 //      50 MB L2), TMA or cp.async rings, a CUDA graph or a persistent kernel
-//      over the schedule.  A block finds its clique, message or group in the
-//      per-launch block prefix table (the wave kernels with one warp, 32
-//      entries per step).
+//      over the schedule.  A block finds its potential row, message or group
+//      in the per-launch block prefix table (clique_potentials with the whole
+//      block, 256 entries per step; the wave kernels with one warp, 32).
 
 // The wrapper (pgmpy_tpu_torch/ops/jt.py) allocates the arenas, the ratio and
 // partial scratch, uploads the tables (and the tickets, zero, once per card
@@ -99,17 +125,25 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kBlockLog2 = 8;
 static_assert(kBlock == 1 << kBlockLog2, "kBlock is 2^kBlockLog2");
-constexpr int kCliqueHeader = 3;
 constexpr int kAbsorbEntries = 2048;  // destination entries one absorb_wave block owns
-constexpr int kAlign = 4;             // an absorb_wave block starts on a 4-entry boundary
+constexpr int kAlign = 4;             // an absorb_wave or clique_potentials block starts on a
+                                      // 4-entry boundary
 constexpr int kStage = 8;             // incoming messages one absorb_wave pass stages
 constexpr int kWalkUnroll = 4;        // loads in flight per lane of sepset_wave
+constexpr int kFactorPass = 4;        // factors one clique_potentials pass holds in registers
 // blocks per SM that the registers must allow (float; double needs more
 // registers, and takes fewer blocks rather than spill)
 template <typename T>
 constexpr int kSepsetMinBlocks = sizeof(T) == 4 ? 8 : 6;
 template <typename T>
 constexpr int kAbsorbMinBlocks = sizeof(T) == 4 ? 6 : 4;
+template <typename T>
+constexpr int kPotentialMinBlocks = sizeof(T) == 4 ? 4 : 4;
+enum {
+  kPotClique, kPotOffset, kPotSize, kPotFactors, kPotNDim, kPotFactor, kPotEntries, kPotLowAxes,
+  kPotLow, kPotLowMagic, kPotHigh, kPotHeader
+};
+enum { kFacTable, kFacHeader };
 enum {
   kMsgSrc, kMsgDst, kMsgEdge, kMsgFresh, kMsgSize, kMsgReduced, kMsgRatio, kMsgSepset,
   kMsgNKeep, kMsgNRed, kMsgLanesLog2, kMsgEntryMajor, kMsgChunks, kMsgChunkLen, kMsgRuns,
@@ -122,10 +156,13 @@ enum {
 enum { kAbsorbMsg, kAbsorbRatio, kAbsorbHeader };
 
 // The table rows for W axes: the plan's width, 16 (MUNIN's widest clique has
-// 16) or 24.  Every per-axis loop of clique_potentials is unrolled to W, so a
-// tree that fits 16 axes does not pay for 24.
-//   clique row: offset into the belief arena, size, axis count, sizes[W]
-//   factor row: factor id, stride along each clique axis
+// 16) or 24.  Shared arrays and per-axis loads are sized to W, so a tree that
+// fits 16 axes does not pay for 24.
+//   potential row (a run of factorless cliques, then one per factored
+//     clique): kPot*, then the clique's merged axes (innermost first): sizes
+//     and multiply-shift constants
+//   potential factor row (the clique's factors in potential_specs order):
+//     factor id, stride along each merged axis
 //   message row (uploaded in wave order, so that a wave's rows are one slice):
 //     kMsg*, then (innermost axis first) the kept axes' sizes,
 //     source strides, canonical sepset strides and multiply-shift constants,
@@ -136,8 +173,10 @@ enum { kAbsorbMsg, kAbsorbRatio, kAbsorbHeader };
 //     offset in the scratch, its ratio stride along each merged axis
 template <int W>
 struct Rows {
-  static constexpr int kClique = kCliqueHeader + W;
-  static constexpr int kFactor = 1 + W;
+  static constexpr int kPotDims = kPotHeader;
+  static constexpr int kPotMagic = kPotDims + W;
+  static constexpr int kPotential = kPotMagic + W;
+  static constexpr int kFactor = kFacHeader + W;
   static constexpr int kKeepDims = kMsgHeader;
   static constexpr int kKeepStrides = kKeepDims + W;
   static constexpr int kKeepSepset = kKeepStrides + W;
@@ -175,19 +214,17 @@ __device__ __forceinline__ int find_slot_warp(const long long* starts, int n, lo
   return below - 1;
 }
 
-// Row-major digits of a clique entry (last axis fastest); 0 beyond nd.
-template <int W>
-__device__ __forceinline__ void decode(unsigned i, int nd, const unsigned* dims,
-                                       unsigned* digit) {
-#pragma unroll
-  for (int a = W - 1; a >= 0; --a) {
-    if (a < nd) {
-      digit[a] = i % dims[a];
-      i /= dims[a];
-    } else {
-      digit[a] = 0;
-    }
+// find_slot by the whole block, kBlock starts per step (one round of loads
+// for up to kBlock slots); every thread must call it, and all get the slot.
+__device__ __forceinline__ int find_slot_block(const long long* starts, int n, long long b) {
+  int below = 0;
+  for (int k0 = 0; k0 < n; k0 += kBlock) {
+    const int k = k0 + (int)threadIdx.x;
+    const int le = __syncthreads_count(k < n && starts[k] <= b);
+    below += le;
+    if (le < kBlock) break;
   }
+  return below - 1;
 }
 
 // An axis of size d >= 2 with its multiply-shift constants (ops/jt.py:magic):
@@ -226,42 +263,6 @@ template <bool kMax>
 __device__ __forceinline__ double combine(double acc, double v) {
   if (kMax) return (v > acc || v != v) ? v : acc;  // a NaN propagates, as torch.amax
   return acc + v;
-}
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kBlock) clique_potentials_kernel(
-    T* __restrict__ arena, const long long* __restrict__ cliques,
-    const long long* __restrict__ clique_blocks, int n_cliques,
-    const long long* __restrict__ clique_factors, const long long* __restrict__ factors,
-    const T* const* __restrict__ tables, int per_block) {
-  __shared__ int s_clique;
-  __shared__ unsigned s_dims[W];
-  if (threadIdx.x == 0) s_clique = find_slot(clique_blocks, n_cliques, blockIdx.x);
-  __syncthreads();
-  const int c = s_clique;
-  const long long* row = cliques + (long long)c * Rows<W>::kClique;
-  if (threadIdx.x < W) s_dims[threadIdx.x] = (unsigned)row[kCliqueHeader + threadIdx.x];
-  __syncthreads();
-  const long long offset = row[0];
-  const unsigned size = (unsigned)row[1];
-  const int nd = (int)row[2];
-  const long long f_begin = clique_factors[c], f_end = clique_factors[c + 1];
-  const unsigned begin = (unsigned)(blockIdx.x - clique_blocks[c]) * (unsigned)per_block;
-  const unsigned end = min(size, begin + (unsigned)per_block);
-  for (unsigned i = begin + threadIdx.x; i < end; i += kBlock) {
-    unsigned digit[W];
-    decode<W>(i, nd, s_dims, digit);
-    T x = T(1);
-    for (long long f = f_begin; f < f_end; ++f) {
-      const long long* fr = factors + f * Rows<W>::kFactor;
-      long long idx = 0;
-#pragma unroll
-      for (int a = 0; a < W; ++a) idx += (long long)digit[a] * fr[1 + a];
-      const T v = tables[fr[0]][idx];
-      x = (f == f_begin) ? v : x * v;  // the eager order: ((f0 * f1) * f2) ...
-    }
-    arena[offset + i] = x;
-  }
 }
 
 template <typename T>
@@ -442,6 +443,202 @@ __device__ __forceinline__ void store_slot(T* dst, int i, int lo, int hi, const 
   }
 }
 
+// Each of a group's n factors' (n <= N) part of the offset of row q of a
+// clique from the merged axes [a0, a1): q's digits over them, split off by
+// multiply-shift (the last takes what is left), times the factors' strides
+// (st: W per factor).
+template <int W, int N>
+__device__ __forceinline__ void row_offsets(unsigned q, int a0, int a1, int n, const Axis* ax,
+                                            const unsigned* st, unsigned* off) {
+#pragma unroll
+  for (int p = 0; p < N; ++p) off[p] = 0;
+  for (int a = a0; a < a1; ++a) {
+    const unsigned digit = a + 1 < a1 ? split_digit(q, ax[a]) : q;
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+      if (p < n) off[p] += digit * st[p * W + a];
+  }
+}
+
+// The innermost digit of clique entry i (all of i with one merged axis); i
+// becomes its row.
+__device__ __forceinline__ unsigned first_digit(unsigned& i, int nd, const Axis& ax0) {
+  if (nd > 1) return split_digit(i, ax0);
+  const unsigned d0 = i;
+  i = 0;
+  return d0;
+}
+
+// A row's low part (the row modulo the low axes' product, low.size); q
+// becomes its high part.
+__device__ __forceinline__ unsigned low_part(unsigned& q, const Axis& low) {
+  if (low.size > 1) return split_digit(q, low);
+  return 0;
+}
+
+// The block's tables: each factor's offset part of every low row (n_low per
+// factor) and of the run's high rows (n_high per factor, from its first).
+struct RowTables {
+  const unsigned *low, *high;
+  int n_low, n_high;
+};
+
+// One pass of N factors over a whole 16-byte slot of kVec entries whose
+// first entry has innermost digit d0 in the row of low part ql and high part
+// jh (from the run's first): each factor's offset from the row's two table
+// parts, the next entries the innermost digit on (each factor its innermost
+// stride on), the next row's parts from the tables on a carry.  x[v] becomes
+// x[v] * f0 * f1 ... in factor order (f0 * f1 ... when first).
+template <typename T, int W, int N>
+__device__ __forceinline__ void slot_pass(T* x, unsigned d0, unsigned ql, unsigned jh,
+                                          unsigned size0, bool first, const RowTables& tab,
+                                          const unsigned* st, const T* const* s_src) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* src[N];
+  unsigned st0[N], off[N];
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    src[p] = s_src[p], st0[p] = st[p * W];
+    off[p] = tab.low[p * tab.n_low + ql] + tab.high[p * tab.n_high + jh] + d0 * st0[p];
+  }
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    T y = first ? src[0][off[0]] : x[v] * src[0][off[0]];
+#pragma unroll
+    for (int p = 1; p < N; ++p) y = y * src[p][off[p]];  // the eager order: ((f0 * f1) * f2) ...
+    x[v] = y;
+    if (v + 1 < kVec) {
+      if (++d0 < size0) {
+#pragma unroll
+        for (int p = 0; p < N; ++p) off[p] += st0[p];
+      } else {
+        d0 = 0;
+        if (++ql == (unsigned)tab.n_low) ql = 0, ++jh;
+#pragma unroll
+        for (int p = 0; p < N; ++p)
+          off[p] = tab.low[p * tab.n_low + ql] + tab.high[p * tab.n_high + jh];
+      }
+    }
+  }
+}
+
+// slot_pass for the pass's n factors (1 <= n <= N), one instance per count
+template <typename T, int W, int N>
+__device__ __forceinline__ void slot_pass_of(int n, T* x, unsigned d0, unsigned ql, unsigned jh,
+                                             unsigned size0, bool first, const RowTables& tab,
+                                             const unsigned* st, const T* const* s_src) {
+  if constexpr (N > 1) {
+    if (n < N) return slot_pass_of<T, W, N - 1>(n, x, d0, ql, jh, size0, first, tab, st, s_src);
+  }
+  slot_pass<T, W, N>(x, d0, ql, jh, size0, first, tab, st, s_src);
+}
+
+// Blocks over potential rows (runs of factorless cliques first, then one row
+// per factored clique), each block kPotEntries entries of its row from the
+// 4-entry boundary at or below the row's offset: the block prefix row_blocks
+// maps a block to its row.  A thread owns slots of kVec entries (16 bytes),
+// slot k of thread t at (k kBlock + t) kVec; a whole slot passes over its
+// factors kFactorPass at a time, a slot at either end of the run entry by
+// entry.  A clique entry lies in a row of its innermost merged axis, and a
+// row q = low + kPotLow high is split at the merged axis kPotLowAxes: the
+// block decodes every low row and the high rows its run touches (at most
+// kPotHigh) into tables of each factor's offset parts, once.  The factors'
+// values are read through L1.  Dynamic shared memory: the factors' table
+// pointers, their strides (W each) and the block's two tables.
+template <typename T, int W>
+__global__ void __launch_bounds__(kBlock, kPotentialMinBlocks<T>) clique_potentials_kernel(
+    T* __restrict__ arena, const long long* __restrict__ rows,
+    const long long* __restrict__ row_blocks, int n_rows,
+    const long long* __restrict__ factor_rows, const T* const* __restrict__ tables) {
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(kAlign % kVec == 0, "a block starts on a 16-byte boundary");
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ Axis s_ax[W];
+  const unsigned t = threadIdx.x;
+  const int r = find_slot_block(row_blocks, n_rows, blockIdx.x);
+  const long long* row = rows + (long long)r * Rows<W>::kPotential;
+  const long long offset = row[kPotOffset];
+  const int size = (int)row[kPotSize], nf = (int)row[kPotFactors];
+  const int per_block = (int)row[kPotEntries];
+  T* dst = arena + offset;
+  const int i0 = (int)(offset & (kAlign - 1)) * -1 + (int)(blockIdx.x - row_blocks[r]) * per_block;
+  const int lo = max(i0, 0), hi = min(i0 + per_block, size);
+  const int slots = (per_block + kBlock * kVec - 1) / (kBlock * kVec);
+  if (nf == 0) {  // a run of factorless cliques: ones, no decode, no table read
+    T one[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) one[v] = T(1);
+    for (int k = 0; k < slots; ++k)
+      store_slot<T, kVec>(dst, i0 + (k * kBlock + (int)t) * kVec, lo, hi, one);
+    return;
+  }
+  // stage the clique's axes, and its factors' table pointers and strides
+  const int nd = (int)row[kPotNDim], low_axes = (int)row[kPotLowAxes];
+  const Axis low = load_axis(row[kPotLow], row[kPotLowMagic]);
+  const long long* frows = factor_rows + row[kPotFactor] * Rows<W>::kFactor;
+  const T** s_src = reinterpret_cast<const T**>(s_dyn);
+  unsigned* s_st = reinterpret_cast<unsigned*>(s_dyn + sizeof(T*) * nf);
+  if ((int)t < nd) s_ax[t] = load_axis(row[Rows<W>::kPotDims + t], row[Rows<W>::kPotMagic + t]);
+  for (int j = t; j < nf * W; j += kBlock)
+    s_st[j] = (unsigned)frows[(j / W) * Rows<W>::kFactor + kFacHeader + j % W];
+  if ((int)t < nf) s_src[t] = tables[frows[t * Rows<W>::kFactor + kFacTable]];
+  __syncthreads();
+  // the tables: every low row, and the high rows that the run touches
+  const Axis ax0 = s_ax[0];
+  const unsigned size0 = ax0.size;  // with one merged axis, the clique's size: one row
+  unsigned h_lo = (unsigned)lo, h_hi = (unsigned)(hi - 1);
+  first_digit(h_lo, nd, ax0), low_part(h_lo, low);
+  first_digit(h_hi, nd, ax0), low_part(h_hi, low);
+  const int n_low = (int)low.size, n_high = (int)(h_hi - h_lo) + 1;
+  unsigned* s_low = s_st + nf * W;
+  unsigned* s_high = s_low + nf * n_low;
+  for (int j = t; j < n_low + n_high; j += kBlock) {
+    const bool is_low = j < n_low;
+    const unsigned q = is_low ? (unsigned)j : h_lo + (unsigned)(j - n_low);
+    const int a0 = is_low ? 1 : low_axes, a1 = is_low ? low_axes : nd;
+    unsigned* out = is_low ? s_low + j : s_high + (j - n_low);
+    const int stride = is_low ? n_low : n_high;
+    for (int f0 = 0; f0 < nf; f0 += kFactorPass) {
+      const int n = min(kFactorPass, nf - f0);
+      unsigned off[kFactorPass];
+      row_offsets<W, kFactorPass>(q, a0, a1, n, s_ax, s_st + f0 * W, off);
+#pragma unroll
+      for (int p = 0; p < kFactorPass; ++p)
+        if (p < n) out[(f0 + p) * stride] = off[p];
+    }
+  }
+  __syncthreads();
+  for (int k = 0; k < slots; ++k) {
+    const int i = i0 + (k * kBlock + (int)t) * kVec;
+    T x[kVec];
+    if (i >= lo && i + kVec <= hi) {
+      unsigned q = (unsigned)i;
+      const unsigned d0 = first_digit(q, nd, ax0);
+      const unsigned ql = low_part(q, low);
+      for (int f0 = 0; f0 < nf; f0 += kFactorPass) {
+        const RowTables tab{s_low + f0 * n_low, s_high + f0 * n_high, n_low, n_high};
+        slot_pass_of<T, W, kFactorPass>(min(kFactorPass, nf - f0), x, d0, ql, q - h_lo, size0,
+                                        f0 == 0, tab, s_st + f0 * W, s_src + f0);
+      }
+      store16(dst + i, x);
+    } else {  // a slot at either end of the run: entry by entry
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        if (i + v < lo || i + v >= hi) continue;
+        unsigned q = (unsigned)(i + v);
+        const unsigned d0 = first_digit(q, nd, ax0);
+        const unsigned ql = low_part(q, low);
+        for (int f = 0; f < nf; ++f) {
+          const unsigned off = s_low[f * n_low + ql] + s_high[f * n_high + q - h_lo] +
+                               d0 * s_st[f * W];
+          x[v] = f == 0 ? s_src[f][off] : x[v] * s_src[f][off];
+        }
+        dst[i + v] = x[v];
+      }
+    }
+  }
+}
+
 // The ratio entry of destination entry i: its digits over the merged axes
 // (innermost first) up to the last one any incoming ratio uses; d0 is the
 // innermost digit (0 where no axis is decoded).
@@ -537,12 +734,12 @@ __global__ void __launch_bounds__(kBlock, kAbsorbMinBlocks<T>) absorb_wave_kerne
 bool bad_launch(long long n_blocks) { return n_blocks <= 0 || n_blocks > 0x7fffffffLL; }
 
 template <typename T, int W>
-void launch_potentials(dim3 grid, cudaStream_t s, void* arena, const long long* c,
-                       const long long* cb, int n_cliques, const long long* cf,
-                       const long long* f, const void* tables, int per_block) {
-  clique_potentials_kernel<T, W><<<grid, kBlock, 0, s>>>(
-      static_cast<T*>(arena), c, cb, n_cliques, cf, f, static_cast<const T* const*>(tables),
-      per_block);
+void launch_potentials(dim3 grid, size_t shared, cudaStream_t s, void* arena,
+                       const long long* rows, const long long* row_blocks, int n_rows,
+                       const long long* factor_rows, const void* tables) {
+  clique_potentials_kernel<T, W><<<grid, kBlock, shared, s>>>(
+      static_cast<T*>(arena), rows, row_blocks, n_rows, factor_rows,
+      static_cast<const T* const*>(tables));
 }
 
 template <typename T, int W>
@@ -588,17 +785,22 @@ void launch_absorb_wave(dim3 grid, cudaStream_t s, void* arena, const void* scra
 
 }  // namespace
 
-extern "C" int pgmpy_jt_clique_potentials(int elem_bytes, void* arena, const void* cliques,
-                                          const void* clique_blocks, int n_cliques,
-                                          const void* clique_factors, const void* factors,
-                                          const void* tables, long long n_blocks, int per_block,
-                                          int width, void* stream) {
+// rows, row_blocks: the potential rows (each with its entries per block, a
+// multiple of kAlign) and each one's first block; tables: the factor tables'
+// addresses; shared_bytes: the dynamic shared memory, the largest of
+// (8 + 4 W + 4 (kPotLow + kPotHigh)) bytes per factor of a row.
+extern "C" int pgmpy_jt_clique_potentials(int elem_bytes, void* arena, const void* rows,
+                                          const void* row_blocks, int n_rows,
+                                          const void* factor_rows, const void* tables,
+                                          long long n_blocks, int shared_bytes, int width,
+                                          void* stream) {
   const auto launch = PGMPY_JT_PICK(launch_potentials, elem_bytes, width);
-  if (!launch || bad_launch(n_blocks) || per_block <= 0) return (int)cudaErrorInvalidValue;
-  launch(dim3((unsigned)n_blocks), static_cast<cudaStream_t>(stream), arena,
-         static_cast<const long long*>(cliques), static_cast<const long long*>(clique_blocks),
-         n_cliques, static_cast<const long long*>(clique_factors),
-         static_cast<const long long*>(factors), tables, per_block);
+  if (!launch || bad_launch(n_blocks) || n_rows <= 0 || shared_bytes < 0 ||
+      shared_bytes > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  launch(dim3((unsigned)n_blocks), (size_t)shared_bytes, static_cast<cudaStream_t>(stream),
+         arena, static_cast<const long long*>(rows), static_cast<const long long*>(row_blocks),
+         n_rows, static_cast<const long long*>(factor_rows), tables);
   return (int)cudaGetLastError();
 }
 

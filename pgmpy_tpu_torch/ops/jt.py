@@ -40,9 +40,13 @@ from pgmpy_tpu_torch.ops._build import load_library
 WIDTHS = (16, 24)  # the table widths jt_calibrate.cu is compiled for (MUNIN needs 16)
 MAX_AXES = WIDTHS[-1]  # the most axes a clique may have on the card
 BLOCK = 256  # kBlock: threads per block of every kernel
-ENTRIES_PER_BLOCK = 1024  # arena entries one block of clique_potentials owns
+# arena entries one block of clique_potentials owns (a multiple of ALIGN),
+# halved for a clique whose tables of row offsets would not fit TABLE_BYTES
+ENTRIES_PER_BLOCK = 16384
+TABLE_BYTES = 32768  # the most bytes of one clique_potentials block's tables of row offsets
+SHARED_LIMIT = 48 * 1024  # dynamic shared memory of a block without an opt-in
 ABSORB_ENTRIES = 2048  # kAbsorbEntries: arena entries one block of absorb_wave owns
-ALIGN = 4  # kAlign: an absorb_wave block starts on a multiple of 4 arena entries
+ALIGN = 4  # kAlign: an absorb_wave or clique_potentials block starts on a multiple of 4 entries
 MIN_WALK = 16  # a lane of sepset_wave walks at least this many reduced entries, where it can
 MAX_WALK = 32  # ... and at most this many: a longer reduction is cut into chunks
 MAX_LANES_LOG2 = 8  # at most BLOCK lanes reduce one sepset entry
@@ -52,8 +56,21 @@ MAX_LANES_LOG2 = 8  # at most BLOCK lanes reduce one sepset entry
 # then at most MAX_WALK
 MAX_BLOCK_WALK = BLOCK * max(2 * MIN_WALK, MAX_WALK)
 
-# clique rows: offset into the belief arena, size, axis count, then the axes' sizes
-CLIQUE_OFFSET, CLIQUE_SIZE, CLIQUE_NDIM, CLIQUE_HEADER = 0, 1, 2, 3
+# clique rows (host only): offset into the belief arena, size
+CLIQUE_OFFSET, CLIQUE_SIZE = 0, 1
+# potential rows (kPot* in jt_calibrate.cu; runs of factorless cliques first,
+# then one per factored clique): its first clique, arena offset, entries,
+# factors (0: a run of ones), merged axes, first factor row, entries per
+# block; the split of its rows (of the innermost merged axis) into a low part
+# (the merged axes from the second up to POT_LOW_AXES: POT_LOW rows, and
+# their multiply-shift constants) and a high part, of which a block's run
+# touches at most POT_HIGH rows; then the merged axes' sizes and
+# multiply-shift constants (``width`` each, innermost first)
+(POT_CLIQUE, POT_OFFSET, POT_SIZE, POT_FACTORS, POT_NDIM, POT_FACTOR, POT_ENTRIES, POT_LOW_AXES,
+ POT_LOW, POT_LOW_MAGIC, POT_HIGH, POT_HEADER) = range(12)
+# potential factor rows (a clique's factors in potential_specs order): factor
+# id, then its stride along each merged axis (innermost first)
+FAC_TABLE, FAC_HEADER = range(2)
 # message rows (kMsg* in jt_calibrate.cu), then seven blocks of ``width``
 # values, innermost axis first: the kept axes' sizes, source strides,
 # canonical sepset strides and multiply-shift constants (source order,
@@ -97,11 +114,12 @@ class WavePlan:
     sepset_shapes: list
     total: int  # belief arena entries
     sepset_total: int  # sepset arena entries
-    cliques: np.ndarray  # (C, CLIQUE_HEADER + width)
-    clique_blocks: np.ndarray  # (C,) first block of each clique in clique_potentials' grid
+    cliques: np.ndarray  # (C, 2): CLIQUE_OFFSET, CLIQUE_SIZE; host only
+    potentials: np.ndarray  # (R, POT_HEADER + 2 * width): fill runs, then factored cliques
+    potential_starts: np.ndarray  # (R,) first block of each row in clique_potentials' grid
     potential_blocks: int
-    clique_factors: np.ndarray  # (C + 1,) CSR into ``factors``
-    factors: np.ndarray  # (F, 1 + width): factor id, its stride along each clique axis
+    fill_rows: int  # the rows that are runs of factorless cliques (the first ones)
+    potential_factors: np.ndarray  # (F, FAC_HEADER + width)
     messages: np.ndarray  # (M, MSG_HEADER + 7 * width), by message id (uploaded in wave order)
     wave_messages: np.ndarray  # (M,) message ids, wave by wave, schedule order within
     wave_message_start: np.ndarray  # (W + 1,)
@@ -217,6 +235,84 @@ def _waves(program):
     return waves, n_up_waves
 
 
+def _potential_tables(program, shapes, sizes, offsets, width):
+    """(potential rows, potential factor rows) of stage 0: runs of adjacent
+    factorless cliques, then each factored clique with its axes merged
+    wherever every one of its factors treats two adjacent axes alike (both
+    absent, or adjacent in the factor too), and its factors' strides along the
+    merged axes, with the split of its rows (:func:`_row_split`).  A factored
+    clique's blocks own ENTRIES_PER_BLOCK entries (no more than it spans),
+    halved until their tables of row offsets fit TABLE_BYTES."""
+    fill, factored, factor_rows = [], [], []
+    for c, specs in enumerate(program.potential_specs):
+        row = np.zeros(POT_HEADER + 2 * width, dtype=np.int64)
+        if not specs:
+            if fill and fill[-1][POT_OFFSET] + fill[-1][POT_SIZE] == offsets[c]:
+                fill[-1][POT_SIZE] += sizes[c]
+            else:
+                row[[POT_CLIQUE, POT_OFFSET, POT_SIZE, POT_ENTRIES]] = (
+                    c, offsets[c], sizes[c], ENTRIES_PER_BLOCK)
+                fill.append(row)
+            continue
+        strides = []
+        for f_idx, perm, spec in specs:
+            f_strides = row_major_strides(program.factor_shapes[f_idx])
+            # clique axis a holds factor axis perm[spec[a]] (None: absent)
+            strides.append([0 if s is None else f_strides[perm[s]] for s in spec])
+        dims, *merged = merge_axes(shapes[c], *strides)
+        if not dims:  # a clique of one entry
+            dims, merged = [1], [[0] for _ in specs]
+        # no more than the clique spans from the 4-entry boundary below it
+        entries = min(ENTRIES_PER_BLOCK, -(-(int(sizes[c]) + ALIGN - 1) // ALIGN) * ALIGN)
+        split = _row_split(dims[::-1], entries)
+        while entries > ALIGN and 4 * len(specs) * (split[1] + split[2]) > TABLE_BYTES:
+            entries = max(ALIGN, entries // (2 * ALIGN) * ALIGN)
+            split = _row_split(dims[::-1], entries)
+        low_axes, low, high = split
+        row[:POT_HEADER] = [c, offsets[c], sizes[c], len(specs), len(dims), len(factor_rows),
+                            entries, low_axes, low, magic(low) if low > 1 else 0, high]
+        row[POT_HEADER:POT_HEADER + len(dims)] = dims[::-1]
+        row[POT_HEADER + width:POT_HEADER + width + len(dims)] = [
+            magic(d) if d > 1 else 0 for d in dims[::-1]]
+        factored.append(row)
+        for (f_idx, _, _), st in zip(specs, merged):
+            frow = np.zeros(FAC_HEADER + width, dtype=np.int64)
+            frow[FAC_TABLE] = f_idx
+            frow[FAC_HEADER:FAC_HEADER + len(st)] = st[::-1]
+            factor_rows.append(frow)
+    rows = fill + factored
+    return (np.stack(rows) if rows else np.zeros((0, POT_HEADER + 2 * width), dtype=np.int64),
+            np.stack(factor_rows) if factor_rows
+            else np.zeros((0, FAC_HEADER + width), dtype=np.int64))
+
+
+def _row_split(dims, entries):
+    """(low axes, low rows, most high rows a block touches) of a clique's
+    merged axes ``dims`` (innermost first) for blocks of ``entries``: its rows
+    (of the innermost axis) split as q = low + R high, R the product of the
+    merged axes from the second up to ``low axes``, chosen so that a block
+    decodes the fewest rows (R low, and the high ones its run touches)."""
+    rows = int(np.prod(dims[1:]))  # every row of the clique
+    touched = min((entries - 1) // dims[0] + 2, rows)  # rows a block's run touches
+    best, low = None, 1
+    for low_axes in range(1, len(dims) + 1):
+        if low_axes > 1:
+            low *= int(dims[low_axes - 1])
+        high = min((touched - 1) // low + 2, rows // low)
+        if best is None or low + high < best[1] + best[2]:
+            best = (low_axes, low, high)
+    return best
+
+
+def potential_shared(plan):
+    """The dynamic shared bytes of a ``clique_potentials`` launch: per factor
+    of a clique a table pointer, ``width`` 32-bit strides and its row offsets
+    (low and high), for the clique that needs the most."""
+    rows = plan.potentials
+    per_factor = 8 + 4 * plan.width + 4 * (rows[:, POT_LOW] + rows[:, POT_HIGH])
+    return int((rows[:, POT_FACTORS] * per_factor).max(initial=0))
+
+
 def build_plan(program):
     """:class:`WavePlan` of a ``JunctionTreeProgram`` (any object with its
     ``cliques``, ``clique_shapes``, ``sepset_shapes``, ``factor_shapes``,
@@ -235,30 +331,14 @@ def build_plan(program):
     sep_sizes = np.array([int(np.prod(s)) for s in sep_shapes], dtype=np.int64)
     edge_offsets = np.concatenate([[0], np.cumsum(sep_sizes)[:-1]]).astype(np.int64)
 
-    cliques = np.zeros((n_cliques, CLIQUE_HEADER + width), dtype=np.int64)
+    cliques = np.zeros((n_cliques, 2), dtype=np.int64)
     cliques[:, CLIQUE_OFFSET] = clique_offsets
     cliques[:, CLIQUE_SIZE] = sizes
-    for c, shape in enumerate(shapes):
-        cliques[c, CLIQUE_NDIM] = len(shape)
-        cliques[c, CLIQUE_HEADER:CLIQUE_HEADER + len(shape)] = shape
-    blocks = -(-sizes // ENTRIES_PER_BLOCK)
-    clique_blocks = np.concatenate([[0], np.cumsum(blocks)[:-1]]).astype(np.int64)
-
-    # stage 0: each clique's factors in potential_specs order
-    factor_rows, clique_factors = [], [0]
-    for c, specs in enumerate(program.potential_specs):
-        for f_idx, perm, spec in specs:
-            f_strides = row_major_strides(program.factor_shapes[f_idx])
-            row = np.zeros(1 + width, dtype=np.int64)
-            row[0] = f_idx
-            # clique axis a holds factor axis perm[spec[a]] (None: absent)
-            for a, s in enumerate(spec):
-                if s is not None:
-                    row[1 + a] = f_strides[perm[s]]
-            factor_rows.append(row)
-        clique_factors.append(len(factor_rows))
-    factors = (np.stack(factor_rows) if factor_rows
-               else np.zeros((0, 1 + width), dtype=np.int64))
+    potentials, potential_factors = _potential_tables(program, shapes, sizes, clique_offsets,
+                                                      width)
+    fill_rows = int((potentials[:, POT_FACTORS] == 0).sum())
+    blocks = -(-(potentials[:, POT_OFFSET] % ALIGN + potentials[:, POT_SIZE])
+               // potentials[:, POT_ENTRIES])
 
     # messages
     waves, n_up_waves = _waves(program)
@@ -362,10 +442,11 @@ def build_plan(program):
         total=int(sizes.sum()),
         sepset_total=int(sep_sizes.sum()),
         cliques=cliques,
-        clique_blocks=clique_blocks,
+        potentials=potentials,
+        potential_starts=np.concatenate([[0], np.cumsum(blocks)[:-1]]).astype(np.int64),
         potential_blocks=int(blocks.sum()),
-        clique_factors=i64(clique_factors),
-        factors=factors,
+        fill_rows=fill_rows,
+        potential_factors=potential_factors,
         messages=messages,
         wave_messages=i64(wave_messages),
         wave_message_start=i64(wave_message_start),
@@ -505,7 +586,7 @@ def _library():
     lib = load_library("jt_calibrate", ["jt_calibrate.cu"])
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pgmpy_jt_clique_potentials.argtypes = [
-        i32, vp, vp, vp, i32, vp, vp, vp, i64, i32, i32, vp]
+        i32, vp, vp, vp, i32, vp, vp, i64, i32, i32, vp]
     lib.pgmpy_jt_sepset_wave.argtypes = [
         i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i64, i32, ctypes.c_double, vp]
     lib.pgmpy_jt_absorb_wave.argtypes = [
@@ -516,7 +597,7 @@ def _library():
     return lib
 
 
-_TABLES = ("cliques", "clique_blocks", "clique_factors", "factors", "wave_rows",
+_TABLES = ("potentials", "potential_starts", "potential_factors", "wave_rows",
            "message_blocks", "groups", "group_blocks", "absorb_rows")
 
 
@@ -600,14 +681,19 @@ def clique_potentials_cuda(plan, factor_arrays, arena):
     """``clique_potentials``: stage 0 for every clique into ``arena`` in one
     launch.  ``factor_arrays`` are contiguous, of the arena's type and on
     its card."""
+    shared_bytes = potential_shared(plan)
+    if shared_bytes > SHARED_LIMIT:
+        raise ValueError(f"clique_potentials: a block needs {shared_bytes} bytes of shared "
+                         f"memory for its factors' strides and row offsets, more than "
+                         f"{SHARED_LIMIT}")
     with torch.cuda.device(arena.device):
         entry = _device_tables(plan, arena.device)
         ptr = entry["ptr"]
         pointers = _factor_pointers(entry, factor_arrays, arena.device)
         _launched(_library().pgmpy_jt_clique_potentials(
-            arena.element_size(), arena.data_ptr(), ptr["cliques"], ptr["clique_blocks"],
-            len(plan.clique_shapes), ptr["clique_factors"], ptr["factors"], pointers.data_ptr(),
-            plan.potential_blocks, ENTRIES_PER_BLOCK, plan.width, _stream(arena)),
+            arena.element_size(), arena.data_ptr(), ptr["potentials"], ptr["potential_starts"],
+            len(plan.potentials), ptr["potential_factors"], pointers.data_ptr(),
+            plan.potential_blocks, shared_bytes, plan.width, _stream(arena)),
             "clique_potentials")
 
 

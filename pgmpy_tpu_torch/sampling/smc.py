@@ -145,10 +145,14 @@ class ParticleFilter:
 
     def _systematic_resample(self, particles, logw, offset):
         """``particles`` (d, n) resampled in proportion to ``softmax(logw)``
-        at the positions ``(offset + i) / n``; ``offset`` in [0, 1)."""
+        at the positions ``(offset + i) / n``; ``offset`` in [0, 1).  The
+        running sum and the positions are float64: on a CUDA tensor the scan
+        may add in another order from run to run, and a last float32 bit of
+        difference can move a position across a boundary, so that one seed
+        gives other particles; in float64 that takes a tie to 1e-16."""
         n = self.n_particles
-        w = torch.softmax(logw, dim=0)
-        positions = (offset + torch.arange(n, dtype=w.dtype, device=w.device)) / n
+        w = torch.softmax(logw, dim=0).to(torch.float64)
+        positions = (offset + torch.arange(n, dtype=torch.float64, device=w.device)) / n
         idx = torch.searchsorted(torch.cumsum(w, dim=0), positions).clamp_(0, n - 1)
         return particles.index_select(1, idx)
 

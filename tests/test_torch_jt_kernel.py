@@ -9,10 +9,15 @@
 * A numpy walk of the descriptor tables, block by block (in a random order)
   and thread by thread as the CUDA kernels read them, agrees with the plain
   version (rtol 1e-5 in float32: the walk sums in float64 as the kernels do,
-  the plain version in float32); no ``sepset_wave`` block reads more than
+  the plain version in float32; stage 0 equal to the bit: both multiply the
+  factors in the same order); no ``sepset_wave`` block reads more than
   ``MAX_BLOCK_WALK`` source entries, on MUNIN's tree too; the host's
-  multiply-shift constants divide exactly, and the absorb odometer gives the
-  indices a full decode gives.
+  multiply-shift constants divide exactly, and the absorb and clique
+  odometers give the indices a full decode gives.
+* ``clique_potentials``' tables: runs of factorless cliques fill whole
+  blocks of their own, merged axes visit the factor entries the unmerged
+  clique axes do, and on MUNIN's plan the grid covers every arena entry once
+  within the shared-memory budget.
 * The plain version agrees with ``pgmpy_tpu``'s ``JunctionTreeProgram`` on
   the same numpy tables at the beliefs' tolerance of ``test_torch_bp.py``
   (atol 1e-6, rtol 1e-4): both operations, messages normalised or not.
@@ -33,6 +38,7 @@ import torch
 from pgmpy_tpu.inference.bp import JunctionTreeProgram as JaxProgram
 from pgmpy_tpu.utils import get_example_model as jax_example
 
+from _torch_jt_cases import random_potential_program
 from _torch_parity import random_bn_pair
 from pgmpy_tpu_torch.config import TINY
 from pgmpy_tpu_torch.inference.bp import JunctionTreeProgram
@@ -114,15 +120,13 @@ def _assert_plan_valid(program, plan):
         pair = [m for m in range(n_msgs) if messages[m][5] == edge]
         assert len(pair) == 2 and messages[pair[0]][6] and not messages[pair[1]][6]
         assert wave_of[pair[0]] < wave_of[pair[1]]
-    # the grids: clique_potentials' blocks cover their cliques; absorb_wave's
-    # cover their destinations from the 4-entry boundary at or below each
-    # offset; sepset_wave's cover every (run of sepset entries, chunk of the
-    # reduced space) of every message
+    # the grids: clique_potentials' and absorb_wave's blocks cover their rows
+    # (runs of factorless cliques, factored cliques; destinations) from the
+    # 4-entry boundary at or below each offset; sepset_wave's cover every
+    # (run of sepset entries, chunk of the reduced space) of every message
     sizes = plan.cliques[:, jt.CLIQUE_SIZE]
-    per = -(-sizes // jt.ENTRIES_PER_BLOCK)
-    assert plan.potential_blocks == per.sum()
-    assert (plan.clique_blocks == np.concatenate([[0], np.cumsum(per)[:-1]])).all()
     offsets = plan.cliques[:, jt.CLIQUE_OFFSET]
+    assert_potential_grid(plan)
     absorb_per = -(-(offsets + sizes - offsets // jt.ALIGN * jt.ALIGN) // jt.ABSORB_ENTRIES)
     for w in range(plan.n_waves):
         glo, ghi = plan.wave_group_start[w:w + 2]
@@ -239,14 +243,41 @@ def _walk(index, n, dims, magics, strides):
     return off + index * strides[n - 1] if n else off
 
 
-def _digits(index, row, width):
-    nd = int(row[jt.CLIQUE_NDIM])
-    dims = row[jt.CLIQUE_HEADER:jt.CLIQUE_HEADER + width]
-    digit = np.zeros((width, index.size), dtype=np.int64)
-    for a in range(nd - 1, -1, -1):
-        digit[a] = index % dims[a]
-        index = index // dims[a]
-    return digit
+def assert_potential_grid(plan):
+    """``clique_potentials``' grid covers every arena entry exactly once: its
+    rows (runs of factorless cliques first, then every factored clique once)
+    tile the arena, and each row's blocks cover it from the 4-entry boundary
+    at or below its offset."""
+    rows = plan.potentials
+    n_factors = [len(s) for s in plan.potential_specs]
+    covered = np.zeros(plan.total, dtype=np.int64)
+    for k, row in enumerate(rows):
+        offset, size = int(row[jt.POT_OFFSET]), int(row[jt.POT_SIZE])
+        covered[offset:offset + size] += 1
+        cliques = np.flatnonzero((plan.cliques[:, jt.CLIQUE_OFFSET] >= offset)
+                                 & (plan.cliques[:, jt.CLIQUE_OFFSET] < offset + size))
+        if k < plan.fill_rows:  # a run of adjacent factorless cliques
+            assert row[jt.POT_FACTORS] == 0 and all(n_factors[c] == 0 for c in cliques)
+            assert cliques[0] == row[jt.POT_CLIQUE] and (np.diff(cliques) == 1).all()
+            assert k == 0 or offset > rows[k - 1, jt.POT_OFFSET] + rows[k - 1, jt.POT_SIZE], \
+                "two adjacent runs of ones are not merged"
+        else:
+            assert list(cliques) == [row[jt.POT_CLIQUE]]
+            assert row[jt.POT_FACTORS] == n_factors[cliques[0]] > 0
+    assert (covered == 1).all(), "the potential rows tile the arena"
+    assert sum(n == 0 for n in n_factors) == 0 or plan.fill_rows > 0
+    per = -(-(rows[:, jt.POT_OFFSET] % jt.ALIGN + rows[:, jt.POT_SIZE]) // rows[:, jt.POT_ENTRIES])
+    assert plan.potential_blocks == per.sum()
+    assert (plan.potential_starts == np.concatenate([[0], np.cumsum(per)[:-1]])).all()
+    assert (rows[:, jt.POT_ENTRIES] % jt.ALIGN == 0).all(), "a block starts on a 16-byte boundary"
+    assert (rows[:plan.fill_rows, jt.POT_ENTRIES] == jt.ENTRIES_PER_BLOCK).all()
+    factored = rows[plan.fill_rows:]
+    assert (factored[:, jt.POT_ENTRIES] <= jt.ENTRIES_PER_BLOCK).all()
+    tables = 4 * factored[:, jt.POT_FACTORS] * (factored[:, jt.POT_LOW] + factored[:, jt.POT_HIGH])
+    assert ((tables <= jt.TABLE_BYTES) | (factored[:, jt.POT_ENTRIES] == jt.ALIGN)).all()
+    for row in factored:  # the low part: the merged axes from the second up to POT_LOW_AXES
+        low_dims = row[jt.POT_HEADER + 1:jt.POT_HEADER + row[jt.POT_LOW_AXES]]
+        assert row[jt.POT_LOW] == int(np.prod(low_dims))
 
 
 def _group_axes(plan, grow):
@@ -284,6 +315,120 @@ def absorb_indices(at, offset, vec, nd, ndec, dims, magics, strides):
     return full[last] + (k - last) * (int(strides[0]) if ndec else 0)
 
 
+def _potential_offsets(i, nd, dims, magics, strides):
+    """``factor_offsets`` of jt_calibrate.cu for an array of clique entries
+    ``i``: the innermost merged digit split off by multiply-shift (all of
+    ``i`` with one merged axis), then the rest over the other merged axes,
+    innermost first, the outermost taking what is left."""
+    if nd == 1:
+        return i * strides[0]
+    d0, rest = _split_digit(i, dims[0], magics[0])
+    off = d0 * strides[0]
+    for a in range(1, nd):
+        if a + 1 < nd:
+            digit, rest = _split_digit(rest, dims[a], magics[a])
+        else:
+            digit = rest
+        off = off + digit * strides[a]
+    return off
+
+
+def _first_digit(i, nd, dims, magics):
+    """``first_digit`` of jt_calibrate.cu: (innermost merged digit, row)."""
+    return _split_digit(i, dims[0], magics[0]) if nd > 1 else (i, np.zeros_like(i))
+
+
+def _row_offsets(q, a0, a1, dims, magics, strides):
+    """``row_offsets`` of jt_calibrate.cu: a factor's offset part of rows
+    ``q`` from the merged axes [a0, a1), the last taking what is left."""
+    off = np.zeros_like(q)
+    for a in range(a0, a1):
+        if a + 1 < a1:
+            digit, q = _split_digit(q, dims[a], magics[a])
+        else:
+            digit = q
+        off = off + digit * strides[a]
+    return off
+
+
+def _low_part(q, low, low_magic):
+    """``low_part`` of jt_calibrate.cu: (the rows' low parts, high parts)."""
+    return _split_digit(q, low, low_magic) if low > 1 else (np.zeros_like(q), q)
+
+
+def potential_indices(i, live, nd, dims, magics, strides, row, h_lo, low_table, high_table):
+    """A factor's offsets for slots of clique entries ``i`` (one slot of
+    ``vec`` consecutive entries per row; ``live``: the entries of the block's
+    run), as a ``clique_potentials`` thread walks them: a whole slot's first
+    entry from its row's two parts in the block's tables (``low_table`` of
+    every low row, ``high_table`` of the high rows from ``h_lo``) and its
+    innermost digit, each next one the innermost stride on, unless the
+    innermost digit carries, and then the next row's parts from the tables; a
+    slot at either end of the run takes each entry from the tables.  Asserts
+    that the odometer gives what a full decode gives."""
+    k = np.broadcast_to(np.arange(i.shape[1]), i.shape)
+    d0, q = _first_digit(np.where(live, i, 0), nd, dims, magics)
+    ql, qh = _low_part(q, int(row[jt.POT_LOW]), int(row[jt.POT_LOW_MAGIC]))
+    decoded = live & ((k == 0) | (d0 == 0) | ~live.all(axis=1, keepdims=True))
+    looked_up = (low_table[ql] + high_table[np.where(live, qh - h_lo, 0)]
+                 + d0 * int(strides[0]))
+    last = np.maximum.accumulate(np.where(decoded, k, 0), axis=1)
+    idx = np.take_along_axis(looked_up, last, axis=1) + (k - last) * int(strides[0])
+    want = _potential_offsets(i[live], nd, dims, magics, strides)
+    assert (idx[live] == want).all(), "the clique odometer and a full decode differ"
+    return np.where(live, idx, 0)
+
+
+def potential_walk(plan, flat, dtype, seed=0):
+    """``clique_potentials`` over its grid and tables: every block (in a
+    random order) finds its row by the block prefix and covers the row's
+    ``POT_ENTRIES`` entries from the 4-entry boundary at or below its offset;
+    thread t owns the 16-byte slots (k BLOCK + t) vec, those at either end of
+    the run entry by entry.  Rows of ones are the grid's first; a factored
+    block first builds its tables of row offsets (every low row, and the high
+    rows its run touches, at most ``POT_HIGH``), then multiplies its factors
+    in ``potential_specs`` order, each through the odometer
+    (:func:`potential_indices`).  Returns (stage-0 arena, writes per entry)."""
+    W, itemsize = plan.width, np.dtype(dtype).itemsize
+    vec = 16 // itemsize
+    arena = np.full(plan.total, np.nan, dtype=dtype)
+    writes = np.zeros(plan.total, dtype=np.int64)
+    for b in np.random.default_rng(seed).permutation(plan.potential_blocks):
+        r = _find_slot(plan.potential_starts, b)
+        row = plan.potentials[r]
+        offset, size, nf, entries = (int(row[k]) for k in (
+            jt.POT_OFFSET, jt.POT_SIZE, jt.POT_FACTORS, jt.POT_ENTRIES))
+        assert entries % jt.ALIGN == 0
+        slots = -(-entries // (jt.BLOCK * vec))
+        starts = (np.arange(slots)[:, None] * jt.BLOCK + np.arange(jt.BLOCK)).ravel() * vec
+        i0 = -(offset % jt.ALIGN) + (b - int(plan.potential_starts[r])) * entries
+        lo, hi = max(i0, 0), min(i0 + entries, size)
+        i = i0 + starts[:, None] + np.arange(vec)
+        assert ((offset + i[:, 0]) * itemsize % 16 == 0).all(), "a slot off a 16-byte boundary"
+        live = (i >= lo) & (i < hi)
+        assert (r < plan.fill_rows) == (nf == 0), "the grid's first rows are the runs of ones"
+        x = np.ones(i.shape, dtype=dtype)
+        nd = int(row[jt.POT_NDIM])
+        dims, magics = row[jt.POT_HEADER:jt.POT_HEADER + W], row[jt.POT_HEADER + W:]
+        low, low_axes = int(row[jt.POT_LOW]), int(row[jt.POT_LOW_AXES])
+        if nf:
+            q = _first_digit(np.array([lo, hi - 1]), nd, dims, magics)[1]
+            h_lo, h_hi = _low_part(q, low, int(row[jt.POT_LOW_MAGIC]))[1]
+            assert h_hi - h_lo + 1 <= row[jt.POT_HIGH], "the high table outgrows its bound"
+        for f in range(nf):
+            frow = plan.potential_factors[row[jt.POT_FACTOR] + f]
+            st = frow[jt.FAC_HEADER:]
+            low_table = _row_offsets(np.arange(low), 1, low_axes, dims, magics, st)
+            high_table = _row_offsets(np.arange(h_lo, h_hi + 1), low_axes, nd, dims, magics, st)
+            idx = potential_indices(i, live, nd, dims, magics, st, row, h_lo, low_table,
+                                    high_table)
+            v = flat[frow[jt.FAC_TABLE]][idx]
+            x = v if f == 0 else x * v  # the eager order: ((f0 * f1) * f2) ...
+        arena[offset + i[live]] = x[live]
+        writes[offset + i[live]] += 1
+    return arena, writes
+
+
 def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32, seed=0):
     """The kernels' arithmetic over their grids and descriptor tables: every
     block finds its slot by the block prefix, every thread its entries, and
@@ -293,7 +438,7 @@ def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32, seed=0):
     that every destination entry is read and written once per wave; that every
     ticket is back at 0 after each wave; and that no block reads more than
     ``MAX_BLOCK_WALK`` source entries.  Returns (belief arena, sepset arena,
-    writes per arena entry in stage 0)."""
+    writes per arena entry in stage 0, the arena after stage 0)."""
     W = plan.width
     col = {k: jt.MSG_HEADER + k * W for k in range(7)}
     tiny = dtype(TINY)
@@ -301,28 +446,14 @@ def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32, seed=0):
     maximize = operation == "maximize"
     combine = np.maximum if maximize else np.add
     flat = [np.asarray(a, dtype=dtype).ravel() for a in arrays]
-    arena = np.full(plan.total, np.nan, dtype=dtype)
     mu = np.full(plan.sepset_total, np.nan, dtype=dtype)
-    writes = np.zeros(plan.total, dtype=np.int64)
     sep_writes = np.zeros(plan.sepset_total, dtype=np.int64)
     tickets = np.zeros(len(plan.messages), dtype=np.int64)  # by position in wave order
     threads = np.arange(jt.BLOCK)
     vec = 16 // np.dtype(dtype).itemsize  # entries per 16-byte slot of absorb_wave
 
-    # clique_potentials
-    for b in range(plan.potential_blocks):
-        c = _find_slot(plan.clique_blocks, b)
-        row = plan.cliques[c]
-        begin = (b - plan.clique_blocks[c]) * jt.ENTRIES_PER_BLOCK
-        i = np.arange(begin, min(row[jt.CLIQUE_SIZE], begin + jt.ENTRIES_PER_BLOCK))
-        digit = _digits(i.copy(), row, W)
-        x = np.ones(i.size, dtype=dtype)
-        for f in range(plan.clique_factors[c], plan.clique_factors[c + 1]):
-            fr = plan.factors[f]
-            v = flat[fr[0]][(digit * fr[1:, None]).sum(axis=0)]
-            x = v if f == plan.clique_factors[c] else x * v
-        arena[row[jt.CLIQUE_OFFSET] + i] = x
-        writes[row[jt.CLIQUE_OFFSET] + i] += 1
+    arena, writes = potential_walk(plan, flat, dtype, seed)
+    stage0 = arena.copy()
 
     def finish(row, j, sigma):
         """A message's final sigma for its sepset entries j: normalised,
@@ -433,7 +564,7 @@ def numpy_walk(plan, arrays, operation, normalize, dtype=np.float32, seed=0):
         assert (touched == want).all(), \
             f"wave {w}: every destination entry is read and written once, no other entry"
     assert (sep_writes == 2).all(), "every sepset entry is written by both its messages"
-    return arena, mu, writes
+    return arena, mu, writes, stage0
 
 
 def wide_tables(seed=0):
@@ -465,10 +596,11 @@ def test_numpy_walk_matches_plain(tables, case, operation, normalize):
     plan = program.wave_plan()
     assert len(program.messages) >= 6
     assert plan.width == (jt.WIDTHS[1] if case == "wide" else jt.WIDTHS[0])
-    arena, mu, writes = numpy_walk(plan, arrays, operation, normalize)
+    arena, mu, writes, stage0 = numpy_walk(plan, arrays, operation, normalize)
     assert (writes == 1).all(), "clique_potentials writes every arena entry once"
-    ref_arena, ref_mu = jt.calibrate_waves_reference(
-        plan, [torch.from_numpy(a.astype(np.float32)) for a in arrays], operation, normalize)
+    tables32 = [torch.from_numpy(a.astype(np.float32)) for a in arrays]
+    ref_arena, ref_mu = jt.calibrate_waves_reference(plan, tables32, operation, normalize)
+    np.testing.assert_array_equal(stage0, _plain_stage0(plan, tables32).numpy())
     np.testing.assert_allclose(arena, ref_arena.numpy(), rtol=1e-5, atol=0)
     np.testing.assert_allclose(mu, ref_mu.numpy(), rtol=1e-5, atol=0)
 
@@ -572,6 +704,103 @@ def test_absorb_odometer_matches_decode():
         for vec in (2, 4):
             got = absorb_indices(at, offset, vec, len(dims), ndec, dims, magics, st)
             assert (got == full).all()
+
+
+def _plain_stage0(plan, tables):
+    """The plain version's stage 0 (``clique_potentials_reference``) as one arena."""
+    arena = torch.empty(plan.total, dtype=tables[0].dtype)
+    beliefs, _ = jt.arena_views(plan, arena, torch.empty(plan.sepset_total, dtype=arena.dtype))
+    jt.clique_potentials_reference(plan, tables, beliefs)
+    return arena
+
+
+@pytest.mark.parametrize("budget", ["shipped", "small"])
+@pytest.mark.parametrize("seed", range(6))
+def test_clique_odometer_matches_decode(seed, budget, monkeypatch):
+    """Random cliques (1-6 axes of 1-5 states, 0-4 factors over random axis
+    subsets in random orders, factorless cliques among them, offsets off the
+    4-entry boundary): the walk of ``clique_potentials``' slots and odometer
+    gives the offsets a full decode over the merged axes gives (asserted in
+    :func:`potential_indices`), and the plain version's stage 0 to the bit,
+    in float32 (4-entry slots) and float64 (2-entry slots); also with blocks
+    of 64 entries whose tables of row offsets, limited to 64 bytes, cut
+    many of them down further."""
+    if budget == "small":
+        monkeypatch.setattr(jt, "ENTRIES_PER_BLOCK", 64)
+        monkeypatch.setattr(jt, "TABLE_BYTES", 64)
+    program, arrays = random_potential_program(seed)
+    plan = jt.build_plan(program)
+    if budget == "small":
+        assert (plan.potentials[plan.fill_rows:, jt.POT_ENTRIES] < 64).any()
+    assert_potential_grid(plan)
+    factored = plan.potentials[plan.fill_rows:]
+    assert plan.fill_rows >= 2 and (factored[:, jt.POT_OFFSET] % jt.ALIGN).any()
+    for dtype in (torch.float32, torch.float64):
+        tables = [torch.from_numpy(a).to(dtype) for a in arrays]
+        got, writes = potential_walk(plan, [t.numpy().ravel() for t in tables],
+                                     np.dtype(str(dtype)[6:]), seed)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, _plain_stage0(plan, tables).numpy())
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_potential_merge_visits_the_same_offsets(seed):
+    """The merge rule of the stage-0 tables (adjacent clique axes that every
+    factor of the clique treats alike): each factor's strides along the merged
+    axes, decoded as the kernel does, reach for every clique entry the factor
+    entry the unmerged broadcast of the plain version reaches."""
+    program, _ = random_potential_program(seed + 100)
+    plan = jt.build_plan(program)
+    W = plan.width
+    merged = unmerged = 0
+    for row in plan.potentials[plan.fill_rows:]:
+        c, nd = int(row[jt.POT_CLIQUE]), int(row[jt.POT_NDIM])
+        shape = plan.clique_shapes[c]
+        assert int(np.prod(row[jt.POT_HEADER:jt.POT_HEADER + nd])) == row[jt.POT_SIZE]
+        merged, unmerged = merged + nd, unmerged + max(1, sum(n > 1 for n in shape))
+        i = np.arange(int(row[jt.POT_SIZE]))
+        for f, (f_idx, perm, spec) in enumerate(plan.potential_specs[c]):
+            frow = plan.potential_factors[row[jt.POT_FACTOR] + f]
+            assert frow[jt.FAC_TABLE] == f_idx
+            entries = torch.arange(plan.factor_sizes[f_idx]).reshape(plan.factor_shapes[f_idx])
+            want = jt._expand(entries, perm, spec).expand(shape).reshape(-1).numpy()
+            got = _potential_offsets(i, nd, row[jt.POT_HEADER:jt.POT_HEADER + W],
+                                     row[jt.POT_HEADER + W:], frow[jt.FAC_HEADER:])
+            assert (got == want).all(), f"clique {c}, factor {f_idx}"
+    assert merged <= unmerged
+
+
+def test_munin_potential_tables():
+    """Build only, on MUNIN's plan: the grid covers every arena entry exactly
+    once, every factorless clique lies in the fill blocks at the grid's head,
+    the merge leaves fewer axes per entry, every factored clique keeps whole
+    blocks, and no factored block's tables in shared memory exceed their
+    budget."""
+    plan = _munin_program().wave_plan()
+    assert_potential_grid(plan)
+    rows = plan.potentials
+    fill = rows[:plan.fill_rows]
+    fill_blocks = int(plan.potential_starts[plan.fill_rows])
+    assert fill_blocks == (-(-(fill[:, jt.POT_OFFSET] % jt.ALIGN + fill[:, jt.POT_SIZE])
+                             // fill[:, jt.POT_ENTRIES])).sum()
+    empty = [c for c, s in enumerate(plan.potential_specs) if not s]
+    assert empty and fill[:, jt.POT_SIZE].sum() == plan.cliques[empty, jt.CLIQUE_SIZE].sum()
+    factored = rows[plan.fill_rows:]
+    sizes = factored[:, jt.POT_SIZE]
+    unmerged = [sum(n > 1 for n in plan.clique_shapes[c]) for c in factored[:, jt.POT_CLIQUE]]
+    assert (sizes * factored[:, jt.POT_NDIM]).sum() < 0.75 * (sizes * unmerged).sum()
+    # every clique's tables fit without cutting its blocks
+    spans = -(-(factored[:, jt.POT_SIZE] + jt.ALIGN - 1) // jt.ALIGN) * jt.ALIGN
+    assert (factored[:, jt.POT_ENTRIES] == np.minimum(jt.ENTRIES_PER_BLOCK, spans)).all()
+    shared_bytes = jt.potential_shared(plan)
+    assert shared_bytes <= jt.SHARED_LIMIT
+    for row in factored:
+        frows = plan.potential_factors[row[jt.POT_FACTOR]:row[jt.POT_FACTOR] + row[jt.POT_FACTORS]]
+        assert frows[:, jt.FAC_TABLE].tolist() == [f for f, _, _ in
+                                                   plan.potential_specs[row[jt.POT_CLIQUE]]]
+        table = 4 * row[jt.POT_FACTORS] * (row[jt.POT_LOW] + row[jt.POT_HIGH])
+        assert row[jt.POT_FACTORS] * (8 + 4 * plan.width) + table <= shared_bytes
+        assert table <= jt.TABLE_BYTES
 
 
 def test_munin_no_block_reads_more_than_the_maximum():

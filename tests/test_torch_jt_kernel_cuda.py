@@ -6,12 +6,15 @@ without one; on a GPU machine:
 
 Tolerances: both sides multiply in the same order within a wave; the kernels
 sum in float64 and the plain version in the tables' type, so float32 results
-agree to rtol 1e-5 (atol 1e-7) and float64 ones to rtol 1e-12 (atol 1e-15)."""
+agree to rtol 1e-5 (atol 1e-7) and float64 ones to rtol 1e-12 (atol 1e-15).
+Stage 0 (``clique_potentials``) multiplies the factors in the plain version's
+order and sums nothing: it is held equal to the bit."""
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_jt_cases import random_potential_program
 from pgmpy_tpu_torch.inference.bp import JunctionTreeProgram
 from pgmpy_tpu_torch.ops import jt
 from pgmpy_tpu_torch.utils import get_example_model
@@ -56,7 +59,12 @@ def _split_tables(normalize, dtype, seed=0):
 def _case(name, normalize, dtype):
     """(program, factor tables); "forest" is ASIA beside a renamed CANCER,
     "wide" a clique of 18 axes (the kernels' 24-axis instances), "split" a
-    clique of 1 M entries whose messages are cut into chunks."""
+    clique of 1 M entries whose messages are cut into chunks; "unaligned" and
+    "factorless" random stage-0 programs (no messages) whose cliques start off
+    a 16-byte boundary and hold runs of factorless cliques."""
+    if name in ("unaligned", "factorless"):
+        program, arrays = random_potential_program(0 if name == "unaligned" else 1)
+        return program, [torch.from_numpy(a).to(device="cuda", dtype=dtype) for a in arrays]
     if name == "split":
         scopes, cards, arrays = _split_tables(normalize, dtype)
     elif name == "wide":
@@ -144,6 +152,50 @@ class TestCudaKernels:
         finally:
             config.set_device(previous)
         np.testing.assert_allclose(gpu.values.cpu().numpy(), cpu.values.numpy(), atol=1e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("name", ["asia", "alarm", "insurance", "child", "forest", "wide",
+                                      "split", "unaligned", "factorless"])
+    def test_clique_potentials_equal_to_the_bit(self, name, dtype):
+        """``clique_potentials`` against the plain version's stage 0: equal to
+        the bit (``torch.equal``)."""
+        program, arrays = _case(name, False, dtype)
+        plan = jt.build_plan(program)
+        offsets = plan.potentials[plan.fill_rows:, jt.POT_OFFSET]
+        if name == "unaligned":
+            assert (offsets * arrays[0].element_size() % 16).any()
+        if name == "factorless":
+            assert plan.fill_rows >= 2
+        arena = torch.empty(plan.total, dtype=dtype, device="cuda")
+        jt.reset_launches()
+        jt.clique_potentials_cuda(plan, [a.contiguous() for a in arrays], arena)
+        assert jt.LAUNCHES["clique_potentials"] == 1
+        want = torch.empty_like(arena)
+        jt.clique_potentials_reference(plan, arrays, jt.arena_views(
+            plan, want, torch.empty(plan.sepset_total, dtype=dtype, device="cuda"))[0])
+        torch.cuda.synchronize()
+        assert torch.equal(arena, want)
+
+    @pytest.mark.parametrize("entries, table_bytes", [(1024, 32768), (32768, 32768), (16384, 256)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_clique_potentials_other_block_sizes(self, entries, table_bytes, dtype, monkeypatch):
+        """Plans built with other entries per block, or a table budget small
+        enough to cut blocks down, give the same stage 0."""
+        monkeypatch.setattr(jt, "ENTRIES_PER_BLOCK", entries)
+        monkeypatch.setattr(jt, "TABLE_BYTES", table_bytes)
+        for name in ("alarm", "unaligned"):
+            program, arrays = _case(name, False, dtype)
+            plan = jt.build_plan(program)
+            block_entries = plan.potentials[:, jt.POT_ENTRIES]
+            assert (block_entries[:plan.fill_rows] == entries).all()
+            assert (block_entries <= entries).all()
+            arena = torch.empty(plan.total, dtype=dtype, device="cuda")
+            jt.clique_potentials_cuda(plan, arrays, arena)
+            want = torch.empty_like(arena)
+            jt.clique_potentials_reference(plan, arrays, jt.arena_views(
+                plan, want, torch.empty(plan.sepset_total, dtype=dtype, device="cuda"))[0])
+            torch.cuda.synchronize()
+            assert torch.equal(arena, want), name
 
     def test_refuses_other_types(self):
         program, arrays = _case("asia", False, torch.float32)

@@ -1,4 +1,4 @@
-"""K2's wave kernels on MUNIN under other settings, on one CUDA card.
+"""K2's kernels on MUNIN under other settings, on one CUDA card.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -8,20 +8,26 @@ It builds MUNIN's junction tree on the network's own CPDs (the string hash
 seed fixes the tree), times a calibration, and runs
 ``chip_smoke.phase_jt_kernels`` on it: every K2 check of the smoke, each
 kernel's device time beside its bound.  Then it prints, one line per setting,
-the device time of a calibration's ``sepset_wave`` and ``absorb_wave``
-launches (each launch alone behind a device sleep, medians summed) and the
-worst relative gap of the beliefs to the plain version:
+the device time of a calibration's ``clique_potentials`` launch (alone behind
+a device sleep, median of 10; whether it equals the plain version's stage 0
+to the bit), or of its ``sepset_wave`` and ``absorb_wave`` launches (each
+alone behind a device sleep, medians summed) and the worst relative gap of
+the beliefs to the plain version:
 
-* for settings of ``sepset_wave``'s plan constants (``MIN_WALK``,
-  ``MAX_WALK`` in ``pgmpy_tpu_torch/ops/jt.py``);
-* for copies of ``csrc/jt_calibrate.cu`` built with other compile-time
-  constants (``VARIANTS``: loads in flight per lane, blocks per SM, entries
-  per ``absorb_wave`` block), twice each, in turns.
+* ``clique_potentials`` under settings of its plan constants
+  (``ENTRIES_PER_BLOCK``, ``TABLE_BYTES``);
+* the wave kernels under settings of ``sepset_wave``'s plan constants
+  (``MIN_WALK``, ``MAX_WALK`` in ``pgmpy_tpu_torch/ops/jt.py``);
+* all three for copies of ``csrc/jt_calibrate.cu`` built with other
+  compile-time constants (``VARIANTS``: loads in flight per lane, blocks per
+  SM that the registers allow, entries per ``absorb_wave`` block, factors per
+  ``clique_potentials`` pass), twice each, in turns.
 
 The first line of each sweep is the setting the package ships with.  With
 ``--phase-only`` it stops after the phase: so it can time another checkout's
 kernels on the same tree (a parent commit unpacked with ``git archive``), run
-from that checkout's root, whose package and ``chip_smoke.py`` it imports.
+from that checkout's root, whose package and ``chip_smoke.py`` it imports; in
+one call on one card, parent, change, change, parent compares the two.
 """
 
 import ctypes
@@ -40,6 +46,9 @@ from pgmpy_tpu_torch.ops import _build, jt  # noqa: E402
 from pgmpy_tpu_torch.utils import get_example_model  # noqa: E402
 
 WALKS = [(16, 32), (8, 32), (16, 64), (32, 64)]  # (MIN_WALK, MAX_WALK)
+# (ENTRIES_PER_BLOCK, TABLE_BYTES) of clique_potentials
+POTENTIALS = [(16384, 32768), (4096, 32768), (8192, 32768), (32768, 32768), (65536, 40960),
+              (16384, 8192)]
 # compile-time settings: name -> text substitutions in csrc/jt_calibrate.cu
 VARIANTS = {
     "shipped": [],
@@ -48,7 +57,22 @@ VARIANTS = {
     "absorb_blocks_4": [("sizeof(T) == 4 ? 6 : 4;", "sizeof(T) == 4 ? 4 : 4;")],
     "absorb_blocks_8": [("sizeof(T) == 4 ? 6 : 4;", "sizeof(T) == 4 ? 8 : 4;")],
     "absorb_entries_4096": [("kAbsorbEntries = 2048;", "kAbsorbEntries = 4096;")],
+    "potential_blocks_3": [("sizeof(T) == 4 ? 4 : 4;", "sizeof(T) == 4 ? 3 : 4;")],
+    "potential_blocks_6": [("sizeof(T) == 4 ? 4 : 4;", "sizeof(T) == 4 ? 6 : 4;")],
+    "factor_pass_2": [("kFactorPass = 4;", "kFactorPass = 2;")],
 }
+
+
+def potential_time(plan, arrays, want):
+    """(clique_potentials ms, equal to the plain version's stage 0 ``want``
+    to the bit) of one launch on the current library."""
+    arena = torch.empty_like(want)
+    jt.clique_potentials_cuda(plan, arrays, arena)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(arena, want))
+    ms = chip_smoke.cuda_median_ms(lambda: jt.clique_potentials_cuda(plan, arrays, arena),
+                                   reps=10, warmup=1, device_only=True)
+    return ms, same
 
 
 def wave_times(plan, arrays, want):
@@ -93,7 +117,8 @@ def build_variants(shipped):
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
         for line in chip_smoke.ptxas_summary(log):
-            if "<float, 16>" in line or "<float, false, false, 16>" in line:
+            if "<float, 16>" in line or "<float, false, false, 16>" in line or \
+                    "<double, 16>" in line:
                 print(f"variant {name} {line}", flush=True)
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
         for fn in ("pgmpy_jt_clique_potentials", "pgmpy_jt_sepset_wave", "pgmpy_jt_absorb_wave"):
@@ -126,6 +151,19 @@ def main():
     program = bp._program
     arrays = [f.values.contiguous() for f in bp._input_factors]
     want = jt.calibrate_waves_reference(program.wave_plan(), arrays)[0]
+    plan = program.wave_plan()
+    want0 = torch.empty_like(want)  # the plain version's stage 0
+    jt.clique_potentials_reference(plan, arrays, jt.arena_views(
+        plan, want0, torch.empty(plan.sepset_total, dtype=want.dtype, device="cuda"))[0])
+    shipped_potentials = (jt.ENTRIES_PER_BLOCK, jt.TABLE_BYTES)
+    for entries, table_bytes in POTENTIALS:
+        jt.ENTRIES_PER_BLOCK, jt.TABLE_BYTES = entries, table_bytes
+        plan = jt.build_plan(program)
+        ms, same = potential_time(plan, arrays, want0)
+        print(f"potentials ENTRIES_PER_BLOCK {entries} TABLE_BYTES {table_bytes} "
+              f"clique_potentials_ms {ms:.5f} blocks {plan.potential_blocks} shared_bytes "
+              f"{jt.potential_shared(plan)} equal_to_plain {same}", flush=True)
+    jt.ENTRIES_PER_BLOCK, jt.TABLE_BYTES = shipped_potentials
     shipped = (jt.MIN_WALK, jt.MAX_WALK, jt.MAX_BLOCK_WALK)
     for min_walk, max_walk in WALKS:
         jt.MIN_WALK, jt.MAX_WALK = min_walk, max_walk
@@ -143,9 +181,12 @@ def main():
             jt.ABSORB_ENTRIES = next(
                 (int(new.split("= ")[1].rstrip(";")) for old, new in VARIANTS[name]
                  if old.startswith("kAbsorbEntries")), shipped_entries)
-            sepset, absorb, gap = wave_times(jt.build_plan(program), arrays, want)
-            print(f"variant {name} turn {turn} sepset_ms {sepset:.5f} absorb_ms {absorb:.5f} "
-                  f"worst_rel {gap:.3e}", flush=True)
+            plan = jt.build_plan(program)
+            potentials, same = potential_time(plan, arrays, want0)
+            sepset, absorb, gap = wave_times(plan, arrays, want)
+            print(f"variant {name} turn {turn} clique_potentials_ms {potentials:.5f} sepset_ms "
+                  f"{sepset:.5f} absorb_ms {absorb:.5f} worst_rel {gap:.3e} potentials_equal "
+                  f"{same}", flush=True)
     return 0
 
 
