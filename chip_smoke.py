@@ -4,9 +4,10 @@
 
 Runs from the repository root and needs one CUDA card.  It
 
-1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu`` and
-   ``csrc/jt_calibrate.cu``, one after the other, each build's time and what
-   ptxas says of each kernel logged), and holds both count entry points
+1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu``,
+   ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu`` and ``csrc/ancestral.cu``,
+   one ``nvcc`` each, started together, each build's time and what ptxas says
+   of each kernel logged), and holds both count entry points
    against their plain PyTorch versions on the card: ``weighted_bincount``
    on index vectors, ``table_counts`` on MUNIN's 1041 (node, parents) tables
    over the 50,000-row code matrix;
@@ -33,9 +34,12 @@ Runs from the repository root and needs one CUDA card.  It
    against the junction-tree identities and the port's own CPU run, and the
    queries against the CPU run;
 4. drives simulate -> fit -> predict at the same width: ``model.simulate``
-   draws 52,048 rows of the true MUNIN on the card (state frequencies against
-   the exact marginals of a calibrated junction tree; the same seed twice
-   gives equal codes), a fresh network is fitted on the first 50,000 (one
+   draws 52,048 rows of the true MUNIN on the card in ONE launch of the
+   ancestral sweep kernel (K5, ``csrc/ancestral.cu``; state frequencies
+   against the exact marginals of a calibrated junction tree; the same seed
+   twice gives equal codes; ``forward`` and ``likelihood_weighted`` one launch
+   each; the kernel against its plain version on explicit noise at 4,096 rows,
+   codes and log weights equal to the bit, and timed), a fresh network is fitted on the first 50,000 (one
    table-count launch), ``predict`` and ``predict_probability`` fill three
    dropped columns of the last 2,048 rows (against a numpy float64 oracle
    computed from the fitted CPD tables, and against the CPU run), one
@@ -74,12 +78,16 @@ Runs from the repository root and needs one CUDA card.  It
    ``chi2_contingency`` per slice), the bench's skeleton on 2,000 rows, GES
    with BIC on 2,000 ALARM rows and MMHC on 2,000 SACHS rows (both against
    the CPU run), and ``log_likelihood_score`` of the fitted MUNIN on its
-   50,000 rows against a numpy float64 gather-sum, with ``DAG.validate``;
+   50,000 rows (one launch of K13's ``row_sums`` kernel, ``csrc/table_gather.cu``,
+   on int8 codes; against a numpy float64 gather-sum and, at rtol 1e-5, the
+   plain version, and timed), with ``DAG.validate``;
 9. drives the latent-variable lane (``phase_latent``): ``NaiveBayes`` on
    MUNIN's 50,000 rows with DIFFN_PATHO (5 states) as the class (one launch,
    every table against ``np.bincount``; ``predict_probability`` of 2,048
    rows against a numpy float64 log-space oracle), ``ExpectationMaximization``
-   with DIFFN_PATHO latent (one iteration against numpy float64, the
+   with DIFFN_PATHO latent (one E-step launch per iteration, K11's ``e_step``
+   kernel over the 250,000 expanded rows, held at atol 1e-6 against its plain
+   version and timed; one iteration against numpy float64, the
    observed-data log-likelihood along 1, 3 and 10 iterations, the same seed
    twice), ``MirrorDescentEstimator`` on ALARM's junction tree fitted to
    50,000 simulated rows (100 iterations with the line search, against the
@@ -138,8 +146,10 @@ Runs from the repository root and needs one CUDA card.  It
    there are two);
 15. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
-   where one PyTorch call computes the same function, that call's time), and,
-   as the last line, ``{"ok": true, "device": {...}}``.
+   where one PyTorch call computes the same function, that call's time; K5's,
+   K11's and K13's launches counted on the path that drives each: simulate ->
+   fit -> predict, the latent lane, constraint-based learning), and, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device it exits with code 1 before doing anything.
@@ -217,24 +227,56 @@ def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
 
 
 def reset_launches():
-    """Zero the launch counters of both kernel sources (K1 and K2)."""
+    """Zero the launch counters of every kernel source (K1, K2, K5, K11, K13)."""
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.ops import jt
 
     bc.reset_launches()
     jt.reset_launches()
+    reset_gather_launches()
 
 
 # path -> launches of each K2 kernel in that path's counted run
 JT_PATH_LAUNCHES = {}
+# K5, K11 and K13: kernel row name -> (source, the JAX function it replaces,
+# the path that drives it)
+GATHER_KERNELS = {
+    "ancestral/sweep": ("pgmpy_tpu_torch/csrc/ancestral.cu", "pgmpy_tpu/sampling/core.py:173",
+                        "simulate_fit_predict"),
+    "table_gather/row_sums": ("pgmpy_tpu_torch/csrc/table_gather.cu",
+                              "pgmpy_tpu/metrics/bn_inference.py:24", "constraint"),
+    "table_gather/e_step": ("pgmpy_tpu_torch/csrc/table_gather.cu",
+                            "pgmpy_tpu/estimators/em.py:186", "latent"),
+}
+# path -> launches of each K5 / K11 / K13 kernel in that path's counted run
+GATHER_PATH_LAUNCHES = {}
+# kernel row name -> its check against the plain version and its timings
+GATHER_ROWS = {}
+
+
+def gather_launches():
+    """The launch counters of the K5, K11 and K13 kernels, by row name."""
+    from pgmpy_tpu_torch.ops import ancestral, table_gather
+
+    return {"ancestral/sweep": ancestral.LAUNCHES,
+            "table_gather/row_sums": table_gather.LAUNCHES["row_sums"],
+            "table_gather/e_step": table_gather.LAUNCHES["e_step"]}
+
+
+def reset_gather_launches():
+    from pgmpy_tpu_torch.ops import ancestral, table_gather
+
+    ancestral.reset_launches()
+    table_gather.reset_launches()
 
 
 def record_jt(path):
     """Keep the K2 kernels' launch counts of ``path``'s counted run (read
-    where the path's K1 counts are read)."""
+    where the path's K1 counts are read), and the K5 / K11 / K13 kernels'."""
     from pgmpy_tpu_torch.ops import jt
 
     JT_PATH_LAUNCHES[path] = dict(jt.LAUNCHES)
+    GATHER_PATH_LAUNCHES[path] = gather_launches()
 
 
 def bound(nbytes, operations):
@@ -1114,6 +1156,7 @@ def phase_simulate_predict(model, context):
     from pgmpy_tpu_torch.estimators import BayesianEstimator
     from pgmpy_tpu_torch.inference import ApproxInference, BeliefPropagation, VariableElimination
     from pgmpy_tpu_torch.models import DiscreteBayesianNetwork
+    from pgmpy_tpu_torch.ops import ancestral
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.sampling import BayesianModelSampling
     from pgmpy_tpu_torch.utils.interop import bn_from_numpy
@@ -1122,16 +1165,28 @@ def phase_simulate_predict(model, context):
     nodes = sorted(model.nodes(), key=str)
     n_sim = N_ROWS + BATCH_ROWS
 
-    # ---- 1. simulate on the card
+    # ---- 1. simulate on the card.  K5's launches are counted over the whole
+    # path, from here; K1's and K2's from the fit, as before
+    reset_gather_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     df = model.simulate(n_samples=n_sim, seed=SEED, show_progress=False)
     torch.cuda.synchronize()
     simulate_first_s = time.time() - t0
+    check(ancestral.LAUNCHES == 1, f"simulate made {ancestral.LAUNCHES} sweep launches")
     simulate_s = host_median_s(
         lambda: model.simulate(n_samples=n_sim, seed=SEED, show_progress=False))
     sampler = BayesianModelSampling(model).sampler  # the one simulate compiled
+    before = ancestral.LAUNCHES
     device_codes = sampler.forward(n_sim, seed=SEED)
+    check(ancestral.LAUNCHES == before + 1,
+          f"forward made {ancestral.LAUNCHES - before} sweep launches")
+    leaf = sampler.variables[-1]
+    before = ancestral.LAUNCHES
+    lw_codes, lw_logw = sampler.likelihood_weighted(BATCH_ROWS, {leaf: 0}, seed=SEED)
+    check(ancestral.LAUNCHES == before + 1 and lw_codes.is_cuda
+          and bool((lw_codes[:, -1] == 0).all()) and bool(torch.isfinite(lw_logw).all()),
+          f"likelihood_weighted made {ancestral.LAUNCHES - before} sweep launches")
     check(device_codes.is_cuda and tuple(device_codes.shape) == (n_sim, len(nodes)),
           f"simulate codes on {device_codes.device}, shape {tuple(device_codes.shape)}")
     check(device_codes.dtype == torch.int8, f"simulate codes are {device_codes.dtype}")
@@ -1169,6 +1224,7 @@ def phase_simulate_predict(model, context):
     fitted = DiscreteBayesianNetwork()
     fitted.add_nodes_from(model.nodes())
     fitted.add_edges_from(model.edges())
+    carried = gather_launches()
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1293,6 +1349,11 @@ def phase_simulate_predict(model, context):
     log(f"approx_inference query={a_var} evidence={root}={root_state} samples={N_ROWS} "
         f"approx_s {approx_s:.4f} max_abs_err {float(np.abs(got - exact).max()):.3e} "
         f"(limit 5*sqrt(p(1-p)/n)+1e-4)")
+    GATHER_PATH_LAUNCHES["simulate_fit_predict"] = {
+        name: carried[name] + count for name, count in gather_launches().items()}
+    log(f"simulate_path sweep_launches {GATHER_PATH_LAUNCHES['simulate_fit_predict']} (simulate "
+        f"and forward: one each; likelihood_weighted: one)")
+    GATHER_ROWS["ancestral/sweep"] = k5_kernel_row(sampler, n_sim)
     return table_launches, bincount_launches
 
 
@@ -2174,6 +2235,7 @@ def phase_constraint(fitted_munin, munin_df):
     from pgmpy_tpu_torch.estimators import BIC, GES, PC, MmhcEstimator, ScoreCache, citests
     from pgmpy_tpu_torch.metrics import BayesianModelProbability, log_likelihood_score
     from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.ops import table_gather
     from pgmpy_tpu_torch.utils import get_example_model
 
     alarm = get_example_model("alarm")
@@ -2263,8 +2325,11 @@ def phase_constraint(fitted_munin, munin_df):
     mmhc_launches = bc.TABLE_LAUNCHES - before
     mmhc_skel, mmpc_s, mmpc_launches = mmpc_runs[-1]
     t0 = time.time()
+    before = table_gather.LAUNCHES["row_sums"]
     loglik = log_likelihood_score(fitted_munin, munin_df)
     loglik_first_s = time.time() - t0
+    check(table_gather.LAUNCHES["row_sums"] == before + 1,
+          f"log_likelihood_score made {table_gather.LAUNCHES['row_sums'] - before} K13 launches")
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
     record_jt("constraint")
     log(f"constraint_path table_count_launches {table_launches} (PC {pc_launches}, PC skeleton "
@@ -2389,13 +2454,17 @@ def phase_constraint(fitted_munin, munin_df):
 
     # ---- K13 on MUNIN: per row and in total against numpy float64
     prob = BayesianModelProbability(fitted_munin)
+    before = table_gather.LAUNCHES["row_sums"]
     rows = prob.log_probability(munin_df)
+    check(table_gather.LAUNCHES["row_sums"] == before + 1,
+          f"log_probability made {table_gather.LAUNCHES['row_sums'] - before} K13 launches")
     want = numpy_log_probability(fitted_munin, munin_df)
     row_err = float((np.abs(rows - want) / np.abs(want)).max())
     total_err = abs(loglik - want.sum()) / abs(want.sum())
     check(np.all(np.isfinite(rows)) and row_err <= 1e-5, f"k13: per-row error {row_err}")
     check(total_err <= 1e-6, f"k13: total {loglik} against numpy {want.sum()} ({total_err})")
     codes = prob._encode(munin_df)
+    check(codes.dtype == torch.int8, f"k13: the frame was coded as {codes.dtype}")
     torch.cuda.synchronize()
     encode_s = host_median_s(lambda: prob._encode(munin_df))
     logp_s = host_median_s(lambda: prob._logp(codes))
@@ -2414,6 +2483,7 @@ def phase_constraint(fitted_munin, munin_df):
           and abs(values["log-likelihood"] - loglik) <= 1e-6 * abs(loglik),
           f"DAG.validate: {values}")
     log(f"validate_munin ok log-likelihood {values['log-likelihood']:.6f} bic {values['bic']:.6f}")
+    GATHER_ROWS["table_gather/row_sums"] = k13_kernel_row(prob, codes)
     check(config.DEVICE.type == "cuda", "device left on the CPU")
     return (table_launches, bincount_launches), level1
 
@@ -2545,6 +2615,7 @@ def phase_latent(model, df, host_codes):
     from pgmpy_tpu_torch.inference.bp import JunctionTreeProgram
     from pgmpy_tpu_torch.models import DiscreteBayesianNetwork, NaiveBayes
     from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.ops import table_gather
     from pgmpy_tpu_torch.utils import get_example_model
     from pgmpy_tpu_torch.utils.interop import bn_from_numpy
 
@@ -2606,6 +2677,7 @@ def phase_latent(model, df, host_codes):
     nb_first_s = time.time() - t0
 
     before = bc.TABLE_LAUNCHES
+    e_step_before = table_gather.LAUNCHES["e_step"]
     em = ExpectationMaximization(DiscreteBayesianNetwork(list(model.edges()), latents={LATENT}),
                                  em_data, state_names=em_states)
     torch.cuda.synchronize()
@@ -2614,6 +2686,7 @@ def phase_latent(model, df, host_codes):
     torch.cuda.synchronize()
     em10_s = time.time() - t0
     em_launches = bc.TABLE_LAUNCHES - before
+    e_step_launches = table_gather.LAUNCHES["e_step"] - e_step_before
 
     JunctionTreeProgram.calibrate = counting_calibrate
     try:
@@ -2703,6 +2776,7 @@ def phase_latent(model, df, host_codes):
 
     # ---- EM: one iteration against numpy, the ascent, the same seed twice
     check(em_launches == 10, f"EM: {em_launches} launches in 10 iterations")
+    check(e_step_launches == 10, f"EM: {e_step_launches} E-step launches in 10 iterations")
     torch.cuda.synchronize()
     t0 = time.time()
     em1 = em.get_parameters(max_iter=1, **em_kwargs)
@@ -2754,7 +2828,7 @@ def phase_latent(model, df, host_codes):
         f"{program.coded.n} em_iter_s {em_iter_s:.4f} (median of 5; calls of 10 iterations "
         f"{em10b_s:.3f} s, of 1 {em1_s:.3f} s, the first of 10 {em10_s:.3f} s) kernels_per_iteration {kernels:.0f} device_ms_per_iteration "
         f"{device_ms:.4f} idle_share {1 - device_ms / (em_iter_s * 1e3):.4f} launches_per_iteration "
-        f"1 e_step_chunks {-(-len(em_data) // program.chunk_rows)}; by name "
+        f"1 (M-step) + 1 (E-step) e_step_launches_in_10_iterations {e_step_launches}; by name "
         f"{sum(c for c, _ in by_name.values())} kernels "
         f"{sum(us for _, us in by_name.values()) / 1e3:.4f} ms: "
         + "; ".join(f"{n[:50]} x{c} {us:.1f}us" for n, (c, us) in list(by_name.items())[:8]))
@@ -2764,6 +2838,7 @@ def phase_latent(model, df, host_codes):
         f"within {repeat:.3e} after 3 iterations (limit 1e-5) and {repeat10:.3e} after 10")
     em_row = k1_shape_row("em_mstep_weighted", program.coded._column_codes(), program.coded.n,
                           program.specs, weights)
+    GATHER_ROWS["table_gather/e_step"] = k11_kernel_row(program, prob)
     nb_row = k1_shape_row("naive_bayes_fit", coded._column_codes(), coded.n, table)
     del program, weights, prob
 
@@ -4329,16 +4404,142 @@ def phase_parallel(model, context):
     return launches, row, moments_launches
 
 
+# --------------------------------------------------------------------------- #
+# K5, K11 and K13: the ancestral sweep and the two table-gather entry points,
+# each against its plain version at MUNIN's width, timed beside its bound
+# --------------------------------------------------------------------------- #
+K5_NOISE_ROWS = 4096
+# operations per (row, drawn state) of the sweep: a quarter of a Philox-4x32-10
+# block (10 rounds of 2 high and 2 low multiplies, 4 xors and 2 key adds), the
+# uniform, two logarithms, a max, a subtraction and a comparison
+K5_OPS_PER_STATE = 25 + 7
+
+
+def k5_kernel_row(sampler, n_sim):
+    """K5 on MUNIN: the kernel against its plain version on explicit noise
+    (4,096 rows; a plain draw, evidence on the last node, and clamps with
+    partial codes: codes and log weights equal to the bit), its device time
+    at the simulate shape (``n_sim`` rows, Philox from a generator; median of
+    20 behind a device sleep), the plain version's (CUDA events around its
+    eager ops, median of 5) and the card's bound."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.ops import ancestral
+    from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+
+    sweep = sampler._sweep_tables
+    d, n = len(sweep.cards), K5_NOISE_ROWS
+    noise = race_noise((sum(sweep.cards), n), seeded_generator(SEED), config.DTYPE)
+    rng = np.random.default_rng(SEED)
+    roots = [i for i, (parents, _, _) in enumerate(sampler._node_specs) if not parents]
+    given = np.full(d, -1)
+    given[roots[:2]] = 0
+    partial = np.stack([rng.integers(0, c, n) for c in sweep.cards], axis=1)
+    partial[rng.random(partial.shape) < 0.9] = -1
+    partial = torch.as_tensor(partial, device=sweep.device)
+    for case, kwargs in (("draw", {}), ("evidence", {"evidence": {d - 1: 0}}),
+                         ("clamp_partial", {"given": given, "partial": partial})):
+        got = ancestral.sweep_cuda(sweep, n, None, noise=noise, **kwargs)
+        want = ancestral.sweep_reference(sweep, n, None, noise=noise, **kwargs)
+        check(torch.equal(got[0], want[0]), f"k5 {case}: the kernel's codes differ from the "
+                                            f"plain version's on the same noise")
+        check(got[1] is None if "evidence" not in kwargs else torch.equal(got[1], want[1]),
+              f"k5 {case}: the kernel's log weights differ from the plain version's")
+    gen = seeded_generator(SEED)
+    ms = cuda_median_ms(lambda: ancestral.sweep_cuda(sweep, n_sim, gen), device_only=True)
+    plain_ms = cuda_median_ms(lambda: ancestral.sweep_reference(sweep, n_sim, gen), reps=5,
+                              warmup=1)
+    nbytes = n_sim * d * sampler._out_dtype.itemsize + 4 * sweep.total + sweep.nodes.nbytes
+    bound_ms, bound_by = bound(nbytes, n_sim * sum(sweep.cards) * K5_OPS_PER_STATE)
+    log(f"k5 sweep rows={n_sim} nodes={d} states={sum(sweep.cards)} codes={sampler._out_dtype} "
+        f"explicit-noise checks at {n} rows (draw, evidence, clamps and partial codes): codes and "
+        f"log weights equal to the bit; kernel_ms={ms:.5f} (device time, Philox, median of 20) "
+        f"plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{K5_OPS_PER_STATE} operations per row and state, the codes written once: "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: none")
+    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def gather_bytes(gather, codes, table, out_elem):
+    """Bytes a table-gather launch must move: every code column it reads and
+    the table once, its output once, the node table."""
+    used = np.unique(np.concatenate([c.cpu().numpy() for c, _, _ in gather.groups]))
+    n = codes.shape[1]
+    return (used.size * n * codes.element_size() + table.numel() * table.element_size()
+            + n * out_elem + gather.nodes.nbytes)
+
+
+def gather_operations(gather, n_rows):
+    """A multiply-add per (row, code read) and an add per (row, node)."""
+    per_row = int((gather.nodes[:, 1].astype(np.int64) * 2 + 1).sum())
+    return per_row * n_rows
+
+
+def k13_kernel_row(prob, codes):
+    """K13 on MUNIN's rows: ``row_sums`` against its plain version (rtol
+    1e-5: the kernel sums in float64 and rounds once, the plain version sums
+    float32 group by group), device times of both (median of 20 behind a
+    device sleep) and the card's bound."""
+    gather, table = prob._gather, prob._table
+    got = gather.row_sums_cuda(table, codes)
+    want = gather.row_sums_reference(table, codes)
+    err = float((got.double() - want.double()).abs().max())
+    rel = float(((got.double() - want.double()).abs() / want.double().abs()).max())
+    check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
+          f"k13: the kernel is {rel} (relative) from the plain version")
+    ms = cuda_median_ms(lambda: gather.row_sums_cuda(table, codes), device_only=True)
+    plain_ms = cuda_median_ms(lambda: gather.row_sums_reference(table, codes), device_only=True)
+    bound_ms, bound_by = bound(gather_bytes(gather, codes, table, got.element_size()),
+                               gather_operations(gather, codes.shape[1]))
+    log(f"k13 row_sums rows={codes.shape[1]} nodes={gather.nodes.shape[0]} codes={codes.dtype} "
+        f"table={table.dtype} max_abs_err={err:.3e} max_rel_err={rel:.3e} (limit 1e-5) "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (device time, median of 20) "
+        f"bound_ms={bound_ms:.6f} ({bound_by}) library: none")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def k11_kernel_row(program, prob):
+    """K11 on MUNIN with DIFFN_PATHO latent: ``e_step`` against its plain
+    version (atol 1e-6: both take the softmax in float64 and round the weights
+    to float32 once; the float64 sums differ in order only), device times of
+    both (median of 20 behind a device sleep) and the card's bound."""
+    from pgmpy_tpu_torch.config import TINY
+
+    gather, K = program.gather, program.K
+    table = torch.log(torch.clamp_min(prob, TINY).to(torch.float64))
+    codes = program.coded._column_codes()[:, : program.coded.n]
+    got = gather.e_step_cuda(table, codes, K, prob.dtype)
+    want = gather.e_step_reference(table, codes, K, prob.dtype)
+    err = float((got.double() - want.double()).abs().max())
+    check(got.shape == want.shape and err <= 1e-6,
+          f"k11: the E-step kernel is {err} from the plain version")
+    ms = cuda_median_ms(lambda: gather.e_step_cuda(table, codes, K, prob.dtype), device_only=True)
+    plain_ms = cuda_median_ms(lambda: gather.e_step_reference(table, codes, K, prob.dtype),
+                              device_only=True)
+    bound_ms, bound_by = bound(gather_bytes(gather, codes, table, got.element_size()),
+                               gather_operations(gather, codes.shape[1]))
+    log(f"k11 e_step expanded_rows={codes.shape[1]} K={K} nodes={gather.nodes.shape[0]} "
+        f"codes={codes.dtype} weights={got.dtype} max_abs_err={err:.3e} (limit 1e-6) "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (device time, median of 20) "
+        f"bound_ms={bound_ms:.6f} ({bound_by}) library: none")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def ptxas_summary(text):
     """One line per kernel of ``nvcc -Xptxas -v``'s output: registers,
     shared memory, stack and spills."""
     import re
 
-    types = {"f": "float", "d": "double"}
+    types = {"f": "float", "d": "double", "a": "int8", "s": "int16", "i": "int32",
+             "l": "int64"}
     out, name = [], None
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '\w*?([a-z]+(?:_[a-z]+)*)I(\w*?)EEv", line)
-        if entry:
+        if entry and re.fullmatch(r"[fdasil]+", entry.group(2)):
+            name = entry.group(1) + "<" + ", ".join(types[t] for t in entry.group(2)) + ">"
+        elif entry:
             args = re.findall(r"Lb(\d)E|Li(\d+)E|^([fd])|(?<=E)([fd])", entry.group(2))
             name = entry.group(1) + "<" + ", ".join(
                 types.get(t or u, "") or ("true" if b == "1" else "false" if b else i)
@@ -4358,14 +4559,15 @@ def build_kernels():
     """Build every kernel source of the port at once (one nvcc per source,
     all started together), then load each, and log each build's time and
     what ptxas says of each kernel."""
-    from pgmpy_tpu_torch.ops import _build, bincount, jt
+    from pgmpy_tpu_torch.ops import _build, ancestral, bincount, jt, table_gather
 
     t0 = time.time()
-    _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"]})
-    for load in (bincount._library, jt._library):
+    _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"],
+                            "table_gather": ["table_gather.cu"], "ancestral": ["ancestral.cu"]})
+    for load in (bincount._library, jt._library, table_gather._library, ancestral._library):
         load()
-    log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu and csrc/jt_calibrate.cu, "
-        f"one nvcc each, started together)")
+    log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu, jt_calibrate.cu, "
+        f"table_gather.cu and ancestral.cu, one nvcc each, started together)")
     for name, built in _build.BUILDS.items():
         log(f"kernels_built {name} nvcc_s {built['seconds']:.2f}")
         for line in ptxas_summary(built["ptxas"]):
@@ -4488,6 +4690,21 @@ def main():
         })
     log("k2_launches_by_path " + " ".join(
         f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
+    # K5's, K13's and K11's rows: each kernel's launches on the path that
+    # drives it (set to 0 before that path and read after it), and on the others
+    for name, (source, replaces, path) in GATHER_KERNELS.items():
+        launches = GATHER_PATH_LAUNCHES[path][name]
+        check(launches > 0, f"the {path} path did not launch {name}")
+        result = GATHER_ROWS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "launches_counted_on": path, "max_abs_err": result["err"],
+            **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
+               if other != path},
+        })
+    log("k5_k11_k13_launches_by_path " + " ".join(
+        f"{path} {counts}" for path, counts in GATHER_PATH_LAUNCHES.items()))
     log(f"script_s {time.time() - started:.1f}")
     log(smi)  # again near the end, where a reader of the output's tail finds it
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,8 @@ Each iteration then runs on the device:
 * the E-step (K11): per expanded row the sum over nodes of
   ``log max(P(node | parents), TINY)`` (``ops/table_gather.py``, the gather
   K13 uses, with a node's term left out where its code or a parent's is
-  missing), then a softmax over the K latent states of each row.  The logs
+  missing), then a softmax over the K latent states of each row: on a card
+  ONE launch of the hand-written kernel (``csrc/table_gather.cu``).  The logs
   and their sum are float64: at MUNIN's width a row sums a thousand terms,
   and float32 would leave 1e-4 of error in the weights;
 * the M-step: ONE weighted ``table_counts`` launch (K1) for every CPD, the
@@ -19,9 +20,9 @@ Each iteration then runs on the device:
 The host reads one scalar per iteration, the change.  The ``TabularCPD``s are
 built once, at the end, as views of the last flat table.
 
-``batch_size`` only bounds the E-step's memory: the rows are taken in chunks
-of at least ``batch_size``, as many as half the card's free memory (1 GiB on
-the CPU) holds, so one chunk whenever the expanded rows fit.
+``batch_size`` only bounds the plain E-step's memory on the CPU: the rows
+are taken in chunks of at least ``batch_size``, as many as 1 GiB holds (half
+the free memory on a card, where the kernel needs no chunks).
 """
 
 import itertools
@@ -124,14 +125,17 @@ class _EMProgram:
         return torch.cat(parts)
 
     def e_step(self, prob):
-        """``(n * K,)`` posterior weights of the latent states of each row."""
+        """``(n * K,)`` posterior weights of the latent states of each row:
+        one launch of the E-step kernel on a card (it keeps no temporaries),
+        chunks of ``chunk_rows`` rows through the plain version on the CPU."""
         log_table = torch.log(torch.clamp_min(prob, TINY).to(torch.float64))
         codes = self.coded._column_codes()
         K, weights = self.K, []
-        for r0 in range(0, self.n, self.chunk_rows):
-            r1 = min(self.n, r0 + self.chunk_rows)
-            lp = self.gather.row_sums(log_table, codes[:, r0 * K : r1 * K], missing=True)
-            weights.append(torch.softmax(lp.view(-1, K), dim=1).view(-1).to(prob.dtype))
+        chunk = self.n if codes.is_cuda else self.chunk_rows
+        for r0 in range(0, self.n, chunk):
+            r1 = min(self.n, r0 + chunk)
+            weights.append(self.gather.e_step(log_table, codes[:, r0 * K : r1 * K], K,
+                                              prob.dtype))
         return weights[0] if len(weights) == 1 else torch.cat(weights)
 
     def m_step(self, weights, apply_smoothing):

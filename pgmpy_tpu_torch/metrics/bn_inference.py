@@ -6,12 +6,12 @@ gathers one entry of the sampler's log table.  Here the sampler's log tables
 (``CompiledAncestralSampler._node_specs``, clamped at ``log(max(p, 1e-38))``
 as in the JAX package) are concatenated once into one flat vector on
 ``config.DEVICE``, and the per-row sum is ``ops/table_gather.py``'s
-``TableGather`` (shared with the E-step of ``ExpectationMaximization``): per
-parent-count group one column gather of the codes, the index arithmetic, one
-gather from the flat table and one sum, so a call makes a few kernels per
-group instead of several per node.  The codes are uploaded once, column-major;
-the per-row sum is in ``config.DTYPE`` on the device, the total in float64 on
-the host.
+``TableGather`` (shared with the E-step of ``ExpectationMaximization``): on a
+card ONE launch of the hand-written ``row_sums`` kernel
+(``csrc/table_gather.cu``), on the CPU its plain version.  The codes are
+uploaded once, column-major and int8 where the cardinalities allow; the
+per-row sum is in ``config.DTYPE`` on the device (the kernel accumulates in
+float64), the total in float64 on the host.
 """
 
 import numpy as np
@@ -58,10 +58,13 @@ class BayesianModelProbability:
         )
 
     def _encode(self, data):
-        """The frame's state codes as one ``(d, n)`` int64 tensor on
-        ``config.DEVICE``, one row per variable in the sampler's order.  A
-        value outside a variable's states raises ``ValueError``."""
-        codes = np.empty((len(self.sampler.variables), data.shape[0]), dtype=np.int64)
+        """The frame's state codes as one ``(d, n)`` tensor on
+        ``config.DEVICE``, one row per variable in the sampler's order, int8
+        when every cardinality is below 128 (the sampler's ``_out_dtype``),
+        else int32.  A value outside a variable's states raises
+        ``ValueError``."""
+        dtype = np.int8 if self.sampler._out_dtype == torch.int8 else np.int32
+        codes = np.empty((len(self.sampler.variables), data.shape[0]), dtype=dtype)
         for j, var in enumerate(self.sampler.variables):
             column = pd.Index(self.sampler.state_names[var]).get_indexer(data[var])
             if (column < 0).any():

@@ -10,9 +10,12 @@ and draws all n samples at once (Gumbel-max on noise from ONE explicit
 vectorization, no host round-trips.  Likelihood weighting accumulates
 ``log p(evidence | parents)`` in the same sweep.
 
-The sweep runs as eager torch ops, a handful per node.  The same seed gives
-the same codes on the same device; the CPU's and the GPU's random streams
-differ.
+On a card the sweep is ONE launch of the hand-written kernel of
+``csrc/ancestral.cu`` (``ops/ancestral.py``: a block's rows in shared memory,
+the nodes of each topological level drawn side by side, Philox noise keyed
+on one 64-bit draw from the generator); on the CPU its plain version, a
+handful of torch ops per node.  The same seed gives the same
+codes on the same device; the CPU's and the GPU's random streams differ.
 """
 
 import itertools
@@ -22,7 +25,8 @@ import numpy as np
 import torch
 
 from pgmpy_tpu_torch.config import config, to_numpy
-from pgmpy_tpu_torch.utils.mathext import categorical_draw, seeded_generator
+from pgmpy_tpu_torch.ops import ancestral
+from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
 
 def onehot_table_rows(table, idx, n, max_rows=None, max_elems=None):
@@ -76,6 +80,7 @@ class CompiledAncestralSampler:
         self._out_dtype = (
             torch.int8 if max(self.cards, default=2) < 128 else torch.int32
         )
+        self._sweep_tables = ancestral.SweepTables(self._node_specs, self.cards, self._out_dtype)
 
     # ------------------------------------------------------------------ #
     # reference BayesianModelInference surface: host-side CPD slicing tables
@@ -130,49 +135,12 @@ class CompiledAncestralSampler:
         return state_to_index, index_to_weight
 
     # ------------------------------------------------------------------ #
-    @staticmethod
-    def _parent_flat(columns, parent_idx, strides):
-        """Flat parent-configuration index per row (int64)."""
-        flat = None
-        for pi, st in zip(parent_idx, strides):
-            term = columns[pi] if st == 1 else columns[pi] * st
-            flat = term if flat is None else flat + term
-        return flat
-
-    def _sweep(self, n, gen, given=None, partial=None, evidence=None):
-        """One pass over the topological order; returns (codes, log weights).
-
-        given: (d,) host ints, -1 = sample, >=0 = clamp to that state for all
-        rows (root evidence / do).  partial: (n, d) device ints, entries >= 0
-        replace the draw for that row BEFORE children are sampled, so
-        descendants condition on the supplied values; clamps take precedence.
-        evidence: {node position: state}: the node is fixed to the state and
-        ``log p(state | parents)`` is added to the row's log weight.
-        """
-        device = config.DEVICE
-        evidence = evidence or {}
-        columns = [None] * len(self.variables)
-        logw = torch.zeros(n, dtype=config.DTYPE, device=device) if evidence else None
-        for i, (parent_idx, strides, log_table) in enumerate(self._node_specs):
-            clamped = given is not None and given[i] >= 0
-            if clamped or i in evidence:
-                state = int(given[i]) if clamped else evidence[i]
-                columns[i] = torch.full((n,), state, dtype=torch.int64, device=device)
-                if clamped:
-                    continue
-            if parent_idx:
-                flat = self._parent_flat(columns, parent_idx, strides)
-                logits = onehot_table_rows(log_table, flat, n)  # (n, card)
-            else:
-                logits = log_table[0].expand(n, -1)
-            if i in evidence:
-                logw = logw + logits[:, evidence[i]]
-                continue
-            draw = categorical_draw(logits, gen)
-            if partial is not None:
-                draw = torch.where(partial[:, i] >= 0, partial[:, i], draw)
-            columns[i] = draw
-        return torch.stack(columns, dim=1).to(self._out_dtype), logw
+    def _sweep(self, n, gen, given=None, partial=None, evidence=None, noise=None):
+        """One pass over the topological order; returns (codes, log weights):
+        ONE launch of the sweep kernel on a card, the plain version on the
+        CPU (``ops/ancestral.py``, where the arguments are described)."""
+        return ancestral.sweep(self._sweep_tables, n, gen, given=given, partial=partial,
+                               evidence=evidence, noise=noise)
 
     # ------------------------------------------------------------------ #
     def forward(self, n, seed=None, clamp=None, partial=None):
