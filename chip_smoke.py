@@ -5,7 +5,8 @@
 Runs from the repository root and needs one CUDA card.  It
 
 1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu``,
-   ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu`` and ``csrc/ancestral.cu``,
+   ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu``, ``csrc/ancestral.cu``
+   and ``csrc/gibbs.cu``,
    one ``nvcc`` each, started together, each build's time and what ptxas says
    of each kernel logged), and holds both count entry points
    against their plain PyTorch versions on the card: ``weighted_bincount``
@@ -47,10 +48,13 @@ Runs from the repository root and needs one CUDA card.  It
    contraction stays under a memory guard (against BeliefPropagation), and
    ``ApproxInference`` answers one query from 50,000 draws;
 5. drives the MCMC lane (``phase_mcmc``): Gibbs on MUNIN (4,096 chains started
-   from ancestral samples, 5 sweeps over all 1041 variables: the local
+   from ancestral samples, 5 sweeps over all 1041 variables, each sweep one
+   launch of the Gibbs sweep kernel, K6, ``csrc/gibbs.cu``: the local
    conditionals against a numpy float64 oracle and the CPU run, every state
    still possible after every sweep, the same seed twice, a run checkpointed
-   after 2 sweeps and resumed), Gibbs on HEPAR2 (10,000 chains x 120 sweeps
+   after 2 sweeps and resumed; the kernel against its plain version on
+   explicit noise, MUNIN and ALARM's Markov model at 4,096 chains, codes
+   equal to the bit, and timed), Gibbs on HEPAR2 (10,000 chains x 120 sweeps
    against the exact marginals of a calibrated junction tree), and on the
    46-dimensional linear-Gaussian network ecoli70 ``VectorizedNUTS`` with
    1,024 chains and ``HamiltonianMCDA`` with 64 (moments against the
@@ -58,8 +62,12 @@ Runs from the repository root and needs one CUDA card.  It
 6. drives the temporal lane (``phase_temporal``): the particle filter on the
    rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
    as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
-   three leaves observed in every slice), each slice's weighted marginals one
-   launch of ``table_counts``; the filtered marginals against
+   three leaves observed in every slice), each slice one launch of the sweep
+   kernel reading the previous slice (K9, ``csrc/ancestral.cu``; held to
+   its plain version on explicit noise at one ALARM slice, codes and log
+   weights equal to the bit, and timed beside the slice's library calls) and
+   its weighted marginals one launch of ``table_counts``; the filtered
+   marginals against
    ``DBNInference.forward_scan`` on the card, ``forward_scan`` against the CPU
    run; ``DynamicBayesianNetwork.simulate`` and ``fit`` (one launch per pair
    of slices);
@@ -227,7 +235,8 @@ def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
 
 
 def reset_launches():
-    """Zero the launch counters of every kernel source (K1, K2, K5, K11, K13)."""
+    """Zero the launch counters of every kernel source (K1, K2, K5 with K9,
+    K6, K11, K13)."""
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.ops import jt
 
@@ -238,41 +247,49 @@ def reset_launches():
 
 # path -> launches of each K2 kernel in that path's counted run
 JT_PATH_LAUNCHES = {}
-# K5, K11 and K13: kernel row name -> (source, the JAX function it replaces,
-# the path that drives it)
+# K5, K9, K6, K11 and K13: kernel row name -> (source, the JAX function it
+# replaces, the path that drives it)
 GATHER_KERNELS = {
     "ancestral/sweep": ("pgmpy_tpu_torch/csrc/ancestral.cu", "pgmpy_tpu/sampling/core.py:173",
                         "simulate_fit_predict"),
+    "ancestral/particle_sweep": ("pgmpy_tpu_torch/csrc/ancestral.cu",
+                                 "pgmpy_tpu/sampling/smc.py:101", "temporal"),
+    "gibbs/sweep": ("pgmpy_tpu_torch/csrc/gibbs.cu", "pgmpy_tpu/sampling/gibbs.py:148", "mcmc"),
     "table_gather/row_sums": ("pgmpy_tpu_torch/csrc/table_gather.cu",
                               "pgmpy_tpu/metrics/bn_inference.py:24", "constraint"),
     "table_gather/e_step": ("pgmpy_tpu_torch/csrc/table_gather.cu",
                             "pgmpy_tpu/estimators/em.py:186", "latent"),
 }
-# path -> launches of each K5 / K11 / K13 kernel in that path's counted run
+# path -> launches of each K5 / K9 / K6 / K11 / K13 kernel in that path's counted run
 GATHER_PATH_LAUNCHES = {}
 # kernel row name -> its check against the plain version and its timings
 GATHER_ROWS = {}
 
 
 def gather_launches():
-    """The launch counters of the K5, K11 and K13 kernels, by row name."""
-    from pgmpy_tpu_torch.ops import ancestral, table_gather
+    """The launch counters of the K5, K9, K6, K11 and K13 kernels, by row
+    name."""
+    from pgmpy_tpu_torch.ops import ancestral, gibbs, table_gather
 
     return {"ancestral/sweep": ancestral.LAUNCHES,
+            "ancestral/particle_sweep": ancestral.PARTICLE_LAUNCHES,
+            "gibbs/sweep": gibbs.LAUNCHES,
             "table_gather/row_sums": table_gather.LAUNCHES["row_sums"],
             "table_gather/e_step": table_gather.LAUNCHES["e_step"]}
 
 
 def reset_gather_launches():
-    from pgmpy_tpu_torch.ops import ancestral, table_gather
+    from pgmpy_tpu_torch.ops import ancestral, gibbs, table_gather
 
     ancestral.reset_launches()
+    gibbs.reset_launches()
     table_gather.reset_launches()
 
 
 def record_jt(path):
     """Keep the K2 kernels' launch counts of ``path``'s counted run (read
-    where the path's K1 counts are read), and the K5 / K11 / K13 kernels'."""
+    where the path's K1 counts are read), and the K5 / K9 / K6 / K11 / K13
+    kernels'."""
     from pgmpy_tpu_torch.ops import jt
 
     JT_PATH_LAUNCHES[path] = dict(jt.LAUNCHES)
@@ -1423,6 +1440,8 @@ def moments_check(name, got_mean, got_sd, mean, cov, n_effective):
 
 
 def phase_gibbs_munin(model):
+    """Gibbs on MUNIN; returns the sampler and its 4,096 start states."""
+    from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
     from pgmpy_tpu_torch.sampling import (BayesianModelSampling, GibbsSampling,
                                           load_sampler_state, save_sampler_state)
     from pgmpy_tpu_torch.utils.interop import bn_from_numpy
@@ -1486,10 +1505,13 @@ def phase_gibbs_munin(model):
 
     # ---- the run, and what must hold of it
     torch.cuda.synchronize()
+    launches = gibbs_ops.LAUNCHES
     t0 = time.time()
     traj = compiled._run_chains(seeded_generator(SEED), GIBBS_SWEEPS, init)
     torch.cuda.synchronize()
     run_s = time.time() - t0
+    check(gibbs_ops.LAUNCHES - launches == GIBBS_SWEEPS,
+          f"gibbs: {gibbs_ops.LAUNCHES - launches} sweep launches for {GIBBS_SWEEPS} sweeps")
     check(traj.is_cuda and traj.dtype == torch.int8
           and tuple(traj.shape) == (GIBBS_SWEEPS, GIBBS_CHAINS, len(variables)),
           f"gibbs trajectory {traj.dtype} {tuple(traj.shape)} on {traj.device}")
@@ -1524,16 +1546,21 @@ def phase_gibbs_munin(model):
 
     # ---- timings of one sweep
     gen = seeded_generator(SEED)
-    sweep_s = host_median_s(lambda: compiled._sweep(states, gen))
-    kernels, device_ms = profiled(lambda: compiled._sweep(states, gen))
+    out = torch.empty_like(init)
+    sweep_s = host_median_s(lambda: compiled._sweep(init, gen, out=out))
+    kernels, device_ms = profiled(lambda: compiled._sweep(init, gen, out=out))
     log(f"gibbs_munin chains={GIBBS_CHAINS} sweeps={GIBBS_SWEEPS} run_s {run_s:.4f} "
         f"sweep_s {sweep_s:.4f} (median of 3) gibbs_chain_sweeps_per_s "
-        f"{GIBBS_CHAINS / sweep_s:.1f} kernels_per_sweep {kernels:.0f} device_ms "
-        f"{device_ms:.3f} idle_share_of_sweep {1 - device_ms / (sweep_s * 1e3):.3f}")
+        f"{GIBBS_CHAINS / sweep_s:.1f} kernels_per_sweep {kernels:.0f} (the key's draw and the "
+        f"sweep kernel; 13,714 eager kernels before K6) device_ms {device_ms:.3f} "
+        f"idle_share_of_sweep {1 - device_ms / (sweep_s * 1e3):.3f} levels "
+        f"{compiled._tables.n_levels} groups {compiled._tables.groups}")
+    return gibbs, init
 
 
 def phase_gibbs_hepar2():
     from pgmpy_tpu_torch.inference import BeliefPropagation
+    from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
     from pgmpy_tpu_torch.sampling import GibbsSampling
     from pgmpy_tpu_torch.utils import get_example_model
 
@@ -1542,10 +1569,13 @@ def phase_gibbs_hepar2():
     check(smallest > 0, "hepar2 has a zero CPD entry: the Gibbs chain may be reducible")
     gibbs = GibbsSampling(model)
     torch.cuda.synchronize()
+    launches = gibbs_ops.LAUNCHES
     t0 = time.time()
     traj = gibbs.sample_chains(HEPAR_CHAINS, HEPAR_SWEEPS, seed=SEED)
     torch.cuda.synchronize()
     run_s = time.time() - t0
+    check(gibbs_ops.LAUNCHES - launches == HEPAR_SWEEPS,
+          f"hepar2 gibbs: {gibbs_ops.LAUNCHES - launches} sweep launches for {HEPAR_SWEEPS}")
     check(traj.is_cuda and tuple(traj.shape) == (HEPAR_SWEEPS, HEPAR_CHAINS, len(gibbs.variables)),
           f"hepar2 trajectory {tuple(traj.shape)} on {traj.device}")
     bp = BeliefPropagation(model)
@@ -1647,14 +1677,17 @@ def phase_mcmc(model):
     from pgmpy_tpu_torch.ops import bincount as bc
 
     reset_launches()
-    phase_gibbs_munin(model)
+    gibbs, init = phase_gibbs_munin(model)
     phase_gibbs_hepar2()
     phase_nuts_ecoli70()
     check(config.DEVICE.type == "cuda", "device left on the CPU")
-    log(f"mcmc_path table_count_launches {bc.TABLE_LAUNCHES} bincount_launches {bc.LAUNCHES} "
-        f"(no module of the lane counts)")
+    launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
     record_jt("mcmc")
-    return bc.TABLE_LAUNCHES, bc.LAUNCHES
+    log(f"mcmc_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
+        f"(no module of the lane counts) gibbs_sweep_launches "
+        f"{GATHER_PATH_LAUNCHES['mcmc']['gibbs/sweep']} (one per sweep)")
+    GATHER_ROWS["gibbs/sweep"] = k6_kernel_row(gibbs, init)
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -1770,6 +1803,7 @@ def phase_temporal():
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.inference import DBNInference
     from pgmpy_tpu_torch.models import DynamicBayesianNetwork
+    from pgmpy_tpu_torch.ops import ancestral
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.sampling.smc import ParticleFilter
     from pgmpy_tpu_torch.utils import get_example_model
@@ -1804,6 +1838,9 @@ def phase_temporal():
     alarm_first_s = time.time() - t0
     check(bc.TABLE_LAUNCHES == PF_SLICES + ALARM_SLICES,
           f"alarm filter made {bc.TABLE_LAUNCHES - PF_SLICES} count launches")
+    check(ancestral.PARTICLE_LAUNCHES == PF_SLICES + ALARM_SLICES,
+          f"the filters made {ancestral.PARTICLE_LAUNCHES} slice sweeps for "
+          f"{PF_SLICES + ALARM_SLICES} slices")
     t0 = time.time()
     frame = dbn.simulate(n_samples=DBN_SIM_ROWS, n_time_slices=DBN_SIM_SLICES, seed=SEED,
                          show_progress=False)
@@ -1832,7 +1869,9 @@ def phase_temporal():
           f"DynamicBayesianNetwork.fit made {fit_launches} count launches for "
           f"{DBN_SIM_SLICES - 1} slice pairs")
     log(f"temporal_path table_count_launches {table_launches} (rain filter {PF_SLICES}, alarm "
-        f"filter {ALARM_SLICES}, dbn fit {fit_launches}) bincount_launches {bincount_launches}")
+        f"filter {ALARM_SLICES}, dbn fit {fit_launches}) bincount_launches {bincount_launches} "
+        f"slice_sweep_launches {GATHER_PATH_LAUNCHES['temporal']['ancestral/particle_sweep']} "
+        f"(one per slice)")
 
     # ---- rain / umbrella: against the exact filter, the same seed, the CPU run
     rain_infer = DBNInference(rain)
@@ -1955,6 +1994,7 @@ def phase_temporal():
         f"({bound_by}) torch_bincount_ms={weighted['library_ms']:.5f} (one call over the "
         f"{len(specs)} columns offset into one index space, weights repeated) "
         f"wrapper_host_us_median {float(np.median(host_us)):.1f} (descriptor uploaded once)")
+    GATHER_ROWS["ancestral/particle_sweep"] = k9_kernel_row(alarm_pf, alarm_particles, alarm_ev)
 
     # ---- simulate and fit of the 2-TBN
     check(set(frame.columns) == {(v, t) for v in alarm.nodes() for t in range(DBN_SIM_SLICES)}
@@ -4303,9 +4343,14 @@ def phase_parallel(model, context):
     launches = (bc.TABLE_LAUNCHES, bc.LAUNCHES)
     record_jt("parallel")
     path_s = time.time() - phase_t0
+    gibbs_launches = GATHER_PATH_LAUNCHES["parallel"]["gibbs/sweep"]
     log(f"parallel_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
         + " ".join(f"{k} {n} launches {s:.3f} s" for k, (n, s) in per_call.items())
-        + f" path_s {path_s:.1f} (each sampler's moments: one launch per shard)")
+        + f" path_s {path_s:.1f} (each sampler's moments: one launch per shard) "
+        f"gibbs_sweep_launches {gibbs_launches} (one per shard and sweep)")
+    check(gibbs_launches == PARALLEL_SHARDS * HEPAR_SWEEPS,
+          f"sharded Gibbs made {gibbs_launches} sweep launches for {PARALLEL_SHARDS} shards x "
+          f"{HEPAR_SWEEPS} sweeps")
     want = {"partition": 0, "calibrate": 0, "forward": PARALLEL_SHARDS,
             "weighted": PARALLEL_SHARDS, "query_batch": 0, "gibbs": PARALLEL_SHARDS, "nuts": 0}
     check({k: n for k, (n, _) in per_call.items()} == want and launches[1] == 0,
@@ -4460,6 +4505,123 @@ def k5_kernel_row(sampler, n_sim):
             "bound_by": bound_by, "library_ms": None}
 
 
+def k6_kernel_row(gibbs, init):
+    """K6 on MUNIN: the Gibbs sweep kernel against its plain version on
+    explicit noise (the 4,096 start states, one sweep; and 4,096 chains of
+    ALARM's Markov model: codes equal to the bit), its device time at the
+    MCMC path's shape (Philox from a generator; median of 20 behind a device
+    sleep), the plain version's (CUDA events around its eager ops, median of
+    5) and the card's bound."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
+    from pgmpy_tpu_torch.sampling import GibbsSampling
+    from pgmpy_tpu_torch.utils import get_example_model
+    from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+
+    tables = gibbs._compiled._tables
+    n, d = init.shape
+    markov = GibbsSampling(get_example_model("alarm").to_markov_model())
+    markov_init = torch.as_tensor(markov.random_state(n, SEED), device=init.device)
+    for case, case_tables, codes in (("munin", tables, init),
+                                     ("alarm_markov", markov._compiled._tables, markov_init)):
+        noise = race_noise((sum(case_tables.cards), n), seeded_generator(SEED), config.DTYPE)
+        got = gibbs_ops.sweep_cuda(case_tables, codes, None, noise=noise)
+        want = gibbs_ops.sweep_reference(case_tables, codes, None, noise=noise)
+        check(torch.equal(got, want), f"k6 {case}: the kernel's codes differ from the plain "
+                                      f"version's on the same noise")
+    gen = seeded_generator(SEED)
+    out = torch.empty_like(init)
+    ms = cuda_median_ms(lambda: gibbs_ops.sweep_cuda(tables, init, gen, out=out),
+                        device_only=True)
+    plain_ms = cuda_median_ms(lambda: gibbs_ops.sweep_reference(tables, init, gen), reps=5,
+                              warmup=1)
+    elem = config.DTYPE.itemsize
+    nbytes = (2 * n * d * init.element_size() + elem * tables.total + tables.vars.nbytes
+              + tables.specs.nbytes + tables.others.nbytes)
+    # per chain: every state's race and its blanket factors' adds, and each
+    # (variable, factor) row's multiply-add per other variable
+    per_chain = sum(c * (K5_OPS_PER_STATE + k) for c, k in zip(tables.cards, tables.vars[:, 3]))
+    per_chain += 2 * tables.others.shape[0]
+    bound_ms, bound_by = bound(nbytes, n * per_chain)
+    log(f"k6 gibbs_sweep chains={n} variables={d} states={sum(tables.cards)} "
+        f"factor_rows={tables.specs.shape[0]} levels={tables.n_levels} groups={tables.groups} "
+        f"codes={init.dtype} explicit-noise checks (MUNIN, ALARM's Markov model at {n} chains): "
+        f"codes equal to the bit; kernel_ms={ms:.5f} (device time, Philox, median of 20) "
+        f"plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{K5_OPS_PER_STATE} operations per chain and state, one add per state and factor, two "
+        f"per factor row and other variable; the codes read and written once: "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: none")
+    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def k9_kernel_row(pf, particles, evidence):
+    """K9 on ALARM as a 2-TBN: one transition slice from the filter's final
+    particles with the filter's evidence on the leaves, against the plain
+    version on explicit noise (codes and log weights equal to the bit), its
+    device time at the filter's shape (Philox; median of 20 behind a device
+    sleep), the plain version's (median of 5), the card's bound, and beside
+    it the slice's library calls timed the same way: the softmax with the
+    effective sample size, and the systematic resample."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.ops import ancestral
+    from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+
+    n, d = pf.n_particles, len(pf.variables)
+    tables = pf._trans_specs
+    ev_codes = np.full(d, -1)
+    for (v, t), code in evidence.items():
+        if t == 1:
+            ev_codes[pf.var_index[v]] = code
+    ev = {i: int(ev_codes[c]) for i, c in enumerate(tables.columns) if ev_codes[c] >= 0}
+    check(bool(ev), "k9: the slice has no evidence")
+    prev = torch.as_tensor(np.ascontiguousarray(particles.T),
+                           device=tables.device).to(pf._out_dtype)
+    noise = race_noise((sum(tables.cards), n), seeded_generator(SEED), config.DTYPE)
+    got = ancestral.sweep_cuda(tables, n, None, evidence=ev, noise=noise, prev=prev,
+                               out=pf._code_matrix())
+    want = ancestral.sweep_reference(tables, n, None, evidence=ev, noise=noise, prev=prev,
+                                     out=pf._code_matrix())
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "k9: the kernel's codes or log weights differ from the plain version's on the same "
+          "noise")
+    gen = seeded_generator(SEED)
+    out = pf._code_matrix()
+    ms = cuda_median_ms(lambda: ancestral.sweep_cuda(tables, n, gen, evidence=ev, prev=prev,
+                                                     out=out), device_only=True)
+    plain_ms = cuda_median_ms(lambda: ancestral.sweep_reference(tables, n, gen, evidence=ev,
+                                                                prev=prev, out=out),
+                              reps=5, warmup=1)
+    elem = config.DTYPE.itemsize
+    prev_columns = {p - d for ps, _, _ in tables.node_specs for p in ps if p >= d}
+    nbytes = (n * (d + len(prev_columns)) * prev.element_size() + n * elem
+              + elem * tables.total + tables.nodes.nbytes)
+    drawn = sum(c for i, c in enumerate(tables.cards) if i not in ev)
+    parents = sum(len(ps) for ps, _, _ in tables.node_specs)
+    bound_ms, bound_by = bound(nbytes, n * (drawn * K5_OPS_PER_STATE + 2 * parents + len(ev)))
+    logw = got[1]
+    offset = torch.rand((), generator=gen, dtype=config.DTYPE, device=prev.device)
+
+    def weights():
+        w = torch.softmax(logw, dim=0)
+        return 1.0 / torch.sum(w * w)
+
+    softmax_ms = cuda_median_ms(weights, device_only=True)
+    resample_ms = cuda_median_ms(lambda: pf._systematic_resample(got[0], logw, offset),
+                                 device_only=True)
+    log(f"k9 particle_sweep particles={n} variables={d} drawn_states={drawn} "
+        f"evidence_nodes={len(ev)} previous_slice_columns={len(prev_columns)} "
+        f"levels={tables.n_levels} codes={pf._out_dtype} explicit-noise check: codes and log "
+        f"weights equal to the bit; kernel_ms={ms:.5f} (device time, Philox, median of 20) "
+        f"plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{K5_OPS_PER_STATE} operations per particle and drawn state; the codes written and the "
+        f"previous slice's columns read once: {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: "
+        f"none; the slice's library calls: softmax_and_ess_ms={softmax_ms:.5f} "
+        f"resample_ms={resample_ms:.5f} (float64 cumsum, searchsorted, index_select)")
+    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def gather_bytes(gather, codes, table, out_elem):
     """Bytes a table-gather launch must move: every code column it reads and
     the table once, its output once, the node table."""
@@ -4559,15 +4721,17 @@ def build_kernels():
     """Build every kernel source of the port at once (one nvcc per source,
     all started together), then load each, and log each build's time and
     what ptxas says of each kernel."""
-    from pgmpy_tpu_torch.ops import _build, ancestral, bincount, jt, table_gather
+    from pgmpy_tpu_torch.ops import _build, ancestral, bincount, gibbs, jt, table_gather
 
     t0 = time.time()
     _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"],
-                            "table_gather": ["table_gather.cu"], "ancestral": ["ancestral.cu"]})
-    for load in (bincount._library, jt._library, table_gather._library, ancestral._library):
+                            "table_gather": ["table_gather.cu"], "ancestral": ["ancestral.cu"],
+                            "gibbs": ["gibbs.cu"]})
+    for load in (bincount._library, jt._library, table_gather._library, ancestral._library,
+                 gibbs._library):
         load()
     log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu, jt_calibrate.cu, "
-        f"table_gather.cu and ancestral.cu, one nvcc each, started together)")
+        f"table_gather.cu, ancestral.cu and gibbs.cu, one nvcc each, started together)")
     for name, built in _build.BUILDS.items():
         log(f"kernels_built {name} nvcc_s {built['seconds']:.2f}")
         for line in ptxas_summary(built["ptxas"]):
@@ -4690,8 +4854,8 @@ def main():
         })
     log("k2_launches_by_path " + " ".join(
         f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
-    # K5's, K13's and K11's rows: each kernel's launches on the path that
-    # drives it (set to 0 before that path and read after it), and on the others
+    # K5's, K9's, K6's, K13's and K11's rows: each kernel's launches on the
+    # path that drives it (set to 0 before that path and read after it), and on the others
     for name, (source, replaces, path) in GATHER_KERNELS.items():
         launches = GATHER_PATH_LAUNCHES[path][name]
         check(launches > 0, f"the {path} path did not launch {name}")
@@ -4703,7 +4867,7 @@ def main():
             **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
                if other != path},
         })
-    log("k5_k11_k13_launches_by_path " + " ".join(
+    log("k5_k9_k6_k11_k13_launches_by_path " + " ".join(
         f"{path} {counts}" for path, counts in GATHER_PATH_LAUNCHES.items()))
     log(f"script_s {time.time() - started:.1f}")
     log(smi)  # again near the end, where a reader of the output's tail finds it

@@ -2,7 +2,8 @@
 
 Each library is compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
 ``pgmpy_tpu_torch/_build/`` (git-ignored), under a name keyed on a hash of
-its sources and flags, so a stale library is never loaded.  The sources
+its sources, the shared headers (``csrc/*.cuh``) and the flags, so a stale
+library is never loaded.  The sources
 expose plain ``extern "C"`` launchers that ``ctypes`` calls with raw device
 pointers and the current CUDA stream; nothing includes PyTorch's headers, so
 a build takes seconds.  Nothing here runs at import time.  ``BUILDS`` keeps
@@ -45,10 +46,12 @@ def _nvcc():
 
 
 def _target(name, sources):
-    """(the library's path, keyed on its sources and flags; the source paths)."""
+    """(the library's path, keyed on its sources, every header under ``csrc/``
+    and the flags; the source paths)."""
     paths = [os.path.join(CSRC, s) for s in sources]
+    headers = sorted(os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in paths:
+    for path in paths + headers:
         with open(path, "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so"), paths

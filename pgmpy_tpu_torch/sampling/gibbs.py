@@ -5,9 +5,14 @@ Port of ``pgmpy_tpu/sampling/gibbs.py`` (reference:
 per-variable kernel table and runs one sequential Python chain).  The local
 conditional ``P(v | markov blanket)`` is computed on the fly: for each
 blanket factor, fetch the log-potential row of the chains' current
-neighbourhood states and sum.  The chains are the batch axis of plain tensor
-code on ``config.DEVICE``; sweeps and variables are host loops, and every
-draw comes from one explicit ``torch.Generator`` per call.
+neighbourhood states and sum.  The chains are the batch axis, and every
+draw comes from one explicit ``torch.Generator`` per call.  On a card a sweep
+is ONE launch of the hand-written kernel of ``csrc/gibbs.cu``
+(``ops/gibbs.py``: the variables drawn level by level, no two of one factor
+in a level, Philox noise keyed on one draw from the generator per sweep); on
+the CPU its plain version, a few torch ops per (variable, blanket factor).
+The same seed gives the same chains on the same device; the CPU's and the
+GPU's random streams differ.
 """
 
 import networkx as nx
@@ -18,8 +23,8 @@ from pgmpy_tpu_torch.config import config, to_numpy
 from pgmpy_tpu_torch.models.discrete_bn import DiscreteBayesianNetwork
 from pgmpy_tpu_torch.models.markov_chain import MarkovChain
 from pgmpy_tpu_torch.models.markov_network import DiscreteMarkovNetwork
-from pgmpy_tpu_torch.sampling.core import onehot_table_rows
-from pgmpy_tpu_torch.utils.mathext import categorical_draw, seeded_generator
+from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
+from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
 
 class CompiledGibbs:
@@ -28,9 +33,9 @@ class CompiledGibbs:
 
         ONE table layout: per (variable, blanket factor) the factor's log
         table with the variable's axis moved LAST, reshaped ``(rows, card)``;
-        the chains' neighbourhood states index the row and
-        :func:`core.onehot_table_rows` fetches it, ``card`` contiguous
-        numbers per chain.  A table is therefore stored once per scope
+        the chains' neighbourhood states index the row, ``card`` contiguous
+        numbers per chain.  The sweep's CSR tables and level schedule
+        (``ops.gibbs.GibbsTables``) are built here, once per sampler.  A table is therefore stored once per scope
         variable, whatever its size: the JAX package's second layout (one
         shared flat copy with per-element gathers for tables over 4 M
         elements) traded speed for memory, and a table whose copies did not
@@ -64,51 +69,38 @@ class CompiledGibbs:
                     tuple(reversed(rstrides)),
                 ))
         self._out_dtype = torch.int8 if max(self.cards, default=2) < 128 else torch.int32
+        self._tables = gibbs_ops.GibbsTables(self._var_specs, self.cards, self._out_dtype)
 
     def _conditional_logits(self, states, var_i):
         """log P(var_i = k | rest) up to a constant, for EVERY chain:
         states (d, n) -> (n, card).  ``states`` holds one ROW per variable
         (int64), transposed against the JAX package's ``(n, d)``, so that a
         variable's states over the chains are contiguous."""
-        n = states.shape[1]
-        total = None
-        for table, other_idx, rstrides in self._var_specs[var_i]:
-            if not other_idx:
-                rows = table[0].expand(n, -1)
-            else:
-                row = None
-                for j, s in zip(other_idx, rstrides):
-                    term = states[j] if s == 1 else states[j] * s
-                    row = term if row is None else row + term
-                rows = onehot_table_rows(table, row, n)
-            total = rows if total is None else total + rows
-        if total is None:  # a variable in no factor: uniform
-            total = torch.zeros((n, self.cards[var_i]), dtype=config.DTYPE, device=states.device)
-        return total
+        return gibbs_ops.conditional_logits(self._var_specs, self.cards, states, var_i)
 
-    def _sweep(self, states, gen):
-        """One full Gibbs sweep over all variables for every chain, in place:
-        states (d, n) -> (d, n)."""
-        for i in range(len(self.variables)):
-            states[i] = categorical_draw(self._conditional_logits(states, i), gen)
-        return states
+    def _sweep(self, codes, gen, out=None, noise=None):
+        """One full Gibbs sweep over all variables for every chain: codes
+        (n, d) -> (n, d) in the trajectory's type, into ``out`` when given.
+        ONE launch of the sweep kernel on a card, the plain version on the
+        CPU (``ops/gibbs.py``, where ``noise`` is described)."""
+        return gibbs_ops.sweep(self._tables, codes, gen, noise=noise, out=out)
 
     def _run_chains(self, gen, size, init_states):
         """init_states: (n_chains, d) integer codes.  Returns the
         (size, n_chains, d) trajectory on ``config.DEVICE``, int8 when every
         cardinality fits (a quarter of the memory of int32; upcast before
-        flat-index arithmetic), int32 otherwise.  ``gen`` is advanced in
-        place: a later call with the same generator and the last sweep's
-        states continues the run as if it had not been interrupted."""
+        flat-index arithmetic), int32 otherwise: each sweep reads the last
+        one's states and writes its own straight into the trajectory.
+        ``gen`` is advanced in place: a later call with the same generator and
+        the last sweep's states continues the run as if it had not been
+        interrupted."""
         device = config.DEVICE
-        init = torch.as_tensor(init_states, device=device)
-        states = init.to(torch.int64).T.contiguous()
+        codes = torch.as_tensor(init_states, device=device).to(self._out_dtype).contiguous()
         size = int(size)
-        trajectory = torch.empty((size, init.shape[0], len(self.variables)),
+        trajectory = torch.empty((size, codes.shape[0], len(self.variables)),
                                  dtype=self._out_dtype, device=device)
         for t in range(size):
-            self._sweep(states, gen)
-            trajectory[t] = states.T
+            codes = self._sweep(codes, gen, out=trajectory[t])
         return trajectory
 
 

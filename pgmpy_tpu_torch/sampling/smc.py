@@ -8,6 +8,15 @@ threshold.  All of it runs on ``config.DEVICE``; the effective sample sizes
 and the marginals of all slices are stacked there and read once after the
 loop.
 
+A slice's sweep is ONE launch of the hand-written kernel of
+``csrc/ancestral.cu`` on a card (``ops/ancestral.py``: a parent in the
+previous slice is a column of the previous particles; the slice's evidence
+goes in as per-node modes and its log weights come out of the same launch;
+Philox noise keyed on one draw from the call's generator per slice), its
+plain version on the CPU.  The particles stay in the layout the count kernel
+reads: the sweep writes them column-major ``(d, ld)`` into the matrix the
+slice's marginals are counted from, and reads the previous slice there.
+
 Divergences from the JAX package, on purpose:
 
 * a host loop over slices takes the place of ``lax.scan``.  A ``scan`` body
@@ -20,12 +29,11 @@ Divergences from the JAX package, on purpose:
   computed), so no slice needs a host read;
 * the per-slice marginals are ONE weighted call of the hand-written count
   kernel (``ops/bincount.py:table_counts``, ``d`` one-column specs, weights
-  ``softmax(logw)``) instead of ``d`` one-hot matrix products.  The particle
-  state is copied once per slice into the layout that kernel reads
-  (``(d, ld)`` column-major, ``ld`` a multiple of 16, padding -1, int8 where
-  the cardinalities allow); the spec table is built once in ``__init__`` and
-  its descriptor is uploaded once, not per slice.  On the CPU the
-  same call takes the kernel's plain version;
+  ``softmax(logw)``) instead of ``d`` one-hot matrix products, on the
+  matrix the sweep wrote (``(d, ld)`` column-major, ``ld`` a multiple of 16,
+  padding -1, int8 where the cardinalities allow); the spec table is built
+  once in ``__init__`` and its descriptor is uploaded once, not per slice.
+  On the CPU the same call takes the kernel's plain version;
 * draws come from one explicit ``torch.Generator`` per ``filter`` call, so the
   streams differ from the JAX package's: compare by distribution.
 
@@ -61,9 +69,9 @@ import torch
 
 from pgmpy_tpu_torch.config import config, to_numpy
 from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork
-from pgmpy_tpu_torch.ops.bincount import column_major_codes, table_counts, table_specs
-from pgmpy_tpu_torch.sampling.core import onehot_table_rows
-from pgmpy_tpu_torch.utils.mathext import categorical_draw, seeded_generator
+from pgmpy_tpu_torch.ops import ancestral
+from pgmpy_tpu_torch.ops.bincount import _ROW_ALIGN, table_counts, table_specs
+from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
 
 class ParticleFilter:
@@ -78,17 +86,26 @@ class ParticleFilter:
         self.variables = sorted(model._nodes(), key=str)
         self.var_index = {v: i for i, v in enumerate(self.variables)}
 
-        def node_specs(time_slice):
-            """Per-node sampling specs in topological order of that slice's
-            sub-model; a parent is a (column, is it of the previous slice)
-            pair."""
+        self.cards = {
+            v: model.get_cpds(node=(v, 0)).variable_card for v in self.variables
+        }
+        cards = [self.cards[v] for v in self.variables]
+        self._out_dtype = torch.int8 if max(cards) < 128 else torch.int32
+        d = len(self.variables)
+
+        def sweep_tables(time_slice):
+            """The sweep of one slice (``ops.ancestral.SweepTables``): the
+            nodes in topological order of that slice's sub-model, each
+            writing its variable's column; a parent in this slice is its
+            column, one in the previous slice ``d`` + its column."""
             sub_nodes = {(v, time_slice) for v in self.variables}
             order = [n for n in nx.topological_sort(model) if n in sub_nodes]
             specs = []
             for node in order:
                 cpd = model.get_cpds(node=node)
                 parents = [tuple(p) for p in cpd.variables[1:]]
-                parent_cols = [(self.var_index[p[0]], p[1] != time_slice) for p in parents]
+                parent_cols = [self.var_index[p[0]] + (d if p[1] != time_slice else 0)
+                               for p in parents]
                 table = np.asarray(cpd.get_values(), dtype=np.float64).T
                 log_table = torch.as_tensor(
                     np.log(np.maximum(table, 1e-38)), dtype=config.DTYPE, device=config.DEVICE
@@ -98,50 +115,44 @@ class ParticleFilter:
                 for c in reversed([int(c) for c in cpd.cardinality[1:]]):
                     strides.append(acc)
                     acc *= c
-                specs.append(
-                    (self.var_index[node[0]], parent_cols, tuple(reversed(strides)), log_table)
-                )
-            return specs
+                specs.append((tuple(parent_cols), tuple(reversed(strides)), log_table))
+            columns = [self.var_index[node[0]] for node in order]
+            return ancestral.SweepTables(specs, [cards[c] for c in columns], self._out_dtype,
+                                         columns=columns, particle=True)
 
-        self._start_specs = node_specs(0)
-        self._trans_specs = node_specs(1)
-        self.cards = {
-            v: model.get_cpds(node=(v, 0)).variable_card for v in self.variables
-        }
+        self._start_specs = sweep_tables(0)
+        self._trans_specs = sweep_tables(1)
         self.state_names = {
             v: model.get_cpds(node=(v, 0)).state_names[(v, 0)] for v in self.variables
         }
         # the marginals of a slice as the count kernel sees them: one
         # one-column table per variable, laid end to end
-        cards = [self.cards[v] for v in self.variables]
         self._marginal_specs = table_specs([[j] for j in range(len(cards))], [[c] for c in cards])
 
-    def _sweep(self, gen, prev, specs, ev_codes):
-        """One slice for all particles.  ``prev``: (d, n) int64 states of the
-        previous slice (unused by the start specs).  ``ev_codes``: (d,) host
-        ints, -1 = unobserved.  Returns ((d, n) int64 states, (n,) log
-        weights)."""
+    def _code_matrix(self):
+        """The ``(d, ld)`` column-major code matrix a slice is written into
+        and counted from (``ld`` a multiple of 16, padding -1)."""
+        n, d = self.n_particles, len(self.variables)
+        ld = -(-n // _ROW_ALIGN) * _ROW_ALIGN
+        return torch.full((d, ld), -1, dtype=self._out_dtype, device=config.DEVICE)
+
+    def _sweep(self, gen, prev, specs, ev_codes, out=None):
+        """One slice for all particles: ONE launch of the sweep kernel on a
+        card, its plain version on the CPU.  ``specs``: the start or the
+        transition tables.  ``prev``: (d, >= n) states of the previous slice
+        (unused by the start specs).  ``ev_codes``: (d,) host ints, -1 =
+        unobserved.  ``out``: the code matrix to write (a new one when None).
+        Returns ((d, n) states, a view of ``out``, in the sweep's code type;
+        (n,) log weights)."""
         n = self.n_particles
-        device = config.DEVICE
-        columns = [None] * len(self.variables)
-        logw = torch.zeros(n, dtype=config.DTYPE, device=device)
-        for col, parent_cols, strides, log_table in specs:
-            if parent_cols:
-                flat = None
-                for (pcol, is_prev), stride in zip(parent_cols, strides):
-                    vals = prev[pcol] if is_prev else columns[pcol]
-                    term = vals if stride == 1 else vals * stride
-                    flat = term if flat is None else flat + term
-                logits = onehot_table_rows(log_table, flat, n)  # (n, card)
-            else:
-                logits = log_table[0].expand(n, -1)
-            code = int(ev_codes[col])
-            if code >= 0:
-                columns[col] = torch.full((n,), code, dtype=torch.int64, device=device)
-                logw = logw + logits[:, code]
-            else:
-                columns[col] = categorical_draw(logits, gen)
-        return torch.stack(columns), logw
+        if out is None:
+            out = self._code_matrix()
+        evidence = {i: int(ev_codes[c]) for i, c in enumerate(specs.columns) if ev_codes[c] >= 0}
+        cur, logw = ancestral.sweep(specs, n, gen, evidence=evidence,
+                                    prev=prev if specs.has_prev else None, out=out)
+        if logw is None:
+            logw = torch.zeros(n, dtype=config.DTYPE, device=out.device)
+        return cur, logw
 
     def _systematic_resample(self, particles, logw, offset):
         """``particles`` (d, n) resampled in proportion to ``softmax(logw)``
@@ -184,26 +195,23 @@ class ParticleFilter:
             n_time_slices = max([t for _, t in evidence.keys()] + [1]) + 1
         ev_matrix = self._evidence_matrix(evidence, n_time_slices)
 
-        n, d = self.n_particles, len(self.variables)
+        n = self.n_particles
         device = config.DEVICE
         gen = seeded_generator(seed)
         ess_min = self.ess_threshold * n
-        # the count kernel's view of the particles; its padding stays -1
-        codes_cm = column_major_codes(
-            torch.zeros((n, d), dtype=torch.int64, device=device), max(self.cards.values())
-        )
-        particles = torch.zeros((d, n), dtype=torch.int64, device=device)
+        # the slice's codes, as the count kernel reads them; its padding stays -1
+        codes_cm = self._code_matrix()
+        particles = None
         logw_carry = torch.zeros(n, dtype=config.DTYPE, device=device)
         marginals, ess_rows = [], []
         for t in range(n_time_slices):
             specs = self._start_specs if t == 0 else self._trans_specs
-            cur, logw = self._sweep(gen, particles, specs, ev_matrix[t])
+            cur, logw = self._sweep(gen, particles, specs, ev_matrix[t], out=codes_cm)
             # cumulative log-weights (reset only on resample)
             logw_total = logw_carry + logw
             w = torch.softmax(logw_total, dim=0)
             ess = 1.0 / torch.sum(w * w)
             # per-variable weighted marginals of this slice: one launch
-            codes_cm[:, :n] = cur
             marginals.append(table_counts(codes_cm, n, self._marginal_specs, w))
             offset = torch.rand((), generator=gen, dtype=config.DTYPE, device=device)
             resampled = self._systematic_resample(cur, logw_total, offset)
@@ -219,6 +227,7 @@ class ParticleFilter:
             block = marg_np[:, offsets[j] : offsets[j] + self.cards[v]]
             for t in range(n_time_slices):
                 out[(v, t)] = block[t]
-        # narrowed on the device: the copy is (n, d) codes, not (d, n) int64
-        final = to_numpy(particles.T.to(codes_cm.dtype)).astype(np.int32)
+        if particles is None:  # no slice
+            particles = torch.zeros((len(self.variables), n), dtype=self._out_dtype, device=device)
+        final = to_numpy(particles.T).astype(np.int32)
         return out, final, np.array(to_numpy(torch.stack(ess_rows)))

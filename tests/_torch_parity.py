@@ -140,3 +140,29 @@ def brute_force_posterior(model, variables, evidence=None):
         subs.append(letters[var])
     out = np.einsum(",".join(subs) + "->" + "".join(letters[v] for v in variables), *operands)
     return out / out.sum()
+
+
+def random_2tbn(seed, n_vars=6):
+    """(edges, CPD tuples) of a random 2-TBN: a DAG inside each slice and
+    edges from the previous slice, the variables' sorted order not their
+    topological order."""
+    rng = np.random.default_rng(seed)
+    names = [f"V{k}" for k in rng.permutation(n_vars)]  # topological order
+    cards = {v: int(rng.integers(2, 4)) for v in names}
+    intra = {v: [u for u in names[:j] if rng.random() < 0.4][:2] for j, v in enumerate(names)}
+    # every variable persists (so that each has a node in slice 1), some
+    # read another variable of the previous slice too
+    inter = {v: sorted({v, *(str(u) for u in rng.choice(names, int(rng.integers(0, 2))))})
+             for v in names}
+    edges = [((u, 0), (v, 0)) for v in names for u in intra[v]]
+    edges += [((u, 0), (v, 1)) for v in names for u in inter[v]]
+    tuples = []
+    for t in (0, 1):
+        for v in names:
+            evidence = [(u, t) for u in intra[v]] + ([(u, 0) for u in inter[v]] if t else [])
+            ev_card = [cards[u] for u, _ in evidence]
+            values = rng.dirichlet(np.ones(cards[v]), int(np.prod(ev_card))).T
+            states = {(u, s): [f"{u}_{k}" for k in range(cards[u])] for u, s in evidence}
+            states[(v, t)] = [f"{v}_{k}" for k in range(cards[v])]
+            tuples.append(((v, t), cards[v], values, evidence, ev_card, states))
+    return edges, tuples

@@ -157,7 +157,8 @@ def test_node_table_and_modes():
 
 def test_level_schedule(sampler):
     sweep = sampler._sweep_tables
-    groups = ancestral.GROUPS
+    groups = sweep.groups
+    assert groups == ancestral.sweep_groups(len(sweep.cards), sweep.n_levels, ancestral.GROUPS)
     assert sweep.starts.shape == (sweep.n_levels * groups + 1,) and sweep.starts[0] == 0
     assert sorted(sweep.schedule.tolist()) == list(range(len(sweep.cards)))  # each node once
     level = {}

@@ -231,7 +231,8 @@ def test_sweep_draws_follow_the_transition_table(rain):
     prev = torch.zeros((2, n), dtype=torch.int64)
     prev[pf.var_index["rain"]] = 1
     cur, logw = pf._sweep(seeded_generator(0), prev, pf._trans_specs, np.array([-1, -1]))
-    assert tuple(cur.shape) == (2, n) and cur.dtype == torch.int64
+    # the states in the sweep's code type, as the count kernel reads them
+    assert tuple(cur.shape) == (2, n) and cur.dtype == torch.int8
     assert float(logw.abs().max()) == 0.0
     wet = float((cur[pf.var_index["rain"]] == 1).double().mean())
     assert abs(wet - 0.7) <= 5 * np.sqrt(0.7 * 0.3 / n)

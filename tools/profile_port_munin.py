@@ -207,16 +207,17 @@ def main():
 
     # ---- Gibbs: one sweep of every chain over all variables
     gibbs = GibbsSampling(model)._compiled
-    states = sampler.forward(chip_smoke.GIBBS_CHAINS, seed=0).to(torch.int64).T.contiguous()
+    codes = sampler.forward(chip_smoke.GIBBS_CHAINS, seed=0)
+    out = torch.empty_like(codes)
     gen = seeded_generator(0)
-    gibbs._sweep(states, gen)  # warm-up
-    sweep_s = chip_smoke.host_median_s(lambda: gibbs._sweep(states, gen), reps=5)
-    n_kernels, device_ms = profiled(lambda: gibbs._sweep(states, gen), reps=2)
+    gibbs._sweep(codes, gen, out=out)  # warm-up
+    sweep_s = chip_smoke.host_median_s(lambda: gibbs._sweep(codes, gen, out=out), reps=5)
+    n_kernels, device_ms = profiled(lambda: gibbs._sweep(codes, gen, out=out), reps=2)
     print(f"gibbs_chains {chip_smoke.GIBBS_CHAINS} gibbs_pairs "
           f"{sum(len(specs) for specs in gibbs._var_specs)} gibbs_sweep_kernels {n_kernels:.0f} "
           f"gibbs_sweep_device_ms {device_ms:.3f} gibbs_sweep_host_s {sweep_s:.4f} "
           f"gibbs_sweep_idle_share {1 - device_ms / (sweep_s * 1e3):.3f}")
-    print_top_kernels("gibbs_sweep", lambda: gibbs._sweep(states, gen), top=8)
+    print_top_kernels("gibbs_sweep", lambda: gibbs._sweep(codes, gen, out=out), top=8)
 
     # ---- NUTS: one step of every chain on ecoli70, started from the joint
     ecoli = get_example_model("ecoli70")

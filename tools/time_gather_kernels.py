@@ -1,10 +1,12 @@
-"""Time the table-gather and sweep kernels (K13, K11, K5) at MUNIN's shapes
-on one CUDA card.
+"""Time the table-gather and sweep kernels (K13, K11, K5, K9, K6) at the
+smoke's shapes on one CUDA card.
 
 Run from a tree's root on a machine with one CUDA card:
 
     python3 tools/time_gather_kernels.py [--groups 2,4,8] [--row-blocks 64,128]
-                                         [--e-step-blocks 128,256] [--label NAME]
+                                         [--e-step-blocks 128,256]
+                                         [--gibbs-groups 8,16,32]
+                                         [--gibbs-tile-rows 16,32] [--label NAME]
 
 It loads MUNIN (1041 variables), simulates 50,000 rows and builds the same
 inputs as ``chip_smoke.py``, then times, each as device time behind a device
@@ -15,14 +17,21 @@ sleep (median of 20, CUDA events):
 * ``e_step`` (K11): EM's E-step with DIFFN_PATHO latent at 5 states, 250,000
   expanded rows, from seeded random CPDs;
 * ``sweep`` (K5): ``forward`` of 52,048 rows (Philox from a seeded generator);
+* ``particle_sweep`` (K9): one transition slice of ALARM as a 2-TBN
+  (``chip_smoke.alarm_2tbn``) over 262,144 particles with three leaves
+  observed, from random previous particles;
+* ``gibbs_sweep`` (K6): one Gibbs sweep of MUNIN's 4,096 chains from
+  ancestral samples;
 
-beside the plain versions (median of 5) and the card's bound, and checks each
-against its plain version (``sweep`` on explicit noise, to the bit).  The
-options time the kernels again under other launch settings: threads per row
-of the sweep (``ops.ancestral.GROUPS``), rows per ``row_sums`` block
-(``ops.table_gather.ROW_BLOCK``) and threads per ``e_step`` block
-(``ops.table_gather.E_STEP_BLOCK``); a setting the tree's modules do not have
-is skipped.  It prints one ``key value`` line per timing and, last, one JSON
+beside the plain versions (median of 5), and checks each against its plain
+version (the sweeps on explicit noise, to the bit).  The options time the
+kernels again under other launch settings: threads per row of the ancestral
+and particle sweeps (``ops.ancestral.GROUPS``), rows per ``row_sums`` block
+(``ops.table_gather.ROW_BLOCK``), threads per ``e_step`` block
+(``ops.table_gather.E_STEP_BLOCK``), threads per chain of the Gibbs sweep at
+most (``ops.gibbs.GROUPS``) and chains per Gibbs tile at most
+(``ops.gibbs.MAX_TILE_ROWS``); a setting the tree's modules do not have is
+skipped.  It prints one ``key value`` line per timing and, last, one JSON
 object of every timing under ``--label``, with the card's name and power
 limit.  Run it in two trees in one call to compare two versions of the
 kernels on one card.
@@ -46,13 +55,17 @@ from pgmpy_tpu_torch.estimators import ExpectationMaximization  # noqa: E402
 from pgmpy_tpu_torch.metrics import BayesianModelProbability  # noqa: E402
 from pgmpy_tpu_torch.models import DiscreteBayesianNetwork  # noqa: E402
 from pgmpy_tpu_torch.ops import ancestral, table_gather  # noqa: E402
-from pgmpy_tpu_torch.sampling import CompiledAncestralSampler  # noqa: E402
+from pgmpy_tpu_torch.ops import gibbs as gibbs_ops  # noqa: E402
+from pgmpy_tpu_torch.sampling import CompiledAncestralSampler, GibbsSampling  # noqa: E402
+from pgmpy_tpu_torch.sampling.smc import ParticleFilter  # noqa: E402
 from pgmpy_tpu_torch.utils import get_example_model  # noqa: E402
 from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator  # noqa: E402
 
 N_ROWS = 50_000
 N_SIM = 52_048
 LATENT, LATENT_CARD = "DIFFN_PATHO", 5
+PARTICLES = 262_144
+CHAINS = 4096
 
 
 def ints(text):
@@ -110,11 +123,50 @@ def time_sweep(model):
                      lambda: ancestral.sweep_reference(sweep, N_SIM, gen))
 
 
+def time_particle_sweep():
+    alarm = get_example_model("alarm")
+    dbn, _, _ = chip_smoke.alarm_2tbn(alarm, chip_smoke.ALARM_PERSISTENT)
+    pf = ParticleFilter(dbn, n_particles=PARTICLES)
+    tables, d = pf._trans_specs, len(pf.variables)
+    leaves = sorted((v for v in alarm.nodes() if not alarm.get_children(v)), key=str)[:3]
+    evidence = {i: 0 for i, c in enumerate(tables.columns) if pf.variables[c] in leaves}
+    rng = np.random.default_rng(0)
+    prev = torch.as_tensor(np.stack([rng.integers(0, pf.cards[v], PARTICLES)
+                                     for v in pf.variables]), device="cuda").to(pf._out_dtype)
+    noise = race_noise((sum(tables.cards), PARTICLES), seeded_generator(0), config.DTYPE)
+    got = ancestral.sweep_cuda(tables, PARTICLES, None, evidence=evidence, noise=noise,
+                               prev=prev, out=pf._code_matrix())
+    want = ancestral.sweep_reference(tables, PARTICLES, None, evidence=evidence, noise=noise,
+                                     prev=prev, out=pf._code_matrix())
+    chip_smoke.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                     "particle_sweep: the codes or weights differ from the plain version's")
+    gen, out = seeded_generator(0), pf._code_matrix()
+    return time_pair(
+        lambda: ancestral.sweep_cuda(tables, PARTICLES, gen, evidence=evidence, prev=prev,
+                                     out=out),
+        lambda: ancestral.sweep_reference(tables, PARTICLES, gen, evidence=evidence, prev=prev,
+                                          out=out))
+
+
+def time_gibbs_sweep(model):
+    init = CompiledAncestralSampler(model).forward(CHAINS, seed=0)
+    tables = GibbsSampling(model)._compiled._tables
+    noise = race_noise((sum(tables.cards), CHAINS), seeded_generator(0), config.DTYPE)
+    chip_smoke.check(torch.equal(gibbs_ops.sweep_cuda(tables, init, None, noise=noise),
+                                 gibbs_ops.sweep_reference(tables, init, None, noise=noise)),
+                     "gibbs_sweep: the codes differ from the plain version's on the same noise")
+    gen, out = seeded_generator(0), torch.empty_like(init)
+    return time_pair(lambda: gibbs_ops.sweep_cuda(tables, init, gen, out=out),
+                     lambda: gibbs_ops.sweep_reference(tables, init, gen))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--groups", default="")
     parser.add_argument("--row-blocks", default="")
     parser.add_argument("--e-step-blocks", default="")
+    parser.add_argument("--gibbs-groups", default="")
+    parser.add_argument("--gibbs-tile-rows", default="")
     parser.add_argument("--label", default=os.path.basename(ROOT))
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -134,12 +186,19 @@ def main():
     record("row_sums", time_row_sums(prob, codes))
     record("e_step", time_e_step(program, log_table, em_codes, dtype))
     record("sweep", time_sweep(model))
+    record("particle_sweep", time_particle_sweep())
+    record("gibbs_sweep", time_gibbs_sweep(model))
     for module, attr, values, name, run in (
             (table_gather, "ROW_BLOCK", ints(args.row_blocks), "row_sums",
              lambda: time_row_sums(prob, codes)),
             (table_gather, "E_STEP_BLOCK", ints(args.e_step_blocks), "e_step",
              lambda: time_e_step(program, log_table, em_codes, dtype)),
-            (ancestral, "GROUPS", ints(args.groups), "sweep", lambda: time_sweep(model))):
+            (ancestral, "GROUPS", ints(args.groups), "sweep", lambda: time_sweep(model)),
+            (ancestral, "GROUPS", ints(args.groups), "particle_sweep", time_particle_sweep),
+            (gibbs_ops, "GROUPS", ints(args.gibbs_groups), "gibbs_sweep",
+             lambda: time_gibbs_sweep(model)),
+            (gibbs_ops, "MAX_TILE_ROWS", ints(args.gibbs_tile_rows), "gibbs_sweep",
+             lambda: time_gibbs_sweep(model))):
         if not hasattr(module, attr):
             continue
         kept = getattr(module, attr)
