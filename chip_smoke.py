@@ -5,8 +5,8 @@
 Runs from the repository root and needs one CUDA card.  It
 
 1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu``,
-   ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu``, ``csrc/ancestral.cu``
-   and ``csrc/gibbs.cu``,
+   ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu``, ``csrc/ancestral.cu``,
+   ``csrc/gibbs.cu`` and ``csrc/einsum_plan.cu``,
    one ``nvcc`` each, started together, each build's time and what ptxas says
    of each kernel logged), and holds both count entry points
    against their plain PyTorch versions on the card: ``weighted_bincount``
@@ -46,7 +46,15 @@ Runs from the repository root and needs one CUDA card.  It
    computed from the fitted CPD tables, and against the CPU run), one
    sparse-evidence ``VariableElimination`` query runs if its planned
    contraction stays under a memory guard (against BeliefPropagation), and
-   ``ApproxInference`` answers one query from 50,000 draws;
+   ``ApproxInference`` answers one query from 50,000 draws; every exact
+   query's contraction runs on K3 (``csrc/einsum_plan.cu``: one
+   ``plan_block`` launch where every step's union fits a block, else one
+   ``plan_step`` launch per step), and ``phase_k3`` holds both schedules
+   against the plain version on the contractions of a MUNIN VE query, a BP
+   query, a 2,048-row ``query_batch`` and a float64 plan, checks that a plan
+   under the block limit makes one launch, counts K3's launches per
+   ``predict`` / ``predict_probability`` call, and times both schedules
+   beside the plain version, the bound and one ``torch.einsum``;
 5. drives the MCMC lane (``phase_mcmc``): Gibbs on MUNIN (4,096 chains started
    from ancestral samples, 5 sweeps over all 1041 variables, each sweep one
    launch of the Gibbs sweep kernel, K6, ``csrc/gibbs.cu``: the local
@@ -68,9 +76,11 @@ Runs from the repository root and needs one CUDA card.  It
    weights equal to the bit, and timed beside the slice's library calls) and
    its weighted marginals one launch of ``table_counts``; the filtered
    marginals against
-   ``DBNInference.forward_scan`` on the card, ``forward_scan`` against the CPU
-   run; ``DynamicBayesianNetwork.simulate`` and ``fit`` (one launch per pair
-   of slices);
+   ``DBNInference.forward_scan`` on the card, ``forward_scan`` (K10: one
+   ``filter_scan`` launch a call, the profiler's kernels of a 50-slice call
+   equal to a 2-slice call's) against its plain version on the card and the
+   CPU run, and timed; ``DynamicBayesianNetwork.simulate`` and ``fit`` (one
+   launch per pair of slices);
 7. drives score-based structure search (``phase_structure``):
    ``HillClimbSearch`` with BIC on 2,000 simulated ALARM rows (one launch per
    iteration with uncached specs, the DAG against the CPU run, the first
@@ -105,7 +115,7 @@ Runs from the repository root and needs one CUDA card.  It
 10. drives loopy and LP inference (``phase_loopy``): flooding BP on a
    128 x 128 binary grid (16,384 variables, 32,512 factors) with a noisy
    image as virtual evidence (against the CPU run, rounds at most one
-   apart), the 8 x 8
+   apart; one round's contractions held on both K3 schedules), the 8 x 8
    grid against the junction tree, a star of 600 leaves against its exact
    beliefs, and ``Mplp.map_query`` on the v4 golden's grid and a 12 x 12 grid
    with diagonals (against the CPU run);
@@ -155,8 +165,9 @@ Runs from the repository root and needs one CUDA card.  It
 15. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time; K5's,
-   K11's and K13's launches counted on the path that drives each: simulate ->
-   fit -> predict, the latent lane, constraint-based learning), and, as the
+   K11's, K13's, K3's and K10's launches counted on the path that drives
+   each: simulate -> fit -> predict, the latent lane, constraint-based
+   learning, the main path, the temporal lane), and, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is not 0 and no result line is
@@ -236,7 +247,7 @@ def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
 
 def reset_launches():
     """Zero the launch counters of every kernel source (K1, K2, K5 with K9,
-    K6, K11, K13)."""
+    K6, K11, K13, K3 with K10)."""
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.ops import jt
 
@@ -247,8 +258,8 @@ def reset_launches():
 
 # path -> launches of each K2 kernel in that path's counted run
 JT_PATH_LAUNCHES = {}
-# K5, K9, K6, K11 and K13: kernel row name -> (source, the JAX function it
-# replaces, the path that drives it)
+# K5, K9, K6, K11, K13, K3 and K10: kernel row name -> (source, the JAX
+# function it replaces, the path that drives it)
 GATHER_KERNELS = {
     "ancestral/sweep": ("pgmpy_tpu_torch/csrc/ancestral.cu", "pgmpy_tpu/sampling/core.py:173",
                         "simulate_fit_predict"),
@@ -259,31 +270,42 @@ GATHER_KERNELS = {
                               "pgmpy_tpu/metrics/bn_inference.py:24", "constraint"),
     "table_gather/e_step": ("pgmpy_tpu_torch/csrc/table_gather.cu",
                             "pgmpy_tpu/estimators/em.py:186", "latent"),
+    "einsum_plan/plan_block": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
+                               "pgmpy_tpu/ops/einsum.py:73", "simulate_fit_predict"),
+    "einsum_plan/plan_step": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
+                              "pgmpy_tpu/ops/einsum.py:73", "main"),
+    "einsum_plan/filter_scan": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
+                                "pgmpy_tpu/inference/dbn.py:131", "temporal"),
 }
-# path -> launches of each K5 / K9 / K6 / K11 / K13 kernel in that path's counted run
+# path -> launches of each K5 / K9 / K6 / K11 / K13 / K3 / K10 kernel in that
+# path's counted run
 GATHER_PATH_LAUNCHES = {}
 # kernel row name -> its check against the plain version and its timings
 GATHER_ROWS = {}
 
 
 def gather_launches():
-    """The launch counters of the K5, K9, K6, K11 and K13 kernels, by row
-    name."""
-    from pgmpy_tpu_torch.ops import ancestral, gibbs, table_gather
+    """The launch counters of the K5, K9, K6, K11, K13, K3 and K10 kernels,
+    by row name."""
+    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, table_gather
 
     return {"ancestral/sweep": ancestral.LAUNCHES,
             "ancestral/particle_sweep": ancestral.PARTICLE_LAUNCHES,
             "gibbs/sweep": gibbs.LAUNCHES,
             "table_gather/row_sums": table_gather.LAUNCHES["row_sums"],
-            "table_gather/e_step": table_gather.LAUNCHES["e_step"]}
+            "table_gather/e_step": table_gather.LAUNCHES["e_step"],
+            "einsum_plan/plan_block": einsum.LAUNCHES["plan_block"],
+            "einsum_plan/plan_step": einsum.LAUNCHES["plan_step"],
+            "einsum_plan/filter_scan": einsum.SCAN_LAUNCHES}
 
 
 def reset_gather_launches():
-    from pgmpy_tpu_torch.ops import ancestral, gibbs, table_gather
+    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, table_gather
 
     ancestral.reset_launches()
     gibbs.reset_launches()
     table_gather.reset_launches()
+    einsum.reset_launches()
 
 
 def record_jt(path):
@@ -1086,7 +1108,8 @@ def phase_slice(model, df, codes, bincount_results, table_result):
     check(config.DEVICE.type == "cuda", "device left on the CPU")
 
     source = "pgmpy_tpu_torch/csrc/bincount.cu"
-    context = {"fitted": fitted, "q_var": q_var, "e_var": e_var, "bp_single": single, "k2": k2}
+    context = {"fitted": fitted, "q_var": q_var, "e_var": e_var, "bp_single": single, "k2": k2,
+               "batch_ev": batch_ev}
     return context, [
         {
             "name": "weighted_bincount",
@@ -1372,6 +1395,177 @@ def phase_simulate_predict(model, context):
         f"and forward: one each; likelihood_weighted: one)")
     GATHER_ROWS["ancestral/sweep"] = k5_kernel_row(sampler, n_sim)
     return table_launches, bincount_launches
+
+
+# --------------------------------------------------------------------------- #
+# K3: the planned contraction's two schedules against the plain version
+# --------------------------------------------------------------------------- #
+# the block-schedule check is skipped for plans whose unions sum past this
+# (one block would walk them alone for seconds)
+K3_BLOCK_CHECK_UNIONS = 2**27
+
+
+def capture_contractions(fn, modules):
+    """Run ``fn`` with each module's ``sum_product_planned`` / ``sum_product``
+    recording its (operand labels, output labels, operands) before it runs:
+    the contractions the path hands K3."""
+    from pgmpy_tpu_torch.ops import einsum
+
+    calls = []
+
+    def planned(axes, out, arrays, optimize="greedy"):
+        calls.append((tuple(map(tuple, axes)), tuple(out), list(arrays)))
+        return einsum.sum_product_planned(axes, out, arrays, optimize)
+
+    def product(axes, out, *arrays, optimize="greedy"):
+        calls.append((tuple(map(tuple, axes)), tuple(out), list(arrays)))
+        return einsum.sum_product(axes, out, *arrays, optimize=optimize)
+
+    saved = []
+    for module in modules:
+        for name, fake in (("sum_product_planned", planned), ("sum_product", product)):
+            if hasattr(module, name):
+                saved.append((module, name, getattr(module, name)))
+                setattr(module, name, fake)
+    try:
+        fn()
+    finally:
+        for module, name, original in saved:
+            setattr(module, name, original)
+    check(bool(calls), f"no contraction captured from {[m.__name__ for m in modules]}")
+    return calls
+
+
+def k3_table(call, schedule=None):
+    from pgmpy_tpu_torch.ops import einsum
+
+    axes, out, arrays = call
+    shapes = tuple(tuple(a.shape) for a in arrays)
+    strides = tuple(tuple(a.stride()) for a in arrays)
+    plan = einsum.contraction_plan(axes, out, shapes)
+    return einsum.PlanTable(axes, out, shapes, strides, arrays[0].element_size(), plan,
+                            schedule=schedule)
+
+
+def k3_case(name, call):
+    """Both schedules of one captured contraction against the plain version
+    on the card: float32 at rtol 1e-5 with atol 1e-6 of the plan's largest
+    entry (the kernel sums in float64, the plain version's steps in float32),
+    float64 at rtol 1e-12.  Returns the largest absolute error."""
+    from pgmpy_tpu_torch.ops import einsum
+
+    axes, out, arrays = call
+    want = einsum.sum_product_reference(axes, out, arrays)
+    table = k3_table(call)
+    f64 = want.dtype == torch.float64
+    atol = 0.0 if f64 else 1e-6 * float(want.abs().max())
+    rtol = 1e-12 if f64 else 1e-5
+    errs = {}
+    for schedule in ("plan_block", "plan_step"):
+        if schedule == "plan_block" and int(table.unions.sum()) > K3_BLOCK_CHECK_UNIONS:
+            errs[schedule] = None
+            continue
+        got = einsum.launch_plan(k3_table(call, schedule), arrays)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"k3 {name} {schedule}: {tuple(got.shape)} {got.dtype}")
+        check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"k3 {name} {schedule}: max_abs_err {float((got - want).abs().max())}")
+        errs[schedule] = float((got - want).abs().max())
+    log(f"k3_check {name} operands={len(arrays)} steps={len(table.steps)} schedule="
+        f"{table.schedule} max_union={int(table.unions.max())} unions={int(table.unions.sum())} "
+        f"arena={table.arena} ({'shared' if table.shared else 'global'}) dtype={want.dtype} "
+        f"max_abs_err plan_block={errs['plan_block']} plan_step={errs['plan_step']} (rtol "
+        f"{rtol:g}, atol {atol:.3e})")
+    return max(e for e in errs.values() if e is not None)
+
+
+def k3_kernel_row(name, call):
+    """The dispatch's schedule on one captured contraction: its device time
+    (median of 20 behind a device sleep), the plain version's (one
+    ``torch.einsum`` per step, eager), the bound (the operands and the output
+    moved once at 3.35 TB/s, or two operations per union entry per step at
+    67e12/s) and one ``torch.einsum`` over the whole contraction on
+    opt_einsum's path (labels renumbered; only where they are at most 52)."""
+    from pgmpy_tpu_torch.ops import einsum
+
+    axes, out, arrays = call
+    table = k3_table(call)
+    want = einsum.sum_product_reference(axes, out, arrays)
+    got = einsum.launch_plan(table, arrays)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ms = cuda_median_ms(lambda: einsum.launch_plan(table, arrays), device_only=True)
+    plain_ms = cuda_median_ms(lambda: einsum.sum_product_reference(axes, out, arrays))
+    nbytes = sum(a.numel() * a.element_size() for a in arrays) + got.numel() * got.element_size()
+    bound_ms, bound_by = bound(nbytes, 2 * int(table.unions.sum()))
+    dense, args = {}, []
+    for a, ax in zip(arrays, axes):
+        args += [a, [dense.setdefault(label, len(dense)) for label in ax]]
+    args.append([dense[label] for label in out])
+    library_ms = None
+    if len(dense) <= 52:
+        lib = torch.einsum(*args)
+        check(torch.allclose(lib, want, rtol=1e-5, atol=1e-6 * float(want.abs().max())),
+              f"k3 {name}: torch.einsum differs from the plain version")
+        library_ms = cuda_median_ms(lambda: torch.einsum(*args), device_only=True)
+    log(f"k3 {table.schedule} {name} operands={len(arrays)} steps={len(table.steps)} "
+        f"unions={int(table.unions.sum())} kernel_ms={ms:.5f} (device time, median of 20) "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) torch_einsum_ms="
+        f"{library_ms if library_ms is None else f'{library_ms:.5f}'} (labels {len(dense)}) "
+        f"max_abs_err={err:.3e}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_k3(context):
+    """K3 held against its plain version on the card: the contractions of a
+    MUNIN VariableElimination query, a MUNIN BeliefPropagation query and a
+    2,048-row ``query_batch``, each with both schedules, and the VE query's
+    in float64 (loopy BP's round is held in ``phase_loopy``); one launch for a
+    plan under the block limit; K3's launches per ``predict`` and
+    ``predict_probability`` call; the two schedules timed."""
+    from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination, bp, ve
+    from pgmpy_tpu_torch.ops import einsum
+
+    fitted, q_var, e_var = context["fitted"], context["q_var"], context["e_var"]
+    evidence = {e_var: fitted.states[e_var][0]}
+    engine = VariableElimination(fitted)
+    ve_calls = capture_contractions(lambda: engine.query([q_var], evidence=evidence), [ve])
+    tree = BeliefPropagation(fitted)
+    tree.calibrate()
+    bp_calls = capture_contractions(lambda: tree.query([q_var], evidence=evidence), [bp])
+    batch_calls = capture_contractions(lambda: tree.query_batch([q_var], context["batch_ev"]),
+                                       [bp])
+    worst = 0.0
+    for name, calls in (("munin_ve_query", ve_calls), ("munin_bp_query", bp_calls),
+                        ("munin_query_batch_2048", batch_calls)):
+        for k, call in enumerate(calls):
+            worst = max(worst, k3_case(f"{name}[{k}]", call))
+    axes, out, arrays = ve_calls[-1]
+    k3_case("munin_ve_query_float64", (axes, out, [a.double() for a in arrays]))
+    # a plan under the block limit: exactly one launch
+    check(k3_table(ve_calls[-1]).schedule == "plan_block", "the VE plan is not under the limit")
+    einsum.reset_launches()
+    einsum.sum_product_planned(axes, out, arrays)
+    check(einsum.LAUNCHES == {"plan_block": 1, "plan_step": 0},
+          f"a plan under the block limit made {einsum.LAUNCHES}")
+    fitted_p, _, test = context["predict_rows"]
+    per_call = {}
+    for name, fn in (("predict", lambda: fitted_p.predict(test)),
+                     ("predict_probability", lambda: fitted_p.predict_probability(test))):
+        einsum.reset_launches()
+        fn()
+        per_call[name] = dict(einsum.LAUNCHES)
+    log(f"k3_launches_per_call predict {per_call['predict']} predict_probability "
+        f"{per_call['predict_probability']} (their profiler kernels per call are logged with "
+        f"predict_rows_per_s)")
+    GATHER_ROWS["einsum_plan/plan_block"] = k3_kernel_row("munin_ve_query", ve_calls[-1])
+    GATHER_ROWS["einsum_plan/plan_step"] = k3_kernel_row("munin_query_batch_2048",
+                                                         batch_calls[-1])
+    log(f"k3_checks ok: every captured contraction within its limits under both schedules "
+        f"(largest float32 error {worst:.3e})")
+    einsum.reset_launches()
 
 
 # --------------------------------------------------------------------------- #
@@ -1803,7 +1997,7 @@ def phase_temporal():
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.inference import DBNInference
     from pgmpy_tpu_torch.models import DynamicBayesianNetwork
-    from pgmpy_tpu_torch.ops import ancestral
+    from pgmpy_tpu_torch.ops import ancestral, einsum
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.sampling.smc import ParticleFilter
     from pgmpy_tpu_torch.utils import get_example_model
@@ -1863,6 +2057,19 @@ def phase_temporal():
     torch.cuda.synchronize()
     dbn_fit_s = time.time() - t0
     fit_launches = bc.TABLE_LAUNCHES - before
+    # the exact filters: one filter_scan launch per forward_scan call (K10)
+    rain_infer = DBNInference(rain)
+    exact = rain_infer.forward_scan(["rain"], rain_ev, n_time_slices=PF_SLICES)
+    check(einsum.SCAN_LAUNCHES == 1, f"rain's forward_scan made {einsum.SCAN_LAUNCHES} "
+          f"filter_scan launches")
+    warm = alarm_infer.forward_scan(persistent, alarm_ev, n_time_slices=2)  # plans
+    check(len(warm) == 2 * len(persistent), "forward_scan of two slices")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    alarm_exact = alarm_infer.forward_scan(persistent, alarm_ev, n_time_slices=ALARM_SLICES)
+    scan_s = time.time() - t0
+    check(einsum.SCAN_LAUNCHES == 3, f"three forward_scan calls made {einsum.SCAN_LAUNCHES} "
+          f"filter_scan launches")
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
     record_jt("temporal")
     check(fit_launches == DBN_SIM_SLICES - 1,
@@ -1874,13 +2081,15 @@ def phase_temporal():
         f"(one per slice)")
 
     # ---- rain / umbrella: against the exact filter, the same seed, the CPU run
-    rain_infer = DBNInference(rain)
-    exact = rain_infer.forward_scan(["rain"], rain_ev, n_time_slices=PF_SLICES)
     with on_device("cpu"):
         cpu_exact = DBNInference(rain_umbrella_dbn()).forward_scan(
             ["rain"], rain_ev, n_time_slices=PF_SLICES)
     scan_err = max(float(np.abs(exact[k] - cpu_exact[k]).max()) for k in exact)
     check(scan_err <= 1e-5, f"forward_scan against the CPU run: {scan_err}")
+    plain = rain_infer._forward_scan(["rain"], rain_ev, PF_SLICES, kernel=False)
+    rain_plain_err = max(float(np.abs(exact[k] - plain[k]).max()) for k in exact)
+    check(set(plain) == set(exact) and rain_plain_err <= 1e-5,
+          f"rain forward_scan against the plain version on the card: {rain_plain_err}")
     check(rain_particles.shape == (PF_PARTICLES, 2), f"final particles {rain_particles.shape}")
     margin = filter_check("rain", rain_marg, rain_ess, exact, ["rain"], PF_SLICES, PF_PARTICLES)
     again = rain_pf.filter(rain_ev, n_time_slices=PF_SLICES, seed=SEED)
@@ -1907,22 +2116,29 @@ def phase_temporal():
         f"the slice's effective sample size + 1e-4 of forward_scan (largest share of the limit "
         f"{margin:.3f}), same seed: particles and sample sizes equal, marginals within "
         f"{drift:.3e} (float atomics; limit 1e-5), forward_scan_vs_cpu max_abs_err "
-        f"{scan_err:.3e} (limit 1e-5)")
+        f"{scan_err:.3e} (limit 1e-5), forward_scan_vs_plain_on_card max_abs_err "
+        f"{rain_plain_err:.3e} (limit 1e-5)")
 
     # ---- ALARM 2-TBN: the exact filter, then the particle filter against it
-    guard = alarm_infer.forward_scan(persistent[:1], alarm_ev, n_time_slices=2)  # plans, warm
-    check(len(guard) == 2, "forward_scan of two slices")
-    torch.cuda.synchronize()
-    t0 = time.time()
-    exact = alarm_infer.forward_scan(persistent, alarm_ev, n_time_slices=ALARM_SLICES)
-    scan_s = time.time() - t0
+    exact = alarm_exact
+    plain = alarm_infer._forward_scan(persistent, alarm_ev, ALARM_SLICES, kernel=False)
+    alarm_plain_err = max(float(np.abs(exact[k] - plain[k]).max()) for k in exact)
+    check(set(plain) == set(exact) and alarm_plain_err <= 1e-5,
+          f"ALARM forward_scan against the plain version on the card: {alarm_plain_err}")
+    # the kernels of a whole call do not grow with the slices
     scan_kernels, scan_device_ms = profiled(lambda: alarm_infer.forward_scan(
-        persistent, alarm_ev, n_time_slices=ALARM_SLICES), sessions=1)
+        persistent, alarm_ev, n_time_slices=ALARM_SLICES))
+    warm_kernels, _ = profiled(lambda: alarm_infer.forward_scan(
+        persistent, alarm_ev, n_time_slices=2))
+    check(scan_kernels == warm_kernels, f"forward_scan: {scan_kernels} kernels for "
+          f"{ALARM_SLICES} slices, {warm_kernels} for 2")
     log(f"forward_scan_alarm slices={ALARM_SLICES} queries={len(persistent)} scan_s {scan_s:.4f} "
         f"forward_scan_slices_per_s {(ALARM_SLICES - 1) / scan_s:.1f} kernels_per_slice "
         f"{scan_kernels / (ALARM_SLICES - 1):.1f} device_ms_per_slice "
         f"{scan_device_ms / (ALARM_SLICES - 1):.4f} idle_share "
-        f"{1 - scan_device_ms / (scan_s * 1e3):.3f}")
+        f"{1 - scan_device_ms / (scan_s * 1e3):.3f} kernels_per_call {scan_kernels:.0f} (the "
+        f"2-slice call: {warm_kernels:.0f}; one filter_scan launch a call) "
+        f"forward_scan_vs_plain_on_card max_abs_err {alarm_plain_err:.3e} (limit 1e-5)")
     check(alarm_particles.shape == (ALARM_PARTICLES, len(alarm.nodes())),
           f"final particles {alarm_particles.shape}")
     margin = filter_check("alarm", alarm_marg, alarm_ess, exact, persistent, ALARM_SLICES,
@@ -1995,6 +2211,7 @@ def phase_temporal():
         f"{len(specs)} columns offset into one index space, weights repeated) "
         f"wrapper_host_us_median {float(np.median(host_us)):.1f} (descriptor uploaded once)")
     GATHER_ROWS["ancestral/particle_sweep"] = k9_kernel_row(alarm_pf, alarm_particles, alarm_ev)
+    GATHER_ROWS["einsum_plan/filter_scan"] = k10_kernel_row(alarm_infer, persistent, alarm_ev)
 
     # ---- simulate and fit of the 2-TBN
     check(set(frame.columns) == {(v, t) for v in alarm.nodes() for t in range(DBN_SIM_SLICES)}
@@ -2979,7 +3196,7 @@ def phase_loopy():
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.factors import DiscreteFactor
     from pgmpy_tpu_torch.inference import (BeliefPropagation,
-                                           BeliefPropagationWithMessagePassing, Mplp)
+                                           BeliefPropagationWithMessagePassing, Mplp, fg_bp)
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.utils.interop import factor_graph_from_numpy, markov_network_from_numpy
 
@@ -3036,6 +3253,9 @@ def phase_loopy():
                           device=program.device)
     log_fixed = torch.log(torch.as_tensor(program.mask, dtype=program.dtype, device=program.device))
     padded = bp._tables[2]
+    for k, call in enumerate(capture_contractions(lambda: program.round(f2v, log_fixed, padded),
+                                                  [fg_bp])):
+        k3_case(f"loopy_round_128x128[{k}]", call)
     by_name = kernels_by_name(lambda: program.round(f2v, log_fixed, padded))
     kernels = sum(c for c, _ in by_name.values())
     device_ms = sum(us for _, us in by_name.values()) / 1e3
@@ -4622,6 +4842,43 @@ def k9_kernel_row(pf, particles, evidence):
             "bound_by": bound_by, "library_ms": None}
 
 
+def k10_kernel_row(infer, variables, evidence):
+    """K10 on ALARM as a 2-TBN: ``filter_scan`` over the 49 transition slices
+    of ``forward_scan`` (the smoke's queries and evidence) against the plain
+    version (the host loop of plain planned contractions) on the same inputs,
+    its device time (median of 20 behind a device sleep), the plain
+    version's (median of 3, eager), and the bound: the transition tables,
+    codes, alpha and output moved once, or two operations per union entry of
+    every step of every slice."""
+    from pgmpy_tpu_torch.factors.factor_ops import factor_sum_product
+    from pgmpy_tpu_torch.inference.dbn import scan_reference
+
+    inputs = infer._scan_inputs(variables, evidence, ALARM_SLICES)
+    alpha = factor_sum_product(inputs["iface0"], inputs["factors0"]).normalize(
+        inplace=False).values
+    program = infer._scan_program(inputs)
+    codes = torch.as_tensor(inputs["codes"], dtype=torch.int32, device=alpha.device)
+    trans = inputs["trans_arrays"]
+    got = program.run(alpha, trans, codes)
+    want = scan_reference(inputs, alpha)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(got.shape == want.shape and err <= 1e-5, f"k10: max_abs_err {err} (limit 1e-5)")
+    ms = cuda_median_ms(lambda: program.run(alpha, trans, codes), device_only=True)
+    plain_ms = cuda_median_ms(lambda: scan_reference(inputs, alpha), reps=3, warmup=1)
+    slices = codes.shape[0]
+    unions = int((program.steps[:, 6] * program.steps[:, 7]).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in [*trans, alpha, codes, got])
+    bound_ms, bound_by = bound(nbytes, 2 * unions * slices)
+    log(f"k10 filter_scan slices={slices} queries={len(variables)} steps_per_slice="
+        f"{len(program.steps)} unions_per_slice={unions} arena={program.arena} "
+        f"({'shared' if program.shared else 'global'}) kernel_ms={ms:.4f} (device time, one "
+        f"launch, median of 20) plain_ms={plain_ms:.3f} (median of 3) bound_ms={bound_ms:.6f} "
+        f"({bound_by}) library: none max_abs_err={err:.3e} (limit 1e-5)")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def gather_bytes(gather, codes, table, out_elem):
     """Bytes a table-gather launch must move: every code column it reads and
     the table once, its output once, the node table."""
@@ -4721,17 +4978,18 @@ def build_kernels():
     """Build every kernel source of the port at once (one nvcc per source,
     all started together), then load each, and log each build's time and
     what ptxas says of each kernel."""
-    from pgmpy_tpu_torch.ops import _build, ancestral, bincount, gibbs, jt, table_gather
+    from pgmpy_tpu_torch.ops import _build, ancestral, bincount, einsum, gibbs, jt, table_gather
 
     t0 = time.time()
     _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"],
                             "table_gather": ["table_gather.cu"], "ancestral": ["ancestral.cu"],
-                            "gibbs": ["gibbs.cu"]})
+                            "gibbs": ["gibbs.cu"], "einsum_plan": ["einsum_plan.cu"]})
     for load in (bincount._library, jt._library, table_gather._library, ancestral._library,
-                 gibbs._library):
+                 gibbs._library, einsum._library):
         load()
     log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu, jt_calibrate.cu, "
-        f"table_gather.cu, ancestral.cu and gibbs.cu, one nvcc each, started together)")
+        f"table_gather.cu, ancestral.cu, gibbs.cu and einsum_plan.cu, one nvcc each, started "
+        f"together)")
     for name, built in _build.BUILDS.items():
         log(f"kernels_built {name} nvcc_s {built['seconds']:.2f}")
         for line in ptxas_summary(built["ptxas"]):
@@ -4770,6 +5028,9 @@ def main():
     kernels[0]["launches_simulate_fit_predict"] = bincount_launches
     kernels[1]["launches_simulate_fit_predict"] = table_launches
     log(f"phase_simulate_predict_s {time.time() - t0:.1f}")
+    t0 = time.time()
+    phase_k3(context)
+    log(f"phase_k3_s {time.time() - t0:.1f}")
     # the third path
     t0 = time.time()
     table_launches, bincount_launches = phase_mcmc(model)
@@ -4854,8 +5115,9 @@ def main():
         })
     log("k2_launches_by_path " + " ".join(
         f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
-    # K5's, K9's, K6's, K13's and K11's rows: each kernel's launches on the
-    # path that drives it (set to 0 before that path and read after it), and on the others
+    # K5's, K9's, K6's, K13's, K11's, K3's and K10's rows: each kernel's
+    # launches on the path that drives it (set to 0 before that path and read
+    # after it), and on the others
     for name, (source, replaces, path) in GATHER_KERNELS.items():
         launches = GATHER_PATH_LAUNCHES[path][name]
         check(launches > 0, f"the {path} path did not launch {name}")
@@ -4867,7 +5129,7 @@ def main():
             **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
                if other != path},
         })
-    log("k5_k9_k6_k11_k13_launches_by_path " + " ".join(
+    log("k5_k9_k6_k11_k13_k3_k10_launches_by_path " + " ".join(
         f"{path} {counts}" for path, counts in GATHER_PATH_LAUNCHES.items()))
     log(f"script_s {time.time() - started:.1f}")
     log(smi)  # again near the end, where a reader of the output's tail finds it

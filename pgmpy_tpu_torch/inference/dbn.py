@@ -5,15 +5,21 @@ Port of ``pgmpy_tpu/inference/dbn.py``.  The forward pass carries an
 through each slice with one fused contraction per step (constant memory in
 T); smoothing unrolls the network and runs ``VariableElimination``.
 
-``forward_scan`` is the device program.  The JAX package compiles one
-``lax.scan`` over the slices; here it is a host loop over slices of torch ops
-on ``config.DEVICE``, and that is the divergence on purpose: the contraction
-of ``[alpha, transition factors, evidence deltas]`` is planned once
-(``ops/einsum.py:sum_product_planned`` caches the plan on the operands'
-shapes, which are the same at every slice), the ``(T - 1, card)`` delta
-matrices of all slices are built on the device before the loop, nothing is
-read back inside the loop, and the stacked marginals come back in one copy
-at the end.
+``forward_scan`` is the device program (K10).  The JAX package compiles one
+``lax.scan`` over the slices; here, on a CUDA device, ONE launch of the
+hand-written ``filter_scan`` kernel (``csrc/einsum_plan.cu``, host tables in
+``ops/einsum.py:ScanProgram``) runs every transition slice inside one block:
+the slice's evidence deltas from its row of codes, the contraction of
+``[alpha, transition factors, evidence deltas]`` to the joint over the
+interface and the queries with each marginal read from it (or, where that
+joint would pass a block's limit, the ``1 + queries`` planned contractions
+the plain version runs), the normalisations, and alpha carried to the next
+slice.  The slice-0 work stays
+on the host (``factor_sum_product``, K3).  On the CPU the plain version
+:func:`scan_reference` loops over the slices on the host.  Slice-0 evidence
+on an interface variable is kept in alpha as a one-hot mask; the JAX package
+reduces it out of the start factors and then raises (a fault fixed in the
+port on purpose).
 """
 
 from collections import defaultdict
@@ -22,13 +28,52 @@ import numpy as np
 import torch
 
 from pgmpy_tpu_torch.config import config, to_numpy
+from pgmpy_tpu_torch.factors.discrete import DiscreteFactor
 from pgmpy_tpu_torch.factors.factor_ops import factor_sum_product
 from pgmpy_tpu_torch.models.dynamic_bn import DynamicBayesianNetwork
-from pgmpy_tpu_torch.ops.einsum import make_axis_map, sum_product_planned
+from pgmpy_tpu_torch.ops.einsum import ScanProgram, make_axis_map, sum_product_reference
 
 
 def _shift(var, dt):
     return (var[0], var[1] + dt)
+
+
+def _evidence_code(key, state, names, card):
+    """A state name, or ``int(state)`` as a state index, validated."""
+    code = names.index(state) if state in names else int(state)
+    if not 0 <= code < card:
+        raise ValueError(f"Evidence state {state!r} not valid for {key}")
+    return code
+
+
+def scan_reference(inputs, alpha):
+    """Plain version of ``filter_scan`` (``DBNInference._scan_inputs``'
+    ``inputs``, the slice-0 interface posterior ``alpha``): a host loop over
+    the slices of plain planned contractions (``torch.einsum`` steps), the
+    deltas of every slice built on the device before the loop, nothing read
+    back inside it -> ``(T - 1, sum of query cards)``."""
+    operand_axes, outputs = inputs["operand_axes"], inputs["outputs"]
+    trans = list(inputs["trans_arrays"])
+    device, dtype = alpha.device, alpha.dtype
+    codes = torch.as_tensor(inputs["codes"], device=device)
+    # per variable the (T - 1, card) deltas of every slice: a one-hot row
+    # where the variable is observed, all ones where it is not
+    delta_rows = []
+    for j, card in enumerate(inputs["delta_cards"]):
+        onehot = torch.nn.functional.one_hot(codes[:, j].clamp_min(0), card)
+        delta_rows.append(torch.where(codes[:, j : j + 1] >= 0, onehot.to(dtype),
+                                      torch.ones((), dtype=dtype, device=device)))
+    rows = []
+    for t in range(codes.shape[0]):
+        operands = [alpha] + trans + [r[t] for r in delta_rows]
+        marginals = []
+        for labels in outputs[:-1]:
+            m = sum_product_reference(operand_axes, labels, operands)
+            marginals.append(m / m.sum())
+        alpha = sum_product_reference(operand_axes, outputs[-1], operands)
+        alpha = alpha / alpha.sum()
+        rows.append(torch.cat(marginals))
+    return torch.stack(rows)
 
 
 class DBNInference:
@@ -48,6 +93,7 @@ class DBNInference:
             cpd.to_factor() for cpd in model.get_cpds(time_slice=1)
         ]
         self.slice0_vars = sorted(set(model.get_slice_nodes(0)), key=str)
+        self._scan_programs = {}
 
     @staticmethod
     def _apply_evidence(factors, evidence):
@@ -139,19 +185,14 @@ class DBNInference:
                 alpha.variables = new_vars
         return results
 
-    def forward_scan(self, variables, evidence=None, n_time_slices=None):
-        """Filtering on ``config.DEVICE``: a loop over time slices with the
-        interface potential carried as a dense tensor, constant memory in T
-        and no host read inside the loop.
-
-        ``variables``: list of variable NAMES (not (name, t)); filtered
-        marginals are returned for every slice: {(name, t): ndarray}.
-        ``evidence``: {(name, t): state}, a state name or, for anything that
-        is not a state name, ``int(state)`` as a state index; an index
-        outside the variable's states raises ``ValueError``.  As in the JAX
-        package, evidence at ``t >= 1`` on a name without a slice-1 variable
-        is ignored.
-        """
+    def _scan_inputs(self, variables, evidence, n_time_slices):
+        """What ``forward_scan`` contracts, built on the host: a dict of the
+        slice's operand labels (``[alpha] + transition factors + one delta
+        per slice-1 variable``), the outputs' labels (each query variable,
+        then the slice-1 interface), the transition tables, the cards of the
+        deltas, the ``(T - 1, variables)`` evidence codes (-1 unobserved),
+        the slice-0 factors with a one-hot mask per observed slice-0
+        variable, and the horizon."""
         evidence = {tuple(k): v for k, v in (evidence or {}).items()}
         if n_time_slices is None:
             n_time_slices = max([t for _, t in evidence.keys()] + [1]) + 1
@@ -159,7 +200,6 @@ class DBNInference:
         # transition-slice structure: operands = alpha(interface0) +
         # transition factors + per-variable evidence deltas on slice-1 vars
         trans_scopes = [list(f.variables) for f in self.transition_factors]
-        trans_arrays = [f.values for f in self.transition_factors]
         slice1_vars = sorted({(v[0], 1) for f in self.transition_factors for v in f.variables if v[1] == 1}, key=str)
         iface0 = list(self.interface_nodes_0)
         iface1 = [(v, 1) for v, _ in iface0]
@@ -173,52 +213,76 @@ class DBNInference:
 
         all_scopes = [iface0] + trans_scopes + [[v] for v in slice1_vars]
         var_to_int, operand_axes = make_axis_map(all_scopes)
-
-        def contract(alpha, deltas, out_vars):
-            # one cached plan per output: the operands' shapes never change
-            return sum_product_planned(
-                operand_axes, [var_to_int[v] for v in out_vars], [alpha] + trans_arrays + deltas
-            )
+        outputs = [(var_to_int[(name, 1)],) for name in variables]
+        outputs.append(tuple(var_to_int[v] for v in iface1))
 
         # evidence codes per slice for slice-1 vars, validated on the host
         ev_matrix = np.full((n_time_slices, len(slice1_vars)), -1, dtype=np.int64)
         for (name, t), state in evidence.items():
             v1 = (name, 1)
             if v1 in slice1_vars and 1 <= t < n_time_slices:
-                names = state_names[v1]
-                code = names.index(state) if state in names else int(state)
-                if not 0 <= code < cards[v1]:
-                    raise ValueError(f"Evidence state {state!r} not valid for {(name, t)}")
-                ev_matrix[t, slice1_vars.index(v1)] = code
-        # per variable the (T - 1, card) deltas of every slice: a one-hot row
-        # where the variable is observed, all ones where it is not
-        codes = torch.as_tensor(ev_matrix[1:], device=config.DEVICE)
-        delta_rows = []
-        for j, v in enumerate(slice1_vars):
-            onehot = torch.nn.functional.one_hot(codes[:, j].clamp_min(0), cards[v])
-            delta_rows.append(torch.where(
-                codes[:, j : j + 1] >= 0, onehot.to(config.DTYPE),
-                torch.ones((), dtype=config.DTYPE, device=config.DEVICE),
-            ))
+                ev_matrix[t, slice1_vars.index(v1)] = _evidence_code(
+                    (name, t), state, state_names[v1], cards[v1])
+        # slice 0: an observed variable stays in the start factors, masked by
+        # a one-hot factor (an observed interface variable is carried on)
+        factors0 = list(self.start_factors)
+        slice0 = {v for f in self.start_factors for v in f.variables}
+        for (name, t), state in evidence.items():
+            v0 = (name, 0)
+            if t == 0 and v0 in slice0:
+                mask = np.zeros(cards[v0])
+                mask[_evidence_code((name, t), state, state_names[v0], cards[v0])] = 1.0
+                factors0.append(DiscreteFactor([v0], [cards[v0]], mask,
+                                               state_names={v0: state_names[v0]}))
+        return {
+            "operand_axes": operand_axes, "outputs": outputs,
+            "trans_arrays": [f.values for f in self.transition_factors],
+            "delta_cards": [cards[v] for v in slice1_vars], "codes": ev_matrix[1:],
+            "factors0": factors0, "iface0": iface0, "n_time_slices": n_time_slices,
+            "alpha_shape": tuple(cards[v] for v in iface0),
+            "query_cards": [cards[(name, 1)] for name in variables],
+        }
 
+    def _scan_program(self, inputs):
+        """The ``filter_scan`` tables of these inputs' signature, built once
+        per (outputs, transition strides, dtype) and kept."""
+        trans = inputs["trans_arrays"]
+        shapes = [inputs["alpha_shape"]] + [tuple(a.shape) for a in trans] + [
+            (c,) for c in inputs["delta_cards"]]
+        strides = [tuple(a.stride()) for a in trans]
+        key = (tuple(inputs["outputs"]), tuple(strides),
+               trans[0].dtype if trans else config.DTYPE)
+        program = self._scan_programs.get(key)
+        if program is None:
+            program = ScanProgram(inputs["operand_axes"], inputs["outputs"], shapes, strides,
+                                  torch.empty((), dtype=key[2]).element_size())
+            self._scan_programs[key] = program
+        return program
+
+    def forward_scan(self, variables, evidence=None, n_time_slices=None):
+        """Filtering on ``config.DEVICE``: the interface potential carried over
+        the slices as a dense tensor, constant memory in T, one readback.
+
+        ``variables``: list of variable NAMES (not (name, t)); filtered
+        marginals are returned for every slice: {(name, t): ndarray}.
+        ``evidence``: {(name, t): state}, a state name or, for anything that
+        is not a state name, ``int(state)`` as a state index; an index
+        outside the variable's states raises ``ValueError``.  As in the JAX
+        package, evidence at ``t >= 1`` on a name without a slice-1 variable
+        is ignored.  Slice-0 evidence on an interface variable is kept in
+        alpha as a one-hot mask (the JAX package raises on it).
+        """
+        return self._forward_scan(variables, evidence, n_time_slices)
+
+    def _forward_scan(self, variables, evidence=None, n_time_slices=None, kernel=True):
+        """``forward_scan``; with ``kernel=False`` the plain version runs on a
+        CUDA device too (the check of the kernel)."""
+        inputs = self._scan_inputs(variables, evidence, n_time_slices)
+        n_time_slices = inputs["n_time_slices"]
+        factors0 = inputs["factors0"]
         # initial alpha: slice-0 posterior over the interface given slice-0
         # evidence (one-off)
-        factors0 = self._apply_evidence(
-            list(self.start_factors),
-            {(n, 0): s for (n, t), s in evidence.items() if t == 0},
-        )
-        alpha = factor_sum_product(iface0, factors0).normalize(inplace=False).values
-
-        query_vars1 = [(name, 1) for name in variables]
-        marg_rows = [[] for _ in query_vars1]
-        for t in range(n_time_slices - 1):
-            deltas = [rows[t] for rows in delta_rows]
-            # filtered marginals for the query vars at this slice
-            for qi, q in enumerate(query_vars1):
-                m = contract(alpha, deltas, [q])
-                marg_rows[qi].append(m / m.sum())
-            alpha = contract(alpha, deltas, iface1)
-            alpha = alpha / alpha.sum()
+        alpha = factor_sum_product(inputs["iface0"], factors0).normalize(inplace=False).values
 
         out = {}
         # slice 0 marginals from the start factors
@@ -226,12 +290,18 @@ class DBNInference:
             phi = factor_sum_product([(name, 0)], factors0).normalize(inplace=False)
             out[(name, 0)] = np.array(to_numpy(phi.values))
         if n_time_slices > 1 and variables:
+            if alpha.device.type == "cuda" and kernel:
+                program = self._scan_program(inputs)
+                codes = torch.as_tensor(inputs["codes"], dtype=torch.int32, device=alpha.device)
+                stacked = program.run(alpha, inputs["trans_arrays"], codes)
+            else:
+                stacked = scan_reference(inputs, alpha)
             # one readback: (T - 1, sum of the query cardinalities)
-            stacked = np.array(to_numpy(torch.cat([torch.stack(rows) for rows in marg_rows], dim=1)))
+            stacked = np.array(to_numpy(stacked))
             start = 0
-            for name in variables:
-                arr = stacked[:, start : start + cards[(name, 1)]]
-                start += cards[(name, 1)]
+            for name, card in zip(variables, inputs["query_cards"]):
+                arr = stacked[:, start : start + card]
+                start += card
                 for t in range(1, n_time_slices):
                     out[(name, t)] = arr[t - 1]
         return out

@@ -134,12 +134,16 @@ def test_one_launch_per_slice_and_the_same_seed(on_cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rain", "wide"])  # evidence on a leaf outside the interface
+# evidence on a leaf outside the interface; "rain_slice0" also observes the
+# interface variable at slice 0, which forward_scan keeps in alpha as a mask
+@pytest.mark.parametrize("name", ["rain", "wide", "rain_slice0"])
 def test_filtered_marginals_match_forward_scan(on_cuda, name):
-    model = _model(name)
+    model = _model(name.split("_")[0])
     pf = ParticleFilter(model, n_particles=100_000)
     leaf = pf.variables[-1]
     evidence = {(leaf, t): t % 2 for t in range(0, 20, 3)}
+    if name.endswith("slice0"):
+        evidence[(pf.variables[0], 0)] = 1
     marginals, _, ess = pf.filter(evidence, n_time_slices=20, seed=0)
     queries = [v for v in pf.variables if v != leaf]
     exact = DBNInference(model).forward_scan(queries, evidence, n_time_slices=20)
