@@ -6,7 +6,7 @@ Runs from the repository root and needs one CUDA card.  It
 
 1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu``,
    ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu``, ``csrc/ancestral.cu``,
-   ``csrc/gibbs.cu`` and ``csrc/einsum_plan.cu``,
+   ``csrc/gibbs.cu``, ``csrc/einsum_plan.cu`` and ``csrc/hmc.cu``,
    one ``nvcc`` each, started together, each build's time and what ptxas says
    of each kernel logged), and holds both count entry points
    against their plain PyTorch versions on the card: ``weighted_bincount``
@@ -65,8 +65,12 @@ Runs from the repository root and needs one CUDA card.  It
    equal to the bit, and timed), Gibbs on HEPAR2 (10,000 chains x 120 sweeps
    against the exact marginals of a calibrated junction tree), and on the
    46-dimensional linear-Gaussian network ecoli70 ``VectorizedNUTS`` with
-   1,024 chains and ``HamiltonianMCDA`` with 64 (moments against the
-   closed-form joint, the batched leapfrog against the CPU run);
+   1,024 chains (20 + 120 transitions, each ONE launch of K8's ``nuts_step``,
+   ``csrc/hmc.cu``, no ``torch.func`` call, one host read) and
+   ``HamiltonianMCDA`` with 64 (one ``hmc_step`` launch per warm-up step and
+   one for the 150 draws): moments against the closed-form joint, the
+   batched leapfrog against the CPU run, both kernels against their plain
+   versions on explicit noise (float32 and float64) and timed;
 6. drives the temporal lane (``phase_temporal``): the particle filter on the
    rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
    as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
@@ -158,16 +162,17 @@ Runs from the repository root and needs one CUDA card.  It
    effective sample size; one ``table_counts`` launch per shard),
    ``sharded_query_batch`` of the 2,048 prediction rows over 4, 1 and 3 shards
    against ``query_batch``, ``sharded_gibbs_marginals`` on HEPAR2 and
-   ``sharded_nuts_moments`` on ecoli70 (1,024 chains, 30 kept steps) against
-   their exact answers, K1 at the shape of one shard's moments, and a run of
+   ``sharded_nuts_moments`` on ecoli70 (1,024 chains, 30 kept steps, one
+   ``nuts_step`` launch per shard and transition) against their exact
+   answers, K1 at the shape of one shard's moments, and a run of
    two processes joined by gloo on one card (NCCL, one card per rank, when
    there are two);
 15. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time; K5's,
-   K11's, K13's, K3's and K10's launches counted on the path that drives
+   K11's, K13's, K3's, K10's and K8's launches counted on the path that drives
    each: simulate -> fit -> predict, the latent lane, constraint-based
-   learning, the main path, the temporal lane), and, as the
+   learning, the main path, the temporal lane, the MCMC lane), and, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is not 0 and no result line is
@@ -247,7 +252,7 @@ def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
 
 def reset_launches():
     """Zero the launch counters of every kernel source (K1, K2, K5 with K9,
-    K6, K11, K13, K3 with K10)."""
+    K6, K11, K13, K3 with K10, K8)."""
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.ops import jt
 
@@ -258,7 +263,7 @@ def reset_launches():
 
 # path -> launches of each K2 kernel in that path's counted run
 JT_PATH_LAUNCHES = {}
-# K5, K9, K6, K11, K13, K3 and K10: kernel row name -> (source, the JAX
+# K5, K9, K6, K11, K13, K3, K10 and K8: kernel row name -> (source, the JAX
 # function it replaces, the path that drives it)
 GATHER_KERNELS = {
     "ancestral/sweep": ("pgmpy_tpu_torch/csrc/ancestral.cu", "pgmpy_tpu/sampling/core.py:173",
@@ -276,18 +281,21 @@ GATHER_KERNELS = {
                               "pgmpy_tpu/ops/einsum.py:73", "main"),
     "einsum_plan/filter_scan": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
                                 "pgmpy_tpu/inference/dbn.py:131", "temporal"),
+    "hmc/nuts_step": ("pgmpy_tpu_torch/csrc/hmc.cu", "pgmpy_tpu/sampling/nuts_jax.py:185",
+                      "mcmc"),
+    "hmc/hmc_step": ("pgmpy_tpu_torch/csrc/hmc.cu", "pgmpy_tpu/sampling/hmc.py:135", "mcmc"),
 }
-# path -> launches of each K5 / K9 / K6 / K11 / K13 / K3 / K10 kernel in that
-# path's counted run
+# path -> launches of each K5 / K9 / K6 / K11 / K13 / K3 / K10 / K8 kernel in
+# that path's counted run
 GATHER_PATH_LAUNCHES = {}
 # kernel row name -> its check against the plain version and its timings
 GATHER_ROWS = {}
 
 
 def gather_launches():
-    """The launch counters of the K5, K9, K6, K11, K13, K3 and K10 kernels,
-    by row name."""
-    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, table_gather
+    """The launch counters of the K5, K9, K6, K11, K13, K3, K10 and K8
+    kernels, by row name."""
+    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, hmc, table_gather
 
     return {"ancestral/sweep": ancestral.LAUNCHES,
             "ancestral/particle_sweep": ancestral.PARTICLE_LAUNCHES,
@@ -296,13 +304,16 @@ def gather_launches():
             "table_gather/e_step": table_gather.LAUNCHES["e_step"],
             "einsum_plan/plan_block": einsum.LAUNCHES["plan_block"],
             "einsum_plan/plan_step": einsum.LAUNCHES["plan_step"],
-            "einsum_plan/filter_scan": einsum.SCAN_LAUNCHES}
+            "einsum_plan/filter_scan": einsum.SCAN_LAUNCHES,
+            "hmc/nuts_step": hmc.LAUNCHES["nuts_step"],
+            "hmc/hmc_step": hmc.LAUNCHES["hmc_step"]}
 
 
 def reset_gather_launches():
-    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, table_gather
+    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, hmc, table_gather
 
     ancestral.reset_launches()
+    hmc.reset_launches()
     gibbs.reset_launches()
     table_gather.reset_launches()
     einsum.reset_launches()
@@ -310,8 +321,8 @@ def reset_gather_launches():
 
 def record_jt(path):
     """Keep the K2 kernels' launch counts of ``path``'s counted run (read
-    where the path's K1 counts are read), and the K5 / K9 / K6 / K11 / K13
-    kernels'."""
+    where the path's K1 counts are read), and the K5 / K9 / K6 / K11 / K13 /
+    K3 / K10 / K8 kernels'."""
     from pgmpy_tpu_torch.ops import jt
 
     JT_PATH_LAUNCHES[path] = dict(jt.LAUNCHES)
@@ -326,6 +337,31 @@ def bound(nbytes, operations):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+# profiling sessions in this run, and those that kept fewer device records
+# than the fullest session of their call
+PROFILE_SESSIONS = {"sessions": 0, "short": 0}
+
+
+@contextlib.contextmanager
+def profile_session(device_only=False):
+    """A ``torch.profiler`` session of the card (and the host, unless
+    ``device_only``) that ends after the block's device work has ended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU,
+                                                               ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
+def count_sessions(counts):
+    """Add one call's per-session record counts to ``PROFILE_SESSIONS``."""
+    PROFILE_SESSIONS["sessions"] += len(counts)
+    PROFILE_SESSIONS["short"] += sum(n < max(counts) for n in counts)
+
+
 def profiled(fn, reps=1, sessions=3):
     """(kernels per call, device ms per call) of ``fn`` from ``torch.profiler``:
     the device operations it starts and the sum of their times.
@@ -333,19 +369,19 @@ def profiled(fn, reps=1, sessions=3):
     A profiling session can come back without some of its device records (in
     one process the same call of K13 read 5, 33, 5, 33, 5 kernels in five
     sessions, 33 being what it launches), so each count is a lower bound: this
-    takes the session with the most records of ``sessions``.  A session of
-    tens of thousands of kernels takes the host about a minute to read."""
-    from torch.profiler import ProfilerActivity, profile
-
-    best = (0, 0.0)
+    takes the session with the most records of ``sessions``.  Late in this
+    script's process whole sessions keep too few (see :func:`fresh_profile`).
+    A session of tens of thousands of kernels takes the host about a minute
+    to read."""
+    best, counts = (0, 0.0), []
     for _ in range(sessions):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile_session() as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts.append(len(kernels))
         best = max(best, (len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    count_sessions(counts)
     return best[0] / reps, best[1] / 1e3 / reps
 
 
@@ -353,22 +389,77 @@ def kernels_by_name(fn):
     """{device operation name: (count, microseconds)} of one call of ``fn``,
     largest first (``torch.profiler``; of three sessions, the one with the
     most records, as in :func:`profiled`)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    best = {}
+    best, counts = {}, []
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile_session() as prof:
             fn()
-            torch.cuda.synchronize()
         out = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 count, total = out.get(e.name, (0, 0.0))
                 out[e.name] = (count + 1, total + e.time_range.elapsed_us())
-        if sum(c for c, _ in out.values()) > sum(c for c, _ in best.values()):
+        counts.append(sum(c for c, _ in out.values()))
+        if counts[-1] > sum(c for c, _ in best.values()):
             best = out
+    count_sessions(counts)
     return dict(sorted(best.items(), key=lambda kv: -kv[1][1]))
+
+
+FRESH_PROFILE = {}
+
+
+def fresh_profile():
+    """The profiler's readings of two calls, taken once in a process of its
+    own (``python3 chip_smoke.py --fresh-profile``, the same tree, seed and
+    card; cached): ``nuts_names``, :func:`kernels_by_name` of one
+    ``VectorizedNUTS`` transition of ecoli70's ``NUTS_CHAINS`` chains, and
+    ``scan`` / ``scan_2``, :func:`profiled` of ALARM's ``forward_scan`` as in
+    :func:`phase_temporal` over ``ALARM_SLICES`` and over 2 slices.
+
+    Late in this script's process whole sessions keep too few device records,
+    the same call in every session (a NUTS transition kept 3 of its 6 in nine
+    sessions; the 2-slice ``forward_scan`` 29 of its 33 in nine, while the
+    50-slice one kept 33), and a pad of host sleep around the call did not
+    help.  A process of its own keeps every record in every session."""
+    if not FRESH_PROFILE:
+        t0 = time.time()
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--fresh-profile"],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"the fresh profiling process failed: {out.stderr[-2000:]}")
+        FRESH_PROFILE.update(json.loads(out.stdout.strip().splitlines()[-1]))
+        log(f"fresh_profile_s {time.time() - t0:.1f} (a process of its own)")
+    return FRESH_PROFILE
+
+
+def fresh_profile_main():
+    """The child of :func:`fresh_profile`: prints its readings as one JSON line."""
+    from pgmpy_tpu_torch.config import as_tensor
+    from pgmpy_tpu_torch.inference import DBNInference
+    from pgmpy_tpu_torch.sampling import VectorizedNUTS
+    from pgmpy_tpu_torch.utils import get_example_model
+    from pgmpy_tpu_torch.utils.mathext import seeded_generator
+
+    ecoli = get_example_model("ecoli70")
+    _, mu, _ = ecoli.joint_gaussian()
+    nuts = VectorizedNUTS(ecoli, max_depth=6)
+    draws = nuts.sample(mu.copy(), num_samples=5, num_adapt=5, stepsize=0.17,
+                        n_chains=NUTS_CHAINS, seed=SEED)
+    positions, gen = as_tensor(draws[-1]), seeded_generator(SEED)
+    names = kernels_by_name(lambda: nuts._nuts_step(gen, positions, nuts.final_stepsize))
+
+    alarm = get_example_model("alarm")
+    dbn, persistent, _ = alarm_2tbn(alarm, ALARM_PERSISTENT)
+    leaves = sorted((v for v in alarm.nodes() if not alarm.get_children(v)),
+                    key=str)[:ALARM_EVIDENCE_LEAVES]
+    truth = dbn_trajectory(dbn, ALARM_SLICES, SEED)
+    evidence = {(v, t): truth[(v, t)] for v in leaves for t in range(ALARM_SLICES)}
+    infer = DBNInference(dbn)
+    scans = {}
+    for key, slices in (("scan", ALARM_SLICES), ("scan_2", 2)):
+        infer.forward_scan(persistent, evidence, n_time_slices=slices)  # plans
+        scans[key] = profiled(lambda: infer.forward_scan(persistent, evidence,
+                                                         n_time_slices=slices))
+    print(json.dumps({"nuts_names": names, **scans}))
 
 
 def host_median_s(fn, reps=3):
@@ -1577,7 +1668,7 @@ HEPAR_CHAINS = 10_000
 HEPAR_SWEEPS = 120
 HEPAR_BURN_IN = 20
 NUTS_CHAINS = 1024
-NUTS_SAMPLES = 40
+NUTS_SAMPLES = 120
 NUTS_ADAPT = 20
 HMC_CHAINS = 64
 
@@ -1789,9 +1880,35 @@ def phase_gibbs_hepar2():
         f"max_abs_marginal_err {worst:.4e} at {worst_var} (limit 0.02)")
 
 
+@contextlib.contextmanager
+def counting_calls(cls, names):
+    """Count the calls of the methods ``names`` of ``cls`` (through any
+    instance) while the block runs: yields a dict whose "calls" grows."""
+    counts = {"calls": 0}
+    saved = {name: getattr(cls, name) for name in names}
+
+    def counted(method):
+        def call(*args, **kwargs):
+            counts["calls"] += 1
+            return method(*args, **kwargs)
+        return call
+
+    for name, method in saved.items():
+        setattr(cls, name, counted(method))
+    try:
+        yield counts
+    finally:
+        for name, method in saved.items():
+            setattr(cls, name, method)
+
+
 def phase_nuts_ecoli70():
+    """NUTS and HMC on ecoli70; returns what the K8 rows need: the joint,
+    the NUTS sampler, its final positions."""
     from pgmpy_tpu_torch.config import as_tensor
+    from pgmpy_tpu_torch.ops import hmc as hmc_ops
     from pgmpy_tpu_torch.sampling import HamiltonianMCDA, VectorizedNUTS
+    from pgmpy_tpu_torch.sampling.hmc import _Density
     from pgmpy_tpu_torch.utils import get_example_model
     from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
@@ -1799,6 +1916,8 @@ def phase_nuts_ecoli70():
     variables, mu, cov = ecoli.joint_gaussian()
     dim = len(variables)
     nuts = VectorizedNUTS(ecoli, max_depth=6)
+    check(isinstance(nuts.log_pdf, hmc_ops.GaussianTarget) and nuts.log_pdf.device.type == "cuda",
+          "ecoli70's density is not a GaussianTarget on the card: NUTS would not take K8")
 
     # ---- the batched leapfrog on the card against the CPU run
     rng = np.random.default_rng(SEED)
@@ -1822,14 +1941,20 @@ def phase_nuts_ecoli70():
     check(not np.array_equal(first, nuts.sample(mu.copy(), seed=SEED + 2, **short)),
           "nuts: another seed gave the same samples")
 
-    # ---- the run
+    # ---- the run: one nuts_step launch and one host read per transition,
+    # and no torch.func density evaluated
+    steps = NUTS_SAMPLES + NUTS_ADAPT
+    launches = hmc_ops.LAUNCHES["nuts_step"]
     torch.cuda.synchronize()
     t0 = time.time()
-    samples = nuts.sample(mu.copy(), num_samples=NUTS_SAMPLES, num_adapt=NUTS_ADAPT,
-                          stepsize=0.17, n_chains=NUTS_CHAINS, seed=SEED)
+    with counting_calls(_Density, ("__init__", "value", "grad", "grad_and_value")) as density:
+        samples = nuts.sample(mu.copy(), num_samples=NUTS_SAMPLES, num_adapt=NUTS_ADAPT,
+                              stepsize=0.17, n_chains=NUTS_CHAINS, seed=SEED)
     run_s = time.time() - t0
-    steps = NUTS_SAMPLES + NUTS_ADAPT
-    leaves, reads = nuts.leaf_iterations, nuts.host_reads
+    launches = hmc_ops.LAUNCHES["nuts_step"] - launches
+    check(launches == steps, f"nuts: {launches} nuts_step launches for {steps} transitions")
+    check(density["calls"] == 0, f"nuts: {density['calls']} torch.func density calls")
+    check(nuts.host_reads == steps, f"nuts: {nuts.host_reads} host reads for {steps} transitions")
     check(samples.shape == (NUTS_SAMPLES, NUTS_CHAINS, dim), f"nuts samples {samples.shape}")
     check(0.6 < nuts.acceptance_rate <= 1.0, f"nuts acceptance rate {nuts.acceptance_rate}")
     # an autocorrelation time of 10 transitions is allowed for
@@ -1837,32 +1962,152 @@ def phase_nuts_ecoli70():
     moments = moment_check("nuts", pooled, mu, cov, pooled.shape[0] / 10)
     positions = as_tensor(samples[-1])
     gen = seeded_generator(SEED)
-    kernels, device_ms = profiled(lambda: nuts._nuts_step(gen, positions, nuts.final_stepsize))
+    # the profiler names the device operations of one transition (in a
+    # process of its own: see fresh_profile); their time comes from CUDA
+    # events (median of 20 behind a device sleep)
+    names = fresh_profile()["nuts_names"]
+    kernels = sum(count for count, _ in names.values())
+    device_ms = cuda_median_ms(lambda: nuts._nuts_step(gen, positions, nuts.final_stepsize),
+                               device_only=True)
+    step_s = run_s / steps
     log(f"nuts_ecoli70 dim={dim} chains={NUTS_CHAINS} samples={NUTS_SAMPLES} adapt={NUTS_ADAPT} "
         f"max_depth=6 run_s {run_s:.3f} nuts_samples_per_s "
         f"{NUTS_SAMPLES * NUTS_CHAINS / run_s:.1f} acceptance_rate {nuts.acceptance_rate:.4f} "
-        f"final_stepsize {nuts.final_stepsize:.4f} leaf_iterations_per_step {leaves / steps:.2f} "
-        f"host_reads_per_step {reads / steps:.2f} step_s {run_s / steps:.4f} kernels_per_step "
-        f"{kernels:.0f} device_ms_per_step {device_ms:.3f} (one profiled step) idle_share "
-        f"{1 - device_ms / (run_s / steps * 1e3):.3f}")
+        f"final_stepsize {nuts.final_stepsize:.4f} leapfrogs_per_chain_and_step "
+        f"{nuts.leaf_iterations:.2f} nuts_step_launches {launches} (one per transition) "
+        f"host_reads_per_step {nuts.host_reads / steps:.2f} step_s {step_s:.5f} kernels_per_step "
+        f"{kernels} (the profiler's, in a process of its own: " + ", ".join(f"{name[:40]} x{count}" for name, (count, _)
+                                                  in names.items())
+        + f") device_ms_per_step {device_ms:.4f} (CUDA events, median of 20) idle_share "
+        f"{1 - device_ms / (step_s * 1e3):.3f} torch_func_density_calls {density['calls']} "
+        f"(the eager schedule before this kernel, on an H100: 4,465 kernels, 74.9 host reads, "
+        f"0.165 s a step, idle 0.96)")
     log(f"nuts_ecoli70_check ok {moments} leapfrog_vs_cpu max_rel_err {leap_err:.3e} "
         f"(limit 1e-5) same seed equal on a run of {short['num_adapt'] + short['num_samples']} steps")
 
     # ---- HMC with dual averaging, 64 chains.  A fixed trajectory length can
     # freeze a direction of a Gaussian whose period it matches, so each chain
-    # is counted as one independent draw.
-    hmc = HamiltonianMCDA(ecoli)
+    # is counted as one independent draw.  One hmc_step launch per warm-up
+    # step, one for the 150 draws.
+    launches = hmc_ops.LAUNCHES["hmc_step"]
     t0 = time.time()
-    samples = hmc.sample(mu.copy(), num_adapt=50, num_samples=150, trajectory_length=3.0,
-                         stepsize=0.17, n_chains=HMC_CHAINS, seed=SEED, return_type="array")
+    with counting_calls(_Density, ("__init__", "value", "grad", "grad_and_value")) as density:
+        hmc = HamiltonianMCDA(ecoli)
+        samples = hmc.sample(mu.copy(), num_adapt=50, num_samples=150, trajectory_length=3.0,
+                             stepsize=0.17, n_chains=HMC_CHAINS, seed=SEED, return_type="array")
     run_s = time.time() - t0
+    launches = hmc_ops.LAUNCHES["hmc_step"] - launches
+    check(launches == 50 + 1, f"hmcda: {launches} hmc_step launches for 50 warm-up steps + 1")
+    check(density["calls"] == 0, f"hmcda: {density['calls']} torch.func density calls")
     check(samples.shape == (150, HMC_CHAINS, dim), f"hmc samples {samples.shape}")
     check(0.3 < hmc.acceptance_rate <= 1.0, f"hmc acceptance rate {hmc.acceptance_rate}")
     moments = moment_check("hmcda", samples[30:].reshape(-1, dim).astype(np.float64), mu, cov,
                            HMC_CHAINS)
     log(f"hmcda_ecoli70 chains={HMC_CHAINS} adapt=50 samples=150 trajectory_length=3.0 "
         f"run_s {run_s:.3f} samples_per_s {150 * HMC_CHAINS / run_s:.1f} acceptance_rate "
-        f"{hmc.acceptance_rate:.4f} {moments}")
+        f"{hmc.acceptance_rate:.4f} hmc_step_launches {launches} {moments}")
+    return {"mean": mu, "cov": cov, "nuts": nuts, "positions": positions}
+
+
+# K8's checks against the plain versions: float32 positions within 1e-4 of
+# each chain's scale where the leapfrog counts (or accept flags) agree, at
+# most 1 chain in 256 taking another; float64 all equal, within 1e-9
+K8_F32_LIMIT, K8_F64_LIMIT = 1e-4, 1e-9
+K8_PAST_STABLE = 0.3  # ecoli70's leapfrog is stable below 0.294
+HMC_TIMED = (64, 150, 17)  # the HMC path's draw launch: chains, transitions, steps (3.0 / 0.17)
+
+
+def k8_case(name, got, want, same, dtype, n):
+    """Hold one K8 kernel result to its plain version; returns the max abs
+    error of the positions where ``same``."""
+    differ = int((~same).sum())
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    rel = float(((got - want).abs() / scale)[..., same, :].max())
+    err = float((got - want).abs()[..., same, :].max())
+    limit = K8_F64_LIMIT if dtype == torch.float64 else K8_F32_LIMIT
+    most = 0 if dtype == torch.float64 else n // 256
+    check(differ <= most and rel <= limit,
+          f"k8 {name} {dtype}: {differ} chains differ (most {most}), positions max rel err "
+          f"{rel:.3e} (limit {limit})")
+    return err, rel, differ
+
+
+def k8_kernel_rows(context):
+    """K8 on ecoli70: both kernels against their plain versions on explicit
+    noise (float32 and float64; NUTS at 1,024 chains at the run's step size
+    and past stability, HMC at 64 chains, 3 transitions of 17 steps), each
+    timed at the path's shape (single calls behind a device sleep, median of
+    20; the plain versions' median of 5) beside its bound."""
+    from pgmpy_tpu_torch.ops import hmc as hmc_ops
+    from pgmpy_tpu_torch.utils.mathext import seeded_generator
+
+    nuts, positions = context["nuts"], context["positions"]
+    md, eps = nuts.max_depth, nuts.final_stepsize
+    n, dim = positions.shape
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        target = hmc_ops.GaussianTarget(context["mean"], np.linalg.inv(context["cov"]),
+                                                        dtype=dtype)
+        z = positions.to(dtype)
+        for step in (eps, K8_PAST_STABLE):
+            noise = hmc_ops.nuts_noise(n, dim, md, seeded_generator(SEED), dtype)
+            got = hmc_ops.nuts_step_cuda(target, z, step, md, noise)
+            want = hmc_ops.nuts_step_reference(target, z, step, md, noise)
+            same = ((got.leapfrogs == want.leapfrogs) & (got.turned == want.turned)
+                    & (got.diverged == want.diverged))
+            err, rel, differ = k8_case("nuts_step", got.z, want.z, same, dtype, n)
+            acc = float((got.accept - want.accept).abs()[same].max())
+            check(acc <= (K8_F64_LIMIT if dtype == torch.float64 else K8_F32_LIMIT),
+                  f"k8 nuts_step {dtype}: acceptance statistics off by {acc}")
+            errs[("nuts", dtype, step)] = err
+            log(f"k8 nuts_step check {dtype} eps {step:.4f}: chains with another leapfrog count "
+                f"or flag {differ} of {n}; positions max_abs_err {err:.3e} max_rel_err {rel:.3e}; "
+                f"acceptance max_abs_err {acc:.3e}; diverged {int(want.diverged.sum())} turned "
+                f"{int(want.turned.sum())} mean_leapfrogs {float(want.leapfrogs.float().mean()):.2f}")
+        chains, _, steps = HMC_TIMED
+        gen = seeded_generator(SEED)
+        noise = hmc_ops.HmcNoise(
+            torch.randn((3, chains, dim), generator=gen, dtype=dtype, device=z.device),
+            torch.rand((3, chains), generator=gen, dtype=dtype, device=z.device))
+        got = hmc_ops.hmc_step_cuda(target, z[:chains], 0.17, steps, noise, transitions=3)
+        want = hmc_ops.hmc_step_reference(target, z[:chains], 0.17, steps, noise, transitions=3)
+        same = (got.accepted == want.accepted).all(dim=0)
+        err, rel, differ = k8_case("hmc_step", got.z, want.z, same, dtype, chains)
+        errs[("hmc", dtype)] = err
+        log(f"k8 hmc_step check {dtype}: chains accepted otherwise {differ} of {chains}; "
+            f"positions max_abs_err {err:.3e} max_rel_err {rel:.3e}; accepted "
+            f"{float(want.accepted.float().mean()):.3f}")
+
+    target = nuts.log_pdf
+    gen = seeded_generator(SEED)
+    leapfrogs = hmc_ops.nuts_step_cuda(target, positions, eps, md, gen=gen).leapfrogs
+    ms = cuda_median_ms(lambda: hmc_ops.nuts_step_cuda(target, positions, eps, md, gen=gen),
+                        device_only=True)
+    plain_ms = cuda_median_ms(lambda: hmc_ops.nuts_step_reference(target, positions, eps, md,
+                                                                  gen=gen), reps=5, warmup=1)
+    bound_ms, bound_by = hmc_ops.nuts_bound_ms(target, leapfrogs)
+    total = int(leapfrogs.sum())
+    log(f"k8 nuts_step chains={n} dim={dim} max_depth={md} eps={eps:.4f} leapfrogs={total} "
+        f"(mean {total / n:.2f}, most {int(leapfrogs.max())}) kernel_ms={ms:.5f} (device time, "
+        f"Philox, median of 20) plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} "
+        f"({bound_by}; 2 dim^2 + 12 dim per leapfrog and start gradient at 67e12/s) library: none")
+    rows = {"hmc/nuts_step": {"err": errs[("nuts", torch.float32, eps)], "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": None}}
+
+    chains, transitions, steps = HMC_TIMED
+    start = positions[:chains].contiguous()
+    ms = cuda_median_ms(lambda: hmc_ops.hmc_step_cuda(target, start, 0.17, steps, gen=gen,
+                                                      transitions=transitions), device_only=True)
+    plain_ms = cuda_median_ms(lambda: hmc_ops.hmc_step_reference(
+        target, start, 0.17, steps, gen=gen, transitions=transitions), reps=5, warmup=1)
+    bound_ms, bound_by = hmc_ops.hmc_bound_ms(target, chains, steps, transitions)
+    log(f"k8 hmc_step chains={chains} dim={dim} transitions={transitions} n_steps={steps} "
+        f"kernel_ms={ms:.5f} (device time, Philox, median of 20) plain_ms={plain_ms:.3f} (median "
+        f"of 5) bound_ms={bound_ms:.6f} ({bound_by}) library: none")
+    rows["hmc/hmc_step"] = {"err": errs[("hmc", torch.float32)], "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return rows
 
 
 def phase_mcmc(model):
@@ -1873,14 +2118,17 @@ def phase_mcmc(model):
     reset_launches()
     gibbs, init = phase_gibbs_munin(model)
     phase_gibbs_hepar2()
-    phase_nuts_ecoli70()
+    nuts_context = phase_nuts_ecoli70()
     check(config.DEVICE.type == "cuda", "device left on the CPU")
     launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
     record_jt("mcmc")
+    counts = GATHER_PATH_LAUNCHES["mcmc"]
     log(f"mcmc_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
-        f"(no module of the lane counts) gibbs_sweep_launches "
-        f"{GATHER_PATH_LAUNCHES['mcmc']['gibbs/sweep']} (one per sweep)")
+        f"(no module of the lane counts) gibbs_sweep_launches {counts['gibbs/sweep']} (one per "
+        f"sweep) nuts_step_launches {counts['hmc/nuts_step']} (one per transition) "
+        f"hmc_step_launches {counts['hmc/hmc_step']} (one per warm-up step, one per sample call)")
     GATHER_ROWS["gibbs/sweep"] = k6_kernel_row(gibbs, init)
+    GATHER_ROWS.update(k8_kernel_rows(nuts_context))
     return launches
 
 
@@ -2125,11 +2373,14 @@ def phase_temporal():
     alarm_plain_err = max(float(np.abs(exact[k] - plain[k]).max()) for k in exact)
     check(set(plain) == set(exact) and alarm_plain_err <= 1e-5,
           f"ALARM forward_scan against the plain version on the card: {alarm_plain_err}")
-    # the kernels of a whole call do not grow with the slices
-    scan_kernels, scan_device_ms = profiled(lambda: alarm_infer.forward_scan(
-        persistent, alarm_ev, n_time_slices=ALARM_SLICES))
-    warm_kernels, _ = profiled(lambda: alarm_infer.forward_scan(
-        persistent, alarm_ev, n_time_slices=2))
+    # the kernels of a whole call do not grow with the slices: both counts
+    # from a process of its own (see fresh_profile), with this process's
+    # (lower bounds) beside them
+    (scan_kernels, scan_device_ms), (warm_kernels, _) = (fresh_profile()[key]
+                                                         for key in ("scan", "scan_2"))
+    here = [profiled(lambda: alarm_infer.forward_scan(persistent, alarm_ev,
+                                                      n_time_slices=slices))[0]
+            for slices in (ALARM_SLICES, 2)]
     check(scan_kernels == warm_kernels, f"forward_scan: {scan_kernels} kernels for "
           f"{ALARM_SLICES} slices, {warm_kernels} for 2")
     log(f"forward_scan_alarm slices={ALARM_SLICES} queries={len(persistent)} scan_s {scan_s:.4f} "
@@ -2137,7 +2388,8 @@ def phase_temporal():
         f"{scan_kernels / (ALARM_SLICES - 1):.1f} device_ms_per_slice "
         f"{scan_device_ms / (ALARM_SLICES - 1):.4f} idle_share "
         f"{1 - scan_device_ms / (scan_s * 1e3):.3f} kernels_per_call {scan_kernels:.0f} (the "
-        f"2-slice call: {warm_kernels:.0f}; one filter_scan launch a call) "
+        f"2-slice call: {warm_kernels:.0f}; one filter_scan launch a call; in this process "
+        f"{here[0]:.0f} and {here[1]:.0f}) "
         f"forward_scan_vs_plain_on_card max_abs_err {alarm_plain_err:.3e} (limit 1e-5)")
     check(alarm_particles.shape == (ALARM_PARTICLES, len(alarm.nodes())),
           f"final particles {alarm_particles.shape}")
@@ -2267,16 +2519,14 @@ def cuda_profiled_ms(fn):
     """Device ms of ``fn`` from ``torch.profiler`` tracing the card alone (no
     host events: ``fn`` is a long Python loop); of three sessions, the one
     with the most records (see :func:`profiled`)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    best = (0, 0.0)
+    best, counts = (0, 0.0), []
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile_session(device_only=True) as prof:
             fn()
-            torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts.append(len(kernels))
         best = max(best, (len(kernels), sum(e.time_range.elapsed_us() for e in kernels)))
+    count_sessions(counts)
     return best[1] / 1e3
 
 
@@ -3594,15 +3844,12 @@ def profiled_busy(fn):
     records of three (see :func:`profiled`).  User annotations that the
     profiler also puts on the device's timeline (``Optimizer.step#Adam.step``
     spans a whole step) are left out."""
-    from torch.profiler import ProfilerActivity, profile
-
-    best = (0, 0.0, 0.0, {})
+    best, counts = (0, 0.0, 0.0, {}), []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.time()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile_session() as prof:
             fn()
-            torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
@@ -3614,8 +3861,10 @@ def profiled_busy(fn):
             end = max(end, stop)
             count, total = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (count + 1, total + stop - start)
+        counts.append(len(kernels))
         if len(kernels) > best[0]:
             best = (len(kernels), busy / 1e3, wall_ms, by_name)
+    count_sessions(counts)
     return best
 
 
@@ -4564,13 +4813,19 @@ def phase_parallel(model, context):
     record_jt("parallel")
     path_s = time.time() - phase_t0
     gibbs_launches = GATHER_PATH_LAUNCHES["parallel"]["gibbs/sweep"]
+    nuts_launches = GATHER_PATH_LAUNCHES["parallel"]["hmc/nuts_step"]
     log(f"parallel_path table_count_launches {launches[0]} bincount_launches {launches[1]} "
         + " ".join(f"{k} {n} launches {s:.3f} s" for k, (n, s) in per_call.items())
         + f" path_s {path_s:.1f} (each sampler's moments: one launch per shard) "
-        f"gibbs_sweep_launches {gibbs_launches} (one per shard and sweep)")
+        f"gibbs_sweep_launches {gibbs_launches} (one per shard and sweep) nuts_step_launches "
+        f"{nuts_launches} (one per shard and transition)")
     check(gibbs_launches == PARALLEL_SHARDS * HEPAR_SWEEPS,
           f"sharded Gibbs made {gibbs_launches} sweep launches for {PARALLEL_SHARDS} shards x "
           f"{HEPAR_SWEEPS} sweeps")
+    nuts_steps = NUTS_ADAPT + PARALLEL_NUTS_SAMPLES
+    check(nuts_launches == PARALLEL_SHARDS * nuts_steps,
+          f"sharded NUTS made {nuts_launches} nuts_step launches for {PARALLEL_SHARDS} shards x "
+          f"{nuts_steps} transitions")
     want = {"partition": 0, "calibrate": 0, "forward": PARALLEL_SHARDS,
             "weighted": PARALLEL_SHARDS, "query_batch": 0, "gibbs": PARALLEL_SHARDS, "nuts": 0}
     check({k: n for k, (n, _) in per_call.items()} == want and launches[1] == 0,
@@ -4978,18 +5233,20 @@ def build_kernels():
     """Build every kernel source of the port at once (one nvcc per source,
     all started together), then load each, and log each build's time and
     what ptxas says of each kernel."""
-    from pgmpy_tpu_torch.ops import _build, ancestral, bincount, einsum, gibbs, jt, table_gather
+    from pgmpy_tpu_torch.ops import (_build, ancestral, bincount, einsum, gibbs, hmc, jt,
+                                     table_gather)
 
     t0 = time.time()
     _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"],
                             "table_gather": ["table_gather.cu"], "ancestral": ["ancestral.cu"],
-                            "gibbs": ["gibbs.cu"], "einsum_plan": ["einsum_plan.cu"]})
+                            "gibbs": ["gibbs.cu"], "einsum_plan": ["einsum_plan.cu"],
+                            "hmc": ["hmc.cu"]})
     for load in (bincount._library, jt._library, table_gather._library, ancestral._library,
-                 gibbs._library, einsum._library):
+                 gibbs._library, einsum._library, hmc._library):
         load()
     log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu, jt_calibrate.cu, "
-        f"table_gather.cu, ancestral.cu, gibbs.cu and einsum_plan.cu, one nvcc each, started "
-        f"together)")
+        f"table_gather.cu, ancestral.cu, gibbs.cu, einsum_plan.cu and hmc.cu, one nvcc each, "
+        f"started together)")
     for name, built in _build.BUILDS.items():
         log(f"kernels_built {name} nvcc_s {built['seconds']:.2f}")
         for line in ptxas_summary(built["ptxas"]):
@@ -5008,6 +5265,9 @@ def main():
     from pgmpy_tpu_torch.config import config
 
     config.set_device("cuda")
+    if sys.argv[1:] == ["--fresh-profile"]:
+        fresh_profile_main()
+        return 0
     started = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5115,7 +5375,7 @@ def main():
         })
     log("k2_launches_by_path " + " ".join(
         f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
-    # K5's, K9's, K6's, K13's, K11's, K3's and K10's rows: each kernel's
+    # K5's, K9's, K6's, K13's, K11's, K3's, K10's and K8's rows: each kernel's
     # launches on the path that drives it (set to 0 before that path and read
     # after it), and on the others
     for name, (source, replaces, path) in GATHER_KERNELS.items():
@@ -5129,8 +5389,11 @@ def main():
             **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
                if other != path},
         })
-    log("k5_k9_k6_k11_k13_k3_k10_launches_by_path " + " ".join(
+    log("k5_k9_k6_k11_k13_k3_k10_k8_launches_by_path " + " ".join(
         f"{path} {counts}" for path, counts in GATHER_PATH_LAUNCHES.items()))
+    log(f"profiler_sessions {PROFILE_SESSIONS['sessions']} short {PROFILE_SESSIONS['short']} "
+        f"(in this process: sessions that kept fewer device records than the fullest of their "
+        f"call)")
     log(f"script_s {time.time() - started:.1f}")
     log(smi)  # again near the end, where a reader of the output's tail finds it
     print(json.dumps({"kernels": kernels}), flush=True)

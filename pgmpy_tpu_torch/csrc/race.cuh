@@ -1,5 +1,6 @@
-// The random draws shared by the sweep kernels (ancestral.cu, gibbs.cu):
-// Philox-4x32-10 and the exponential race.
+// The random draws shared by the kernels (ancestral.cu, gibbs.cu, hmc.cu):
+// Philox-4x32-10, the exponential race, uniforms in (0, 1) and Box-Muller
+// normals.
 //
 // A categorical draw is argmax_s (logit_s - log E_s) with E_s ~ Exp(1),
 // clamped at 1e-20 so that a state of zero probability (its logit at a clamp
@@ -37,6 +38,34 @@ __device__ __forceinline__ float race(float logit, unsigned x) {
 __device__ __forceinline__ double race(double logit, unsigned x) {
   const double u = ((double)x + 0.5) * 2.3283064365386962890625e-10;  // 2^-32
   return logit - log(fmax(-log(u), 1e-20));
+}
+
+// A uniform in (0, 1), never 0 nor 1, from 32 random bits (24 of them in float)
+template <typename T>
+__device__ __forceinline__ T uniform(unsigned x);
+
+template <>
+__device__ __forceinline__ float uniform<float>(unsigned x) {
+  return ((float)(x >> 8) + 0.5f) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+template <>
+__device__ __forceinline__ double uniform<double>(unsigned x) {
+  return ((double)x + 0.5) * 2.3283064365386962890625e-10;  // 2^-32
+}
+
+// A standard normal by Box-Muller from the first two words of a Philox block
+template <typename T>
+__device__ __forceinline__ T normal(uint4 r);
+
+template <>
+__device__ __forceinline__ float normal<float>(uint4 r) {
+  return sqrtf(-2.0f * logf(uniform<float>(r.x))) * cospif(2.0f * uniform<float>(r.y));
+}
+
+template <>
+__device__ __forceinline__ double normal<double>(uint4 r) {
+  return sqrt(-2.0 * log(uniform<double>(r.x))) * cospi(2.0 * uniform<double>(r.y));
 }
 
 // The launch's Philox key: one 64-bit draw from the generator, on the card

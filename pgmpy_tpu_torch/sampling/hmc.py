@@ -3,12 +3,17 @@
 Port of ``pgmpy_tpu/sampling/hmc.py`` (the reference ships only integrator
 scaffolding with no public sampler, ``pgmpy/sampling/base.py:162-616``):
 
-* ``HamiltonianMC`` / ``HamiltonianMCDA``: leapfrog trajectories with the
-  chains as a batch axis of plain tensor code on ``config.DEVICE``; host
-  loops over samples and leapfrog steps; gradients of the model log-density
-  through ``torch.func.grad``, batched over the chains with
-  ``torch.func.vmap``; dual-averaging step-size adaptation (Hoffman & Gelman
-  2014, Alg. 5).
+* ``HamiltonianMC`` / ``HamiltonianMCDA``: leapfrog trajectories of many
+  chains at once (``ops/hmc.py:hmc_step``); dual-averaging step-size
+  adaptation (Hoffman & Gelman 2014, Alg. 5).  The route follows the model,
+  never a failure: a linear-Gaussian network is a
+  :class:`~pgmpy_tpu_torch.ops.hmc.GaussianTarget` (closed-form gradient),
+  whose transitions run on the hand-written kernel of ``csrc/hmc.cu`` on a
+  CUDA device (``sample``: every transition in one launch) and on the plain
+  version on the CPU.  A raw callable or a ``log_pdf`` object is a density
+  no kernel computes: it keeps the plain version on every device, with
+  gradients through ``torch.func.grad`` batched over the chains by
+  ``torch.func.vmap``.
 * ``NoUTurnSampler`` / ``NoUTurnSamplerDA``: recursive tree doubling
   (Alg. 3/6) on the host, drawing from one ``np.random.default_rng(seed)``,
   with the leapfrog + gradient inner step on the device.
@@ -17,6 +22,7 @@ scaffolding with no public sampler, ``pgmpy/sampling/base.py:162-616``):
 ``model`` may be a LinearGaussianBayesianNetwork (log-density from its
 closed-form joint), any object with a ``log_pdf(x) -> scalar`` torch
 callable, or a raw callable taking one ``(dim,)`` tensor.
+``_find_reasonable_stepsize`` and the host NUTS stay plain torch ops.
 """
 
 import numpy as np
@@ -24,6 +30,8 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from pgmpy_tpu_torch.config import as_tensor
+from pgmpy_tpu_torch.ops import hmc as hmc_ops
+from pgmpy_tpu_torch.ops.hmc import GaussianTarget
 from pgmpy_tpu_torch.utils.mathext import normal_draw, seeded_generator
 
 
@@ -39,22 +47,22 @@ def _resolve_log_pdf(model):
         model, "to_joint_gaussian"
     ):
         variables, mean, cov = model.joint_gaussian()
-        prec = as_tensor(np.linalg.inv(cov))
-        mu = as_tensor(mean)
-
-        def log_pdf(x):
-            diff = x - mu
-            return -0.5 * diff @ prec @ diff
-
-        return log_pdf, variables
+        return GaussianTarget(mean, np.linalg.inv(cov)), variables
     if hasattr(model, "log_pdf"):
         return model.log_pdf, getattr(model, "variables", None)
     raise ValueError(f"Cannot extract a log-density from {type(model)}")
 
 
+def _density(log_pdf):
+    """The gradient provider of ``log_pdf``: a :class:`GaussianTarget` is its
+    own (closed form), anything else goes through :class:`_Density`."""
+    return log_pdf if isinstance(log_pdf, GaussianTarget) else _Density(log_pdf)
+
+
 class _Density:
     """A log-density of one ``(dim,)`` point with its gradient, each also
-    over a leading chain axis: ``(n, dim) -> (n,)`` and ``(n, dim)``."""
+    over a leading chain axis: ``(n, dim) -> (n,)`` and ``(n, dim)``, through
+    ``torch.func``."""
 
     def __init__(self, log_pdf):
         self.log_pdf = log_pdf
@@ -90,7 +98,7 @@ class BaseGradLogPDF:
 
     def get_gradient_log_pdf(self):
         x = self.variable_assignments
-        return torch.func.grad(self._log_pdf)(x), self._log_pdf(x)
+        return _density(self._log_pdf).grad(x), self._log_pdf(x)
 
 
 class GradLogPDFGaussian(BaseGradLogPDF):
@@ -158,7 +166,7 @@ class HamiltonianMC:
     def __init__(self, model, grad_log_pdf=None, simulate_dynamics=None):
         self.model = model
         self.log_pdf, self.variables = _resolve_log_pdf(model)
-        self._density = _Density(self.log_pdf)
+        self._density = _density(self.log_pdf)
         self._grad = self._density.grad
         self.accepted_proposals = 0.0
         self.acceptance_rate = 0.0
@@ -174,20 +182,24 @@ class HamiltonianMC:
             p = p_half + 0.5 * stepsize * g
         return q, p, g
 
+    def _transitions(self, gen, position, stepsize, n_steps, transitions=1):
+        """``transitions`` HMC transitions of every chain of ``position``
+        (n_chains, dim): an ``ops.hmc.HmcSteps`` of the positions after each
+        (transitions, n_chains, dim), the accept flags and the acceptance
+        probabilities.  A GaussianTarget takes ``ops.hmc.hmc_step`` (one
+        kernel launch on a CUDA device); any other density its plain
+        version."""
+        if isinstance(self.log_pdf, GaussianTarget):
+            return hmc_ops.hmc_step(self.log_pdf, position, stepsize, n_steps, gen=gen,
+                                    transitions=transitions)
+        return hmc_ops.hmc_step_reference(self._density, position, stepsize, n_steps, gen=gen,
+                                          transitions=transitions)
+
     def _kernel(self, gen, position, stepsize, n_steps):
         """One HMC transition of every chain: position (n_chains, dim) ->
         (new position, accepted (n_chains,) bool, acceptance probability)."""
-        momentum = normal_draw(position.shape, gen, position.dtype)
-        grad0, log_p = self._density.grad_and_value(position)
-        q_new, p_new, _ = self._leapfrog(position, momentum, grad0, stepsize, n_steps)
-        current_h = _hamiltonian(log_p, momentum)
-        new_h = _hamiltonian(self._density.value(q_new), p_new)
-        log_accept = torch.clamp_max(new_h - current_h, 0.0)
-        uniform = torch.rand(log_accept.shape, generator=gen, dtype=position.dtype,
-                             device=position.device)
-        accept = torch.log(uniform) < log_accept  # a NaN energy never accepts
-        position = torch.where(accept[..., None], q_new, position)
-        return position, accept, torch.exp(log_accept)
+        steps = self._transitions(gen, position, stepsize, n_steps)
+        return steps.z[0], steps.accepted[0], steps.rate[0]
 
     def sample(
         self,
@@ -209,15 +221,10 @@ class HamiltonianMC:
         positions = _initial_chains(initial_pos, n_chains)
 
         num_samples = int(num_samples)
-        trajectory = torch.empty((num_samples,) + tuple(positions.shape),
-                                 dtype=positions.dtype, device=positions.device)
-        accepts = torch.zeros(positions.shape[0], dtype=positions.dtype, device=positions.device)
-        for t in range(num_samples):
-            positions, accept, _ = self._kernel(gen, positions, stepsize, n_steps)
-            trajectory[t] = positions
-            accepts += accept
-        self.accepted_proposals = float(accepts.sum())
-        self.acceptance_rate = self.accepted_proposals / max(accepts.numel() * num_samples, 1)
+        steps = self._transitions(gen, positions, stepsize, n_steps, transitions=num_samples)
+        trajectory = steps.z
+        self.accepted_proposals = float(steps.accepted.sum())
+        self.acceptance_rate = self.accepted_proposals / max(positions.shape[0] * num_samples, 1)
 
         trajectory = trajectory.cpu().numpy()
         if return_type == "dataframe":

@@ -121,6 +121,40 @@ def random_bn_pair(seed, **kwargs):
     return to_port(jax_model), jax_model
 
 
+def random_lgbn_tuples(seed, n_nodes=12, edge_prob=0.3, max_parents=3):
+    """(nodes, edges, CPD tuples as ``lgbn_tuples`` returns them) of one
+    random linear-Gaussian network from a numpy seed: a random DAG over
+    ``X0..X{n-1}`` (edges from lower to higher index, every non-root node
+    with 1 to ``max_parents`` parents), intercepts in [-3, 3], coefficients
+    in +-[0.3, 1.2] and noise deviations in [0.5, 2]."""
+    rng = np.random.default_rng(seed)
+    names = [f"X{i}" for i in range(n_nodes)]
+    cpds = []
+    for j, v in enumerate(names):
+        parents = [names[i] for i in range(j) if rng.random() < edge_prob]
+        if j and not parents:
+            parents = [names[int(rng.integers(0, j))]]
+        parents = parents[-max_parents:]
+        coefs = rng.uniform(0.3, 1.2, len(parents)) * rng.choice([-1.0, 1.0], len(parents))
+        beta = np.concatenate([[rng.uniform(-3, 3)], coefs])
+        cpds.append((v, parents, beta, float(rng.uniform(0.5, 2.0))))
+    return names, [(p, v) for v, parents, _, _ in cpds for p in parents], cpds
+
+
+def random_lgbn_pair(seed, **kwargs):
+    """(port model, pgmpy_tpu model) of the network ``random_lgbn_tuples``
+    makes from ``seed``."""
+    from pgmpy_tpu.factors import LinearGaussianCPD as JaxCPD
+    from pgmpy_tpu.models import LinearGaussianBayesianNetwork as JaxLGBN
+
+    names, edges, cpds = random_lgbn_tuples(seed, **kwargs)
+    jax_model = JaxLGBN(edges)
+    jax_model.add_nodes_from(names)
+    jax_model.add_cpds(*[JaxCPD(v, beta, std, evidence=parents)
+                         for v, parents, beta, std in cpds])
+    return to_port_lgbn(jax_model), jax_model
+
+
 def brute_force_posterior(model, variables, evidence=None):
     """P(variables | evidence) of a small network of either package, by
     enumerating the full joint with numpy in float64: an oracle independent
