@@ -6,8 +6,8 @@ Runs from the repository root and needs one CUDA card.  It
 
 1. builds the hand-written kernels (``pgmpy_tpu_torch/csrc/bincount.cu``,
    ``csrc/jt_calibrate.cu``, ``csrc/table_gather.cu``, ``csrc/ancestral.cu``,
-   ``csrc/gibbs.cu``, ``csrc/einsum_plan.cu`` and ``csrc/hmc.cu``,
-   one ``nvcc`` each, started together, each build's time and what ptxas says
+   ``csrc/gibbs.cu``, ``csrc/einsum_plan.cu``, ``csrc/hmc.cu`` and
+   ``csrc/loopy_bp.cu``, one ``nvcc`` each, started together, each build's time and what ptxas says
    of each kernel logged), and holds both count entry points
    against their plain PyTorch versions on the card: ``weighted_bincount``
    on index vectors, ``table_counts`` on MUNIN's 1041 (node, parents) tables
@@ -119,7 +119,10 @@ Runs from the repository root and needs one CUDA card.  It
 10. drives loopy and LP inference (``phase_loopy``): flooding BP on a
    128 x 128 binary grid (16,384 variables, 32,512 factors) with a noisy
    image as virtual evidence (against the CPU run, rounds at most one
-   apart; one round's contractions held on both K3 schedules), the 8 x 8
+   apart; the query ONE launch of K7's ``flood``, ``csrc/loopy_bp.cu``, and
+   no K3 launch; the flood held against its plain version on the grid, the
+   star, the 8 x 8 grid and a mixed graph in float32 and float64, and timed;
+   the plain round's contractions held on both K3 schedules), the 8 x 8
    grid against the junction tree, a star of 600 leaves against its exact
    beliefs, and ``Mplp.map_query`` on the v4 golden's grid and a 12 x 12 grid
    with diagonals (against the CPU run);
@@ -170,9 +173,10 @@ Runs from the repository root and needs one CUDA card.  It
 15. prints the card, the timings, one JSON line describing each kernel (its
    time beside the plain version's, the card's bound for the same bytes and,
    where one PyTorch call computes the same function, that call's time; K5's,
-   K11's, K13's, K3's, K10's and K8's launches counted on the path that drives
-   each: simulate -> fit -> predict, the latent lane, constraint-based
-   learning, the main path, the temporal lane, the MCMC lane), and, as the
+   K11's, K13's, K3's, K10's, K8's and K7's launches counted on the path that
+   drives each: simulate -> fit -> predict, the latent lane, constraint-based
+   learning, the main path, the temporal lane, the MCMC lane, loopy
+   inference), and, as the
    last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is not 0 and no result line is
@@ -252,7 +256,7 @@ def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
 
 def reset_launches():
     """Zero the launch counters of every kernel source (K1, K2, K5 with K9,
-    K6, K11, K13, K3 with K10, K8)."""
+    K6, K11, K13, K3 with K10, K8, K7)."""
     from pgmpy_tpu_torch.ops import bincount as bc
     from pgmpy_tpu_torch.ops import jt
 
@@ -263,8 +267,8 @@ def reset_launches():
 
 # path -> launches of each K2 kernel in that path's counted run
 JT_PATH_LAUNCHES = {}
-# K5, K9, K6, K11, K13, K3, K10 and K8: kernel row name -> (source, the JAX
-# function it replaces, the path that drives it)
+# K5, K9, K6, K11, K13, K3, K10, K8 and K7: kernel row name -> (source, the
+# JAX function it replaces, the path that drives it)
 GATHER_KERNELS = {
     "ancestral/sweep": ("pgmpy_tpu_torch/csrc/ancestral.cu", "pgmpy_tpu/sampling/core.py:173",
                         "simulate_fit_predict"),
@@ -284,18 +288,20 @@ GATHER_KERNELS = {
     "hmc/nuts_step": ("pgmpy_tpu_torch/csrc/hmc.cu", "pgmpy_tpu/sampling/nuts_jax.py:185",
                       "mcmc"),
     "hmc/hmc_step": ("pgmpy_tpu_torch/csrc/hmc.cu", "pgmpy_tpu/sampling/hmc.py:135", "mcmc"),
+    "loopy_bp/flood": ("pgmpy_tpu_torch/csrc/loopy_bp.cu", "pgmpy_tpu/inference/fg_bp.py:188",
+                       "loopy"),
 }
-# path -> launches of each K5 / K9 / K6 / K11 / K13 / K3 / K10 / K8 kernel in
-# that path's counted run
+# path -> launches of each K5 / K9 / K6 / K11 / K13 / K3 / K10 / K8 / K7
+# kernel in that path's counted run
 GATHER_PATH_LAUNCHES = {}
 # kernel row name -> its check against the plain version and its timings
 GATHER_ROWS = {}
 
 
 def gather_launches():
-    """The launch counters of the K5, K9, K6, K11, K13, K3, K10 and K8
+    """The launch counters of the K5, K9, K6, K11, K13, K3, K10, K8 and K7
     kernels, by row name."""
-    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, hmc, table_gather
+    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, hmc, loopy, table_gather
 
     return {"ancestral/sweep": ancestral.LAUNCHES,
             "ancestral/particle_sweep": ancestral.PARTICLE_LAUNCHES,
@@ -306,13 +312,15 @@ def gather_launches():
             "einsum_plan/plan_step": einsum.LAUNCHES["plan_step"],
             "einsum_plan/filter_scan": einsum.SCAN_LAUNCHES,
             "hmc/nuts_step": hmc.LAUNCHES["nuts_step"],
-            "hmc/hmc_step": hmc.LAUNCHES["hmc_step"]}
+            "hmc/hmc_step": hmc.LAUNCHES["hmc_step"],
+            "loopy_bp/flood": loopy.LAUNCHES}
 
 
 def reset_gather_launches():
-    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, hmc, table_gather
+    from pgmpy_tpu_torch.ops import ancestral, einsum, gibbs, hmc, loopy, table_gather
 
     ancestral.reset_launches()
+    loopy.reset_launches()
     hmc.reset_launches()
     gibbs.reset_launches()
     table_gather.reset_launches()
@@ -322,7 +330,7 @@ def reset_gather_launches():
 def record_jt(path):
     """Keep the K2 kernels' launch counts of ``path``'s counted run (read
     where the path's K1 counts are read), and the K5 / K9 / K6 / K11 / K13 /
-    K3 / K10 / K8 kernels'."""
+    K3 / K10 / K8 / K7 kernels'."""
     from pgmpy_tpu_torch.ops import jt
 
     JT_PATH_LAUNCHES[path] = dict(jt.LAUNCHES)
@@ -409,12 +417,15 @@ FRESH_PROFILE = {}
 
 
 def fresh_profile():
-    """The profiler's readings of two calls, taken once in a process of its
+    """The profiler's readings of three calls, taken once in a process of its
     own (``python3 chip_smoke.py --fresh-profile``, the same tree, seed and
     card; cached): ``nuts_names``, :func:`kernels_by_name` of one
-    ``VectorizedNUTS`` transition of ecoli70's ``NUTS_CHAINS`` chains, and
+    ``VectorizedNUTS`` transition of ecoli70's ``NUTS_CHAINS`` chains;
     ``scan`` / ``scan_2``, :func:`profiled` of ALARM's ``forward_scan`` as in
-    :func:`phase_temporal` over ``ALARM_SLICES`` and over 2 slices.
+    :func:`phase_temporal` over ``ALARM_SLICES`` and over 2 slices; and
+    ``loopy_names``, :func:`kernels_by_name` of one warm loopy BP query of
+    a ``LOOPY_PROFILE_SIDE`` grid built as :func:`phase_loopy`'s, and
+    ``loopy_query_s``, its host-clock median of 3.
 
     Late in this script's process whole sessions keep too few device records,
     the same call in every session (a NUTS transition kept 3 of its 6 in nine
@@ -459,7 +470,17 @@ def fresh_profile_main():
         infer.forward_scan(persistent, evidence, n_time_slices=slices)  # plans
         scans[key] = profiled(lambda: infer.forward_scan(persistent, evidence,
                                                          n_time_slices=slices))
-    print(json.dumps({"nuts_names": names, **scans}))
+    from pgmpy_tpu_torch.inference import BeliefPropagationWithMessagePassing
+    from pgmpy_tpu_torch.utils.interop import factor_graph_from_numpy
+
+    scopes, cards, tables, variables, messages = loopy_grid(LOOPY_PROFILE_SIDE)
+    bp = BeliefPropagationWithMessagePassing(factor_graph_from_numpy(scopes, cards, tables))
+    virtual = virtual_factors(variables, messages)
+    query = lambda: bp.query(variables, virtual_evidence=virtual)  # noqa: E731
+    query()  # the program, its tables, the kernel
+    loopy_names = kernels_by_name(query)
+    print(json.dumps({"nuts_names": names, **scans, "loopy_names": loopy_names,
+                      "loopy_query_s": host_median_s(query)}))
 
 
 def host_median_s(fn, reps=3):
@@ -1498,6 +1519,7 @@ K3_BLOCK_CHECK_UNIONS = 2**27
 
 def capture_contractions(fn, modules):
     """Run ``fn`` with each module's ``sum_product_planned`` / ``sum_product``
+    (and ``sum_product_reference``, which loopy BP's plain round calls)
     recording its (operand labels, output labels, operands) before it runs:
     the contractions the path hands K3."""
     from pgmpy_tpu_torch.ops import einsum
@@ -1512,9 +1534,14 @@ def capture_contractions(fn, modules):
         calls.append((tuple(map(tuple, axes)), tuple(out), list(arrays)))
         return einsum.sum_product(axes, out, *arrays, optimize=optimize)
 
+    def reference(axes, out, arrays, optimize="greedy"):
+        calls.append((tuple(map(tuple, axes)), tuple(out), list(arrays)))
+        return einsum.sum_product_reference(axes, out, arrays, optimize)
+
     saved = []
     for module in modules:
-        for name, fake in (("sum_product_planned", planned), ("sum_product", product)):
+        for name, fake in (("sum_product_planned", planned), ("sum_product", product),
+                           ("sum_product_reference", reference)):
             if hasattr(module, name):
                 saved.append((module, name, getattr(module, name)))
                 setattr(module, name, fake)
@@ -3400,6 +3427,7 @@ def phase_latent(model, df, host_codes):
 # loopy inference: flooding BP on a 128 x 128 grid and a 600-leaf star, Mplp
 # --------------------------------------------------------------------------- #
 GRID_SIDE = 128
+LOOPY_PROFILE_SIDE = 32  # the grid whose query the profiler reads (fresh_profile)
 STAR_LEAVES = 600
 MPLP_FRUSTRATED_SIDE = 12
 
@@ -3442,22 +3470,101 @@ def mplp_grid(rows, cols, seed, diagonals=False):
     return scopes, {n: 2 for n in nodes}, tables
 
 
+def loopy_grid(side=GRID_SIDE):
+    """The ``side`` x ``side`` grid (scopes, cards, tables), its variables in
+    order and its virtual evidence on every variable: a checkerboard of
+    cells a quarter of the side wide (32 pixels on the 128 x 128 grid) with a
+    tenth of the pixels flipped, [0.8, 0.2] or [0.2, 0.8]."""
+    scopes, cards, tables = grid_tables(side, SEED)
+    rng = np.random.default_rng(SEED + 5)
+    i, j = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    image = (((i // (side // 4)) + (j // (side // 4))) % 2).ravel()
+    noisy = np.where(rng.random(image.size) < 0.1, 1 - image, image)
+    messages = {f"x{a}_{b}": [0.8, 0.2] if noisy[a * side + b] == 0 else [0.2, 0.8]
+                for a in range(side) for b in range(side)}
+    return scopes, cards, tables, sorted(cards), messages
+
+
+def virtual_factors(variables, messages):
+    from pgmpy_tpu_torch.factors import DiscreteFactor
+
+    return [DiscreteFactor([v], [2], messages[v]) for v in variables]
+
+
+def mixed_graph(seed=5):
+    """A loopy graph of unary, pairwise and triple factors, cardinalities 2,
+    3 and 5 (``tests/test_torch_loopy_kernel.py``'s)."""
+    rng = np.random.default_rng(seed)
+    cards = {"a": 2, "b": 3, "c": 5, "d": 2, "e": 3}
+    scopes = [["a"], ["a", "b"], ["b", "c", "d"], ["c"], ["d", "e"], ["e", "a"],
+              ["b", "e", "c"]]
+    return scopes, cards, [rng.random([cards[v] for v in s]) + 0.1 for s in scopes]
+
+
+def k7_case(name, plan, tables, messages):
+    """K7's kernel against its plain version on the card on one graph's
+    flood inputs (``messages`` {variable: fixed message}, uniform start):
+    float32 within 1e-5 with rounds at most one apart (the stop compares a
+    float32 change, summed in another order, with 4 eps), float64 within
+    1e-12 with rounds equal.  Returns {dtype: (max_abs_err, (plan, fixed,
+    init, tables, tol), rounds)}."""
+    from pgmpy_tpu_torch.ops import loopy
+
+    device = torch.device("cuda", 0)
+    fixed = plan.mask.astype(np.float64)
+    for var, message in messages.items():
+        fixed[plan.var_edges[var], : len(message)] = message
+    out = {}
+    for dtype, limit in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        args = (plan, torch.as_tensor(fixed, dtype=dtype, device=device),
+                torch.as_tensor(plan.mask / plan.cards[:, None], dtype=dtype, device=device),
+                plan.build_tables(tables, dtype, device), max(1e-8, 4 * torch.finfo(dtype).eps))
+        got = loopy.flood_cuda(*args[:4], 100, args[4])
+        want = loopy.flood_reference(*args[:4], 100, args[4])
+        torch.cuda.synchronize()
+        err = float((got.f2v - want.f2v).abs().max())
+        rounds, want_rounds = int(got.rounds), int(want.rounds)
+        apart = 0 if dtype == torch.float64 else 1
+        check(got.f2v.shape == want.f2v.shape and err <= limit and rounds < 100
+              and abs(rounds - want_rounds) <= apart,
+              f"k7 {name} {dtype}: {rounds} rounds (plain {want_rounds}), max_abs_err {err}")
+        log(f"k7_check {name} edges={plan.n_edges} factors={plan.n_factors} dtype={dtype} rounds "
+            f"{rounds} (plain {want_rounds}; limit {apart} apart) max_abs_err={err:.3e} (limit "
+            f"{limit:g}) delta {float(got.delta):.3e} (plain {float(want.delta):.3e})")
+        out[dtype] = (err, args, rounds)
+    return out
+
+
+def sync_sites(fn):
+    """The synchronising CUDA calls ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: one
+    ``file:line`` each, the Python line that made the call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        # the first switch to "warn" in a process also warns, once, that the
+        # mode is a prototype: that notice is no synchronising call
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
 def phase_loopy():
     from pgmpy_tpu_torch.config import config
-    from pgmpy_tpu_torch.factors import DiscreteFactor
-    from pgmpy_tpu_torch.inference import (BeliefPropagation,
-                                           BeliefPropagationWithMessagePassing, Mplp, fg_bp)
+    from pgmpy_tpu_torch.inference import BeliefPropagation, BeliefPropagationWithMessagePassing, Mplp
     from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.ops import einsum, loopy
     from pgmpy_tpu_torch.utils.interop import factor_graph_from_numpy, markov_network_from_numpy
 
-    scopes, cards, tables = grid_tables(GRID_SIDE, SEED)
-    variables = sorted(cards)
-    rng = np.random.default_rng(SEED + 5)
-    i, j = np.meshgrid(np.arange(GRID_SIDE), np.arange(GRID_SIDE), indexing="ij")
-    image = (((i // 32) + (j // 32)) % 2).ravel()
-    noisy = np.where(rng.random(image.size) < 0.1, 1 - image, image)
-    pixel = {f"x{a}_{b}": noisy[a * GRID_SIDE + b] for a in range(GRID_SIDE)
-             for b in range(GRID_SIDE)}
+    scopes, cards, tables, variables, messages = loopy_grid()
     star_scopes = [["hub", f"l{k:03d}"] for k in range(STAR_LEAVES)]
     star_rng = np.random.default_rng(SEED + 6)
     star_tabs = [np.exp(0.2 * star_rng.standard_normal((2, 2))) for _ in range(STAR_LEAVES)]
@@ -3472,19 +3579,20 @@ def phase_loopy():
     t0 = time.time()
     fg = factor_graph_from_numpy(scopes, cards, tables)
     bp = BeliefPropagationWithMessagePassing(fg)
-    virtual = [DiscreteFactor([v], [2], [0.8, 0.2] if pixel[v] == 0 else [0.2, 0.8])
-               for v in variables]
+    virtual = virtual_factors(variables, messages)
     build_s = time.time() - t0
     t0 = time.time()
     beliefs = bp.query(variables, virtual_evidence=virtual)
     torch.cuda.synchronize()
     first_s = time.time() - t0
+    grid_launches = {"flood": loopy.LAUNCHES, **einsum.LAUNCHES}
     rounds = bp._program.last_rounds
     star = BeliefPropagationWithMessagePassing(
         factor_graph_from_numpy(star_scopes, {v: 2 for s in star_scopes for v in s}, star_tabs))
     star_beliefs = star.query(["hub", "l000", "l599"])
     loopy8 = BeliefPropagationWithMessagePassing(factor_graph_from_numpy(*small))
     loopy8_beliefs = loopy8.query(["x0_0", "x3_4", "x7_7"])
+    loopy_k3 = dict(einsum.LAUNCHES)
     mplp_results = {}
     for name, (m_scopes, m_cards, m_tables) in mplp_cases.items():
         mplp = Mplp(markov_network_from_numpy(m_scopes, m_cards, m_tables))
@@ -3495,26 +3603,42 @@ def phase_loopy():
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
     record_jt("loopy")
     log(f"loopy_path table_count_launches {table_launches} bincount_launches {bincount_launches}")
+    check(grid_launches == {"flood": 1, "plan_block": 0, "plan_step": 0},
+          f"loopy grid query: launches {grid_launches} (want one flood and no K3)")
+    check(loopy_k3 == {"plan_block": 0, "plan_step": 0},
+          f"loopy BP's three queries launched K3: {loopy_k3}")
+    log(f"loopy_launches grid_query {grid_launches}; the three loopy BP queries (grid, star, "
+        f"8 x 8) flood {GATHER_PATH_LAUNCHES['loopy']['loopy_bp/flood']} K3 {loopy_k3}; path B's "
+        f"K3 after Mplp: plan_block {GATHER_PATH_LAUNCHES['loopy']['einsum_plan/plan_block']} "
+        f"plan_step {GATHER_PATH_LAUNCHES['loopy']['einsum_plan/plan_step']}")
 
-    # ---- the grid: the CPU run, rounds, kernels per round
+    # ---- the grid: the CPU run, rounds, the query's time and where it goes
     query_s = host_median_s(lambda: bp.query(variables, virtual_evidence=virtual), reps=2)
+    split = dict(bp.timings)
     program = bp._program
-    f2v = torch.as_tensor(program.mask / program.cards[:, None], dtype=program.dtype,
-                          device=program.device)
-    log_fixed = torch.log(torch.as_tensor(program.mask, dtype=program.dtype, device=program.device))
-    padded = bp._tables[2]
-    for k, call in enumerate(capture_contractions(lambda: program.round(f2v, log_fixed, padded),
-                                                  [fg_bp])):
-        k3_case(f"loopy_round_128x128[{k}]", call)
-    by_name = kernels_by_name(lambda: program.round(f2v, log_fixed, padded))
-    kernels = sum(c for c, _ in by_name.values())
-    device_ms = sum(us for _, us in by_name.values()) / 1e3
-    round_s = host_median_s(lambda: float(program.round(f2v, log_fixed, padded)[1]), reps=5)
+    staged = bp._flood_inputs({v: np.asarray(m) for v, m in messages.items()})
+    # a flood: one upload of the fixed and initial messages, a launch that
+    # synchronises nothing, one read of the round count
+    on_card = [torch.as_tensor(a, dtype=program.dtype, device=program.device)
+               for a in staged[1:3]]
+    launch_syncs = sync_sites(lambda: loopy.flood(program.plan, *on_card, staged[3],
+                                                  program.max_iter, program._tol_eff))
+    flood_syncs = sync_sites(lambda: program.run(*staged[1:]))
+    check(launch_syncs == [] and len(flood_syncs) == 2 and len(set(flood_syncs)) == 2,
+          f"loopy flood: the launch synchronised at {launch_syncs}, program.run at "
+          f"{flood_syncs} (want nothing, and one upload and one read)")
+    query_syncs = len(sync_sites(lambda: bp.query(variables, virtual_evidence=virtual)))
+    fresh = fresh_profile()
+    small_kernels = sum(c for c, _ in fresh["loopy_names"].values())
+    small_device_ms = sum(us for _, us in fresh["loopy_names"].values()) / 1e3
+    small_flood = sum(c for n, (c, _) in fresh["loopy_names"].items() if "flood_kernel" in n)
+    small_k3 = sum(c for n, (c, _) in fresh["loopy_names"].items() if "plan_" in n)
+    check(small_flood == 1 and small_k3 == 0,
+          f"the {LOOPY_PROFILE_SIDE} x {LOOPY_PROFILE_SIDE} grid's query ran {small_flood} "
+          f"flood kernels and {small_k3} K3 kernels on the profiler (want 1 and 0)")
     with on_device("cpu"):
         cpu_bp = BeliefPropagationWithMessagePassing(factor_graph_from_numpy(scopes, cards, tables))
-        cpu_virtual = [DiscreteFactor([v], [2], [0.8, 0.2] if pixel[v] == 0 else [0.2, 0.8])
-                       for v in variables]
-        cpu_beliefs = cpu_bp.query(variables, virtual_evidence=cpu_virtual)
+        cpu_beliefs = cpu_bp.query(variables, virtual_evidence=virtual_factors(variables, messages))
     cpu_rounds = cpu_bp._program.last_rounds
     grid_err = max(float(np.abs(beliefs[v].values.double().cpu().numpy()
                                 - cpu_beliefs[v].values.double().numpy()).max())
@@ -3523,12 +3647,53 @@ def phase_loopy():
     # sums may put a round apart
     check(abs(rounds - cpu_rounds) <= 1 and rounds < program.max_iter and grid_err <= 1e-4,
           f"loopy grid: {rounds} rounds (CPU {cpu_rounds}), {grid_err} from the CPU run")
+
+    # ---- K7 against its plain version: the grid's query inputs, the star,
+    # the 8 x 8 grid, the mixed graph; the grid's flood timed
+    k7 = k7_case(f"grid{GRID_SIDE}_virtual", program.plan, tables, messages)
+    for name, (g_scopes, g_cards, g_tables) in (
+            ("star600", (star_scopes, {v: 2 for s in star_scopes for v in s}, star_tabs)),
+            ("grid8", small), ("mixed", mixed_graph())):
+        k7_case(name, loopy.FloodPlan(g_scopes, g_cards), g_tables, {})
+    err, args, k7_rounds = k7[torch.float32]
+    ms = cuda_median_ms(lambda: loopy.flood_cuda(*args[:4], 100, args[4]), device_only=True)
+    plain_ms = cuda_median_ms(lambda: loopy.flood_reference(*args[:4], 100, args[4]), reps=5)
+    bound_ms, bound_by = loopy.bound_ms(program.plan, k7_rounds, torch.float32)
+    GATHER_ROWS["loopy_bp/flood"] = {"err": max(err, k7[torch.float64][0]), "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                     "bound_by": bound_by, "library_ms": None}
+    log(f"k7 flood grid{GRID_SIDE} edges={program.n_edges} rounds={k7_rounds} float32 "
+        f"kernel_ms={ms:.5f} (device time, median of 20) device_ms_per_round={ms / k7_rounds:.5f} plain_ms={plain_ms:.4f} (median "
+        f"of 5, its host reads included) bound_ms={bound_ms:.6f} ({bound_by}) library: none "
+        f"max_abs_err={err:.3e}")
+
+    # ---- the plain round (the host loop's unit before K7) and K3 on its
+    # contractions
+    f2v = torch.as_tensor(program.mask / program.cards[:, None], dtype=program.dtype,
+                          device=program.device)
+    log_fixed = torch.log(torch.as_tensor(program.mask, dtype=program.dtype, device=program.device))
+    flood_tables = bp._tables[2]
+    for k, call in enumerate(capture_contractions(
+            lambda: program.round(f2v, log_fixed, flood_tables), [loopy])):
+        k3_case(f"loopy_round_128x128[{k}]", call)
+    by_name = kernels_by_name(lambda: program.round(f2v, log_fixed, flood_tables))
+    plain_kernels = sum(c for c, _ in by_name.values())
+    plain_device_ms = sum(us for _, us in by_name.values()) / 1e3
+    round_s = host_median_s(lambda: float(program.round(f2v, log_fixed, flood_tables)[1]), reps=5)
     log(f"loopy_grid side={GRID_SIDE} variables={len(variables)} factors={len(scopes)} messages="
         f"{program.n_edges} rounds {rounds} loopy_rounds_per_s {rounds / query_s:.1f} query_s "
         f"{query_s:.4f} (median of 2; first call {first_s:.3f} s, graph build {build_s:.3f} s) "
-        f"host_reads {rounds} kernels_per_round {kernels:.0f} device_ms_per_round "
-        f"{device_ms:.4f} round_host_s {round_s:.5f} idle_share "
-        f"{1 - device_ms * rounds / (query_s * 1e3):.4f}")
+        f"flood_launches 1 flood_sync_calls 2 (one upload, one read: {' '.join(flood_syncs)}; "
+        f"the launch 0) query_sync_calls {query_syncs} flood_share_of_query "
+        f"{ms / (query_s * 1e3):.6f} split staging_s "
+        f"{split['staging_s']:.4f} flood_s {split['flood_s']:.4f} beliefs_s "
+        f"{split['beliefs_s']:.4f} results_s {split['results_s']:.4f}; the plain round: "
+        f"kernels {plain_kernels:.0f} device_ms {plain_device_ms:.4f} host_s {round_s:.5f}")
+    log(f"loopy_grid{LOOPY_PROFILE_SIDE} (fresh process) query kernels {small_kernels} (flood "
+        f"{small_flood}, K3 {small_k3}) device_ms {small_device_ms:.4f} query_s "
+        f"{fresh['loopy_query_s']:.4f} (median of 3) idle_share "
+        f"{1 - small_device_ms / (fresh['loopy_query_s'] * 1e3):.4f} by name "
+        f"{json.dumps(fresh['loopy_names'])}")
     log(f"loopy_grid_check ok beliefs within {grid_err:.3e} (limit 1e-4) of the CPU run, "
         f"rounds {rounds} on the card and {cpu_rounds} on the CPU (limit: one apart)")
 
@@ -5233,20 +5398,20 @@ def build_kernels():
     """Build every kernel source of the port at once (one nvcc per source,
     all started together), then load each, and log each build's time and
     what ptxas says of each kernel."""
-    from pgmpy_tpu_torch.ops import (_build, ancestral, bincount, einsum, gibbs, hmc, jt,
+    from pgmpy_tpu_torch.ops import (_build, ancestral, bincount, einsum, gibbs, hmc, jt, loopy,
                                      table_gather)
 
     t0 = time.time()
     _build.build_libraries({"bincount": ["bincount.cu"], "jt_calibrate": ["jt_calibrate.cu"],
                             "table_gather": ["table_gather.cu"], "ancestral": ["ancestral.cu"],
                             "gibbs": ["gibbs.cu"], "einsum_plan": ["einsum_plan.cu"],
-                            "hmc": ["hmc.cu"]})
+                            "hmc": ["hmc.cu"], "loopy_bp": ["loopy_bp.cu"]})
     for load in (bincount._library, jt._library, table_gather._library, ancestral._library,
-                 gibbs._library, einsum._library, hmc._library):
+                 gibbs._library, einsum._library, hmc._library, loopy._library):
         load()
     log(f"kernels_built_s {time.time() - t0:.2f} (csrc/bincount.cu, jt_calibrate.cu, "
-        f"table_gather.cu, ancestral.cu, gibbs.cu, einsum_plan.cu and hmc.cu, one nvcc each, "
-        f"started together)")
+        f"table_gather.cu, ancestral.cu, gibbs.cu, einsum_plan.cu, hmc.cu and loopy_bp.cu, one "
+        f"nvcc each, started together)")
     for name, built in _build.BUILDS.items():
         log(f"kernels_built {name} nvcc_s {built['seconds']:.2f}")
         for line in ptxas_summary(built["ptxas"]):
@@ -5375,7 +5540,7 @@ def main():
         })
     log("k2_launches_by_path " + " ".join(
         f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
-    # K5's, K9's, K6's, K13's, K11's, K3's, K10's and K8's rows: each kernel's
+    # K5's, K9's, K6's, K13's, K11's, K3's, K10's, K8's and K7's rows: each kernel's
     # launches on the path that drives it (set to 0 before that path and read
     # after it), and on the others
     for name, (source, replaces, path) in GATHER_KERNELS.items():
@@ -5389,7 +5554,7 @@ def main():
             **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
                if other != path},
         })
-    log("k5_k9_k6_k11_k13_k3_k10_k8_launches_by_path " + " ".join(
+    log("k5_k9_k6_k11_k13_k3_k10_k8_k7_launches_by_path " + " ".join(
         f"{path} {counts}" for path, counts in GATHER_PATH_LAUNCHES.items()))
     log(f"profiler_sessions {PROFILE_SESSIONS['sessions']} short {PROFILE_SESSIONS['short']} "
         f"(in this process: sessions that kept fewer device records than the fullest of their "

@@ -2,12 +2,21 @@
 graphs by a synchronous flooding schedule (K7).
 
 Port of ``pgmpy_tpu/inference/fg_bp.py``.  All factor -> variable messages
-live in one ``(n_edges, max_card)`` tensor; a round updates every edge with a
-few batched operations (factors bucketed by their power-of-two padded
-shape), and a host loop runs rounds until the largest change falls below the
-tolerance, reading that one number per round.  Exact on trees, standard
-loopy BP otherwise; evidence, virtual evidence, warm-start messages and the
-factor tables are inputs, not constants, so a graph builds its program once.
+live in one ``(n_edges, max_card)`` tensor.  Exact on trees, standard loopy
+BP otherwise; evidence, virtual evidence, warm-start messages and the factor
+tables are inputs, not constants, so a graph builds its program once.
+
+Where each computation runs:
+
+* the flood (every round until the largest change falls below the tolerance
+  or ``max_iter`` rounds): ``ops.loopy.flood``.  On a card, one upload of the
+  fixed and initial messages, ONE launch of the hand-written kernel of
+  ``csrc/loopy_bp.cu`` and one host read (the round count, for
+  ``last_rounds``); on the CPU its plain version, a few torch ops a round and
+  one host read of the change a round;
+* the index tables (``ops.loopy.FloodPlan``), the fixed and initial
+  messages and the result objects: the host;
+* the beliefs: a few torch ops on the messages' device, read back once.
 
 Divergences on purpose, each a fault of the JAX package fixed here:
 
@@ -22,40 +31,21 @@ Divergences on purpose, each a fault of the JAX package fixed here:
   its ``_version`` counter), so an in-place edit of ``f.values`` is seen.
 """
 
+import time
+
 import numpy as np
 import torch
 
 from pgmpy_tpu_torch.config import config, to_numpy
 from pgmpy_tpu_torch.factors.discrete import DiscreteFactor
 from pgmpy_tpu_torch.models.factor_graph import FactorGraph
-from pgmpy_tpu_torch.ops.einsum import sum_product
-
-
-def _normalize(msgs):
-    total = torch.sum(msgs, dim=-1, keepdim=True)
-    return torch.where(total > 0, msgs / torch.where(total > 0, total, 1.0), msgs)
-
-
-def _centered_log(msgs):
-    """``log`` of each row of ``msgs`` minus the row's largest finite entry:
-    a per-row constant, which the normalisation cancels, that keeps a sum of
-    hundreds of near-uniform messages' logs near 0 instead of near -400."""
-    logs = torch.log(msgs)
-    top = torch.amax(logs, dim=-1, keepdim=True)
-    return logs - torch.where(torch.isfinite(top), top, torch.zeros_like(top))
-
-
-def _log_product(logs, dim):
-    """``exp`` of the sum of ``logs`` over ``dim`` after subtracting each
-    row's finite maximum, normalised over the last axis."""
-    total = logs.sum(dim=dim)
-    shift = torch.amax(total, dim=-1, keepdim=True)
-    shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
-    return _normalize(torch.exp(total - shift))
+from pgmpy_tpu_torch.ops.loopy import (FloodPlan, centered_log, flood, flood_round_reference,
+                                       log_product)
 
 
 class _FloodingProgram:
-    """Index tables of flooding BP on a factor graph, and the round loop.
+    """Flooding BP on a factor graph: its :class:`~pgmpy_tpu_torch.ops.loopy.FloodPlan`,
+    dtype, device, round limit and tolerance.
 
     Edge ``e`` is the e-th ``(factor, variable)`` incidence in factor order;
     messages are ``(E, C)`` tensors (``C`` the largest cardinality) whose
@@ -69,109 +59,38 @@ class _FloodingProgram:
         # the requested tol (default 1e-8) is below what float32 resolves:
         # the change between rounds plateaus near one ulp of the messages
         self._tol_eff = max(self.tol, 4.0 * torch.finfo(self.dtype).eps)
-
-        self.edges = []
-        edge_id = {}
-        for fi, scope in enumerate(factor_scopes):
-            for var in scope:
-                edge_id[(fi, var)] = len(self.edges)
-                self.edges.append((fi, var))
-        E = len(self.edges)
-        C = max(int(c) for c in cardinality.values())
-        self.n_edges, self.max_card = E, C
-        self.cards = np.array([int(cardinality[var]) for _, var in self.edges], dtype=np.int64)
-        self.mask = np.arange(C)[None, :] < self.cards[:, None]
-
-        # per edge, the other edges into the same variable, padded with E: a
-        # row of zeros appended to the log-messages (log 1, the identity)
-        self.var_edges = {}
-        for e, (_, var) in enumerate(self.edges):
-            self.var_edges.setdefault(var, []).append(e)
-        D = max(max((len(v) for v in self.var_edges.values()), default=1) - 1, 1)
-        nbr = np.full((E, D), E, dtype=np.int64)
-        for edges in self.var_edges.values():
-            for e in edges:
-                others = [e2 for e2 in edges if e2 != e]
-                nbr[e, : len(others)] = others
-        self._nbr = torch.from_numpy(nbr).to(self.device)
-
-        # factors bucketed by their shape padded per axis to a power of two
-        groups = {}
-        scope_cards = [tuple(int(cardinality[v]) for v in scope) for scope in factor_scopes]
-        for fi, cards in enumerate(scope_cards):
-            groups.setdefault(tuple(1 << max(0, (c - 1).bit_length()) for c in cards), []).append(fi)
-        self._groups = []
-        out_edge_order = []
-        for shape in sorted(groups):
-            fis = groups[shape]
-            eidx = np.array([[edge_id[(fi, v)] for v in factor_scopes[fi]] for fi in fis],
-                            dtype=np.int64).reshape(len(fis), len(shape))
-            out_edge_order.extend(eidx.T.reshape(-1).tolist())
-            self._groups.append((shape, fis, torch.from_numpy(eidx).to(self.device)))
-        inv = np.empty(E, dtype=np.int64)
-        inv[np.asarray(out_edge_order, dtype=np.int64)] = np.arange(E)
-        self._inv_perm = torch.from_numpy(inv).to(self.device)
+        self.plan = plan = FloodPlan(factor_scopes, cardinality)
+        self.edges, self.var_edges = plan.edges, plan.var_edges
+        self.n_edges, self.max_card = plan.n_edges, plan.max_card
+        self.cards, self.mask = plan.cards, plan.mask
         self.last_rounds = 0
 
+    @property
+    def _groups(self):
+        """The plain version's buckets: (padded shape, factors, edge ids)."""
+        return self.plan.groups
+
     def build_tables(self, factor_values):
-        """The factor tables in the per-group padded layout, in the program's
-        dtype on its device."""
-        out = []
-        for shape, fis, _ in self._groups:
-            rows = []
-            for fi in fis:
-                vals = torch.as_tensor(factor_values[fi], device=self.device).to(self.dtype)
-                pad = []
-                for size, full in zip(reversed(vals.shape), reversed(shape)):
-                    pad += [0, full - size]
-                rows.append(torch.nn.functional.pad(vals, pad) if any(pad) else vals)
-            out.append(torch.stack(rows))
-        return out
+        """The factor tables (``ops.loopy.FloodTables``: the flat arena, and
+        the plain version's padded buckets built from the values at first
+        use), in the program's dtype on its device."""
+        return self.plan.build_tables(factor_values, self.dtype, self.device)
 
     def round(self, f2v, log_fixed, tables):
-        """One flooding round: (new factor -> variable messages, the largest
-        change of any entry), in the program's dtype."""
-        C = self.max_card
-        logs = torch.cat([_centered_log(f2v), f2v.new_zeros((1, C))])
-        # variable -> factor: the exclusive product, in log space
-        v2f = _log_product(torch.cat([logs[self._nbr], log_fixed[:, None, :]], dim=1), dim=1)
-        outs = []
-        for (shape, _, eidx), table in zip(self._groups, tables):
-            arity = len(shape)
-            msgs = v2f[eidx]  # (F, arity, C)
-            for k in range(arity):
-                operands, axes = [table], [tuple(range(arity + 1))]
-                for k2 in range(arity):
-                    if k2 != k:
-                        m = msgs[:, k2, :]
-                        m = m[:, : shape[k2]] if shape[k2] <= C else torch.nn.functional.pad(
-                            m, (0, shape[k2] - C))
-                        operands.append(m)
-                        axes.append((0, k2 + 1))
-                out_k = sum_product(axes, (0, k + 1), *operands)
-                if shape[k] < C:
-                    out_k = torch.nn.functional.pad(out_k, (0, C - shape[k]))
-                elif shape[k] > C:
-                    out_k = out_k[:, :C]
-                outs.append(out_k)
-        new_f2v = _normalize(torch.cat(outs)[self._inv_perm])
-        return new_f2v, torch.max(torch.abs(new_f2v - f2v))
+        """One flooding round of the plain version: (new factor -> variable
+        messages, the largest change of any entry)."""
+        return flood_round_reference(self.plan, f2v, log_fixed, tables)
 
     def run(self, fixed, f2v_init, tables):
         """Flood until the change falls below the tolerance or ``max_iter``
-        rounds; ``last_rounds`` records the rounds taken.  One host read per
-        round."""
-        mask = torch.from_numpy(self.mask).to(self.device)
-        f2v = torch.as_tensor(f2v_init, dtype=self.dtype, device=self.device) * mask
-        log_fixed = torch.log(torch.as_tensor(fixed, dtype=self.dtype, device=self.device))
-        rounds = 0
-        while rounds < self.max_iter:
-            f2v, delta = self.round(f2v, log_fixed, tables)
-            rounds += 1
-            if float(delta) < self._tol_eff:
-                break
-        self.last_rounds = rounds
-        return f2v
+        rounds (``ops.loopy.flood``).  The fixed and initial messages (host
+        arrays) go to the device in one copy; ``last_rounds`` records the
+        rounds taken, read back once."""
+        staged = torch.from_numpy(np.stack([np.asarray(fixed), np.asarray(f2v_init)]))
+        fixed, f2v_init = staged.to(device=self.device, dtype=self.dtype)
+        result = flood(self.plan, fixed, f2v_init, tables, self.max_iter, self._tol_eff)
+        self.last_rounds = int(result.rounds)
+        return result.f2v
 
     def beliefs(self, f2v, log_fixed_var, variables):
         """``(len(variables), C)`` normalised beliefs: each variable's fixed
@@ -180,9 +99,9 @@ class _FloodingProgram:
         idx = np.full((len(variables), width), self.n_edges, dtype=np.int64)
         for i, v in enumerate(variables):
             idx[i, : len(self.var_edges[v])] = self.var_edges[v]
-        logs = torch.cat([_centered_log(f2v), f2v.new_zeros((1, self.max_card))])
+        logs = torch.cat([centered_log(f2v), f2v.new_zeros((1, self.max_card))])
         gathered = logs[torch.from_numpy(idx).to(self.device)]
-        return _log_product(torch.cat([gathered, log_fixed_var[:, None, :]], dim=1), dim=1)
+        return log_product(torch.cat([gathered, log_fixed_var[:, None, :]], dim=1), dim=1)
 
 
 class BeliefPropagationWithMessagePassing:
@@ -222,13 +141,14 @@ class BeliefPropagationWithMessagePassing:
                 self._state_names.setdefault(var, names)
         self._program = None
         self._tables = None
+        self.timings = {}
 
     def _message_key(self, fi, var):
         """The reference's message key: ``"[factor variables] -> variable"``."""
         return f"{list(self.factors[fi].variables)} -> {var}"
 
     def _tables_for(self, program):
-        """The padded tables, rebuilt when a factor's values tensor was
+        """The flood's tables, rebuilt when a factor's values tensor was
         replaced or edited in place since the last query."""
         current = [f.values for f in self.factors]
         versions = [t._version for t in current]
@@ -241,9 +161,10 @@ class BeliefPropagationWithMessagePassing:
             self._tables = cached = (current, versions, program.build_tables(current))
         return cached[2]
 
-    def _run_flooding(self, fixed_var_messages, max_iter=100, tol=1e-8, precomp_messages=None):
-        """Flood the graph: returns ``(program, f2v)``, the converged
-        ``(E, C)`` factor -> variable messages on the device.
+    def _flood_inputs(self, fixed_var_messages, max_iter=100, tol=1e-8, precomp_messages=None):
+        """``(program, fixed, f2v_init, tables)`` of a flood: the program (built
+        once per graph, round limit and tolerance), the ``(E, C)`` fixed and
+        initial messages on the host, the cached tables.
         ``fixed_var_messages``: {var: array} evidence / virtual-evidence
         messages multiplied into every variable -> factor message;
         ``precomp_messages``: warm-start messages by reference key."""
@@ -270,7 +191,7 @@ class BeliefPropagationWithMessagePassing:
                 key = self._message_key(fi, var)
                 if key in precomp_messages:
                     f2v_init[e, : program.cards[e]] = to_numpy(precomp_messages[key])
-        return program, program.run(fixed, f2v_init, tables)
+        return program, fixed, f2v_init, tables
 
     def calc_variable_node_message(self, variable, incoming_messages):
         """Outgoing variable-node message: the normalised product of the
@@ -307,7 +228,11 @@ class BeliefPropagationWithMessagePassing:
               get_messages=False, precomp_messages=None):
         """Marginal beliefs of ``variables`` given point-mass evidence and
         virtual-evidence messages.  ``precomp_messages`` reuses the factor ->
-        variable messages of an earlier ``get_messages=True`` call."""
+        variable messages of an earlier ``get_messages=True`` call.
+        ``timings`` keeps the call's host seconds: ``staging_s`` (evidence,
+        program, tables, fixed and initial messages), ``flood_s``,
+        ``beliefs_s`` (read back) and ``results_s`` (the result objects)."""
+        t0 = time.perf_counter()
         evidence = evidence or {}
         if set(variables) & set(evidence):
             raise ValueError(
@@ -323,7 +248,11 @@ class BeliefPropagationWithMessagePassing:
             message = np.asarray(to_numpy(virt.values), dtype=np.float64).ravel()
             fixed[var] = fixed.get(var, 1.0) * message
 
-        program, f2v = self._run_flooding(fixed, precomp_messages=precomp_messages)
+        program, fixed_rows, f2v_init, tables = self._flood_inputs(
+            fixed, precomp_messages=precomp_messages)
+        t1 = time.perf_counter()
+        f2v = program.run(fixed_rows, f2v_init, tables)
+        t2 = time.perf_counter()
 
         variables = list(variables)
         results = {}
@@ -337,15 +266,17 @@ class BeliefPropagationWithMessagePassing:
                         log_fixed[i, :card] = np.log(fixed[var])
             beliefs = to_numpy(program.beliefs(
                 f2v, torch.as_tensor(log_fixed, dtype=f2v.dtype, device=f2v.device), variables))
-            for i, var in enumerate(variables):
-                card = self.cardinality[var]
-                names = {var: self._state_names[var]} if var in self._state_names else {}
-                results[var] = DiscreteFactor([var], [card], beliefs[i, :card], state_names=names)
+        t3 = time.perf_counter()
+        for i, var in enumerate(variables):
+            card = self.cardinality[var]
+            names = {var: self._state_names[var]} if var in self._state_names else {}
+            results[var] = DiscreteFactor([var], [card], beliefs[i, :card], state_names=names)
         if get_messages:
             out = to_numpy(f2v).astype(np.float64)
             messages = {
                 self._message_key(fi, var): out[e, : program.cards[e]]
                 for e, (fi, var) in enumerate(program.edges)
             }
-            return results, messages
-        return results
+        self.timings = {"staging_s": t1 - t0, "flood_s": t2 - t1, "beliefs_s": t3 - t2,
+                        "results_s": time.perf_counter() - t3}
+        return (results, messages) if get_messages else results
