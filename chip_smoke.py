@@ -207,6 +207,8 @@ VE_GUARD_ELEMENTS = 2**28
 # count are charged at that rate)
 HBM_BYTES_PER_S = 3.35e12
 PLAIN_OPS_PER_S = 67e12
+# cycles per second of torch.cuda._sleep's spin on an H100 (its SM clock)
+SLEEP_CYCLES_PER_S = 2e9
 
 
 def log(msg):
@@ -230,28 +232,50 @@ def on_device(name):
         config.set_device(previous)
 
 
-def cuda_median_ms(fn, reps=20, warmup=2, device_only=False):
+def cuda_median_ms(fn, reps=20, warmup=2, device_only=False, with_enqueue=False):
     """Median of ``reps`` single-call timings taken with CUDA events.
 
-    With ``device_only`` each call is queued behind a ~1 ms device sleep, so
-    the events time the call's kernels on the device and not the host's
-    Python work between them (which a call of a few microseconds of kernels
-    would otherwise measure)."""
+    With ``device_only`` each call is queued behind a device sleep of about
+    four times the host's enqueue of one call (and at least ~1 ms), so that
+    the host has queued the whole call before the device reaches the start
+    event: the events then time the call's device work and not the host's
+    Python between its launches.  That is checked: the start event must still
+    be pending when ``fn`` returns.  A call that was not covered is dropped
+    and the sleep doubled, and a fourth such call fails (a call that waits
+    for the device, as a read-back does, cannot be covered: time it without
+    ``device_only``).  With ``with_enqueue`` the result is (ms, the host's
+    enqueue of one call in seconds)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    host_s = None
+    if device_only or with_enqueue:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    cycles = int(max(2e6, 4 * (host_s or 0.0) * SLEEP_CYCLES_PER_S))
+    times, misses = [], 0
+    while len(times) < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
+        covered = not (device_only and start.query())
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        if covered:
+            times.append(start.elapsed_time(end))
+            continue
+        misses += 1
+        check(misses <= 3, f"cuda_median_ms: {misses} calls were not queued whole behind a "
+              f"device sleep of up to {cycles:.3g} cycles (the host's enqueue "
+              f"{host_s * 1e3:.3f} ms)")
+        cycles *= 2
+    ms = float(np.median(times))
+    return (ms, host_s) if with_enqueue else ms
 
 
 def reset_launches():
@@ -542,8 +566,10 @@ def bincount_case(name, idx, w, length, weighted, library=False):
         "err": err,
         "ms": cuda_median_ms(lambda: bc.weighted_bincount_cuda(idx, w, length),
                              device_only=True),
-        "plain_ms": cuda_median_ms(lambda: bc.weighted_bincount_reference(idx, w, length),
-                                   device_only=True),
+        # the plain version's mask and torch.bincount read a size back (a host
+        # sync), so neither can be queued behind a device sleep: CUDA events
+        # around the whole call, the read-back included
+        "plain_ms": cuda_median_ms(lambda: bc.weighted_bincount_reference(idx, w, length)),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
@@ -552,11 +578,11 @@ def bincount_case(name, idx, w, length, weighted, library=False):
         lib = torch.bincount(idx, weights=w, minlength=length)
         check(torch.equal(lib.to(got.dtype), got), f"k1 {name}: torch.bincount differs")
         out["library_ms"] = cuda_median_ms(
-            lambda: torch.bincount(idx, weights=w, minlength=length), device_only=True)
+            lambda: torch.bincount(idx, weights=w, minlength=length))
     log(f"k1 {name} n={n} length={length} {idx.dtype} {w.dtype} max_abs_err={err:.3e} "
         f"kernel_ms={out['ms']:.5f} plain_ms={out['plain_ms']:.5f} "
         f"bound_ms={bound_ms:.6f} ({bound_by}) torch_bincount_ms={out['library_ms']} "
-        f"(device time, median of 20)")
+        f"(medians of 20; the kernel's device time, the others with their read-back)")
     return out
 
 
@@ -657,8 +683,10 @@ def library_bincount(name, cm, n, specs, ref, weights=None):
         check(lib.numel() == specs.total and torch.allclose(lib.double(), ref.double(),
                                                               rtol=1e-3, atol=1e-3),
               f"k1 {name}: torch.bincount differs from the plain version by {err}")
+    # torch.bincount reads its input's maximum back: CUDA events around the
+    # whole call, the read-back included
     ms = cuda_median_ms(lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total),
-                        reps=5, warmup=1, device_only=True)
+                        reps=5, warmup=1)
     log(f"k1t {name} library torch_bincount_ms={ms:.5f} (one call over the {len(specs)} specs "
         f"offset into one index space of {flat_idx.numel()} int64 entries, "
         f"{flat_idx.numel() * 8 / 1e9:.2f} GB, built outside the timing; median of 5; "
@@ -951,12 +979,12 @@ def phase_jt_kernels(bp):
     check(kernels == per_cal, f"k2: the profiler saw {kernels} device operations per "
           f"calibration, the kernels launched {per_cal}")
     names = kernels_by_name(lambda: bp._calibrate_junction_tree("marginalize"))
-    dev_ms = cuda_median_ms(lambda: bp._calibrate_junction_tree("marginalize"), reps=15,
-                            warmup=1, device_only=True)
+    dev_ms, host_s = cuda_median_ms(lambda: bp._calibrate_junction_tree("marginalize"),
+                                    reps=15, device_only=True, with_enqueue=True)
     log(f"k2 calibration waves {waves} (upward {plan.n_up_waves}) jt_launches_per_calibration "
         f"{per_cal} profiler_kernels_per_calibration {kernels:.0f} device_ms {device_ms:.4f} "
-        f"(profiler) device_only_ms {dev_ms:.4f} (CUDA events behind a device sleep, median of "
-        f"15) by_name " + "; ".join(f"{kernel_name(k)} x{c} {us / 1e3:.4f} ms"
+        f"(profiler) device_only_ms {dev_ms:.4f} (CUDA events behind a covering device sleep, "
+        f"median of 15; host enqueue {host_s * 1e3:.3f} ms) by_name " + "; ".join(f"{kernel_name(k)} x{c} {us / 1e3:.4f} ms"
                                    for k, (c, us) in names.items()))
 
     # ---- every kernel against the plain version
@@ -2473,9 +2501,9 @@ def phase_temporal():
         "plain_ms": cuda_median_ms(lambda: bc.table_counts_reference(cm, n, specs, w),
                                    reps=5, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
+        # torch.bincount reads its input's maximum back: no device sleep
         "library_ms": cuda_median_ms(
-            lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total),
-            device_only=True),
+            lambda: torch.bincount(flat_idx, weights=flat_w, minlength=specs.total)),
     }
     host_us = []
     for _ in range(20):
@@ -4810,50 +4838,191 @@ def schedule_rtol(program, u=2.0 ** -24, normalized=False):
     return 2 * u * (sum(per_message) + per_clique)
 
 
-def beliefs_gap(got, want, rtol, atol=1e-6):
-    """The worst relative gap of paired belief tensors (``|a - b| / max(|b|,
-    atol)``), checked against ``|a - b| <= atol + rtol |b|``."""
+def beliefs_gap(got, want, rtol, atol):
+    """Paired belief tensors held entry by entry to ``|a - b| <= atol + rtol
+    |b|``.  Returns a phrase for the log: the worst relative gap over the
+    entries of ``want`` above ``atol``, and their magnitudes (median,
+    smallest nonzero, and how many nonzero ones lie below ``atol``)."""
     worst = 0.0
     for a, b in zip(got, want):
         diff = (a.to(b.device) - b).abs()
-        check(bool((diff <= atol + rtol * b.abs()).all()), f"beliefs differ by {float(diff.max())}")
-        worst = max(worst, float((diff / b.abs().clamp_min(atol)).max()))
-    return worst
+        check(bool((diff <= atol + rtol * b.abs()).all()),
+              f"beliefs differ by {float(diff.max())} (rtol {rtol:.3e}, atol {atol:g})")
+        held = b.abs() > atol
+        if bool(held.any()):
+            worst = max(worst, float((diff[held] / b[held].abs()).max()))
+    mags = torch.cat([b.reshape(-1) for b in want]).abs()
+    small = mags[mags > 0]
+    return (f"worst relative gap {worst:.3e} over |b| > atol (rtol {rtol:.3e}, atol {atol:g}; "
+            f"|b| median {float(mags.median()):.3e} smallest nonzero "
+            f"{float(small.min()) if small.numel() else 0.0:.3e} nonzero below atol "
+            f"{int((small < atol).sum())} of {mags.numel()})")
+
+
+def single_device_atol(dtype):
+    """The absolute slack of a sharded calibration held to the single-device
+    program, which multiplies in another order: the smallest normal number of
+    ``dtype``.  Below it an entry is subnormal and carries fewer significant
+    bits than a relative limit assumes; every other entry is held relative to
+    itself."""
+    return torch.finfo(dtype).tiny
+
+
+def part_lines(sharded):
+    """One entry per part: its cliques, boundary cliques, waves (upward) and
+    K2 launches on a card."""
+    return [f"part {p}: cliques {len(part['cliques'])} boundary_cliques "
+            f"{len(part['plan'].clique_shapes) - len(part['cliques'])} waves "
+            f"{part['plan'].n_waves} (upward {part['plan'].n_up_waves}) launches "
+            f"{1 + 2 * part['plan'].n_waves} depth {sharded.part_depth[p]}"
+            for p, part in enumerate(sharded.parts)]
+
+
+def check_part_cards(name, sharded, beliefs):
+    """Every clique's belief on its part's device."""
+    for p, part in enumerate(sharded.parts):
+        for c in part["cliques"]:
+            check(beliefs[c].device == sharded.device_of_part[p],
+                  f"{name}: clique {c} left its part's card")
+
+
+def crossing_bytes(program, sharded, elem=4):
+    """Bytes that cross parts in one calibration: per boundary edge, the
+    child's sigma up and the parent's sepset belief down."""
+    boundary = [p["boundary_edge_id"] for p in sharded.parts if p["boundary_edge_id"] is not None]
+    return 2 * elem * sum(int(np.prod(program.sepset_shapes[e])) for e in boundary), boundary
+
+
+def calibration_times(program, sharded, arrays, reps):
+    """The sharded and the single-device calibration, each timed with CUDA
+    events: with the host's enqueue (median of 5), and its device time behind
+    a covering device sleep (median of ``reps``, with the host's enqueue of
+    one call).  Returns the log's phrase, the sharded device ms and its host
+    enqueue in seconds."""
+    sharded_ms = cuda_median_ms(lambda: sharded.calibrate(arrays), reps=5, warmup=1)
+    single_ms = cuda_median_ms(lambda: program.calibrate(arrays), reps=5, warmup=1)
+    device_ms, host_s = cuda_median_ms(lambda: sharded.calibrate(arrays), reps=reps,
+                                       device_only=True, with_enqueue=True)
+    single_device_ms, single_host_s = cuda_median_ms(
+        lambda: program.calibrate(arrays), reps=reps, device_only=True, with_enqueue=True)
+    return (f"sharded_ms {sharded_ms:.3f} single_device_ms {single_ms:.3f} (CUDA events, median "
+            f"of 5) device_ms sharded {device_ms:.4f} single {single_device_ms:.4f} (CUDA events "
+            f"behind a covering device sleep, median of {reps}) host_enqueue_ms sharded "
+            f"{host_s * 1e3:.3f} single {single_host_s * 1e3:.3f}"), device_ms, host_s
 
 
 def sharded_calibration_case(name, program, arrays, mesh, reference, rtol):
-    """Calibrate MUNIN over ``mesh``'s parts, hold every clique and sepset to the
-    single-device ``reference`` and time 5 calibrations of each with CUDA
-    events (the host enqueue included: it is the calibration's wall time)."""
+    """Calibrate MUNIN over ``mesh``'s parts (across cards, where the counted
+    path's parts share one), hold every clique and sepset to the
+    single-device ``reference``, and time both (:func:`calibration_times`)."""
+    from pgmpy_tpu_torch.ops import jt
     from pgmpy_tpu_torch.parallel.jt_mesh import ShardedJunctionTreeCalibration
 
     sharded = ShardedJunctionTreeCalibration(program, mesh)
+    jt.reset_launches()
     beliefs, mu = sharded.calibrate(arrays)
-    for c, b in enumerate(beliefs):
-        part = next(p for p, part in enumerate(sharded.parts) if c in part["cliques"])
-        check(b.device == sharded.device_of_part[part], f"{name}: clique {c} left its part's card")
-    clique_gap = beliefs_gap(beliefs, reference[0], rtol)
-    sepset_gap = beliefs_gap(mu, reference[1], rtol)
-    boundary = [p["boundary_edge_id"] for p in sharded.parts if p["boundary_edge_id"] is not None]
-    crossing = 2 * 4 * sum(int(np.prod(program.sepset_shapes[e])) for e in boundary)
+    torch.cuda.synchronize()
+    check(jt.JT_LAUNCHES == sharded.launches(), f"{name}: {jt.JT_LAUNCHES} K2 launches, the "
+          f"part plans make {sharded.launches()}")
+    check_part_cards(name, sharded, beliefs)
+    atol = single_device_atol(arrays[0].dtype)
+    clique_gap = beliefs_gap(beliefs, reference[0], rtol, atol)
+    sepset_gap = beliefs_gap(mu, reference[1], rtol, atol)
+    crossing, boundary = crossing_bytes(program, sharded)
     moved = [arrays[i] for p, part in enumerate(sharded.parts) for i in part["factor_ids"]
              if sharded.device_of_part[p] != arrays[i].device]
     inputs = sum(a.numel() * a.element_size() for a in moved)
-    sharded_ms = cuda_median_ms(lambda: sharded.calibrate(arrays), reps=5, warmup=1)
-    single_ms = cuda_median_ms(lambda: program.calibrate(arrays), reps=5, warmup=1)
-    kernels, device_ms = profiled(lambda: sharded.calibrate(arrays))
-    single_kernels, single_device_ms = profiled(lambda: program.calibrate(arrays))
+    times, _, _ = calibration_times(program, sharded, arrays, 5)
+    kernels, _ = profiled(lambda: sharded.calibrate(arrays))
+    single_kernels, _ = profiled(lambda: program.calibrate(arrays))
     sizes = sorted(len(p["cliques"]) for p in sharded.parts)
     log(f"parallel_jt_{name} cliques {len(program.cliques)} messages {len(program.messages)} "
         f"shards {mesh.size} devices {sorted({str(d) for d in sharded.device_of_part})} parts "
         f"{sharded.n_parts} part_sizes {sizes} boundary_edges {len(boundary)} "
-        f"crossing_bytes_per_calibration {crossing} (a sigma up and a ratio down per boundary "
-        f"edge, float32) input_tables_moved_per_calibration {len(moved)} "
-        f"({inputs} bytes: factor tables of parts on another card than the tables) sharded_ms {sharded_ms:.3f} single_device_ms {single_ms:.3f} (CUDA "
-        f"events, median of 5) kernels sharded {kernels:.0f} single {single_kernels:.0f} "
-        f"device_ms sharded {device_ms:.3f} single {single_device_ms:.3f} max_rel_gap cliques "
-        f"{clique_gap:.3e} sepsets {sepset_gap:.3e} (limit rtol {rtol:.3e} from float32 "
-        f"rounding over the schedule, atol 1e-6)")
+        f"crossing_bytes_per_calibration {crossing} (a sigma up and a sepset belief down per "
+        f"boundary edge, float32) input_tables_moved_per_calibration {len(moved)} "
+        f"({inputs} bytes: factor tables of parts on another card than the tables) k2_launches "
+        f"sharded {sharded.launches()} single {1 + 2 * program.wave_plan().n_waves} {times} "
+        f"profiler_kernels sharded {kernels:.0f} single {single_kernels:.0f} (lower bounds late "
+        f"in the process) against the single-device program: cliques {clique_gap}; sepsets "
+        f"{sepset_gap}; " + "; ".join(part_lines(sharded)))
+
+
+def k12_kernel_row(program, sharded, arrays, beliefs, mu, rtol):
+    """K12 on the counted path's MUNIN in parts of one card: the part plans
+    through K2's kernels against the same part plans through the plain
+    version on the card (every clique and sepset within ``rtol`` and no
+    absolute slack: both multiply in plan order, so rounding is the only
+    gap); the sharded and the single-device calibration timed
+    (:func:`calibration_times`); the plain version's time (CUDA events around
+    its eager ops); and the bound: every part plan's K2 bound
+    (:func:`jt_bounds`) and the bytes that cross parts."""
+    plain = sharded.calibrate(arrays, kernel=False)
+    torch.cuda.synchronize()
+    gaps = beliefs_gap(beliefs, plain[0], rtol, 0.0), beliefs_gap(mu, plain[1], rtol, 0.0)
+    err = max(float((a - b).abs().max()) for a, b in zip(beliefs + mu, plain[0] + plain[1]))
+    del plain
+    times, ms, host_s = calibration_times(program, sharded, arrays, 10)
+    plain_ms = cuda_median_ms(lambda: sharded.calibrate(arrays, kernel=False), reps=3, warmup=1)
+    elem = arrays[0].element_size()
+    total_bytes = total_ops = 0
+    bound_ms = 0.0
+    for part in sharded.parts:
+        for nbytes, ops in jt_bounds(part["plan"], elem).values():
+            bound_ms += bound(nbytes, ops)[0]
+            total_bytes += nbytes
+            total_ops += ops
+    crossing, boundary = crossing_bytes(program, sharded, elem)
+    bound_ms += bound(crossing, 0)[0]
+    log(f"k12 jt_mesh/calibrate_parts munin parts {sharded.n_parts} launches "
+        f"{sharded.launches()} kernel_ms {ms:.5f} (device time: CUDA events around one sharded "
+        f"calibration behind a covering device sleep, median of 10; host enqueue "
+        f"{host_s * 1e3:.3f} ms) plain_ms {plain_ms:.3f} (the same part plans through the plain "
+        f"version on the card, CUDA events, median of 3) bound_ms {bound_ms:.6f} (each part "
+        f"plan's K2 bound per kernel, summed: {total_bytes} bytes, {total_ops} operations; "
+        f"crossing {crossing} bytes) max_abs_err {err:.3e} against the plain version: cliques "
+        f"{gaps[0]}; sepsets {gaps[1]}; library_ms null: no PyTorch call calibrates a tree")
+    log(f"parallel_jt_one_card cliques {len(program.cliques)} messages {len(program.messages)} "
+        f"shards {PARALLEL_SHARDS} devices ['cuda:0'] parts {sharded.n_parts} part_sizes "
+        f"{sorted(len(p['cliques']) for p in sharded.parts)} boundary_edges {len(boundary)} "
+        f"crossing_bytes_per_calibration {crossing} (a sigma up and a sepset belief down per "
+        f"boundary edge) k2_launches sharded {sharded.launches()} single "
+        f"{1 + 2 * program.wave_plan().n_waves} {times}; " + "; ".join(part_lines(sharded)))
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if total_bytes / HBM_BYTES_PER_S >= total_ops / PLAIN_OPS_PER_S
+            else "operations", "library_ms": None}
+
+
+def markov_sharded_case():
+    """ALARM's Markov model (normalised messages) with its factors scaled by
+    random positive numbers, in 4 parts of cuda:0 against the single-device
+    program: every clique and sepset, and the launches."""
+    from pgmpy_tpu_torch.inference import BeliefPropagation
+    from pgmpy_tpu_torch.ops import jt
+    from pgmpy_tpu_torch.parallel.jt_mesh import ShardedJunctionTreeCalibration
+    from pgmpy_tpu_torch.parallel.mesh import Mesh
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    markov = BeliefPropagation(get_example_model("alarm").to_markov_model())
+    program = markov._program
+    check(program.normalize_messages, "ALARM's Markov model does not normalise")
+    rng = np.random.default_rng(SEED)
+    scaled = [(f.values * float(rng.uniform(0.25, 4.0))).contiguous()
+              for f in markov._input_factors]
+    sharded = ShardedJunctionTreeCalibration(program, Mesh([torch.device("cuda", 0)]
+                                                           * PARALLEL_SHARDS))
+    jt.reset_launches()
+    beliefs, mu = sharded.calibrate(scaled)
+    torch.cuda.synchronize()
+    check(jt.JT_LAUNCHES == sharded.launches(), f"alarm_markov: {jt.JT_LAUNCHES} K2 launches, "
+          f"the part plans make {sharded.launches()}")
+    ref = program.calibrate(scaled)
+    rtol = schedule_rtol(program, normalized=True)
+    atol = single_device_atol(scaled[0].dtype)
+    gaps = beliefs_gap(beliefs, ref[0], rtol, atol), beliefs_gap(mu, ref[1], rtol, atol)
+    log(f"parallel_jt_alarm_markov normalize_messages True parts {sharded.n_parts} part_sizes "
+        f"{sorted(len(p['cliques']) for p in sharded.parts)} k2_launches {sharded.launches()} "
+        f"against the single-device program: cliques {gaps[0]}; sepsets {gaps[1]}")
 
 
 def two_process_run(backend):
@@ -4908,11 +5077,15 @@ def phase_parallel(model, context):
     there are more): MUNIN calibrated in parts, sharded forward and
     likelihood-weighted draws of MUNIN, the 2,048 prediction rows as a sharded
     ``query_batch``, sharded Gibbs on HEPAR2 and NUTS on ecoli70, and a
-    two-process run.  Returns the (table-count, bincount) launches of the
-    path, the K1 row at the sharded moments' shape and its launches."""
+    two-process run.  The calibration in parts is K12: every part's plan on
+    K2's kernels, held to the single-device program and to the same part
+    plans through the plain version, and timed; ALARM's Markov model in parts
+    beside it.  Returns the (table-count, bincount) launches of the path, the
+    K1 row at the sharded moments' shape and its launches, and K12's row."""
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination
     from pgmpy_tpu_torch.ops import bincount as bc
+    from pgmpy_tpu_torch.ops import jt
     from pgmpy_tpu_torch.parallel import (get_mesh, sharded_gibbs_marginals,
                                           sharded_nuts_moments, sharded_query_batch,
                                           sharded_sample_marginals)
@@ -4947,14 +5120,15 @@ def phase_parallel(model, context):
     hepar, ecoli = get_example_model("hepar2"), get_example_model("ecoli70")
 
     # ---- the path, counted
-    per_call = {}
+    per_call, k2_per_call = {}, {}
 
     def counted(name, fn):
-        before = bc.TABLE_LAUNCHES
+        before, k2_before = bc.TABLE_LAUNCHES, jt.JT_LAUNCHES
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         per_call[name] = (bc.TABLE_LAUNCHES - before, time.time() - t0)
+        k2_per_call[name] = jt.JT_LAUNCHES - k2_before
         return out
 
     torch.cuda.synchronize()
@@ -4995,18 +5169,34 @@ def phase_parallel(model, context):
             "weighted": PARALLEL_SHARDS, "query_batch": 0, "gibbs": PARALLEL_SHARDS, "nuts": 0}
     check({k: n for k, (n, _) in per_call.items()} == want and launches[1] == 0,
           f"parallel path launches {per_call}, {launches}")
+    # K12: every part's calibration on K2's kernels, 1 + 2 W_p launches a part
+    # (W_p its plan's waves), and no other step of the path calibrates
+    waves = sum(part["plan"].n_waves for part in sharded.parts)
+    k2_want = {"clique_potentials": sharded.n_parts, "sepset_wave": waves, "absorb_wave": waves}
+    log(f"parallel_k2_launches {k2_per_call} want calibrate {sharded.launches()} "
+        f"(sum over {sharded.n_parts} parts of 1 + 2 x waves) by kernel "
+        f"{JT_PATH_LAUNCHES['parallel']}; " + "; ".join(part_lines(sharded)))
+    check(k2_per_call == {k: sharded.launches() if k == "calibrate" else 0 for k in per_call}
+          and JT_PATH_LAUNCHES["parallel"] == k2_want,
+          f"parallel path K2 launches {k2_per_call}, by kernel {JT_PATH_LAUNCHES['parallel']}, "
+          f"want {k2_want}")
     check(config.DEVICE == device_before, f"config.DEVICE left at {config.DEVICE}")
     moments_launches = 3 * PARALLEL_SHARDS
 
     # ---- model-parallel calibration against the single-device program
     rtol = schedule_rtol(program)
     reference = program.calibrate(arrays)
-    gap = beliefs_gap(beliefs, reference[0], rtol), beliefs_gap(mu, reference[1], rtol)
-    log(f"parallel_jt_path max_rel_gap cliques {gap[0]:.3e} sepsets {gap[1]:.3e} (limit rtol "
-        f"{rtol:.3e})")
-    sharded_calibration_case("one_card", program, arrays, mesh, reference, rtol)
+    atol = single_device_atol(arrays[0].dtype)
+    gap = (beliefs_gap(beliefs, reference[0], rtol, atol),
+           beliefs_gap(mu, reference[1], rtol, atol))
+    check_part_cards("parallel_jt_path", sharded, beliefs)
+    log(f"parallel_jt_path against the single-device program: cliques {gap[0]}; sepsets "
+        f"{gap[1]}; every belief on its part's card")
+    k12_row = k12_kernel_row(program, sharded, arrays, beliefs, mu, rtol)
     if n_cards > 1:
         sharded_calibration_case("all_cards", program, arrays, get_mesh(), reference, rtol)
+    del beliefs, mu, reference
+    markov_sharded_case()
 
     # ---- forward draws against the exact marginals; the same seed twice
     nodes = sorted(model.nodes(), key=str)
@@ -5086,7 +5276,7 @@ def phase_parallel(model, context):
         two_process_run("nccl")
     check(config.DEVICE == device_before, f"config.DEVICE left at {config.DEVICE}")
     log(f"phase_parallel_main_path_s {path_s:.1f}")
-    return launches, row, moments_launches
+    return launches, row, moments_launches, k12_row
 
 
 # --------------------------------------------------------------------------- #
@@ -5500,8 +5690,8 @@ def main():
     log(f"phase_readwrite_s {time.time() - t0:.1f}")
     # the twelfth path, and K1 at the shape of one shard's moments
     t0 = time.time()
-    (parallel_tables, parallel_bincounts), moments_row, moments_launches = phase_parallel(
-        model, context)
+    (parallel_tables, parallel_bincounts), moments_row, moments_launches, k12_row = (
+        phase_parallel(model, context))
     log(f"phase_parallel_s {time.time() - t0:.1f}")
     for name, launches, result in (
             ("table_counts/particle_marginals_weighted", filter_launches, weighted),
@@ -5540,6 +5730,17 @@ def main():
         })
     log("k2_launches_by_path " + " ".join(
         f"{path} {sum(counts.values())}" for path, counts in JT_PATH_LAUNCHES.items()))
+    # K12's row: K2's kernels on the multi-device path's part plans; its
+    # launches are the K2 launches of that path's counted run, all made by
+    # the sharded calibration (checked in phase_parallel)
+    k12_launches = sum(JT_PATH_LAUNCHES["parallel"].values())
+    check(k12_launches > 0, "the parallel path did not launch K2 on its part plans")
+    kernels.append({
+        "name": "jt_mesh/calibrate_parts", "route": "cuda", "source": JT_SOURCE,
+        "replaces": "pgmpy_tpu/parallel/jt_mesh.py:121", "launches": k12_launches,
+        "launches_counted_on": "parallel", "max_abs_err": k12_row["err"],
+        **{key: k12_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     # K5's, K9's, K6's, K13's, K11's, K3's, K10's, K8's and K7's rows: each kernel's
     # launches on the path that drives it (set to 0 before that path and read
     # after it), and on the others

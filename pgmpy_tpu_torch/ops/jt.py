@@ -21,6 +21,10 @@ once per device.
   same arithmetic in torch ops on views of the same arenas, in the same wave
   order.
 
+Both are :func:`stage0` followed by :func:`run_waves` over every wave; the
+model-parallel calibration (``parallel/jt_mesh.py``) calls the two itself, to
+run each part's plan in two halves with the boundary sepsets copied between.
+
 It replaces ``pgmpy_tpu/inference/bp.py:396`` (``JunctionTreeProgram._build``:
 ``stage0``, the fused schedule and the chunked segments).  ``JT_LAUNCHES``
 counts the kernels' launches and ``LAUNCHES`` each kernel's;
@@ -568,14 +572,8 @@ def absorb_wave_reference(plan, w, beliefs, ratios):
 def calibrate_waves_reference(plan, factor_arrays, operation="marginalize", normalize=False):
     """Plain version: torch ops on views of a fresh pair of arenas, in wave
     order.  Returns (belief arena, sepset arena)."""
-    device, dtype = _inputs(plan, factor_arrays)
-    arena = torch.empty(plan.total, dtype=dtype, device=device)
-    sepsets = torch.empty(plan.sepset_total, dtype=dtype, device=device)
-    beliefs, mu = arena_views(plan, arena, sepsets)
-    clique_potentials_reference(plan, [a.to(dtype) for a in factor_arrays], beliefs)
-    for w in range(plan.n_waves):
-        ratios = sepset_wave_reference(plan, w, beliefs, mu, operation, normalize)
-        absorb_wave_reference(plan, w, beliefs, ratios)
+    arena, sepsets = stage0(plan, factor_arrays, kernel=False)
+    run_waves(plan, arena, sepsets, range(plan.n_waves), operation, normalize, kernel=False)
     return arena, sepsets
 
 
@@ -735,27 +733,56 @@ def calibrate_waves_cuda(plan, factor_arrays, operation="marginalize", normalize
     """The hand-written kernels on the current stream: ``clique_potentials``
     once, then ``sepset_wave`` and ``absorb_wave`` per wave.  Returns (belief
     arena, sepset arena), both fresh."""
-    if plan.width > MAX_AXES:
-        raise ValueError(f"calibrate_waves_cuda: a clique has {plan.width} axes, the kernels "
-                         f"take at most {MAX_AXES}")
-    if operation not in ("marginalize", "maximize"):
-        raise ValueError(f"calibrate: unknown operation {operation!r}")
-    device, dtype = _inputs(plan, factor_arrays)
-    if device.type != "cuda":
-        raise ValueError("calibrate_waves_cuda: the factor tables must be on a CUDA device")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"calibrate_waves_cuda: float32 or float64 tables, got {dtype}")
-    arrays = [a.to(dtype).contiguous() for a in factor_arrays]
+    arena, sepsets = stage0(plan, factor_arrays, kernel=True)
+    run_waves(plan, arena, sepsets, range(plan.n_waves), operation, normalize, kernel=True)
+    return arena, sepsets
+
+
+# --------------------------------------------------------------------------- #
+# a calibration in pieces: stage 0, then any range of waves
+# --------------------------------------------------------------------------- #
+def stage0(plan, factor_arrays, kernel, device=None, dtype=None):
+    """A fresh pair of arenas (on ``device``, of ``dtype``: by default the
+    factors' device and promoted type) with stage 0 in the belief arena:
+    ``clique_potentials`` with ``kernel``, its plain version without.  The
+    sepset arena is left unwritten for the waves."""
+    in_device, in_dtype = _inputs(plan, factor_arrays)
+    device, dtype = torch.device(device or in_device), dtype or in_dtype
+    if kernel:
+        if plan.width > MAX_AXES:
+            raise ValueError(f"calibrate_waves_cuda: a clique has {plan.width} axes, the "
+                             f"kernels take at most {MAX_AXES}")
+        if device.type != "cuda":
+            raise ValueError("calibrate_waves_cuda: the factor tables must be on a CUDA device")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"calibrate_waves_cuda: float32 or float64 tables, got {dtype}")
+    arrays = [a.to(device=device, dtype=dtype).contiguous() for a in factor_arrays]
     arena = torch.empty(plan.total, dtype=dtype, device=device)
     sepsets = torch.empty(plan.sepset_total, dtype=dtype, device=device)
-    if plan.total == 0:
-        return arena, sepsets
-    scratch, partial = wave_scratch(plan, arena)
-    clique_potentials_cuda(plan, arrays, arena)
-    for w in range(plan.n_waves):
-        sepset_wave_cuda(plan, w, arena, sepsets, scratch, partial, operation, normalize)
-        absorb_wave_cuda(plan, w, arena, scratch)
+    if not kernel:
+        clique_potentials_reference(plan, arrays, arena_views(plan, arena, sepsets)[0])
+    elif plan.total:
+        clique_potentials_cuda(plan, arrays, arena)
     return arena, sepsets
+
+
+def run_waves(plan, arena, sepsets, waves, operation="marginalize", normalize=False,
+              kernel=True):
+    """The waves ``waves`` (in order) on ``arena`` and ``sepsets`` as stage 0
+    and the earlier waves left them: ``sepset_wave`` and ``absorb_wave`` per
+    wave with ``kernel``, their plain versions without."""
+    if operation not in ("marginalize", "maximize"):
+        raise ValueError(f"calibrate: unknown operation {operation!r}")
+    if kernel:
+        scratch, partial = wave_scratch(plan, arena)
+        for w in waves:
+            sepset_wave_cuda(plan, w, arena, sepsets, scratch, partial, operation, normalize)
+            absorb_wave_cuda(plan, w, arena, scratch)
+        return
+    beliefs, mu = arena_views(plan, arena, sepsets)
+    for w in waves:
+        ratios = sepset_wave_reference(plan, w, beliefs, mu, operation, normalize)
+        absorb_wave_reference(plan, w, beliefs, ratios)
 
 
 def calibrate_waves(plan, factor_arrays, operation="marginalize", normalize=False):

@@ -4,10 +4,10 @@ Port of ``pgmpy_tpu/parallel/jt_mesh.py``: the design for "MUNIN-class
 calibration across cards".
 
 The clique tree is partitioned on the host into balanced CONNECTED subtrees
-(one part per device, carved bottom-up from a rooted DFS).  Each part holds
-its stage-0 potentials and its local two-pass message schedule on its
-device, and the parts exchange only the sepset messages on the (few) tree
-edges that cross part boundaries:
+(one part per device, carved bottom-up from a rooted DFS).  Each part runs its
+stage-0 potentials and its local two-pass message schedule on its device, and
+the parts exchange only the sepset messages on the (few) tree edges that
+cross part boundaries:
 
   upward phase   parts run children-before-parents; each part multiplies
                  the boundary sepset messages from its child parts into the
@@ -15,32 +15,50 @@ edges that cross part boundaries:
                  emits one sepset message toward its parent part,
   downward phase parts run parents-before-children; each part absorbs the
                  ratio message from its parent part, runs its internal
-                 downward sweep, and emits ratio messages to its children.
+                 downward sweep, and emits sepset beliefs to its children.
 
-Each part's ``up`` / ``down`` runs as eager torch ops on its device (the JAX
-package jits one program per part); the ops are enqueued asynchronously, so
-parts on different cards overlap.  Only sepset-sized tensors cross devices
-(``.to(device, non_blocking=True)``); clique beliefs are born and stay on
-their part's device.  On one card holding several parts the copies are
-no-ops and the parts run one after another.
+Each part is a junction-tree program of its own, run by the calibration
+kernels of ``ops/jt.py`` (K2; their plain version on a CPU part): its cliques,
+plus one factorless **boundary clique** per boundary edge that spans the
+edge's sepset.  A part with a parent part is rooted at the boundary clique of
+that edge, so its last upward wave is the message from its top to that clique
+(the sigma the JAX package sends up) and its first downward wave the message
+back.  A part's calibration runs in two halves split at its plan's
+``n_up_waves``:
 
-The per-message arithmetic is that of the single-device
-``JunctionTreeProgram.calibrate`` (sum, permute, normalise with
-``clamp_min(sum, TINY)``, the ratio against ``clamp_min(mu, TINY)``), over
-the same roots; within a part the messages run in BFS order from the part's
-top, so the products round in another order and the beliefs agree with the
-single-device program to float tolerance, for any device count and
-partition.
+  first half     stage 0; each child part's sigma (the child's sepset slot of
+                 the edge) copied into the matching boundary clique, whose
+                 fresh message multiplies it into the receiving clique; the
+                 upward waves,
+  second half    the parent part's sepset slot of the edge (its final sepset
+                 belief) copied into the parent boundary clique, whose message
+                 divides it by the part's own sigma (clamped at ``TINY``) and
+                 multiplies the ratio into the top; the downward waves.
+
+Only sepset-sized tensors cross devices (``copy_(..., non_blocking=True)``,
+which torch orders against both cards' current streams); clique beliefs are
+born and stay in their part's arena.  Parts are enqueued in depth order from
+one host thread; on one card holding several parts they run one after another.
+
+The per-message arithmetic is that of the single-device program over the same
+roots.  A boundary clique's message reduces nothing; with
+``normalize_messages`` it normalises the already normalised sigma once more
+(a rounding of an ulp or two that the JAX package does not make).  Within a
+part the messages run in its own waves, so products round in another order
+and the beliefs agree with the single-device program to float tolerance, for
+any device count and partition.
 """
 
 import collections
+import functools
+from types import SimpleNamespace
 
 import networkx as nx
-import numpy as np
 import torch
 
-from pgmpy_tpu_torch.config import TINY, config
-from pgmpy_tpu_torch.inference.bp import _broadcast_spec, _expand
+from pgmpy_tpu_torch.config import config
+from pgmpy_tpu_torch.inference.bp import _broadcast_spec
+from pgmpy_tpu_torch.ops import jt
 
 
 def partition_rooted_tree(tree, root, n_parts):
@@ -126,19 +144,52 @@ def _sepset_message(clique, sepset):
     return reduce_axes, tuple(kept.index(v) for v in sepset)
 
 
-def _sigma(belief, reduce_axes, perm, normalize):
-    """A clique belief summed down to a sepset, in sepset order, normalised
-    when asked: the first steps of ``JunctionTreeProgram.calibrate``."""
-    sigma = torch.sum(belief, dim=reduce_axes) if reduce_axes else belief
-    if perm != tuple(range(len(perm))):
-        sigma = sigma.permute(perm)
-    if normalize:
-        sigma = sigma / torch.clamp_min(torch.sum(sigma), TINY)
-    return sigma
+def part_program(program, part, edges, boundaries, root):
+    """The junction-tree program of one part, in the form ``jt.build_plan``
+    takes: the part's cliques (local ids in ``part`` order), then one
+    factorless boundary clique per entry of ``boundaries`` ((receiving clique,
+    sepset variables)), its internal ``edges`` (pairs of clique ids) and an
+    edge from each receiving clique to its boundary clique; rooted at the
+    local clique ``root``.  Edges are numbered in BFS order from the root,
+    messages are upward (deepest first, each fresh) then downward."""
+    local_of = {c: i for i, c in enumerate(part)}
+    variables = [list(program.cliques[c]) for c in part] + [list(s) for _, s in boundaries]
+    graph = nx.Graph()
+    graph.add_nodes_from(range(len(variables)))
+    graph.add_edges_from((local_of[a], local_of[b]) for a, b in edges)
+    graph.add_edges_from((local_of[recv], len(part) + k) for k, (recv, _) in enumerate(boundaries))
+    bfs = list(nx.bfs_edges(graph, root))
+    edge_of = {frozenset(pair): e for e, pair in enumerate(bfs)}
+    sepsets = [sorted(set(variables[a]) & set(variables[b]), key=str) for a, b in bfs]
+    messages = []
+    for (src, dst), fresh in ([((c, p), True) for p, c in reversed(bfs)]
+                              + [((p, c), False) for p, c in bfs]):
+        edge = edge_of[frozenset((src, dst))]
+        messages.append((src, dst, *_sepset_message(variables[src], sepsets[edge]),
+                         _broadcast_spec(sepsets[edge], variables[dst]), edge, fresh))
+    factor_ids, specs = [], []
+    for c in part:
+        specs.append([])
+        for f_idx, perm, spec in program.potential_specs[c]:
+            if f_idx not in factor_ids:
+                factor_ids.append(f_idx)
+            specs[-1].append((factor_ids.index(f_idx), perm, spec))
+    cards = program.cards
+    return SimpleNamespace(
+        cliques=[tuple(v) for v in variables],
+        clique_shapes=[tuple(int(cards[v]) for v in vs) for vs in variables],
+        sepset_shapes=[tuple(int(cards[v]) for v in s) for s in sepsets],
+        factor_shapes=[program.factor_shapes[f] for f in factor_ids],
+        potential_specs=specs + [[] for _ in boundaries],
+        messages=messages,
+        n_edges=len(bfs),
+        factor_ids=factor_ids,
+        edge_of=edge_of,
+    )
 
 
 class ShardedJunctionTreeCalibration:
-    """Per-part calibration schedules over the devices of a mesh.
+    """Per-part calibration programs over the devices of a mesh.
 
     Parameters
     ----------
@@ -203,161 +254,118 @@ class ShardedJunctionTreeCalibration:
 
         self.device_of_part = [devices[i % len(devices)] for i in range(self.n_parts)]
 
-        # ---- host: each part's schedule --------------------------------- #
+        # ---- host: each part's program and wave plan -------------------- #
         def sepset_of(c1, c2):
             return sorted(set(cliques[c1]) & set(cliques[c2]), key=str)
 
-        def message_spec(src_c, dst_c):
-            sepset = sepset_of(src_c, dst_c)
-            reduce_axes, perm = _sepset_message(list(cliques[src_c]), sepset)
-            return reduce_axes, perm, _broadcast_spec(sepset, list(cliques[dst_c]))
+        def edge_id(c1, c2):
+            return program.edge_ids[frozenset((cliques[c1], cliques[c2]))]
 
         self.parts = []
         for p_idx, (part, top) in enumerate(zip(all_parts, all_tops)):
             local_of = {c: i for i, c in enumerate(part)}
-            bfs = list(nx.bfs_edges(tree.subgraph(part), top))
-
-            # factors assigned to this part's cliques, re-indexed locally so
-            # the part only receives (and transfers) what it uses
-            factor_ids = []
-            f_specs = []  # (local factor idx, local clique, perm, spec)
-            for c in part:
-                for f_idx, perm, spec in program.potential_specs[c]:
-                    if f_idx not in factor_ids:
-                        factor_ids.append(f_idx)
-                    f_specs.append((factor_ids.index(f_idx), local_of[c], perm, spec))
-
-            # incoming upward boundaries: child parts' tops hang off nodes
-            # in this part; (child part, receiving local clique, broadcast
-            # spec, reduce axes and permutation of the downward send)
-            in_up = []
-            for ch_part in self.part_children[p_idx]:
-                ch_top = all_tops[ch_part]
-                recv = parent_of[ch_top]
-                sepset = sepset_of(ch_top, recv)
-                in_up.append((
-                    ch_part, local_of[recv], _broadcast_spec(sepset, list(cliques[recv])),
-                    *_sepset_message(list(cliques[recv]), sepset),
-                    program.edge_ids[frozenset((cliques[ch_top], cliques[recv]))],
-                ))
-
-            # outgoing upward boundary: top -> parent_of[top]; the incoming
-            # downward ratio broadcasts back into top
-            out_up = in_down = boundary_edge_id = None
+            # a boundary clique per child part (under the clique its top hangs
+            # off), then one for the edge to the parent part, the root
+            children = [(ch, parent_of[all_tops[ch]]) for ch in self.part_children[p_idx]]
+            boundaries = [(recv, sepset_of(all_tops[ch], recv)) for ch, recv in children]
+            boundary_edge_id = None
+            root = local_of[top]
             if self.part_parent[p_idx] is not None:
-                up_node = parent_of[top]
-                sepset = sepset_of(top, up_node)
-                out_up = _sepset_message(list(cliques[top]), sepset)
-                in_down = _broadcast_spec(sepset, list(cliques[top]))
-                boundary_edge_id = program.edge_ids[frozenset((cliques[top], cliques[up_node]))]
-
+                boundary_edge_id = edge_id(top, parent_of[top])
+                root = len(part) + len(boundaries)
+                boundaries.append((top, sepset_of(top, parent_of[top])))
+            internal = list(tree.subgraph(part).edges())
+            local = part_program(program, part, internal, boundaries, root)
+            # (child part, receiving local clique, boundary clique, local edge,
+            # global edge id) per child part
+            in_up = [(ch, local_of[recv], len(part) + k,
+                      local.edge_of[frozenset((local_of[recv], len(part) + k))],
+                      edge_id(all_tops[ch], recv))
+                     for k, (ch, recv) in enumerate(children)]
+            # global edge id of each local edge (None: the edge to the parent
+            # part, whose sepset belief the parent part holds)
+            edge_ids = [None] * local.n_edges
+            for a, b in internal:
+                edge_ids[local.edge_of[frozenset((local_of[a], local_of[b]))]] = edge_id(a, b)
+            for *_, e, global_id in in_up:
+                edge_ids[e] = global_id
             self.parts.append({
                 "cliques": part,
                 "top": top,
                 "local_of": local_of,
-                "factor_ids": factor_ids,
-                "f_specs": f_specs,
-                "shapes": [program.clique_shapes[c] for c in part],
-                "up_msgs": [(local_of[c], local_of[p], *message_spec(c, p))
-                            for p, c in reversed(bfs)],
-                "down_msgs": [(local_of[p], local_of[c], *message_spec(p, c)) for p, c in bfs],
-                "internal_edge_ids": [
-                    program.edge_ids[frozenset((cliques[c], cliques[p]))] for p, c in reversed(bfs)
-                ],
+                "factor_ids": local.factor_ids,
+                "program": local,
+                "plan": jt.build_plan(local),
+                "edge_ids": edge_ids,
                 "in_up": in_up,
-                "out_up": out_up,
-                "in_down": in_down,
+                # (boundary clique, local edge) of the edge to the parent part
+                "out_up": (root, local.edge_of[frozenset((local_of[top], root))])
+                if boundary_edge_id is not None else None,
                 "boundary_edge_id": boundary_edge_id,
             })
+        # the parent part's local edge of each part's edge to it
+        for part in self.parts:
+            for ch, _, _, e, _ in part["in_up"]:
+                self.parts[ch]["in_down"] = e
 
     # ------------------------------------------------------------------ #
-    def _up(self, part, factor_arrays, boundary_in, device):
-        """Stage 0, the child parts' messages and the internal upward sweep of
-        one part: (beliefs, upward messages, the message to the parent part
-        or None)."""
-        normalize = self.program.normalize_messages
-        beliefs = [None] * len(part["shapes"])
-        for f_idx, lc, perm, spec in part["f_specs"]:
-            arr = _expand(factor_arrays[f_idx], perm, spec)
-            beliefs[lc] = (arr.expand(part["shapes"][lc]) if beliefs[lc] is None
-                           else beliefs[lc] * arr)
-        for lc, shape in enumerate(part["shapes"]):
-            beliefs[lc] = (torch.ones(shape, dtype=config.DTYPE, device=device)
-                           if beliefs[lc] is None else beliefs[lc].contiguous())
-        # absorb child-part upward messages (fresh: multiply)
-        for sigma, (_, recv, (bperm, bspec), *_rest) in zip(boundary_in, part["in_up"]):
-            beliefs[recv] = beliefs[recv] * _expand(sigma, bperm, bspec)
-        mu_up = []
-        for src, dst, reduce_axes, perm, (bperm, bspec) in part["up_msgs"]:
-            sigma = _sigma(beliefs[src], reduce_axes, perm, normalize)
-            beliefs[dst] = beliefs[dst] * _expand(sigma, bperm, bspec)
-            mu_up.append(sigma)
-        out = None
-        if part["out_up"] is not None:
-            out = _sigma(beliefs[part["local_of"][part["top"]]], *part["out_up"], normalize)
-        return beliefs, mu_up, out
+    def launches(self):
+        """K2 launches of one calibration on the card: per part, stage 0 and
+        two per wave of its plan."""
+        return sum(1 + 2 * part["plan"].n_waves for part in self.parts)
 
-    def _down(self, part, beliefs, mu_up, in_ratio, boundary_mu):
-        """The parent part's ratio, the internal downward sweep and the
-        ratios to the child parts of one part: (beliefs, downward messages in
-        upward order, ratios to the children, boundary sepset beliefs)."""
-        normalize = self.program.normalize_messages
-        if in_ratio is not None:
-            top = part["local_of"][part["top"]]
-            beliefs[top] = beliefs[top] * _expand(in_ratio, *part["in_down"])
-        mu_down = []
-        for (src, dst, reduce_axes, perm, (bperm, bspec)), mu_prev in zip(
-                part["down_msgs"], mu_up[::-1]):
-            sigma = _sigma(beliefs[src], reduce_axes, perm, normalize)
-            ratio = sigma / torch.clamp_min(mu_prev, TINY)
-            beliefs[dst] = beliefs[dst] * _expand(ratio, bperm, bspec)
-            mu_down.append(sigma)
-        ratios, boundary = [], []
-        for (_, recv, _, reduce_axes, perm, _), mu_b in zip(part["in_up"], boundary_mu):
-            sigma = _sigma(beliefs[recv], reduce_axes, perm, normalize)
-            ratios.append(sigma / torch.clamp_min(mu_b, TINY))
-            boundary.append(sigma)
-        return beliefs, mu_down[::-1], ratios, boundary
-
-    def calibrate(self, factor_arrays):
+    def calibrate(self, factor_arrays, kernel=None):
         """Distributed two-pass calibration; returns (beliefs, mu) in the
         single-device ``JunctionTreeProgram`` layout (beliefs indexed by
-        clique id, mu by edge id), each tensor on its part's device."""
+        clique id, mu by edge id), views into each part's arenas on its
+        device.  A part on a CUDA device runs K2's kernels (a build or launch
+        failure raises), one on the CPU their plain version; ``kernel=False``
+        runs the plain version on every device (a check of the kernels)."""
         program = self.program
+        dtype = (functools.reduce(torch.promote_types, [a.dtype for a in factor_arrays])
+                 if factor_arrays else config.DTYPE)
+        normalize = program.normalize_messages
         beliefs_out = [None] * len(program.cliques)
         mu_out = [None] * program.n_edges
+        state = [None] * self.n_parts  # (arena, sepsets, beliefs, mu, kernel)
+
+        def runs_kernel(dev):
+            if dev.type not in ("cuda", "cpu"):
+                raise ValueError(f"calibrate: unsupported device {dev}")
+            return dev.type == "cuda" if kernel is None else kernel
 
         # ---- upward phase: deepest parts first -------------------------- #
-        up_state = [None] * self.n_parts  # (beliefs, upward messages)
-        arrived = [None] * self.n_parts  # each part's upward message, on its parent's device
         for depth in sorted(set(self.part_depth), reverse=True):
             for p_idx in [i for i, d in enumerate(self.part_depth) if d == depth]:
-                part = self.parts[p_idx]
+                part, plan = self.parts[p_idx], self.parts[p_idx]["plan"]
                 dev = self.device_of_part[p_idx]
+                use = runs_kernel(dev)
                 inputs = [factor_arrays[i].to(dev, non_blocking=True) for i in part["factor_ids"]]
-                boundary_in = [arrived[ch] for ch, *_ in part["in_up"]]
-                beliefs, mu_up, sigma = self._up(part, inputs, boundary_in, dev)
-                up_state[p_idx] = (beliefs, mu_up)
-                if sigma is not None:
-                    parent_dev = self.device_of_part[self.part_parent[p_idx]]
-                    arrived[p_idx] = sigma.to(parent_dev, non_blocking=True)
+                arena, sepsets = jt.stage0(plan, inputs, use, device=dev, dtype=dtype)
+                beliefs, mu = jt.arena_views(plan, arena, sepsets)
+                for ch, _, bc, _, _ in part["in_up"]:
+                    _, sigma_edge = self.parts[ch]["out_up"]
+                    beliefs[bc].copy_(state[ch][3][sigma_edge], non_blocking=True)
+                jt.run_waves(plan, arena, sepsets, range(plan.n_up_waves), "marginalize",
+                             normalize, use)
+                state[p_idx] = (arena, sepsets, beliefs, mu, use)
 
         # ---- downward phase: shallowest parts first --------------------- #
-        down_ratio = [None] * self.n_parts
         for depth in sorted(set(self.part_depth)):
             for p_idx in [i for i, d in enumerate(self.part_depth) if d == depth]:
-                part = self.parts[p_idx]
-                beliefs, mu_up = up_state[p_idx]
-                boundary_mu = [arrived[ch] for ch, *_ in part["in_up"]]
-                beliefs, mu_down, ratios, boundary = self._down(
-                    part, beliefs, mu_up, down_ratio[p_idx], boundary_mu)
+                part, plan = self.parts[p_idx], self.parts[p_idx]["plan"]
+                arena, sepsets, beliefs, mu, use = state[p_idx]
+                if part["out_up"] is not None:
+                    parent_mu = state[self.part_parent[p_idx]][3]
+                    beliefs[part["out_up"][0]].copy_(parent_mu[part["in_down"]],
+                                                     non_blocking=True)
+                jt.run_waves(plan, arena, sepsets, range(plan.n_up_waves, plan.n_waves),
+                             "marginalize", normalize, use)
                 for c, b in zip(part["cliques"], beliefs):
                     beliefs_out[c] = b
-                for edge_id, m in zip(part["internal_edge_ids"], mu_down):
-                    mu_out[edge_id] = m
-                for (ch, *_rest, edge_id), ratio, mu_b in zip(part["in_up"], ratios, boundary):
-                    down_ratio[ch] = ratio.to(self.device_of_part[ch], non_blocking=True)
-                    mu_out[edge_id] = mu_b
+                for e, m in zip(part["edge_ids"], mu):
+                    if e is not None:
+                        mu_out[e] = m
         return beliefs_out, mu_out
 
 
