@@ -61,8 +61,9 @@ Runs from the repository root and needs one CUDA card.  It
    conditionals against a numpy float64 oracle and the CPU run, every state
    still possible after every sweep, the same seed twice, a run checkpointed
    after 2 sweeps and resumed; the kernel against its plain version on
-   explicit noise, MUNIN and ALARM's Markov model at 4,096 chains, codes
-   equal to the bit, and timed), Gibbs on HEPAR2 (10,000 chains x 120 sweeps
+   explicit noise, MUNIN and ALARM's Markov model at 4,096 chains and
+   HEPAR2 at 10,000 and 2,500, codes equal to the bit, and timed at MUNIN's
+   and HEPAR2's shapes), Gibbs on HEPAR2 (10,000 chains x 120 sweeps
    against the exact marginals of a calibrated junction tree), and on the
    46-dimensional linear-Gaussian network ecoli70 ``VectorizedNUTS`` with
    1,024 chains (20 + 120 transitions, each ONE launch of K8's ``nuts_step``,
@@ -70,7 +71,12 @@ Runs from the repository root and needs one CUDA card.  It
    ``HamiltonianMCDA`` with 64 (one ``hmc_step`` launch per warm-up step and
    one for the 150 draws): moments against the closed-form joint, the
    batched leapfrog against the CPU run, both kernels against their plain
-   versions on explicit noise (float32 and float64) and timed;
+   versions on explicit noise (float32 and float64) and timed, ``nuts_step``
+   at 1,024 chains and at a shard's 256.  Where ``tools/parent_kernels.py
+   unpack`` left an earlier commit's ``gibbs.cu`` and ``hmc.cu`` in the tree
+   (``.chip_scratch/parent``), they are built beside the others and timed in
+   turns with the new kernels at every one of those shapes (the rows'
+   ``parent_ms``; "not timed" without them);
 6. drives the temporal lane (``phase_temporal``): the particle filter on the
    rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
    as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
@@ -2070,6 +2076,9 @@ def phase_nuts_ecoli70():
 K8_F32_LIMIT, K8_F64_LIMIT = 1e-4, 1e-9
 K8_PAST_STABLE = 0.3  # ecoli70's leapfrog is stable below 0.294
 HMC_TIMED = (64, 150, 17)  # the HMC path's draw launch: chains, transitions, steps (3.0 / 0.17)
+# nuts_step's timed shapes: the MCMC path's chains, and one of the multi-device
+# path's 4 shards
+K8_NUTS_SHAPES = (NUTS_CHAINS, NUTS_CHAINS // 4)
 
 
 def k8_case(name, got, want, same, dtype, n):
@@ -2091,8 +2100,10 @@ def k8_kernel_rows(context):
     """K8 on ecoli70: both kernels against their plain versions on explicit
     noise (float32 and float64; NUTS at 1,024 chains at the run's step size
     and past stability, HMC at 64 chains, 3 transitions of 17 steps), each
-    timed at the path's shape (single calls behind a device sleep, median of
-    20; the plain versions' median of 5) beside its bound."""
+    timed at the paths' shapes (``nuts_step`` at 1,024 chains and a shard's
+    256, ``hmc_step`` at the draws' launch; single calls behind a device
+    sleep, median of 20, in turns with the parent commit's kernel where it
+    was unpacked; the plain versions' median of 5) beside its bound."""
     from pgmpy_tpu_torch.ops import hmc as hmc_ops
     from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
@@ -2134,34 +2145,56 @@ def k8_kernel_rows(context):
             f"{float(want.accepted.float().mean()):.3f}")
 
     target = nuts.log_pdf
+    parent_hmc = PARENT["modules"]["hmc"] if PARENT else None
+    parent_target = None if parent_hmc is None else parent_hmc.GaussianTarget(
+        target.mean.cpu().numpy(), target.precision.cpu().double().numpy(), dtype=target.dtype,
+        device=target.device)
     gen = seeded_generator(SEED)
-    leapfrogs = hmc_ops.nuts_step_cuda(target, positions, eps, md, gen=gen).leapfrogs
-    ms = cuda_median_ms(lambda: hmc_ops.nuts_step_cuda(target, positions, eps, md, gen=gen),
-                        device_only=True)
-    plain_ms = cuda_median_ms(lambda: hmc_ops.nuts_step_reference(target, positions, eps, md,
-                                                                  gen=gen), reps=5, warmup=1)
-    bound_ms, bound_by = hmc_ops.nuts_bound_ms(target, leapfrogs)
-    total = int(leapfrogs.sum())
-    log(f"k8 nuts_step chains={n} dim={dim} max_depth={md} eps={eps:.4f} leapfrogs={total} "
-        f"(mean {total / n:.2f}, most {int(leapfrogs.max())}) kernel_ms={ms:.5f} (device time, "
-        f"Philox, median of 20) plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} "
-        f"({bound_by}; 2 dim^2 + 12 dim per leapfrog and start gradient at 67e12/s) library: none")
-    rows = {"hmc/nuts_step": {"err": errs[("nuts", torch.float32, eps)], "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                              "library_ms": None}}
+    shapes = []
+    for chains in K8_NUTS_SHAPES:
+        start = positions[:chains].contiguous()
+        leapfrogs = hmc_ops.nuts_step_cuda(target, start, eps, md, gen=gen).leapfrogs
+        parent = None if parent_hmc is None else (
+            lambda start=start: parent_hmc.nuts_step_cuda(parent_target, start, eps, md, gen=gen))
+        ms, parent_ms, runs = paired_ms(
+            lambda start=start: hmc_ops.nuts_step_cuda(target, start, eps, md, gen=gen), parent)
+        plain_ms = cuda_median_ms(lambda start=start: hmc_ops.nuts_step_reference(
+            target, start, eps, md, gen=gen), reps=5, warmup=1)
+        bound_ms, bound_by = hmc_ops.nuts_bound_ms(target, leapfrogs)
+        total = int(leapfrogs.sum())
+        log(f"k8 nuts_step chains={chains} dim={dim} max_depth={md} eps={eps:.4f} "
+            f"leapfrogs={total} (mean {total / chains:.2f}, most {int(leapfrogs.max())}) "
+            f"register_form={hmc_ops.plan('nuts_step', dim, target.dtype, md)[3]} "
+            f"kernel_ms={ms:.5f} parent_ms="
+            f"{'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, Philox, "
+            f"each the smaller median of 20 of two turns: " + "/".join(f"{t:.5f}" for t in runs)
+            + f") plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+            f"2 dim^2 + 12 dim per leapfrog and start gradient at 67e12/s) library: none")
+        shapes.append({"name": f"ecoli70_{chains}", "chains": chains, "ms": ms,
+                       "parent_ms": parent_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+    rows = {"hmc/nuts_step": {"err": errs[("nuts", torch.float32, eps)],
+                              **{key: shapes[0][key] for key in ("ms", "parent_ms", "plain_ms",
+                                                                 "bound_ms", "bound_by")},
+                              "library_ms": None, "shapes": shapes}}
 
     chains, transitions, steps = HMC_TIMED
     start = positions[:chains].contiguous()
-    ms = cuda_median_ms(lambda: hmc_ops.hmc_step_cuda(target, start, 0.17, steps, gen=gen,
-                                                      transitions=transitions), device_only=True)
+    parent = None if parent_hmc is None else (lambda: parent_hmc.hmc_step_cuda(
+        parent_target, start, 0.17, steps, gen=gen, transitions=transitions))
+    ms, parent_ms, runs = paired_ms(lambda: hmc_ops.hmc_step_cuda(
+        target, start, 0.17, steps, gen=gen, transitions=transitions), parent)
     plain_ms = cuda_median_ms(lambda: hmc_ops.hmc_step_reference(
         target, start, 0.17, steps, gen=gen, transitions=transitions), reps=5, warmup=1)
     bound_ms, bound_by = hmc_ops.hmc_bound_ms(target, chains, steps, transitions)
     log(f"k8 hmc_step chains={chains} dim={dim} transitions={transitions} n_steps={steps} "
-        f"kernel_ms={ms:.5f} (device time, Philox, median of 20) plain_ms={plain_ms:.3f} (median "
-        f"of 5) bound_ms={bound_ms:.6f} ({bound_by}) library: none")
-    rows["hmc/hmc_step"] = {"err": errs[("hmc", torch.float32)], "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        f"kernel_ms={ms:.5f} parent_ms={'not timed' if parent_ms is None else f'{parent_ms:.5f}'} "
+        f"(device time, Philox, each the smaller median of 20 of two turns: "
+        + "/".join(f"{t:.5f}" for t in runs) + f") plain_ms={plain_ms:.3f} (median of 5) "
+        f"bound_ms={bound_ms:.6f} ({bound_by}) library: none")
+    rows["hmc/hmc_step"] = {"err": errs[("hmc", torch.float32)], "ms": ms, "parent_ms": parent_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None}
     return rows
 
 
@@ -5335,54 +5368,124 @@ def k5_kernel_row(sampler, n_sim):
             "bound_by": bound_by, "library_ms": None}
 
 
+# K6's timed shapes beside MUNIN's 4,096 chains: HEPAR2 as the MCMC path
+# (10,000 chains) and a shard of the multi-device path (2,500) run it
+K6_HEPAR_SHAPES = (HEPAR_CHAINS, 2500)
+
+
+def k6_bound(tables, n, code_bytes, elem):
+    """(bound_ms, bound_by, nbytes) of one sweep of ``n`` chains: per chain
+    every state's race and its blanket factors' adds, and each (variable,
+    factor) row's multiply-add per other variable; the codes read and
+    written once, the tables and descriptors read once."""
+    d = len(tables.cards)
+    nbytes = (2 * n * d * code_bytes + elem * tables.total + tables.vars.nbytes
+              + tables.specs.nbytes + tables.others.nbytes)
+    per_chain = sum(c * (K5_OPS_PER_STATE + k) for c, k in zip(tables.cards, tables.vars[:, 3]))
+    per_chain += 2 * tables.others.shape[0]
+    return (*bound(nbytes, n * per_chain), nbytes)
+
+
+def paired_ms(kernel, parent):
+    """Device times (median of 20 behind a device sleep) of ``kernel`` and,
+    where given, the parent commit's ``parent`` in turns: parent, kernel,
+    kernel, parent.  Returns (kernel ms, parent ms or None), each the
+    smaller of its two medians, and the four medians."""
+    if parent is None:
+        ms = cuda_median_ms(kernel, device_only=True)
+        return ms, None, [ms]
+    runs = [cuda_median_ms(fn, device_only=True) for fn in (parent, kernel, kernel, parent)]
+    return min(runs[1:3]), min(runs[0], runs[3]), runs
+
+
+def k6_shape(name, tables, codes, parent_tables=None):
+    """One K6 shape: the kernel against its plain version on explicit noise
+    (codes equal to the bit), then the kernel's, the parent commit's and the
+    plain version's times and the bound, from the same start states."""
+    from pgmpy_tpu_torch.config import config
+    from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
+    from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+
+    n = codes.shape[0]
+    noise = race_noise((sum(tables.cards), n), seeded_generator(SEED), config.DTYPE)
+    got = gibbs_ops.sweep_cuda(tables, codes, None, noise=noise)
+    want = gibbs_ops.sweep_reference(tables, codes, None, noise=noise)
+    check(torch.equal(got, want), f"k6 {name}: the kernel's codes differ from the plain "
+                                  f"version's on the same noise")
+    gen = seeded_generator(SEED)
+    out = torch.empty_like(codes)
+    parent = None
+    if parent_tables is not None:
+        parent_gibbs = PARENT["modules"]["gibbs"]
+        parent = lambda: parent_gibbs.sweep_cuda(parent_tables, codes, gen, out=out)  # noqa: E731
+    ms, parent_ms, runs = paired_ms(lambda: gibbs_ops.sweep_cuda(tables, codes, gen, out=out),
+                                    parent)
+    plain_ms = cuda_median_ms(lambda: gibbs_ops.sweep_reference(tables, codes, gen), reps=5,
+                              warmup=1)
+    bound_ms, bound_by, nbytes = k6_bound(tables, n, codes.element_size(),
+                                          config.DTYPE.itemsize)
+    blocks, rows, _, staged, plan_staged, shared = gibbs_ops.launch_plan(tables, n, codes.device)
+    log(f"k6 gibbs_sweep {name} chains={n} variables={len(tables.cards)} "
+        f"states={sum(tables.cards)} factor_rows={tables.specs.shape[0]} pieces="
+        f"{len(tables.pieces)} combines={len(tables.combines)} levels={tables.n_levels} "
+        f"groups={tables.groups} critical_path={tables.critical_path} blocks={blocks} "
+        f"rows={rows} staged_tables={'yes' if staged else 'no'} staged_plan="
+        f"{'yes' if plan_staged else 'no'} shared_bytes={shared} "
+        f"codes={codes.dtype} explicit noise: codes equal to the bit; kernel_ms={ms:.5f} "
+        f"parent_ms={'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, "
+        f"Philox, each the smaller median of 20 of two turns: "
+        + "/".join(f"{t:.5f}" for t in runs)
+        + f") plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{K5_OPS_PER_STATE} operations per chain and state, one add per state and factor, two "
+        f"per factor row and other variable; the codes read and written once: "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: none")
+    return {"name": name, "chains": n, "ms": ms, "parent_ms": parent_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def k6_kernel_row(gibbs, init):
-    """K6 on MUNIN: the Gibbs sweep kernel against its plain version on
-    explicit noise (the 4,096 start states, one sweep; and 4,096 chains of
-    ALARM's Markov model: codes equal to the bit), its device time at the
-    MCMC path's shape (Philox from a generator; median of 20 behind a device
-    sleep), the plain version's (CUDA events around its eager ops, median of
-    5) and the card's bound."""
+    """K6: the Gibbs sweep kernel against its plain version on explicit
+    noise and timed at each shape the paths launch: MUNIN's 4,096 start
+    states (the row's own numbers), HEPAR2 at 10,000 and 2,500 chains from
+    random states; ALARM's Markov model at 4,096 chains checked only.  Each
+    time is the device time of single calls behind a device sleep (median
+    of 20), beside the parent commit's kernel in turns where
+    ``tools/parent_kernels.py`` unpacked it, the plain version's (CUDA
+    events around its eager ops, median of 5) and the card's bound."""
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
     from pgmpy_tpu_torch.sampling import GibbsSampling
     from pgmpy_tpu_torch.utils import get_example_model
     from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
 
+    def parent_tables(tables):
+        if not PARENT:
+            return None
+        return PARENT["modules"]["gibbs"].GibbsTables(tables.var_specs, tables.cards,
+                                                      tables.out_dtype)
+
     tables = gibbs._compiled._tables
-    n, d = init.shape
+    n = init.shape[0]
     markov = GibbsSampling(get_example_model("alarm").to_markov_model())
+    markov_tables = markov._compiled._tables
     markov_init = torch.as_tensor(markov.random_state(n, SEED), device=init.device)
-    for case, case_tables, codes in (("munin", tables, init),
-                                     ("alarm_markov", markov._compiled._tables, markov_init)):
-        noise = race_noise((sum(case_tables.cards), n), seeded_generator(SEED), config.DTYPE)
-        got = gibbs_ops.sweep_cuda(case_tables, codes, None, noise=noise)
-        want = gibbs_ops.sweep_reference(case_tables, codes, None, noise=noise)
-        check(torch.equal(got, want), f"k6 {case}: the kernel's codes differ from the plain "
-                                      f"version's on the same noise")
-    gen = seeded_generator(SEED)
-    out = torch.empty_like(init)
-    ms = cuda_median_ms(lambda: gibbs_ops.sweep_cuda(tables, init, gen, out=out),
-                        device_only=True)
-    plain_ms = cuda_median_ms(lambda: gibbs_ops.sweep_reference(tables, init, gen), reps=5,
-                              warmup=1)
-    elem = config.DTYPE.itemsize
-    nbytes = (2 * n * d * init.element_size() + elem * tables.total + tables.vars.nbytes
-              + tables.specs.nbytes + tables.others.nbytes)
-    # per chain: every state's race and its blanket factors' adds, and each
-    # (variable, factor) row's multiply-add per other variable
-    per_chain = sum(c * (K5_OPS_PER_STATE + k) for c, k in zip(tables.cards, tables.vars[:, 3]))
-    per_chain += 2 * tables.others.shape[0]
-    bound_ms, bound_by = bound(nbytes, n * per_chain)
-    log(f"k6 gibbs_sweep chains={n} variables={d} states={sum(tables.cards)} "
-        f"factor_rows={tables.specs.shape[0]} levels={tables.n_levels} groups={tables.groups} "
-        f"codes={init.dtype} explicit-noise checks (MUNIN, ALARM's Markov model at {n} chains): "
-        f"codes equal to the bit; kernel_ms={ms:.5f} (device time, Philox, median of 20) "
-        f"plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
-        f"{K5_OPS_PER_STATE} operations per chain and state, one add per state and factor, two "
-        f"per factor row and other variable; the codes read and written once: "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: none")
-    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    noise = race_noise((sum(markov_tables.cards), n), seeded_generator(SEED), config.DTYPE)
+    check(torch.equal(gibbs_ops.sweep_cuda(markov_tables, markov_init, None, noise=noise),
+                      gibbs_ops.sweep_reference(markov_tables, markov_init, None, noise=noise)),
+          "k6 alarm_markov: the kernel's codes differ from the plain version's on the same noise")
+    row = k6_shape("munin", tables, init, parent_tables(tables))
+    hepar = GibbsSampling(get_example_model("hepar2"))
+    shapes = [row]
+    for chains in K6_HEPAR_SHAPES:
+        codes = torch.as_tensor(hepar.random_state(chains, SEED), device=init.device).to(
+            hepar._compiled._out_dtype)
+        shapes.append(k6_shape(f"hepar2_{chains}", hepar._compiled._tables, codes,
+                               parent_tables(hepar._compiled._tables)))
+    log(f"k6 explicit-noise checks: MUNIN at {n} chains, ALARM's Markov model at {n}, HEPAR2 at "
+        f"{', '.join(str(c) for c in K6_HEPAR_SHAPES)}: codes equal to the bit")
+    return {"err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "parent_ms": row["parent_ms"], "shapes": shapes}
 
 
 def k9_kernel_row(pf, particles, evidence):
@@ -5608,6 +5711,45 @@ def build_kernels():
             log(f"ptxas {name} {line}")
 
 
+# the parent commit's K6 and K8 wrappers over its kernels, where
+# ``tools/parent_kernels.py unpack`` left them in the tree: {"rev", "modules"}
+PARENT = {}
+
+
+def parent_tool():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "parent_kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def start_parent_builds():
+    """Start building the parent commit's ``gibbs.cu`` and ``hmc.cu`` beside
+    this tree's kernels where ``tools/parent_kernels.py unpack`` left them in
+    the tree (a checkout of the commit alone has none: its rows then say
+    "not timed")."""
+    tool = parent_tool()
+    if not tool.available():
+        log("parent kernels: none unpacked (tools/parent_kernels.py unpack): not timed")
+        return None
+    return tool, tool.start_builds()
+
+
+def load_parent(parent):
+    if parent is None:
+        return
+    tool, builds = parent
+    modules, report = tool.load(builds)
+    PARENT.update(rev=tool.revision(), modules=modules)
+    for name, (seconds, ptxas) in report.items():
+        log(f"parent_kernels {tool.revision()} {name} nvcc_s {seconds:.2f}")
+        for line in ptxas_summary(ptxas):
+            log(f"ptxas parent {name} {line}")
+
+
 def main():
     if "PYTHONHASHSEED" not in os.environ:
         # MUNIN's junction tree follows the string hash seed: pin it, so that
@@ -5631,7 +5773,9 @@ def main():
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
+    parent = start_parent_builds()
     build_kernels()
+    load_parent(parent)
     bincount_results = phase_bincount()
     model, df, codes = load_and_sample()
     context, kernels = phase_slice(model, df, codes, bincount_results,
@@ -5752,6 +5896,7 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_counted_on": path, "max_abs_err": result["err"],
             **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{key: result[key] for key in ("parent_ms", "shapes") if key in result},
             **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
                if other != path},
         })

@@ -38,16 +38,25 @@
 //   1. One warp per chain.  Lane l holds coordinates l, l + 32, ...
 //      (K = dim / 32 rounded up to a power of two, a template argument) of
 //      every vector of the tree: both ends (z, r, g), the momentum sum, the
-//      proposals, in registers.  Every reduction (the log-density, |r|^2,
-//      the U-turn dot products) is a butterfly of __shfl_xor_sync in a fixed
-//      order, which leaves the same bits in every lane: the warp takes every
-//      branch together, and the same key gives the same samples.
-//   2. P is staged once per block into shared memory, its rows padded to
-//      32 K columns with zeros (lane j reads column j: no bank conflict, and
-//      the padding coordinates stay 0).  A warp writes its (x - mu) to a row
-//      of its own and reads it back as broadcasts, so the product is dim
-//      fused multiply-adds per coordinate from shared memory.  Its momentum
-//      checkpoints (max_depth rows of r and of rho) live there too.
+//      proposals, in registers.  Every reduction is a butterfly of
+//      __shfl_xor_sync in a fixed order, which leaves the same bits in every
+//      lane: the warp takes every branch together, and the same key gives
+//      the same samples.  A leaf carries its reductions through ONE
+//      butterfly, several values a shuffle round: the log-density and |r|^2,
+//      at an odd leaf also the first closed subtree's two U-turn dot
+//      products; an HMC step needs none, its trajectory's end two.
+//   2. The product g = -(x - mu) P is a chain of dim dependent multiply-adds
+//      per coordinate; it is cut into kSplit independent partial sums (the
+//      rows i = m mod kSplit), added in a fixed order at the end.  Where a
+//      lane's columns fit its registers (float32 up to 64 dimensions, K <= 2;
+//      float64 up to 32: ecoli70's 46 are 92 float32 values a lane) P lives
+//      there, loaded once, and (x - mu)_i reaches every lane by a shuffle:
+//      no shared row, no __syncwarp.  Wider targets keep P in shared memory,
+//      staged once per block with its rows padded to 32 K columns with zeros
+//      (lane j reads column j: no bank conflict), the warp's (x - mu) written
+//      to a row of its own and read back as broadcasts.  Both forms compute
+//      the same sums in the same order.  A NUTS warp's momentum checkpoints
+//      (max_depth rows of r and of rho) live in shared memory.
 //   3. The JAX control flow runs per warp with no host read: the doublings,
 //      the leaf loop, the checkpoint slot popc(n >> 1), the closed subtrees
 //      from the trailing ones of n, the divergence cap, the coupling.
@@ -57,10 +66,10 @@
 //      normals by Box-Muller (race.cuh).  An explicit noise layout (the plain
 //      version's) may replace them, for the checks against it.
 //   5. Limits: a lane holds at most 8 coordinates (4 in double), and one
-//      warp's block must fit 227 KB of shared memory (ops/hmc.py: max_dim;
-//      float32 NUTS at max_depth 6: 214 dimensions).  The wrapper raises
-//      past them.  4 warps a block where they fit.
-//
+//      warp's block must fit 227 KB of shared memory in the shared form
+//      (ops/hmc.py: max_dim; float32 NUTS at max_depth 6: 214 dimensions).
+//      The wrapper raises past them.  4 warps a block where they fit.
+
 // The wrapper (pgmpy_tpu_torch/ops/hmc.py) checks the tensors, plans the
 // launch and calls the extern "C" launchers through ctypes on PyTorch's
 // current stream; they return the launch's cudaError_t.
@@ -106,13 +115,16 @@ __device__ __forceinline__ double absval(double x) { return fabs(x); }
 __device__ __forceinline__ float fmadd(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fmadd(double a, double b, double c) { return fma(a, b, c); }
 
-// The same sum in every lane: floating-point addition commutes, so the two
-// lanes of each butterfly pair add the same two numbers
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+// The same sums in every lane, several values a shuffle round: floating-point
+// addition commutes, so the two lanes of each butterfly pair add the same two
+// numbers
+template <typename T, int N>
+__device__ __forceinline__ void warp_sums(T (&v)[N]) {
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) v += __shfl_xor_sync(0xffffffffu, v, offset);
-  return v;
+  for (int offset = 16; offset > 0; offset >>= 1) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], offset);
+  }
 }
 
 // torch.logaddexp's definition
@@ -123,73 +135,150 @@ __device__ __forceinline__ T logaddexp(T a, T b) {
   return m + ln1p(ex(-absval(a - b)));
 }
 
-// g = -(z - mu) P into g; returns the log-density 0.5 (z - mu) . g, the same
-// in every lane.  P: dim rows of 32 K entries in shared memory; row: the
-// warp's (z - mu) buffer of 32 K entries.
+constexpr int kSplit = 4;  // independent partial sums of each coordinate of the product
+
+// Where the product's P lives: a lane's K columns in registers (REG), or the
+// block's copy in shared memory with the warp's (x - mu) row beside it
+template <typename T, int K, bool REG>
+struct Precision;
+
 template <typename T, int K>
-__device__ __forceinline__ T grad_value(const T* __restrict__ P, int dim, T* row, const T (&mu)[K],
-                                        const T (&z)[K], T (&g)[K], int lane) {
-  constexpr int LD = 32 * K;
-  T d[K], acc[K];
+struct Precision<T, K, true> {
+  T p[K][32 * K];  // p[k][i] = P[i][lane + 32 k], 0 past dim
+  __device__ __forceinline__ void load(const T* __restrict__ prec, int dim, int lane) {
+#pragma unroll
+    for (int i = 0; i < 32 * K; ++i) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = lane + 32 * k;
+        p[k][i] = i < dim && j < dim ? prec[(long long)i * dim + j] : T(0);
+      }
+    }
+  }
+  // acc[k][m] += P[i][lane + 32 k] d_i over the rows i = m mod kSplit: every
+  // row of the lanes' width, with no branch between the shuffles (the rows
+  // past dim are zeros, and so are their d_i)
+  __device__ __forceinline__ void product(int, const T (&d)[K], T (&acc)[K][kSplit]) const {
+#pragma unroll
+    for (int i = 0; i < 32 * K; ++i) {
+      const T di = __shfl_sync(0xffffffffu, d[i >> 5], i & 31);
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k][i % kSplit] = fmadd(p[k][i], di, acc[k][i % kSplit]);
+    }
+  }
+};
+
+template <typename T, int K>
+struct Precision<T, K, false> {
+  const T* P;  // dim rows of 32 K entries in shared memory
+  T* row;      // the warp's (x - mu), 32 K entries
+  int lane;
+  __device__ __forceinline__ void product(int dim, const T (&d)[K], T (&acc)[K][kSplit]) const {
+    constexpr int LD = 32 * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) row[lane + 32 * k] = d[k];
+    __syncwarp();
+    const T* p = P + lane;
+    int i0 = 0;
+    for (; i0 + kSplit <= dim; i0 += kSplit) {  // whole groups of rows: no branch inside
+#pragma unroll
+      for (int m = 0; m < kSplit; ++m) {
+        const T di = row[i0 + m];
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc[k][m] = fmadd(p[(i0 + m) * LD + 32 * k], di, acc[k][m]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kSplit - 1; ++m) {
+      if (i0 + m < dim) {
+        const T di = row[i0 + m];
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc[k][m] = fmadd(p[(i0 + m) * LD + 32 * k], di, acc[k][m]);
+      }
+    }
+    __syncwarp();  // every lane has read the row before it is written again
+  }
+};
+
+// g = -(z - mu) P into g; returns this lane's share of (z - mu) . g (the
+// log-density is half its warp sum)
+template <typename T, int K, bool REG>
+__device__ __forceinline__ T gradient(const Precision<T, K, REG>& P, int dim, const T (&mu)[K],
+                                      const T (&z)[K], T (&g)[K]) {
+  T d[K], acc[K][kSplit];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     d[k] = z[k] - mu[k];
-    row[lane + 32 * k] = d[k];
-    acc[k] = T(0);
-  }
-  __syncwarp();
-  const T* p = P + lane;
-#pragma unroll 4
-  for (int i = 0; i < dim; ++i) {
-    const T di = row[i];
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] = fmadd(p[i * LD + 32 * k], di, acc[k]);
+    for (int m = 0; m < kSplit; ++m) acc[k][m] = T(0);
   }
-  __syncwarp();  // every lane has read the row before it is written again
+  P.product(dim, d, acc);
   T part = T(0);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    g[k] = -acc[k];
+    g[k] = -((acc[k][0] + acc[k][1]) + (acc[k][2] + acc[k][3]));
     part += d[k] * g[k];
   }
-  return T(0.5) * warp_sum(part);
+  return part;
 }
 
-// |v|^2 over the warp
+// This lane's share of a . b
 template <typename T, int K>
-__device__ __forceinline__ T norm2(const T (&v)[K]) {
+__device__ __forceinline__ T dot(const T (&a)[K], const T (&b)[K]) {
   T s = T(0);
 #pragma unroll
-  for (int k = 0; k < K; ++k) s += v[k] * v[k];
-  return warp_sum(s);
+  for (int k = 0; k < K; ++k) s += a[k] * b[k];
+  return s;
 }
 
 // The generalized no-U-turn criterion: rho . a <= 0 or rho . b <= 0
 template <typename T, int K>
 __device__ __forceinline__ bool is_turning(const T (&a)[K], const T (&b)[K], const T (&rho)[K]) {
-  T x = T(0), y = T(0);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    x += rho[k] * a[k];
-    y += rho[k] * b[k];
-  }
-  x = warp_sum(x);
-  y = warp_sum(y);
-  return x <= T(0) || y <= T(0);
+  T v[2] = {dot<T, K>(rho, a), dot<T, K>(rho, b)};
+  warp_sums<T, 2>(v);
+  return v[0] <= T(0) || v[1] <= T(0);
 }
 
-// Copy the block's P into shared memory, rows padded to 32 K columns
+// Copy the block's P into shared memory, rows padded to 32 K columns (the
+// shared form), and return the warp's product; `rest` is the shared memory
+// past P and the warps' rows (the register form keeps nothing else there)
+template <typename T, int K, bool REG>
+__device__ __forceinline__ Precision<T, K, REG> precision(unsigned char* smem,
+                                                          const T* __restrict__ prec, int dim,
+                                                          int warp, int lane, T*& rest);
+
 template <typename T, int K>
-__device__ __forceinline__ void stage_precision(T* P, const T* __restrict__ prec, int dim) {
+__device__ __forceinline__ Precision<T, K, false> precision_shared(unsigned char* smem,
+                                                                   const T* __restrict__ prec,
+                                                                   int dim, int warp, int lane,
+                                                                   T*& rest) {
   constexpr int LD = 32 * K;
+  T* P = reinterpret_cast<T*>(smem);
   for (int idx = threadIdx.x; idx < dim * LD; idx += blockDim.x) {
     const int i = idx / LD, j = idx - i * LD;
     P[idx] = j < dim ? prec[(long long)i * dim + j] : T(0);
   }
   __syncthreads();
+  const int warps = blockDim.x >> 5;
+  rest = P + dim * LD + warps * LD;
+  return Precision<T, K, false>{P, P + dim * LD + warp * LD, lane};
 }
 
-template <typename T, int K>
+template <typename T, int K, bool REG>
+__device__ __forceinline__ Precision<T, K, REG> precision(unsigned char* smem,
+                                                          const T* __restrict__ prec, int dim,
+                                                          int warp, int lane, T*& rest) {
+  if constexpr (REG) {
+    Precision<T, K, true> P;
+    P.load(prec, dim, lane);
+    rest = reinterpret_cast<T*>(smem);
+    return P;
+  } else {
+    return precision_shared<T, K>(smem, prec, dim, warp, lane, rest);
+  }
+}
+
+template <typename T, int K, bool REG>
 __global__ void __launch_bounds__(128) nuts_kernel(
     long long n, int dim, int max_depth, const T* __restrict__ mu_in, const T* __restrict__ prec,
     const T* __restrict__ z_in, double eps_in, const T* __restrict__ r0_in,
@@ -199,15 +288,14 @@ __global__ void __launch_bounds__(128) nuts_kernel(
     signed char* __restrict__ flags_out) {
   constexpr int LD = 32 * K;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* P = reinterpret_cast<T*>(smem);
-  stage_precision<T, K>(P, prec, dim);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* rest;
+  const Precision<T, K, REG> P = precision<T, K, REG>(smem, prec, dim, warp, lane, rest);
   const long long chain = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (chain >= n) return;
-  T* row = P + dim * LD + (long long)warp * LD * (1 + 2 * max_depth);
-  T* r_ck = row + LD;                     // max_depth checkpoints of r
-  T* rho_ck = r_ck + max_depth * LD;      // and of the momentum sum
-  const bool given = r0_in != nullptr;    // explicit noise, else Philox
+  T* r_ck = rest + (long long)warp * LD * 2 * max_depth;  // max_depth checkpoints of r
+  T* rho_ck = r_ck + max_depth * LD;                      // and of the momentum sum
+  const bool given = r0_in != nullptr;                    // explicit noise, else Philox
   const uint2 key = given ? make_uint2(0u, 0u) : launch_key(key_in);
   const T eps = T(eps_in), half = T(0.5 * eps_in);
   const int width = 1 << (max_depth - 1);
@@ -223,8 +311,9 @@ __global__ void __launch_bounds__(128) nuts_kernel(
                 : given ? r0_in[chain * dim + j]
                         : normal<T>(philox(counter(chain, 0u, (unsigned)j, kMomentum), key));
   }
-  const T logp0 = grad_value<T, K>(P, dim, row, mu, zl, gl, lane);
-  const T energy0 = logp0 - T(0.5) * norm2<T, K>(rl);
+  T start[2] = {gradient<T, K, REG>(P, dim, mu, zl, gl), dot<T, K>(rl, rl)};
+  warp_sums<T, 2>(start);
+  const T energy0 = T(0.5) * start[0] - T(0.5) * start[1];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     zr[k] = zp[k] = zl[k];
@@ -261,10 +350,40 @@ __global__ void __launch_bounds__(128) nuts_kernel(
         r[k] = r[k] + half * g[k];
         z[k] = z[k] + eps * r[k];
       }
-      const T logp = grad_value<T, K>(P, dim, row, mu, z, g, lane);
+      T sums[4];
+      sums[0] = gradient<T, K, REG>(P, dim, mu, z, g);
 #pragma unroll
-      for (int k = 0; k < K; ++k) r[k] = r[k] + half * g[k];
-      const T delta = logp - T(0.5) * norm2<T, K>(r) - energy0;
+      for (int k = 0; k < K; ++k) {
+        r[k] = r[k] + half * g[k];
+        rho_s[k] += r[k];
+      }
+      sums[1] = dot<T, K>(r, r);
+      const int idx_max = __popc(leaf >> 1);
+      const bool odd = leaf & 1;
+      if (odd) {
+        // the newest power-of-two subtree this odd leaf closes rides along
+        T rc[K], sub[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          rc[k] = r_ck[idx_max * LD + lane + 32 * k];
+          sub[k] = rho_s[k] - rho_ck[idx_max * LD + lane + 32 * k] + rc[k];
+        }
+        sums[2] = dot<T, K>(sub, rc);
+        sums[3] = dot<T, K>(sub, r);
+        warp_sums<T, 4>(sums);
+        sub_turning = sums[2] <= T(0) || sums[3] <= T(0);
+      } else {
+        T two[2] = {sums[0], sums[1]};
+        warp_sums<T, 2>(two);
+        sums[0] = two[0];
+        sums[1] = two[1];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          r_ck[idx_max * LD + lane + 32 * k] = r[k];
+          rho_ck[idx_max * LD + lane + 32 * k] = rho_s[k];
+        }
+      }
+      const T delta = T(0.5) * sums[0] - T(0.5) * sums[1] - energy0;
       const bool diverging = delta < T(-kDeltaMax);
       const T logw_leaf = diverging ? neg_inf<T>() : delta;
       const T e = ex(delta);
@@ -274,19 +393,10 @@ __global__ void __launch_bounds__(128) nuts_kernel(
       const T p_leaf = logw_new == neg_inf<T>() ? T(0) : ex(logw_leaf - logw_new);
       const T tu = given ? take_row[leaf]
                          : uniform<T>(philox(counter(chain, depth, leaf, kTake), key).x);
-#pragma unroll
-      for (int k = 0; k < K; ++k) rho_s[k] += r[k];
-      const int idx_max = __popc(leaf >> 1);
-      if ((leaf & 1) == 0) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          r_ck[idx_max * LD + lane + 32 * k] = r[k];
-          rho_ck[idx_max * LD + lane + 32 * k] = rho_s[k];
-        }
-      } else {
-        // every power-of-two subtree that this odd leaf closes, newest first
+      if (odd) {
+        // the older subtrees it closes, newest first
         const int idx_min = idx_max - (__popc(leaf ^ (leaf + 1)) - 1) + 1;
-        for (int i = idx_max; i >= idx_min && !sub_turning; --i) {
+        for (int i = idx_max - 1; i >= idx_min && !sub_turning; --i) {
           T rc[K], sub[K];
 #pragma unroll
           for (int k = 0; k < K; ++k) {
@@ -352,7 +462,7 @@ __global__ void __launch_bounds__(128) nuts_kernel(
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, bool REG>
 __global__ void __launch_bounds__(128) hmc_kernel(
     long long n, int dim, int n_steps, int transitions, const T* __restrict__ mu_in,
     const T* __restrict__ prec, const T* __restrict__ z_in, double eps_in,
@@ -360,12 +470,11 @@ __global__ void __launch_bounds__(128) hmc_kernel(
     const unsigned long long* __restrict__ key_in, T* __restrict__ z_out,
     unsigned char* __restrict__ accepted_out, T* __restrict__ rate_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* P = reinterpret_cast<T*>(smem);
-  stage_precision<T, K>(P, prec, dim);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* rest;
+  const Precision<T, K, REG> P = precision<T, K, REG>(smem, prec, dim, warp, lane, rest);
   const long long chain = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (chain >= n) return;
-  T* row = P + dim * 32 * K + (long long)warp * 32 * K;
   const bool given = momentum_in != nullptr;
   const uint2 key = given ? make_uint2(0u, 0u) : launch_key(key_in);
   const T eps = T(eps_in), half = T(0.5 * eps_in);
@@ -388,19 +497,27 @@ __global__ void __launch_bounds__(128) hmc_kernel(
                               : normal<T>(philox(counter(chain, t, (unsigned)j, kHmcMomentum), key));
       qn[k] = q[k];
     }
-    T logp = grad_value<T, K>(P, dim, row, mu, q, g, lane);
-    const T current_h = logp - T(0.5) * norm2<T, K>(p);
+    T sums[2] = {gradient<T, K, REG>(P, dim, mu, q, g), dot<T, K>(p, p)};
+    warp_sums<T, 2>(sums);
+    const T current_h = T(0.5) * sums[0] - T(0.5) * sums[1];
+    // only the trajectory's end needs the log-density
+    T part = sums[0];
     for (int s = 0; s < n_steps; ++s) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         p[k] = p[k] + half * g[k];
         qn[k] = qn[k] + eps * p[k];
       }
-      logp = grad_value<T, K>(P, dim, row, mu, qn, g, lane);
+      part = gradient<T, K, REG>(P, dim, mu, qn, g);
 #pragma unroll
       for (int k = 0; k < K; ++k) p[k] = p[k] + half * g[k];
     }
-    const T dh = logp - T(0.5) * norm2<T, K>(p) - current_h;
+    if (n_steps > 0) {
+      sums[0] = part;
+      sums[1] = dot<T, K>(p, p);
+      warp_sums<T, 2>(sums);
+    }
+    const T dh = T(0.5) * sums[0] - T(0.5) * sums[1] - current_h;
     const T log_accept = dh > T(0) ? T(0) : dh;
     const T u = given ? accept_in[at] : uniform<T>(philox(counter(chain, t, 0u, kHmcAccept), key).x);
     const bool accept = ln(u) < log_accept;  // a NaN energy never accepts
@@ -423,31 +540,31 @@ cudaError_t allow_shared(F* kernel, long long bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int K>
+template <typename T, int K, bool REG>
 cudaError_t launch_nuts(long long n, int dim, int max_depth, const void* mu, const void* prec,
                         const void* z, double eps, const void* r0, const void* dir_u,
                         const void* bias_u, const void* take_u, const void* key, void* z_out,
                         void* accept, void* leapfrogs, void* flags, int warps, long long shared,
                         cudaStream_t stream) {
-  cudaError_t err = allow_shared(nuts_kernel<T, K>, shared);
+  cudaError_t err = allow_shared(nuts_kernel<T, K, REG>, shared);
   if (err != cudaSuccess) return err;
   const long long blocks = (n + warps - 1) / warps;
-  nuts_kernel<T, K><<<(unsigned)blocks, 32 * warps, shared, stream>>>(
+  nuts_kernel<T, K, REG><<<(unsigned)blocks, 32 * warps, shared, stream>>>(
       n, dim, max_depth, (const T*)mu, (const T*)prec, (const T*)z, eps, (const T*)r0,
       (const T*)dir_u, (const T*)bias_u, (const T*)take_u, (const unsigned long long*)key,
       (T*)z_out, (T*)accept, (int*)leapfrogs, (signed char*)flags);
   return cudaGetLastError();
 }
 
-template <typename T, int K>
+template <typename T, int K, bool REG>
 cudaError_t launch_hmc(long long n, int dim, int n_steps, int transitions, const void* mu,
                        const void* prec, const void* z, double eps, const void* momentum,
                        const void* accept_u, const void* key, void* z_out, void* accepted,
                        void* rate, int warps, long long shared, cudaStream_t stream) {
-  cudaError_t err = allow_shared(hmc_kernel<T, K>, shared);
+  cudaError_t err = allow_shared(hmc_kernel<T, K, REG>, shared);
   if (err != cudaSuccess) return err;
   const long long blocks = (n + warps - 1) / warps;
-  hmc_kernel<T, K><<<(unsigned)blocks, 32 * warps, shared, stream>>>(
+  hmc_kernel<T, K, REG><<<(unsigned)blocks, 32 * warps, shared, stream>>>(
       n, dim, n_steps, transitions, (const T*)mu, (const T*)prec, (const T*)z, eps,
       (const T*)momentum, (const T*)accept_u, (const unsigned long long*)key, (T*)z_out,
       (unsigned char*)accepted, (T*)rate);
@@ -457,29 +574,33 @@ cudaError_t launch_hmc(long long n, int dim, int n_steps, int transitions, const
 }  // namespace
 
 // NUTS: elem 4 (float) or 8 (double); lanes = K in {1, 2, 4, 8} (double: up
-// to 4); noise pointers all 0 to draw from Philox under *key.
-extern "C" int pgmpy_nuts_step(int elem, int lanes, long long n, int dim, int max_depth,
+// to 4); reg 1 for P in registers (float K <= 2, double K = 1), 0 for P in
+// shared memory; noise pointers all 0 to draw from Philox under *key.
+extern "C" int pgmpy_nuts_step(int elem, int lanes, int reg, long long n, int dim, int max_depth,
                                const void* mu, const void* prec, const void* z, double eps,
                                const void* r0, const void* dir_u, const void* bias_u,
                                const void* take_u, const void* key, void* z_out, void* accept,
                                void* leapfrogs, void* flags, int warps, long long shared,
                                void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-#define PGMPY_NUTS(T, K)                                                                         \
-  return (int)launch_nuts<T, K>(n, dim, max_depth, mu, prec, z, eps, r0, dir_u, bias_u, take_u, \
-                                key, z_out, accept, leapfrogs, flags, warps, shared, s)
+#define PGMPY_NUTS(T, K, R)                                                                       \
+  return (int)launch_nuts<T, K, R>(n, dim, max_depth, mu, prec, z, eps, r0, dir_u, bias_u,       \
+                                   take_u, key, z_out, accept, leapfrogs, flags, warps, shared, s)
   if (elem == 4) {
-    switch (lanes) {
-      case 1: PGMPY_NUTS(float, 1);
-      case 2: PGMPY_NUTS(float, 2);
-      case 4: PGMPY_NUTS(float, 4);
-      case 8: PGMPY_NUTS(float, 8);
+    switch (lanes * 2 + (reg ? 1 : 0)) {
+      case 3: PGMPY_NUTS(float, 1, true);
+      case 5: PGMPY_NUTS(float, 2, true);
+      case 2: PGMPY_NUTS(float, 1, false);
+      case 4: PGMPY_NUTS(float, 2, false);
+      case 8: PGMPY_NUTS(float, 4, false);
+      case 16: PGMPY_NUTS(float, 8, false);
     }
   } else if (elem == 8) {
-    switch (lanes) {
-      case 1: PGMPY_NUTS(double, 1);
-      case 2: PGMPY_NUTS(double, 2);
-      case 4: PGMPY_NUTS(double, 4);
+    switch (lanes * 2 + (reg ? 1 : 0)) {
+      case 3: PGMPY_NUTS(double, 1, true);
+      case 2: PGMPY_NUTS(double, 1, false);
+      case 4: PGMPY_NUTS(double, 2, false);
+      case 8: PGMPY_NUTS(double, 4, false);
     }
   }
 #undef PGMPY_NUTS
@@ -487,27 +608,30 @@ extern "C" int pgmpy_nuts_step(int elem, int lanes, long long n, int dim, int ma
 }
 
 // HMC: as above; every transition of the call in the one launch.
-extern "C" int pgmpy_hmc_step(int elem, int lanes, long long n, int dim, int n_steps,
+extern "C" int pgmpy_hmc_step(int elem, int lanes, int reg, long long n, int dim, int n_steps,
                               int transitions, const void* mu, const void* prec, const void* z,
                               double eps, const void* momentum, const void* accept_u,
                               const void* key, void* z_out, void* accepted, void* rate,
                               int warps, long long shared, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-#define PGMPY_HMC(T, K)                                                                      \
-  return (int)launch_hmc<T, K>(n, dim, n_steps, transitions, mu, prec, z, eps, momentum,    \
-                               accept_u, key, z_out, accepted, rate, warps, shared, s)
+#define PGMPY_HMC(T, K, R)                                                                   \
+  return (int)launch_hmc<T, K, R>(n, dim, n_steps, transitions, mu, prec, z, eps, momentum, \
+                                  accept_u, key, z_out, accepted, rate, warps, shared, s)
   if (elem == 4) {
-    switch (lanes) {
-      case 1: PGMPY_HMC(float, 1);
-      case 2: PGMPY_HMC(float, 2);
-      case 4: PGMPY_HMC(float, 4);
-      case 8: PGMPY_HMC(float, 8);
+    switch (lanes * 2 + (reg ? 1 : 0)) {
+      case 3: PGMPY_HMC(float, 1, true);
+      case 5: PGMPY_HMC(float, 2, true);
+      case 2: PGMPY_HMC(float, 1, false);
+      case 4: PGMPY_HMC(float, 2, false);
+      case 8: PGMPY_HMC(float, 4, false);
+      case 16: PGMPY_HMC(float, 8, false);
     }
   } else if (elem == 8) {
-    switch (lanes) {
-      case 1: PGMPY_HMC(double, 1);
-      case 2: PGMPY_HMC(double, 2);
-      case 4: PGMPY_HMC(double, 4);
+    switch (lanes * 2 + (reg ? 1 : 0)) {
+      case 3: PGMPY_HMC(double, 1, true);
+      case 2: PGMPY_HMC(double, 1, false);
+      case 4: PGMPY_HMC(double, 2, false);
+      case 8: PGMPY_HMC(double, 4, false);
     }
   }
 #undef PGMPY_HMC

@@ -94,12 +94,24 @@ def plan_tile(d, code_bytes, groups=None):
     return rows, row_bytes // code_bytes, rows * row_bytes
 
 
+def deal(items, loads, groups):
+    """``items`` dealt to ``groups`` groups: the item of most load first to
+    the group of least load so far (the lowest group on a tie); each group's
+    items in their order.  Returns the lists and the largest group load."""
+    load, dealt = np.zeros(groups, dtype=np.int64), [[] for _ in range(groups)]
+    for x in sorted(range(len(items)), key=lambda x: (-loads[x], x)):
+        g = int(np.argmin(load))
+        dealt[g].append(x)
+        load[g] += loads[x]
+    return [[items[x] for x in sorted(d)] for d in dealt], int(load.max(initial=0))
+
+
 def level_schedule(parents, loads, groups):
     """(schedule, starts, levels): the nodes level by level (a node's level is
     one more than the highest of its ``parents``, which are earlier nodes;
-    roots are level 0), each level's nodes dealt to ``groups`` groups, the
-    node of most load (for the sweep: states) first to the group of least
-    load so far, each group's nodes in node order; group g of level l holds
+    roots are level 0), each level's nodes dealt to ``groups`` groups
+    (:func:`deal`, by load: for the sweep, states), each group's nodes in
+    node order; group g of level l holds
     ``schedule[starts[l * groups + g]: starts[l * groups + g + 1]]``."""
     level = np.zeros(len(parents), dtype=np.int64)
     for i, ps in enumerate(parents):
@@ -107,14 +119,9 @@ def level_schedule(parents, loads, groups):
     n_levels = int(level.max()) + 1 if len(parents) else 0
     schedule, starts = [], [0]
     for lv in range(n_levels):
-        members = np.flatnonzero(level == lv)
-        load, dealt = np.zeros(groups, dtype=np.int64), [[] for _ in range(groups)]
-        for i in sorted(members, key=lambda i: (-loads[i], i)):
-            g = int(np.argmin(load))
-            dealt[g].append(int(i))
-            load[g] += loads[i]
-        for g in range(groups):
-            schedule.extend(sorted(dealt[g]))
+        members = [int(i) for i in np.flatnonzero(level == lv)]
+        for group in deal(members, [loads[i] for i in members], groups)[0]:
+            schedule.extend(group)
             starts.append(len(schedule))
     return np.asarray(schedule, dtype=np.int32), np.asarray(starts, dtype=np.int32), n_levels
 

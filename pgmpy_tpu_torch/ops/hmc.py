@@ -23,7 +23,8 @@ gradient is the closed form ``g = -P (x - mu)`` and its value ``0.5 (x - mu)
 
 On a CUDA tensor each is ONE launch of a hand-written kernel of
 ``csrc/hmc.cu`` (built with ``nvcc`` at first use; one warp per chain, the
-precision matrix in shared memory), random numbers from Philox keyed on one
+precision matrix in the lanes' registers where it fits, else in shared
+memory: :func:`register_form`), random numbers from Philox keyed on one
 64-bit draw from the call's generator.  A build or launch failure raises.
 On a CPU tensor each is its plain version, :func:`nuts_step_reference` /
 :func:`hmc_step_reference`: batched masked torch ops, the chains that are
@@ -410,18 +411,29 @@ def lane_coords(dim):
     return k
 
 
-def shared_bytes(kernel, dim, elem, max_depth, warps):
-    """Dynamic shared memory of one block: the precision matrix with its
-    columns padded to the lanes' width, and per warp a row of ``x - mu`` and,
-    for NUTS, ``max_depth`` checkpoints of ``r`` and of ``rho``."""
-    rows_per_warp = 1 + (2 * int(max_depth) if kernel == "nuts_step" else 0)
-    return elem * 32 * lane_coords(dim) * (dim + warps * rows_per_warp)
+def register_form(dim, elem):
+    """Whether a lane keeps its columns of the precision matrix in registers:
+    at most 128 registers of them (float32 up to 64 dimensions, float64 up
+    to 32); wider targets keep P in shared memory."""
+    k = lane_coords(dim)
+    return k * 32 * k * elem <= 128 * 4
+
+
+def shared_bytes(kernel, dim, elem, max_depth, warps, reg=False):
+    """Dynamic shared memory of one block: for NUTS ``max_depth``
+    checkpoints of ``r`` and of ``rho`` per warp; in the shared form also
+    the precision matrix with its columns padded to the lanes' width and a
+    row of ``x - mu`` per warp."""
+    k = lane_coords(dim)
+    checkpoints = 2 * int(max_depth) if kernel == "nuts_step" else 0
+    rows = warps * checkpoints if reg else dim + warps * (1 + checkpoints)
+    return elem * 32 * k * rows
 
 
 def max_dim(kernel, dtype, max_depth=0):
     """The widest target ``kernel`` ("nuts_step" or "hmc_step") takes in
     ``dtype``: a lane holds at most ``MAX_LANE_COORDS`` coordinates, and one
-    warp's block must fit ``SHARED_LIMIT``."""
+    warp's block must fit ``SHARED_LIMIT`` in the shared form."""
     elem = torch.empty((), dtype=dtype).element_size()
     dim = 32 * MAX_LANE_COORDS[elem]
     while dim > 0 and shared_bytes(kernel, dim, elem, max_depth, 1) > SHARED_LIMIT:
@@ -430,27 +442,28 @@ def max_dim(kernel, dtype, max_depth=0):
 
 
 def plan(kernel, dim, dtype, max_depth=0):
-    """(coordinates per lane, warps a block, shared bytes) of a launch, or
-    ValueError past :func:`max_dim`."""
+    """(coordinates per lane, warps a block, shared bytes, P in registers) of
+    a launch, or ValueError past :func:`max_dim`."""
     limit = max_dim(kernel, dtype, max_depth)
     if dim < 1 or dim > limit:
         raise ValueError(f"{kernel}: a {dim}-dimensional target in {dtype} (max_depth "
                          f"{max_depth}) is past the kernel's limit of {limit} dimensions")
     elem = torch.empty((), dtype=dtype).element_size()
+    reg = register_form(dim, elem)
     warps = WARPS
-    while shared_bytes(kernel, dim, elem, max_depth, warps) > SHARED_LIMIT:
+    while shared_bytes(kernel, dim, elem, max_depth, warps, reg) > SHARED_LIMIT:
         warps //= 2
-    return lane_coords(dim), warps, shared_bytes(kernel, dim, elem, max_depth, warps)
+    return lane_coords(dim), warps, shared_bytes(kernel, dim, elem, max_depth, warps, reg), reg
 
 
 def _library():
     lib = load_library("hmc", ["hmc.cu"])
     vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-    lib.pgmpy_nuts_step.argtypes = [i32, i32, i64, i32, i32, vp, vp, vp, f64, vp, vp, vp, vp,
-                                    vp, vp, vp, vp, vp, i32, i64, vp]
+    lib.pgmpy_nuts_step.argtypes = [i32, i32, i32, i64, i32, i32, vp, vp, vp, f64, vp, vp, vp,
+                                    vp, vp, vp, vp, vp, vp, i32, i64, vp]
     lib.pgmpy_nuts_step.restype = ctypes.c_int
-    lib.pgmpy_hmc_step.argtypes = [i32, i32, i64, i32, i32, i32, vp, vp, vp, f64, vp, vp, vp,
-                                   vp, vp, vp, i32, i64, vp]
+    lib.pgmpy_hmc_step.argtypes = [i32, i32, i32, i64, i32, i32, i32, vp, vp, vp, f64, vp, vp,
+                                   vp, vp, vp, vp, i32, i64, vp]
     lib.pgmpy_hmc_step.restype = ctypes.c_int
     return lib
 
@@ -482,7 +495,7 @@ def nuts_step_cuda(target, z, eps, max_depth, noise=None, gen=None):
     max_depth = int(max_depth)
     if not 1 <= max_depth <= 30:
         raise ValueError(f"nuts_step: max_depth {max_depth} outside 1..30")
-    lanes, warps, shared = plan("nuts_step", dim, z.dtype, max_depth)
+    lanes, warps, shared, reg = plan("nuts_step", dim, z.dtype, max_depth)
     device = z.device
     with torch.cuda.device(device):
         z = z.contiguous()
@@ -498,7 +511,7 @@ def nuts_step_cuda(target, z, eps, max_depth, noise=None, gen=None):
         flags = torch.empty(n, dtype=torch.int8, device=device)
         if n:
             err = _library().pgmpy_nuts_step(
-                z.element_size(), lanes, n, dim, max_depth, target.mean.data_ptr(),
+                z.element_size(), lanes, int(reg), n, dim, max_depth, target.mean.data_ptr(),
                 target.precision.data_ptr(), z.data_ptr(), float(eps),
                 *((0,) * 4 if noise is None else (t.data_ptr() for t in noise)),
                 0 if key is None else key.data_ptr(), z_out.data_ptr(), accept.data_ptr(),
@@ -518,7 +531,7 @@ def hmc_step_cuda(target, z, eps, n_steps, noise=None, gen=None, transitions=1):
     _check_target("hmc_step", target, z)
     n, dim = z.shape
     transitions, n_steps = int(transitions), int(n_steps)
-    lanes, warps, shared = plan("hmc_step", dim, z.dtype)
+    lanes, warps, shared, reg = plan("hmc_step", dim, z.dtype)
     device = z.device
     with torch.cuda.device(device):
         z = z.contiguous()
@@ -533,7 +546,8 @@ def hmc_step_cuda(target, z, eps, n_steps, noise=None, gen=None, transitions=1):
         rate = torch.empty((transitions, n), dtype=z.dtype, device=device)
         if n and transitions:
             err = _library().pgmpy_hmc_step(
-                z.element_size(), lanes, n, dim, n_steps, transitions, target.mean.data_ptr(),
+                z.element_size(), lanes, int(reg), n, dim, n_steps, transitions,
+                target.mean.data_ptr(),
                 target.precision.data_ptr(), z.data_ptr(), float(eps),
                 *((0,) * 2 if noise is None else (t.data_ptr() for t in noise)),
                 0 if key is None else key.data_ptr(), out.data_ptr(), accepted.data_ptr(),

@@ -24,6 +24,7 @@ from pgmpy_tpu_torch.factors import DiscreteFactor
 from pgmpy_tpu_torch.models import DiscreteMarkovNetwork
 from pgmpy_tpu_torch.ops import gibbs as gibbs_ops
 from pgmpy_tpu_torch.sampling import GibbsSampling
+from pgmpy_tpu_torch.utils import get_example_model
 from pgmpy_tpu_torch.utils.interop import markov_network_from_numpy
 from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
 
@@ -79,19 +80,31 @@ def random_codes(gibbs, n, seed):
     return torch.as_tensor(gibbs.random_state(n, seed), dtype=torch.int64)
 
 
-def walk_logits(tables, states, i):
-    """Variable ``i``'s logits from the CSR tables in numpy, as the kernel
-    reads them: per factor a row from the others' codes, summed from zero in
-    the tables' type in factor order.  ``states``: (n, d) host codes."""
-    flat = torch.cat([t.reshape(-1) for per_var in tables.var_specs
-                      for t, _, _ in per_var]).numpy()
-    card, _, k0, count = tables.vars[i]
+def piece_sums(tables, flat, states, i, first, count):
+    """The sums of factors ``first .. first + count - 1`` of variable ``i``
+    from the padded flat tables in numpy, as the kernel reads them: per
+    factor a row from the others' codes, summed from zero in the tables'
+    type in factor order.  ``states``: (n, d) host codes."""
+    card = tables.cards[i]
+    width = -(-card // gibbs_ops.ROW_ALIGN) * gibbs_ops.ROW_ALIGN
     total = np.zeros((states.shape[0], card), dtype=flat.dtype)
-    for offset, n_others, o0 in tables.specs[k0: k0 + count]:
+    for offset, n_others, o0 in tables.specs[first: first + count]:
         row = np.zeros(states.shape[0], dtype=np.int64)
         for column, stride in tables.others[o0: o0 + n_others]:
             row += states[:, column].astype(np.int64) * stride
-        total = total + flat[offset + row[:, None] * card + np.arange(card)]
+        total = total + flat[offset + row[:, None] * width + np.arange(card)]
+    return total
+
+
+def walk_logits(tables, states, i):
+    """Variable ``i``'s logits from the CSR tables in numpy: its pieces'
+    sums (``ops.gibbs.piece_cuts``) added in piece order."""
+    flat = tables.flat_tables(torch.device("cpu")).numpy()
+    first, total = int(tables.vars[i, 2]), None
+    for size in gibbs_ops.piece_cuts(tables.vars[i, 3]):
+        part = piece_sums(tables, flat, states, i, first, size)
+        total = part if total is None else total + part
+        first += size
     return total
 
 
@@ -134,11 +147,26 @@ def assert_schedule(tables):
         earlier = [level[j] for j in blanket(tables, i) if j < i]
         assert level[i] == 1 + max(earlier, default=-1)
     groups = tables.groups
-    assert tables.starts.shape == (tables.n_levels * groups + 1,) and tables.starts[0] == 0
-    assert sorted(tables.schedule.tolist()) == list(range(d))  # each variable once
-    for lv in range(tables.n_levels):
-        part = tables.schedule[tables.starts[lv * groups]: tables.starts[(lv + 1) * groups]]
-        assert (level[part] == lv).all()
+    for schedule, starts, items in ((tables.schedule_a, tables.starts_a, tables.pieces),
+                                    (tables.schedule_b, tables.starts_b, tables.combines)):
+        assert starts.shape == (tables.n_levels * groups + 1,) and starts[0] == 0
+        assert sorted(schedule.tolist()) == list(range(len(items)))  # each piece once
+        for lv in range(tables.n_levels):
+            part = schedule[starts[lv * groups]: starts[(lv + 1) * groups]]
+            assert (level[items[part, 0]] == lv).all()
+    # every variable's factors once, in pieces of piece_cuts, in order
+    for i in range(d):
+        own = tables.pieces[tables.pieces[:, 0] == i]
+        cuts = gibbs_ops.piece_cuts(tables.vars[i, 3])
+        assert own[:, 2].tolist() == cuts
+        assert own[:, 1].tolist() == (tables.vars[i, 2] + np.cumsum([0] + cuts[:-1])).tolist()
+        comb = tables.combines[tables.combines[:, 0] == i]
+        if len(cuts) == 1:
+            assert own[0, 3] == -1 and len(comb) == 0
+        else:  # each piece's sums in its own slots, the combine reading them in order
+            assert comb.tolist() == [[i, own[0, 3], len(cuts)]]
+            assert own[:, 3].tolist() == [own[0, 3] + p * tables.cards[i] for p in range(len(cuts))]
+            assert own[-1, 3] + tables.cards[i] <= tables.slots
 
 
 def test_level_schedule(pair):
@@ -161,8 +189,9 @@ def test_levels_of_a_chain_and_a_star():
                                           {v: 2 for v in "hpqrs"}, [np.ones((2, 2))] * 4)
     tables = GibbsSampling(hub_first)._compiled._tables
     assert tables.levels.tolist() == [0, 1, 1, 1, 1] and tables.groups == 3
-    assert tables.schedule.tolist() == [0, 1, 4, 2, 3]
-    assert tables.starts.tolist() == [0, 1, 1, 1, 3, 4, 5]
+    assert tables.schedule_a.tolist() == [0, 1, 4, 2, 3]
+    assert tables.starts_a.tolist() == [0, 1, 1, 1, 3, 4, 5]
+    assert tables.schedule_b.tolist() == [] and tables.starts_b.tolist() == [0] * 7
     # the hub last: the leaves go together, the hub after them
     hub_last = DiscreteMarkovNetwork()
     hub_last.add_nodes_from(list("pqrsh"))
@@ -184,7 +213,9 @@ def test_csr_layout():
     assert tables.vars[:, 3].tolist() == [len(s) for s in var_specs]
     assert tables.specs.shape == (sum(len(s) for s in var_specs), 3)
     assert tables.total == sum(int(t.numel()) for s in var_specs for t, _, _ in s)
-    k = 0
+    flat = tables.flat_tables(torch.device("cpu"))
+    assert flat.numel() == tables.padded_total and tables.padded_total % 4 == 0
+    k, end = 0, 0
     for i, specs in enumerate(var_specs):
         assert tables.vars[i, 2] == k
         for table, others, strides in specs:
@@ -193,23 +224,69 @@ def test_csr_layout():
             assert tables.others[o0: o0 + n_others].tolist() == [list(p) for p in
                                                                    zip(others, strides)]
             assert table.shape[1] == tables.cards[i]
+            # the padded layout: rows of a multiple of 4 entries, zeros past the
+            # card, every table from a multiple of 8 entries (32 bytes in float)
+            rows, width = table.shape[0], -(-tables.cards[i] // 4) * 4
+            assert offset == end and offset % 8 == 0
+            padded = flat[offset: offset + rows * width].view(rows, width)
+            assert torch.equal(padded[:, :tables.cards[i]], table)
+            assert not padded[:, tables.cards[i]:].any()
+            end = -(-(offset + rows * width) // 8) * 8
+            assert not flat[offset + rows * width: end].any()
             k += 1
+    assert end == tables.padded_total
 
 
-def level_walk(tables, codes, noise):
-    """The kernel's sweep in numpy: level by level, group by group, every
-    variable of a level drawn from the states as they stood before the level
-    (its threads run side by side), its logits summed from zero per state."""
+def kernel_walk(tables, codes, noise, sms=132):
+    """The kernel's sweep in numpy, float in the tables' type: the grid of
+    ``plan_launch`` (block b's chains; every chain in one block), and in each
+    block, level by level, first every group's pieces in schedule order
+    (each sums its factors' rows of the padded flat tables from zero, and
+    draws where it is the whole variable, else writes its sums to the
+    block's scratch slots), then every group's combines (the pieces' sums
+    added in piece order, and the draw).  The threads of a level run side
+    by side; a level reads no code that it writes."""
+    flat = tables.flat_tables(torch.device("cpu")).numpy()
     states = codes.numpy().astype(np.int64).copy()
     noise = noise.numpy()
+    n, d = states.shape
+    code_bytes = torch.empty((), dtype=tables.out_dtype).element_size()
+    blocks, rows, _, _ = gibbs_ops.plan_launch(n, d, code_bytes, tables.groups, sms,
+                                               tables.slots, flat.itemsize)
+    q, rem = divmod(n, blocks)
+    seen = np.zeros(n, dtype=np.int64)
     groups = tables.groups
-    for lv in range(tables.n_levels):
-        before = states.copy()
-        part = tables.schedule[tables.starts[lv * groups]: tables.starts[(lv + 1) * groups]]
-        for i in part:
-            card, first = tables.vars[i, :2]
-            logits = walk_logits(tables, before, i)
-            states[:, i] = np.argmax(logits - noise[first: first + card].T, axis=1)
+
+    def draw(i, st, chains, logits):
+        first, card = tables.noise_offsets[i], tables.cards[i]
+        st[:, i] = np.argmax(logits - noise[first: first + card][:, chains].T, axis=1)
+
+    for b in range(blocks):
+        row0, count = b * q + min(b, rem), q + (b < rem)
+        assert count <= rows
+        chains = np.arange(row0, row0 + count)
+        seen[chains] += 1
+        st = states[chains]
+        scratch = np.zeros((tables.slots, count), dtype=flat.dtype)
+        for lv in range(tables.n_levels):
+            for x in tables.schedule_a[tables.starts_a[lv * groups]:
+                                       tables.starts_a[(lv + 1) * groups]]:
+                i, first, size, slot = tables.pieces[x]
+                sums = piece_sums(tables, flat, st, i, first, size)
+                if slot < 0:
+                    draw(i, st, chains, sums)
+                else:
+                    scratch[slot: slot + tables.cards[i]] = sums.T
+            for x in tables.schedule_b[tables.starts_b[lv * groups]:
+                                       tables.starts_b[(lv + 1) * groups]]:
+                i, slot, n_pieces = tables.combines[x]
+                card = tables.cards[i]
+                total = scratch[slot: slot + card].T
+                for p in range(1, n_pieces):
+                    total = total + scratch[slot + p * card: slot + (p + 1) * card].T
+                draw(i, st, chains, total)
+        states[chains] = st
+    assert (seen == 1).all()
     return states
 
 
@@ -221,7 +298,7 @@ def test_level_walk_equals_the_sequential_sweep(pair):
     noise = race_noise((sum(tables.cards), N), seeded_generator(4), dtype)
     got = gibbs_ops.sweep_reference(tables, codes, None, noise=noise)
     assert got.dtype == gibbs._compiled._out_dtype and got.shape == codes.shape
-    np.testing.assert_array_equal(got.long().numpy(), level_walk(tables, codes, noise))
+    np.testing.assert_array_equal(got.long().numpy(), kernel_walk(tables, codes, noise))
 
 
 def generator_noise(tables, n, seed):
@@ -273,18 +350,95 @@ def test_a_variable_in_no_factor_is_drawn_uniform():
     noise = race_noise((7, 30_000), seeded_generator(1), torch.float32)
     np.testing.assert_array_equal(
         gibbs_ops.sweep_reference(tables, codes, None, noise=noise).long().numpy(),
-        level_walk(tables, codes, noise))
+        kernel_walk(tables, codes, noise))
 
 
 def test_tile_plans():
-    # MUNIN: 1041 int8 codes a chain, padded to 261 words; 32 chains, 33 KB
-    assert gibbs_ops.plan_tile(1041, 1, 16) == (32, 1044, 32 * 1044)
-    assert gibbs_ops.plan_tile(1041, 1, 32) == (32, 1044, 32 * 1044)
-    assert gibbs_ops.plan_tile(70, 1, 16) == (64, 76, 64 * 76)  # HEPAR2
-    assert gibbs_ops.plan_tile(37, 1, 10) == (96, 44, 96 * 44)  # ALARM
-    assert gibbs_ops.plan_tile(1041, 4, 16) == (11, 1041, 11 * 4164)
+    """(blocks, rows, stride, tile bytes): at least one block per
+    multiprocessor where there are as many chains, at most what the shared
+    budget, 1024 threads and MAX_TILE_ROWS allow."""
+    # MUNIN: 1041 int8 codes a chain, padded to 261 words, 85 scratch sums
+    assert gibbs_ops.plan_launch(4096, 1041, 1, 32, 132, 85, 4) == (132, 32, 1044, 44288)
+    assert gibbs_ops.plan_launch(10_000, 1041, 1, 32, 132, 85, 4) == (313, 32, 1044, 44288)
+    assert gibbs_ops.plan_launch(4096, 1041, 4, 32, 132, 85, 4) == (410, 10, 1041, 45056)
+    # HEPAR2: 70 codes a chain, 9 scratch sums
+    assert gibbs_ops.plan_launch(10_000, 70, 1, 6, 132, 9, 4) == (132, 76, 76, 8512)
+    assert gibbs_ops.plan_launch(2500, 70, 1, 6, 132, 9, 4) == (132, 19, 76, 2144)
+    assert gibbs_ops.plan_launch(100_000, 70, 1, 6, 132, 9, 8) == (782, 128, 76, 18944)
+    assert gibbs_ops.plan_launch(4096, 37, 1, 4, 132, 0, 4) == (132, 32, 44, 1408)  # ALARM
+    assert gibbs_ops.plan_launch(5, 37, 1, 4, 132, 0, 4) == (5, 1, 44, 48)
     with pytest.raises(ValueError, match="shared memory"):
-        gibbs_ops.plan_tile(20_000, 4, 8)
+        gibbs_ops.plan_launch(20_000, 20_000, 4, 8, 132, 0, 4)
+
+
+@pytest.mark.parametrize("name", ["munin", "hepar2"])
+def test_the_grid_covers_every_multiprocessor(name):
+    """The paths' shapes (MUNIN's 4,096 chains; HEPAR2's 10,000 and a
+    shard's 2,500) on the H100's 132 multiprocessors: every one holds a
+    block, the chains dealt evenly, within 1024 threads and the shared
+    budgets; HEPAR2's padded tables staged, MUNIN's not.  The pieces shorten
+    the critical path (the sum over levels of the busiest group's load)
+    against drawing whole variables with the same groups."""
+    tables = GibbsSampling(get_example_model(name))._compiled._tables
+    elem = 4
+    for n in (2500, 4096, 10_000):
+        blocks, rows, _, tile = gibbs_ops.plan_launch(n, len(tables.cards), 1, tables.groups,
+                                                      132, tables.slots, elem)
+        q, rem = divmod(n, blocks)
+        assert blocks >= 132 and rows == q + (rem > 0) and rows * blocks >= n
+        assert rows * tables.groups <= 1024 and tile <= gibbs_ops.SHARED_BUDGET
+    staged = tables.padded_total * elem <= gibbs_ops.STAGE_BUDGET
+    assert staged == (name == "hepar2")
+    cards, counts = np.asarray(tables.cards), tables.vars[:, 3]
+    whole = sum(gibbs_ops.deal(list(members), (cards[members] * (1 + counts[members])).tolist(),
+                               tables.groups)[1]
+                for members in (np.flatnonzero(tables.levels == lv)
+                                for lv in range(tables.n_levels)))
+    assert (whole, tables.critical_path) == {"munin": (1201, 845), "hepar2": (300, 223)}[name]
+
+
+def star_model(n_leaves=20, seed=0):
+    """A hub of 3 states drawn first and ``n_leaves`` binary leaves, one
+    random positive factor each: the hub's 20 blanket factors cut into
+    pieces of 7, 7 and 6."""
+    rng = np.random.default_rng(seed)
+    leaves = [f"x{k}" for k in range(n_leaves)]
+    cards = {"h": 3, **{x: 2 for x in leaves}}
+    return markov_network_from_numpy([["h", x] for x in leaves], cards,
+                                     [rng.random((3, 2)) + 0.05 for _ in leaves])
+
+
+def test_pieces_of_a_star():
+    tables = GibbsSampling(star_model())._compiled._tables
+    assert gibbs_ops.piece_cuts(20) == [7, 7, 6] and gibbs_ops.piece_cuts(8) == [8]
+    assert gibbs_ops.piece_cuts(0) == [0] and gibbs_ops.piece_cuts(70) == [8] * 7 + [7] * 2
+    assert tables.pieces[:3].tolist() == [[0, 0, 7, 0], [0, 7, 7, 3], [0, 14, 6, 6]]
+    assert tables.combines.tolist() == [[0, 0, 3]] and tables.slots == 9
+    assert_schedule(tables)
+    # the plain version's association: the pieces' sums, then their sum
+    codes = torch.as_tensor(GibbsSampling(star_model()).random_state(50, 1))
+    states = codes.T.contiguous()
+    got = gibbs_ops.conditional_logits(tables.var_specs, tables.cards, states, 0).numpy()
+    np.testing.assert_array_equal(got, walk_logits(tables, codes.numpy(), 0))
+
+
+@pytest.mark.parametrize("name, n", [("alarm", 500), ("alarm_markov", 500), ("hepar2", 700),
+                                     ("star", 400)])
+def test_kernel_walk_gives_the_plain_codes(name, n):
+    """The numpy walk of the pieces, the schedule and the grid against the
+    plain version, on explicit noise, to the bit."""
+    model = star_model() if name == "star" else get_example_model(name.split("_")[0])
+    if name == "alarm_markov":
+        model = model.to_markov_model()
+    gibbs = GibbsSampling(model)
+    tables = gibbs._compiled._tables
+    assert (len(tables.combines) > 0) == (name in ("hepar2", "star"))
+    codes = random_codes(gibbs, n, 11)
+    noise = race_noise((sum(tables.cards), n), seeded_generator(12), torch.float32)
+    want = gibbs_ops.sweep_reference(tables, codes, None, noise=noise).long().numpy()
+    np.testing.assert_array_equal(kernel_walk(tables, codes, noise), want)
+    # another grid gives the same codes
+    np.testing.assert_array_equal(kernel_walk(tables, codes, noise, sms=7), want)
 
 
 def test_the_cuda_route_refuses(pair):
@@ -322,4 +476,4 @@ def test_large_networks(name, levels):
     noise = race_noise((sum(tables.cards), 64), seeded_generator(9), torch.float32)
     np.testing.assert_array_equal(
         gibbs_ops.sweep_reference(tables, codes, None, noise=noise).long().numpy(),
-        level_walk(tables, codes, noise))
+        kernel_walk(tables, codes, noise))

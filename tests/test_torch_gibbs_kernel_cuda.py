@@ -5,8 +5,9 @@ CUDA device and skips without one; on a GPU machine:
 ``python -m pytest tests/test_torch_gibbs_kernel_cuda.py -m cuda``.
 
 Tolerances: on the same explicit noise the kernel's codes equal the plain
-version's to the bit (both sum the blanket rows in the tables' type in factor
-order and keep the first maximum).  Philox chains are held to the exact
+version's to the bit (both sum the blanket rows in the tables' type, each
+piece of at most ``ops.gibbs.PIECE_FACTORS`` factors in factor order and the
+pieces in order, and keep the first maximum).  Philox chains are held to the exact
 marginals within 0.02 (the limit of ``tests/test_torch_gibbs.py``)."""
 
 import numpy as np
@@ -62,6 +63,12 @@ def _model(name):
         return markov_network_from_numpy(scopes, cards, tables)
     if name == "alarm_markov":
         return get_example_model("alarm").to_markov_model()
+    if name == "star":  # a hub of 20 blanket factors, cut into 3 pieces
+        rng = np.random.default_rng(3)
+        leaves = [f"x{k}" for k in range(20)]
+        return markov_network_from_numpy([["h", x] for x in leaves],
+                                         {"h": 3, **{x: 2 for x in leaves}},
+                                         [rng.random((3, 2)) + 0.05 for _ in leaves])
     return get_example_model(name)
 
 
@@ -69,7 +76,7 @@ def _model(name):
 NETWORKS = [("random", "float32"), ("random", "float64"), ("alarm", "float32"),
             ("alarm", "float64"), ("munin", "float32"), ("hepar2", "float32"),
             ("markov", "float32"), ("markov", "float64"), ("alarm_markov", "float32"),
-            ("wide", "float32"), ("wide", "float64")]
+            ("wide", "float32"), ("wide", "float64"), ("star", "float32"), ("star", "float64")]
 
 
 @pytest.mark.cuda
@@ -92,6 +99,40 @@ def test_explicit_noise_matches_plain_to_the_bit(on_cuda, name, dtype):
     inplace = codes.to(tables.out_dtype)
     assert torch.equal(gibbs_ops.sweep_cuda(tables, inplace, None, noise=noise, out=inplace),
                        want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2500, 10_000])
+def test_hepar2_at_the_path_shapes_matches_plain_to_the_bit(on_cuda, n):
+    """HEPAR2 at a shard's 2,500 chains and the MCMC path's 10,000: the
+    staged tables, every multiprocessor holding a block."""
+    gibbs = GibbsSampling(get_example_model("hepar2"))
+    tables = gibbs._compiled._tables
+    blocks, _, _, staged, _, _ = gibbs_ops.launch_plan(tables, n, torch.device("cuda"))
+    assert staged and blocks >= torch.cuda.get_device_properties(0).multi_processor_count
+    codes = torch.as_tensor(gibbs.random_state(n, 5), device="cuda")
+    noise = race_noise((sum(tables.cards), n), seeded_generator(6), config.DTYPE)
+    got = gibbs_ops.sweep_cuda(tables, codes, None, noise=noise)
+    assert torch.equal(got, gibbs_ops.sweep_reference(tables, codes, None, noise=noise))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["star", "alarm", "hepar2"])
+def test_tables_read_from_l2_match_plain(on_cuda, name, dtype, monkeypatch):
+    """With neither the tables (MUNIN's route) nor the plan (a network's
+    whose plan outgrows a block) staged into shared memory the codes are the
+    plain version's too."""
+    config.set_dtype(dtype)
+    monkeypatch.setattr(gibbs_ops, "STAGE_BUDGET", 0)
+    monkeypatch.setattr(gibbs_ops, "SHARED_LIMIT", 0)
+    gibbs = GibbsSampling(_model(name))
+    tables = gibbs._compiled._tables
+    assert gibbs_ops.launch_plan(tables, 3001, torch.device("cuda"))[3:5] == (0, False)
+    codes = torch.as_tensor(gibbs.random_state(3001, 2), device="cuda")
+    noise = race_noise((sum(tables.cards), 3001), seeded_generator(8), config.DTYPE)
+    assert torch.equal(gibbs_ops.sweep_cuda(tables, codes, None, noise=noise),
+                       gibbs_ops.sweep_reference(tables, codes, None, noise=noise))
 
 
 @pytest.mark.cuda

@@ -18,8 +18,10 @@ kernels of ``csrc/hmc.cu``.
   mismatch is a fault and not a rounding.
 * The kernel's schedule walked in numpy, float64, one chain at a time (the
   leaf loop, checkpoint slots from the bit count, the noise read at (depth,
-  leaf)), held to the batched plain version at 1e-12 relative on explicit
-  noise.  It is the only CPU check of what the kernel computes; the walk
+  leaf)) and in its order of sums (each coordinate of the product as four
+  partial sums over the rows i mod 4, every dot product as the lanes' sums
+  and a butterfly), held to the batched plain version at 1e-12 relative on
+  explicit noise.  It is the only CPU check of what the kernel computes; the walk
   also gives the parity cases their decision margins.
 * ``GaussianTarget``: value and closed-form gradient against ``torch.func``
   on the log-density closure it replaced (1e-6 in float32, 1e-12 in
@@ -89,6 +91,46 @@ def starts(seed, mean, cov, scale):
 # ---------------------------------------------------------------------- #
 # the kernel's schedule, one chain at a time, in numpy float64
 # ---------------------------------------------------------------------- #
+def lanes(v):
+    """A vector as the kernel's warp holds it: lane l keeps coordinates l,
+    l + 32, ... (zeros past the end), (32, K)."""
+    k = hmc_ops.lane_coords(len(v))
+    return np.concatenate([v, np.zeros(32 * k - len(v))]).reshape(k, 32).T
+
+
+def warp_dot(a, b):
+    """a . b in the kernel's order: each lane's products summed over its
+    coordinates, then the butterfly of five shuffle rounds."""
+    va, vb = lanes(a), lanes(b)
+    v = np.zeros(32)
+    for k in range(va.shape[1]):
+        v = v + va[:, k] * vb[:, k]
+    for offset in (16, 8, 4, 2, 1):
+        v = v + v[np.arange(32) ^ offset]
+    return v[0]
+
+
+def kernel_gradient(mean, prec):
+    """(g, log-density) at x in the kernel's order: g_j = -((s_0 + s_1) +
+    (s_2 + s_3)), s_m the products P[i, j] (x - mu)_i over the rows i = m
+    mod 4 in increasing i; the log-density half the warp sum of (x - mu) . g."""
+    dim = len(mean)
+    parts = [np.arange(m, dim, 4) for m in range(4)]
+
+    def grad_value(x):
+        d = x - mean
+        s = []
+        for rows in parts:
+            acc = np.zeros(dim)
+            for i in rows:
+                acc = acc + prec[i] * d[i]
+            s.append(acc)
+        g = -((s[0] + s[1]) + (s[2] + s[3]))
+        return g, 0.5 * warp_dot(d, g)
+
+    return grad_value
+
+
 def walk_nuts(mean, prec, z, eps, max_depth, noise, margins=None):
     """Per chain, the kernel's control flow: the doublings, the leaf loop,
     the checkpoint slot ``popcount(leaf >> 1)``, the closed subtrees from the
@@ -99,14 +141,10 @@ def walk_nuts(mean, prec, z, eps, max_depth, noise, margins=None):
     prec = 0.5 * (prec + prec.T)
     r0, dir_u, bias_u, take_u = (np.asarray(t, dtype=np.float64) for t in noise)
     record = margins.append if margins is not None else (lambda _: None)
-
-    def grad_value(x):
-        d = x - mean
-        g = -(d @ prec)
-        return g, 0.5 * (d @ g)
+    grad_value = kernel_gradient(mean, prec)
 
     def turning(a, b, rho):
-        x, y = rho @ a, rho @ b
+        x, y = warp_dot(rho, a), warp_dot(rho, b)
         record(abs(x))
         record(abs(y))
         return x <= 0 or y <= 0
@@ -114,7 +152,7 @@ def walk_nuts(mean, prec, z, eps, max_depth, noise, margins=None):
     out = []
     for c in range(z.shape[0]):
         g0, logp0 = grad_value(z[c])
-        energy0 = logp0 - 0.5 * (r0[c] @ r0[c])
+        energy0 = logp0 - 0.5 * warp_dot(r0[c], r0[c])
         zl = zr = zp = z[c]
         rl = rr = rho = r0[c]
         gl = gr = g0
@@ -138,7 +176,7 @@ def walk_nuts(mean, prec, z, eps, max_depth, noise, margins=None):
                 x = x + eps * r
                 g, logp = grad_value(x)
                 r = r + 0.5 * eps * g
-                delta = logp - 0.5 * (r @ r) - energy0
+                delta = logp - 0.5 * warp_dot(r, r) - energy0
                 record(abs(delta + hmc_ops.DELTA_MAX))
                 diverging = delta < -hmc_ops.DELTA_MAX
                 logw_leaf = -np.inf if diverging else delta
@@ -189,19 +227,18 @@ def walk_hmc(mean, prec, z, eps, n_steps, momentum, accept_u, margins=None):
     """Per chain, the HMC kernel's loop: ``n_steps`` leapfrog steps and the
     accept; returns (positions, accept flags, rates)."""
     prec = 0.5 * (prec + prec.T)
+    grad_value = kernel_gradient(mean, prec)
     out = []
     for c in range(z.shape[0]):
-        d = z[c] - mean
-        g = -(d @ prec)
-        current_h = 0.5 * (d @ g) - 0.5 * (momentum[c] @ momentum[c])
+        g, logp = grad_value(z[c])
+        current_h = logp - 0.5 * warp_dot(momentum[c], momentum[c])
         q, p = z[c], momentum[c]
         for _ in range(n_steps):
             p = p + 0.5 * eps * g
             q = q + eps * p
-            d = q - mean
-            g = -(d @ prec)
+            g, logp = grad_value(q)
             p = p + 0.5 * eps * g
-        log_accept = min(0.5 * (d @ g) - 0.5 * (p @ p) - current_h, 0.0)
+        log_accept = min(logp - 0.5 * warp_dot(p, p) - current_h, 0.0)
         if margins is not None and log_accept < 0:
             margins.append(abs(np.log(accept_u[c]) - log_accept))
         accept = np.log(accept_u[c]) < log_accept
@@ -421,8 +458,17 @@ def test_dimension_limit():
     assert hmc_ops.max_dim("nuts_step", torch.float32, 6) == 214
     assert hmc_ops.max_dim("hmc_step", torch.float32) == 226
     assert hmc_ops.max_dim("nuts_step", torch.float64, 6) == 128
-    assert hmc_ops.plan("nuts_step", 46, torch.float32, 6) == (2, 4, 4 * 64 * (46 + 4 * 13))
-    assert hmc_ops.plan("nuts_step", 200, torch.float32, 6)[1] == 2
+    # ecoli70's 46 dimensions: P in the lanes' registers (64 rows x 2
+    # columns), shared memory only for 4 warps' 12 checkpoints
+    assert hmc_ops.plan("nuts_step", 46, torch.float32, 6) == (2, 4, 4 * 64 * 4 * 12, True)
+    assert hmc_ops.plan("hmc_step", 46, torch.float32) == (2, 4, 0, True)
+    assert hmc_ops.plan("nuts_step", 32, torch.float64, 6) == (1, 4, 8 * 32 * 4 * 12, True)
+    # wider targets keep P in shared memory
+    assert hmc_ops.plan("nuts_step", 65, torch.float32, 6) == (4, 4, 4 * 128 * (65 + 4 * 13),
+                                                               False)
+    assert not hmc_ops.plan("nuts_step", 33, torch.float64, 6)[3]
+    assert hmc_ops.plan("nuts_step", 200, torch.float32, 6)[1:4:2] == (2, False)
+    assert [hmc_ops.register_form(d, 4) for d in (1, 46, 64, 65)] == [True, True, True, False]
     with pytest.raises(ValueError, match="limit of 214"):
         hmc_ops.plan("nuts_step", 215, torch.float32, 6)
     with pytest.raises(ValueError, match="limit of 128"):

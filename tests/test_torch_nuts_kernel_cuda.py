@@ -135,6 +135,35 @@ def test_hmc_kernel_matches_plain(on_cuda, name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name, dtype", [("chain3", torch.float64), ("chain3", torch.float32),
+                                         ("random12", torch.float64),
+                                         ("random12", torch.float32),
+                                         ("ecoli70", torch.float32)])
+def test_precision_in_shared_memory_matches_the_register_form(on_cuda, name, dtype,
+                                                             monkeypatch):
+    """The two places of P (``ops.hmc.register_form``) sum the same
+    products in the same order: the kernels' results are equal to the bit,
+    NUTS and HMC, on every target that fits the registers."""
+    assert hmc_ops.register_form(len(_model(name).nodes()), torch.empty((), dtype=dtype)
+                                 .element_size())
+    target, z = _case(name, dtype)
+    noise = nuts_noise(CHAINS, target.dim, MAX_DEPTH, seeded_generator(5, "cuda"), dtype)
+    gen = seeded_generator(6, "cuda")
+    hmc_noise = HmcNoise(torch.randn((2, CHAINS, target.dim), generator=gen, dtype=dtype,
+                                     device="cuda"),
+                         torch.rand((2, CHAINS), generator=gen, dtype=dtype, device="cuda"))
+    eps = STEPS[name][0]
+    runs = []
+    for form in (True, False):
+        monkeypatch.setattr(hmc_ops, "register_form", lambda dim, elem, form=form: form)
+        runs.append((hmc_ops.nuts_step_cuda(target, z, eps, MAX_DEPTH, noise),
+                     hmc_ops.hmc_step_cuda(target, z, eps, 8, hmc_noise, transitions=2)))
+    (nuts_a, hmc_a), (nuts_b, hmc_b) = runs
+    for a, b in zip(tuple(nuts_a)[:5] + tuple(hmc_a), tuple(nuts_b)[:5] + tuple(hmc_b)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_same_seed_same_samples(on_cuda):
     model = _model("random12")
     _, mean, _ = model.joint_gaussian()
