@@ -40,7 +40,8 @@ Runs from the repository root and needs one CUDA card.  It
    against the exact marginals of a calibrated junction tree; the same seed
    twice gives equal codes; ``forward`` and ``likelihood_weighted`` one launch
    each; the kernel against its plain version on explicit noise at 4,096 rows,
-   codes and log weights equal to the bit, and timed), a fresh network is fitted on the first 50,000 (one
+   codes and log weights equal to the bit, and timed beside the parent
+   commit's kernel where it is unpacked), a fresh network is fitted on the first 50,000 (one
    table-count launch), ``predict`` and ``predict_probability`` fill three
    dropped columns of the last 2,048 rows (against a numpy float64 oracle
    computed from the fitted CPD tables, and against the CPU run), one
@@ -49,12 +50,15 @@ Runs from the repository root and needs one CUDA card.  It
    ``ApproxInference`` answers one query from 50,000 draws; every exact
    query's contraction runs on K3 (``csrc/einsum_plan.cu``: one
    ``plan_block`` launch where every step's union fits a block, else one
-   ``plan_step`` launch per step), and ``phase_k3`` holds both schedules
-   against the plain version on the contractions of a MUNIN VE query, a BP
-   query, a 2,048-row ``query_batch`` and a float64 plan, checks that a plan
-   under the block limit makes one launch, counts K3's launches per
-   ``predict`` / ``predict_probability`` call, and times both schedules
-   beside the plain version, the bound and one ``torch.einsum``;
+   cooperative ``plan_grid`` launch over the grid), and ``phase_k3`` holds
+   both schedules against the plain version on the contractions of a MUNIN
+   VE query, a BP query, a 2,048-row ``query_batch``, a do-query's and a
+   float64 plan, checks that each of them makes exactly one launch of the
+   schedule its plan chooses, counts K3's launches per ``predict`` /
+   ``predict_probability`` call, times both schedules on each of those
+   contractions, and times the chosen one beside the plain version, the
+   bound, one ``torch.einsum`` and, where it is unpacked, the parent
+   commit's kernel;
 5. drives the MCMC lane (``phase_mcmc``): Gibbs on MUNIN (4,096 chains started
    from ancestral samples, 5 sweeps over all 1041 variables, each sweep one
    launch of the Gibbs sweep kernel, K6, ``csrc/gibbs.cu``: the local
@@ -73,10 +77,12 @@ Runs from the repository root and needs one CUDA card.  It
    batched leapfrog against the CPU run, both kernels against their plain
    versions on explicit noise (float32 and float64) and timed, ``nuts_step``
    at 1,024 chains and at a shard's 256.  Where ``tools/parent_kernels.py
-   unpack`` left an earlier commit's ``gibbs.cu`` and ``hmc.cu`` in the tree
-   (``.chip_scratch/parent``), they are built beside the others and timed in
-   turns with the new kernels at every one of those shapes (the rows'
-   ``parent_ms``; "not timed" without them);
+   unpack`` left an earlier commit's kernels in the tree
+   (``.chip_scratch/parent``), those of ``PARENT_WRAPPERS`` are built beside
+   the others and timed in turns with this tree's at the shapes the smoke
+   times them (the rows' ``parent_ms``; "not timed" without them): K5 and
+   K9 (``ancestral.cu``) and K3 (``einsum_plan.cu``), and K6 and K8 where it
+   names ``gibbs.cu`` and ``hmc.cu``;
 6. drives the temporal lane (``phase_temporal``): the particle filter on the
    rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
    as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
@@ -311,7 +317,7 @@ GATHER_KERNELS = {
                             "pgmpy_tpu/estimators/em.py:186", "latent"),
     "einsum_plan/plan_block": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
                                "pgmpy_tpu/ops/einsum.py:73", "simulate_fit_predict"),
-    "einsum_plan/plan_step": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
+    "einsum_plan/plan_grid": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
                               "pgmpy_tpu/ops/einsum.py:73", "main"),
     "einsum_plan/filter_scan": ("pgmpy_tpu_torch/csrc/einsum_plan.cu",
                                 "pgmpy_tpu/inference/dbn.py:131", "temporal"),
@@ -339,7 +345,7 @@ def gather_launches():
             "table_gather/row_sums": table_gather.LAUNCHES["row_sums"],
             "table_gather/e_step": table_gather.LAUNCHES["e_step"],
             "einsum_plan/plan_block": einsum.LAUNCHES["plan_block"],
-            "einsum_plan/plan_step": einsum.LAUNCHES["plan_step"],
+            "einsum_plan/plan_grid": einsum.LAUNCHES["plan_grid"],
             "einsum_plan/filter_scan": einsum.SCAN_LAUNCHES,
             "hmc/nuts_step": hmc.LAUNCHES["nuts_step"],
             "hmc/hmc_step": hmc.LAUNCHES["hmc_step"],
@@ -1613,7 +1619,7 @@ def k3_case(name, call):
     atol = 0.0 if f64 else 1e-6 * float(want.abs().max())
     rtol = 1e-12 if f64 else 1e-5
     errs = {}
-    for schedule in ("plan_block", "plan_step"):
+    for schedule in ("plan_block", "plan_grid"):
         if schedule == "plan_block" and int(table.unions.sum()) > K3_BLOCK_CHECK_UNIONS:
             errs[schedule] = None
             continue
@@ -1627,57 +1633,23 @@ def k3_case(name, call):
     log(f"k3_check {name} operands={len(arrays)} steps={len(table.steps)} schedule="
         f"{table.schedule} max_union={int(table.unions.max())} unions={int(table.unions.sum())} "
         f"arena={table.arena} ({'shared' if table.shared else 'global'}) dtype={want.dtype} "
-        f"max_abs_err plan_block={errs['plan_block']} plan_step={errs['plan_step']} (rtol "
+        f"max_abs_err plan_block={errs['plan_block']} plan_grid={errs['plan_grid']} (rtol "
         f"{rtol:g}, atol {atol:.3e})")
     return max(e for e in errs.values() if e is not None)
 
 
-def k3_kernel_row(name, call):
-    """The dispatch's schedule on one captured contraction: its device time
-    (median of 20 behind a device sleep), the plain version's (one
-    ``torch.einsum`` per step, eager), the bound (the operands and the output
-    moved once at 3.35 TB/s, or two operations per union entry per step at
-    67e12/s) and one ``torch.einsum`` over the whole contraction on
-    opt_einsum's path (labels renumbered; only where they are at most 52)."""
-    from pgmpy_tpu_torch.ops import einsum
-
-    axes, out, arrays = call
-    table = k3_table(call)
-    want = einsum.sum_product_reference(axes, out, arrays)
-    got = einsum.launch_plan(table, arrays)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    ms = cuda_median_ms(lambda: einsum.launch_plan(table, arrays), device_only=True)
-    plain_ms = cuda_median_ms(lambda: einsum.sum_product_reference(axes, out, arrays))
-    nbytes = sum(a.numel() * a.element_size() for a in arrays) + got.numel() * got.element_size()
-    bound_ms, bound_by = bound(nbytes, 2 * int(table.unions.sum()))
-    dense, args = {}, []
-    for a, ax in zip(arrays, axes):
-        args += [a, [dense.setdefault(label, len(dense)) for label in ax]]
-    args.append([dense[label] for label in out])
-    library_ms = None
-    if len(dense) <= 52:
-        lib = torch.einsum(*args)
-        check(torch.allclose(lib, want, rtol=1e-5, atol=1e-6 * float(want.abs().max())),
-              f"k3 {name}: torch.einsum differs from the plain version")
-        library_ms = cuda_median_ms(lambda: torch.einsum(*args), device_only=True)
-    log(f"k3 {table.schedule} {name} operands={len(arrays)} steps={len(table.steps)} "
-        f"unions={int(table.unions.sum())} kernel_ms={ms:.5f} (device time, median of 20) "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) torch_einsum_ms="
-        f"{library_ms if library_ms is None else f'{library_ms:.5f}'} (labels {len(dense)}) "
-        f"max_abs_err={err:.3e}")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
-
-
 def phase_k3(context):
     """K3 held against its plain version on the card: the contractions of a
-    MUNIN VariableElimination query, a MUNIN BeliefPropagation query and a
-    2,048-row ``query_batch``, each with both schedules, and the VE query's
-    in float64 (loopy BP's round is held in ``phase_loopy``); one launch for a
-    plan under the block limit; K3's launches per ``predict`` and
-    ``predict_probability`` call; the two schedules timed."""
-    from pgmpy_tpu_torch.inference import BeliefPropagation, VariableElimination, bp, ve
+    MUNIN VariableElimination query, a MUNIN BeliefPropagation query, a
+    2,048-row ``query_batch`` and a do-query on MUNIN (the causal lane's
+    batched query), each with both schedules, and the VE query's in float64
+    (loopy BP's round is held in ``phase_loopy``); exactly one launch, of the
+    plan's schedule, for each of them; both schedules timed on each; K3's
+    launches per ``predict`` and ``predict_probability`` call; the chosen
+    schedules timed beside the plain version, the bound, ``torch.einsum``
+    and the parent's kernel."""
+    from pgmpy_tpu_torch.inference import BeliefPropagation, CausalInference, VariableElimination
+    from pgmpy_tpu_torch.inference import bp, ve
     from pgmpy_tpu_torch.ops import einsum
 
     fitted, q_var, e_var = context["fitted"], context["q_var"], context["e_var"]
@@ -1689,19 +1661,29 @@ def phase_k3(context):
     bp_calls = capture_contractions(lambda: tree.query([q_var], evidence=evidence), [bp])
     batch_calls = capture_contractions(lambda: tree.query_batch([q_var], context["batch_ev"]),
                                        [bp])
+    child = sorted(fitted.get_children(CAUSAL_DO[0]))[0]
+    do_calls = capture_contractions(
+        lambda: CausalInference(fitted).query([child], do=dict([CAUSAL_DO]),
+                                              inference_algo="bp"), [bp, ve])
     worst = 0.0
-    for name, calls in (("munin_ve_query", ve_calls), ("munin_bp_query", bp_calls),
-                        ("munin_query_batch_2048", batch_calls)):
+    captured = (("munin_ve_query", ve_calls), ("munin_bp_query", bp_calls),
+                ("munin_query_batch_2048", batch_calls), ("munin_do_query", do_calls))
+    for name, calls in captured:
         for k, call in enumerate(calls):
             worst = max(worst, k3_case(f"{name}[{k}]", call))
     axes, out, arrays = ve_calls[-1]
     k3_case("munin_ve_query_float64", (axes, out, [a.double() for a in arrays]))
-    # a plan under the block limit: exactly one launch
     check(k3_table(ve_calls[-1]).schedule == "plan_block", "the VE plan is not under the limit")
-    einsum.reset_launches()
-    einsum.sum_product_planned(axes, out, arrays)
-    check(einsum.LAUNCHES == {"plan_block": 1, "plan_step": 0},
-          f"a plan under the block limit made {einsum.LAUNCHES}")
+    check(k3_table(batch_calls[-1]).schedule == "plan_grid",
+          "the query_batch plan is not past the block limit")
+    # each distinct contraction: one launch of its schedule, both schedules timed
+    seen = set()
+    for name, calls in captured:
+        for k, call in enumerate(calls):
+            signature = (call[0], call[1], tuple(tuple(a.shape) for a in call[2]))
+            if signature not in seen:
+                seen.add(signature)
+                k3_schedules(f"{name}[{k}]", call)
     fitted_p, _, test = context["predict_rows"]
     per_call = {}
     for name, fn in (("predict", lambda: fitted_p.predict(test)),
@@ -1713,11 +1695,118 @@ def phase_k3(context):
         f"{per_call['predict_probability']} (their profiler kernels per call are logged with "
         f"predict_rows_per_s)")
     GATHER_ROWS["einsum_plan/plan_block"] = k3_kernel_row("munin_ve_query", ve_calls[-1])
-    GATHER_ROWS["einsum_plan/plan_step"] = k3_kernel_row("munin_query_batch_2048",
-                                                         batch_calls[-1])
-    log(f"k3_checks ok: every captured contraction within its limits under both schedules "
-        f"(largest float32 error {worst:.3e})")
+    GATHER_ROWS["einsum_plan/plan_grid"] = k3_kernel_row("munin_query_batch_2048",
+                                                         batch_calls[-1], parent=True)
+    log(f"k3_checks ok: every captured contraction within its limits under both schedules, "
+        f"one launch each (largest float32 error {worst:.3e})")
     einsum.reset_launches()
+
+
+def turns_ms(calls):
+    """Device times (median of 20 behind a device sleep) of ``calls`` in
+    turns: in order, then in reverse order.  Returns {key: (the smaller of
+    its two medians, both medians)}."""
+    runs = {}
+    for key in list(calls) + list(reversed(calls)):
+        runs.setdefault(key, []).append(cuda_median_ms(calls[key], device_only=True))
+    return {key: (min(v), v) for key, v in runs.items()}
+
+
+def k3_library_args(call):
+    """``torch.einsum``'s sublist arguments for the whole contraction, labels
+    renumbered from 0, or None past its 52 labels."""
+    axes, out, arrays = call
+    dense, args = {}, []
+    for a, ax in zip(arrays, axes):
+        args += [a, [dense.setdefault(label, len(dense)) for label in ax]]
+    args.append([dense[label] for label in out])
+    return args if len(dense) <= 52 else None
+
+
+def k3_kernel_row(name, call, parent=False):
+    """The dispatch's schedule on one captured contraction: its device time
+    and one ``torch.einsum``'s over the whole contraction on opt_einsum's
+    path (labels renumbered; only where they are at most 52), with
+    ``parent`` the parent commit's kernel too (where it is unpacked), in
+    turns (parent, kernel, library, library, kernel, parent; each the
+    smaller median of 20 behind a device sleep), the plain version's (one
+    ``torch.einsum`` per step, eager) and the bound (the operands and the
+    output moved once at 3.35 TB/s, or two operations per union entry per
+    step at 67e12/s)."""
+    from pgmpy_tpu_torch.ops import einsum
+
+    axes, out, arrays = call
+    table = k3_table(call)
+    want = einsum.sum_product_reference(axes, out, arrays)
+    got = einsum.launch_plan(table, arrays)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    calls = {"kernel": lambda: einsum.launch_plan(table, arrays)}
+    old = PARENT.get("modules", {}).get("einsum") if parent else None
+    if old is not None:
+        shapes = tuple(tuple(a.shape) for a in arrays)
+        old_table = old.PlanTable(axes, out, shapes, tuple(tuple(a.stride()) for a in arrays),
+                                  arrays[0].element_size(), old.contraction_plan(axes, out, shapes))
+        old_got = old.launch_plan(old_table, arrays)
+        torch.cuda.synchronize()
+        check(torch.allclose(old_got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max())),
+              f"k3 {name}: the parent's {old_table.schedule} differs from the plain version")
+        calls = {"parent": lambda: old.launch_plan(old_table, arrays), **calls}
+    args = k3_library_args(call)
+    if args is not None:
+        lib = torch.einsum(*args)
+        check(torch.allclose(lib, want, rtol=1e-5, atol=1e-6 * float(want.abs().max())),
+              f"k3 {name}: torch.einsum differs from the plain version")
+        calls["library"] = lambda: torch.einsum(*args)
+    times = turns_ms(calls)
+    ms = times["kernel"][0]
+    parent_ms = times["parent"][0] if "parent" in times else None
+    library_ms = times["library"][0] if "library" in times else None
+    plain_ms = cuda_median_ms(lambda: einsum.sum_product_reference(axes, out, arrays))
+    nbytes = sum(a.numel() * a.element_size() for a in arrays) + got.numel() * got.element_size()
+    bound_ms, bound_by = bound(nbytes, 2 * int(table.unions.sum()))
+    log(f"k3 {table.schedule} {name} operands={len(arrays)} steps={len(table.steps)} "
+        f"unions={int(table.unions.sum())} kernel_ms={ms:.5f} parent_ms="
+        f"{'not timed' if parent_ms is None else f'{parent_ms:.5f} ({old_table.schedule})'} "
+        f"torch_einsum_ms={'none' if library_ms is None else f'{library_ms:.5f}'} (device time, "
+        f"each the smaller median of 20 of two turns: "
+        + " ".join(f"{k} " + "/".join(f"{t:.5f}" for t in v[1]) for k, v in times.items())
+        + f") plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) max_abs_err={err:.3e}")
+    row = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    if parent:
+        row["parent_ms"] = parent_ms
+    return row
+
+
+def k3_schedules(name, call):
+    """Both schedules' device time on one captured contraction (median of 20
+    behind a device sleep; ``plan_block`` only where one block walks its
+    unions in reasonable time), beside the plan's numbers the choice reads:
+    the data ``BLOCK_UNION`` is set from.  Also checks that the dispatch
+    makes exactly one launch, of the schedule the plan chooses."""
+    from pgmpy_tpu_torch.ops import einsum
+
+    axes, out, arrays = call
+    table = k3_table(call)
+    einsum.reset_launches()
+    einsum.sum_product_planned(axes, out, arrays)
+    check(einsum.LAUNCHES == {**{k: 0 for k in einsum.LAUNCHES}, table.schedule: 1},
+          f"k3 {name}: the contraction made {einsum.LAUNCHES}, not one {table.schedule} launch")
+    times = {}
+    for schedule in ("plan_block", "plan_grid"):
+        forced = k3_table(call, schedule)
+        if schedule == "plan_block" and int(forced.unions.sum()) > K3_BLOCK_CHECK_UNIONS:
+            times[schedule] = None
+            continue
+        times[schedule] = cuda_median_ms(lambda: einsum.launch_plan(forced, arrays),
+                                         device_only=True)
+    fmt = {k: "not timed" if v is None else f"{v:.5f}" for k, v in times.items()}
+    log(f"k3_schedules {name} steps={len(table.steps)} max_union={int(table.unions.max())} "
+        f"unions={int(table.unions.sum())} chosen={table.schedule} (BLOCK_UNION "
+        f"{einsum.BLOCK_UNION}) plan_block_ms={fmt['plan_block']} plan_grid_ms="
+        f"{fmt['plan_grid']} (device time, median of 20) launches=1")
+    return times
 
 
 # --------------------------------------------------------------------------- #
@@ -2145,7 +2234,7 @@ def k8_kernel_rows(context):
             f"{float(want.accepted.float().mean()):.3f}")
 
     target = nuts.log_pdf
-    parent_hmc = PARENT["modules"]["hmc"] if PARENT else None
+    parent_hmc = PARENT.get("modules", {}).get("hmc")
     parent_target = None if parent_hmc is None else parent_hmc.GaussianTarget(
         target.mean.cpu().numpy(), target.precision.cpu().double().numpy(), dtype=target.dtype,
         device=target.device)
@@ -3664,14 +3753,14 @@ def phase_loopy():
     table_launches, bincount_launches = bc.TABLE_LAUNCHES, bc.LAUNCHES
     record_jt("loopy")
     log(f"loopy_path table_count_launches {table_launches} bincount_launches {bincount_launches}")
-    check(grid_launches == {"flood": 1, "plan_block": 0, "plan_step": 0},
+    check(grid_launches == {"flood": 1, "plan_block": 0, "plan_grid": 0},
           f"loopy grid query: launches {grid_launches} (want one flood and no K3)")
-    check(loopy_k3 == {"plan_block": 0, "plan_step": 0},
+    check(loopy_k3 == {"plan_block": 0, "plan_grid": 0},
           f"loopy BP's three queries launched K3: {loopy_k3}")
     log(f"loopy_launches grid_query {grid_launches}; the three loopy BP queries (grid, star, "
         f"8 x 8) flood {GATHER_PATH_LAUNCHES['loopy']['loopy_bp/flood']} K3 {loopy_k3}; path B's "
         f"K3 after Mplp: plan_block {GATHER_PATH_LAUNCHES['loopy']['einsum_plan/plan_block']} "
-        f"plan_step {GATHER_PATH_LAUNCHES['loopy']['einsum_plan/plan_step']}")
+        f"plan_grid {GATHER_PATH_LAUNCHES['loopy']['einsum_plan/plan_grid']}")
 
     # ---- the grid: the CPU run, rounds, the query's time and where it goes
     query_s = host_median_s(lambda: bp.query(variables, virtual_evidence=virtual), reps=2)
@@ -5317,26 +5406,34 @@ def phase_parallel(model, context):
 # each against its plain version at MUNIN's width, timed beside its bound
 # --------------------------------------------------------------------------- #
 K5_NOISE_ROWS = 4096
-# operations per (row, drawn state) of the sweep: a quarter of a Philox-4x32-10
-# block (10 rounds of 2 high and 2 low multiplies, 4 xors and 2 key adds), the
-# uniform, two logarithms, a max, a subtraction and a comparison
+# operations per (chain, state) of the exponential race (the Gibbs sweep's
+# draw): a quarter of a Philox-4x32-10 block (10 rounds of 2 high and 2 low
+# multiplies, 4 xors and 2 key adds), the uniform, two logarithms, a max, a
+# subtraction and a comparison
 K5_OPS_PER_STATE = 25 + 7
+# the ancestral sweep's inverse-CDF draw: per (row, drawn node) a quarter of a
+# Philox block and the uniform's conversion and scale, per (row, drawn state)
+# a comparison and an add
+K5_OPS_PER_NODE = 25 + 2
+K5_OPS_PER_CDF_STATE = 2
 
 
 def k5_kernel_row(sampler, n_sim):
     """K5 on MUNIN: the kernel against its plain version on explicit noise
     (4,096 rows; a plain draw, evidence on the last node, and clamps with
     partial codes: codes and log weights equal to the bit), its device time
-    at the simulate shape (``n_sim`` rows, Philox from a generator; median of
-    20 behind a device sleep), the plain version's (CUDA events around its
-    eager ops, median of 5) and the card's bound."""
-    from pgmpy_tpu_torch.config import config
+    at the simulate shape (``n_sim`` rows, Philox from a generator) beside
+    the parent commit's kernel where it is unpacked, in turns (parent,
+    kernel, kernel, parent; each the smaller median of 20 behind a device
+    sleep), the plain version's (CUDA events around its eager ops, median of
+    5) and the card's bound."""
     from pgmpy_tpu_torch.ops import ancestral
-    from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+    from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
     sweep = sampler._sweep_tables
     d, n = len(sweep.cards), K5_NOISE_ROWS
-    noise = race_noise((sum(sweep.cards), n), seeded_generator(SEED), config.DTYPE)
+    noise = torch.rand((d, n), generator=seeded_generator(SEED), dtype=torch.float64,
+                       device=sweep.device)
     rng = np.random.default_rng(SEED)
     roots = [i for i, (parents, _, _) in enumerate(sampler._node_specs) if not parents]
     given = np.full(d, -1)
@@ -5353,19 +5450,35 @@ def k5_kernel_row(sampler, n_sim):
         check(got[1] is None if "evidence" not in kwargs else torch.equal(got[1], want[1]),
               f"k5 {case}: the kernel's log weights differ from the plain version's")
     gen = seeded_generator(SEED)
-    ms = cuda_median_ms(lambda: ancestral.sweep_cuda(sweep, n_sim, gen), device_only=True)
+    old = PARENT.get("modules", {}).get("ancestral")
+    parent = None
+    if old is not None:
+        old_sweep = old.SweepTables(sampler._node_specs, sampler.cards, sampler._out_dtype)
+        parent = lambda: old.sweep_cuda(old_sweep, n_sim, gen)  # noqa: E731
+    ms, parent_ms, runs = paired_ms(lambda: ancestral.sweep_cuda(sweep, n_sim, gen), parent)
     plain_ms = cuda_median_ms(lambda: ancestral.sweep_reference(sweep, n_sim, gen), reps=5,
                               warmup=1)
+    code_bytes = sampler._out_dtype.itemsize
+    rows, _, shared = ancestral.plan_tile(
+        d, code_bytes, sweep.groups, n_sim,
+        torch.cuda.get_device_properties(sweep.device).multi_processor_count, sweep.stage_bytes,
+        ancestral.card_resident(sweep.device, sweep.node_specs[0][2].element_size(), code_bytes))
     nbytes = n_sim * d * sampler._out_dtype.itemsize + 4 * sweep.total + sweep.nodes.nbytes
-    bound_ms, bound_by = bound(nbytes, n_sim * sum(sweep.cards) * K5_OPS_PER_STATE)
+    bound_ms, bound_by = bound(nbytes, n_sim * (d * K5_OPS_PER_NODE
+                                                + sum(sweep.cards) * K5_OPS_PER_CDF_STATE))
     log(f"k5 sweep rows={n_sim} nodes={d} states={sum(sweep.cards)} codes={sampler._out_dtype} "
         f"explicit-noise checks at {n} rows (draw, evidence, clamps and partial codes): codes and "
-        f"log weights equal to the bit; kernel_ms={ms:.5f} (device time, Philox, median of 20) "
-        f"plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
-        f"{K5_OPS_PER_STATE} operations per row and state, the codes written once: "
+        f"log weights equal to the bit; groups={sweep.groups} levels={sweep.n_levels} "
+        f"stage_nodes={sweep.stage_nodes} rows_a_block={rows} shared_bytes={shared} "
+        f"blocks={-(-n_sim // rows)} kernel_ms={ms:.5f} parent_ms="
+        f"{'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, Philox, "
+        f"each the smaller median of 20 of two turns: " + "/".join(f"{t:.5f}" for t in runs)
+        + f") plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{K5_OPS_PER_NODE} operations per row and node, {K5_OPS_PER_CDF_STATE} per row and "
+        f"state, the codes written once: "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: none")
     return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "parent_ms": parent_ms}
 
 
 # K6's timed shapes beside MUNIN's 4,096 chains: HEPAR2 as the MCMC path
@@ -5459,7 +5572,7 @@ def k6_kernel_row(gibbs, init):
     from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
 
     def parent_tables(tables):
-        if not PARENT:
+        if "gibbs" not in PARENT.get("modules", {}):
             return None
         return PARENT["modules"]["gibbs"].GibbsTables(tables.var_specs, tables.cards,
                                                       tables.out_dtype)
@@ -5493,12 +5606,13 @@ def k9_kernel_row(pf, particles, evidence):
     particles with the filter's evidence on the leaves, against the plain
     version on explicit noise (codes and log weights equal to the bit), its
     device time at the filter's shape (Philox; median of 20 behind a device
-    sleep), the plain version's (median of 5), the card's bound, and beside
-    it the slice's library calls timed the same way: the softmax with the
-    effective sample size, and the systematic resample."""
+    sleep; beside the parent commit's kernel in turns where it is unpacked),
+    the plain version's (median of 5), the card's bound, and beside it the
+    slice's library calls timed the same way: the softmax with the effective
+    sample size, and the systematic resample."""
     from pgmpy_tpu_torch.config import config
     from pgmpy_tpu_torch.ops import ancestral
-    from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+    from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
     n, d = pf.n_particles, len(pf.variables)
     tables = pf._trans_specs
@@ -5510,7 +5624,8 @@ def k9_kernel_row(pf, particles, evidence):
     check(bool(ev), "k9: the slice has no evidence")
     prev = torch.as_tensor(np.ascontiguousarray(particles.T),
                            device=tables.device).to(pf._out_dtype)
-    noise = race_noise((sum(tables.cards), n), seeded_generator(SEED), config.DTYPE)
+    noise = torch.rand((d, n), generator=seeded_generator(SEED), dtype=torch.float64,
+                       device=tables.device)
     got = ancestral.sweep_cuda(tables, n, None, evidence=ev, noise=noise, prev=prev,
                                out=pf._code_matrix())
     want = ancestral.sweep_reference(tables, n, None, evidence=ev, noise=noise, prev=prev,
@@ -5520,8 +5635,15 @@ def k9_kernel_row(pf, particles, evidence):
           "noise")
     gen = seeded_generator(SEED)
     out = pf._code_matrix()
-    ms = cuda_median_ms(lambda: ancestral.sweep_cuda(tables, n, gen, evidence=ev, prev=prev,
-                                                     out=out), device_only=True)
+    old = PARENT.get("modules", {}).get("ancestral")
+    parent = None
+    if old is not None:
+        old_tables = old.SweepTables(tables.node_specs, tables.cards, pf._out_dtype,
+                                     columns=tables.columns, particle=True)
+        parent = lambda: old.sweep_cuda(old_tables, n, gen, evidence=ev, prev=prev,  # noqa: E731
+                                        out=out)
+    ms, parent_ms, runs = paired_ms(
+        lambda: ancestral.sweep_cuda(tables, n, gen, evidence=ev, prev=prev, out=out), parent)
     plain_ms = cuda_median_ms(lambda: ancestral.sweep_reference(tables, n, gen, evidence=ev,
                                                                 prev=prev, out=out),
                               reps=5, warmup=1)
@@ -5531,7 +5653,10 @@ def k9_kernel_row(pf, particles, evidence):
               + elem * tables.total + tables.nodes.nbytes)
     drawn = sum(c for i, c in enumerate(tables.cards) if i not in ev)
     parents = sum(len(ps) for ps, _, _ in tables.node_specs)
-    bound_ms, bound_by = bound(nbytes, n * (drawn * K5_OPS_PER_STATE + 2 * parents + len(ev)))
+    drawn_nodes = len(tables.cards) - len(ev)
+    bound_ms, bound_by = bound(nbytes, n * (drawn_nodes * K5_OPS_PER_NODE
+                                            + drawn * K5_OPS_PER_CDF_STATE + 2 * parents
+                                            + len(ev)))
     logw = got[1]
     offset = torch.rand((), generator=gen, dtype=config.DTYPE, device=prev.device)
 
@@ -5544,15 +5669,18 @@ def k9_kernel_row(pf, particles, evidence):
                                  device_only=True)
     log(f"k9 particle_sweep particles={n} variables={d} drawn_states={drawn} "
         f"evidence_nodes={len(ev)} previous_slice_columns={len(prev_columns)} "
-        f"levels={tables.n_levels} codes={pf._out_dtype} explicit-noise check: codes and log "
-        f"weights equal to the bit; kernel_ms={ms:.5f} (device time, Philox, median of 20) "
-        f"plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
-        f"{K5_OPS_PER_STATE} operations per particle and drawn state; the codes written and the "
+        f"levels={tables.n_levels} groups={tables.groups} codes={pf._out_dtype} explicit-noise "
+        f"check: codes and log weights equal to the bit; kernel_ms={ms:.5f} parent_ms="
+        f"{'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, Philox, "
+        f"each the smaller median of 20 of two turns: " + "/".join(f"{t:.5f}" for t in runs)
+        + f") plain_ms={plain_ms:.3f} (median of 5) bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{K5_OPS_PER_NODE} operations per particle and drawn node, {K5_OPS_PER_CDF_STATE} per "
+        f"particle and drawn state; the codes written and the "
         f"previous slice's columns read once: {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms) library: "
         f"none; the slice's library calls: softmax_and_ess_ms={softmax_ms:.5f} "
         f"resample_ms={resample_ms:.5f} (float64 cumsum, searchsorted, index_select)")
     return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "parent_ms": parent_ms}
 
 
 def k10_kernel_row(infer, variables, evidence):
@@ -5711,9 +5839,11 @@ def build_kernels():
             log(f"ptxas {name} {line}")
 
 
-# the parent commit's K6 and K8 wrappers over its kernels, where
-# ``tools/parent_kernels.py unpack`` left them in the tree: {"rev", "modules"}
+# the parent commit's wrappers over its kernels, where ``tools/parent_kernels.py
+# unpack`` left them in the tree: {"rev", "modules"}; those timed beside this
+# tree's (K5 and K9, K3; K6 and K8 whenever "gibbs" and "hmc" are added)
 PARENT = {}
+PARENT_WRAPPERS = {"ancestral": "ancestral.cu", "einsum": "einsum_plan.cu"}
 
 
 def parent_tool():
@@ -5727,15 +5857,15 @@ def parent_tool():
 
 
 def start_parent_builds():
-    """Start building the parent commit's ``gibbs.cu`` and ``hmc.cu`` beside
-    this tree's kernels where ``tools/parent_kernels.py unpack`` left them in
+    """Start building the parent commit's kernels of ``PARENT_WRAPPERS``
+    beside this tree's where ``tools/parent_kernels.py unpack`` left them in
     the tree (a checkout of the commit alone has none: its rows then say
     "not timed")."""
     tool = parent_tool()
     if not tool.available():
         log("parent kernels: none unpacked (tools/parent_kernels.py unpack): not timed")
         return None
-    return tool, tool.start_builds()
+    return tool, tool.start_builds(wrappers=PARENT_WRAPPERS)
 
 
 def load_parent(parent):

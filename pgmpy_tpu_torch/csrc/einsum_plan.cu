@@ -28,19 +28,27 @@
 // entries, each reading two inputs.
 //
 // What the design does about it:
-//   1. Two schedules, chosen on the host from the plan alone.  `plan_block`
-//      runs the whole plan in ONE launch of one block when every step's union
-//      is within ops/einsum.py:BLOCK_UNION (2^16): a step's descriptor is
-//      staged in shared memory while the previous step runs, one barrier per
-//      step, the intermediates in shared memory when they fit.  `plan_step`
-//      makes one launch per step over the whole grid for the rest.
+//   1. Two schedules, chosen on the host from the plan alone, each ONE launch
+//      a contraction.  `plan_block` runs the whole plan in one block when
+//      every step's union is within ops/einsum.py:BLOCK_UNION: a step's
+//      descriptor is staged in shared memory while the previous step runs,
+//      one barrier per step, the intermediates in shared memory when they
+//      fit.  `plan_grid` runs the rest as one cooperative launch of as many
+//      blocks as the card holds at once (the occupancy API), at most as many
+//      as the largest step's tasks fill: each step's (output, lane) tasks are
+//      strided over the whole grid, one grid barrier (grid.sync()) between
+//      consecutive steps, the next step's descriptor staged in shared memory
+//      while the current one runs, the intermediates in the global arena (a
+//      2,048-row MUNIN query_batch: 36,900 entries, which L2 holds); a
+//      launch per step would pay a launch latency and a kernel tail per step,
+//      eight in a row on that query_batch.
 //   2. Few outputs, long reductions: each output entry is summed by `lanes`
-//      threads (a power of two chosen per step: ~32 reduced entries a lane,
-//      more lanes while the block would idle), each over a contiguous chunk
-//      of the reduced entries walked by an odometer (no division per entry),
-//      then combined by warp shuffles and, past 32 lanes, shared memory, in a
-//      fixed order: a 3-state marginal of 141 k entries runs on 3 x 256
-//      threads, not on 3.
+//      threads (a power of two chosen per step: ~32 reduced entries a lane
+//      in a block, ~8 over the grid, more lanes while the block would idle),
+//      each over a contiguous chunk of the reduced entries walked by an
+//      odometer (no division per entry), then combined by warp shuffles and,
+//      past 32 lanes, shared memory, in a fixed order: a 3-state marginal of
+//      141 k entries runs on 3 x 256 threads, not on 3.
 //   3. Labels are merged on the host where every tensor walks two neighbours
 //      as one, and extent-1 labels dropped, so steps decode few digits (at
 //      most kMaxLabels output and kMaxLabels reduced labels; wider raises).
@@ -52,7 +60,7 @@
 //      the slice's steps with the block executor above, then normalises
 //      each result (a sum of 0 gives NaN, as m / m.sum() does): the queries
 //      into the output row, the interface into alpha.  Where the joint over
-//      the interface and the queries holds at most BLOCK_UNION entries, the
+//      the interface and the queries holds at most SCAN_JOINT entries, the
 //      slice is one contraction to that joint and a one-input step from it
 //      per output (ALARM: 81 steps a slice, where the 1 + 6 separate plans
 //      of the plain version take 518).
@@ -61,9 +69,12 @@
 // tables and calls the extern "C" launchers through ctypes on PyTorch's
 // current stream; each returns the launch's cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -72,7 +83,7 @@ constexpr int kHeader = 10;      // len(ops/einsum.py: HEADER)
 constexpr int kStepWords = kHeader + 6 * kMaxLabels;
 constexpr int kMaxOperands = 448;  // ops/einsum.py: MAX_OPERANDS
 constexpr int kBlockThreads = 512;  // ops/einsum.py: BLOCK_THREADS
-constexpr int kStepThreads = 256;   // ops/einsum.py: STEP_THREADS
+constexpr int kGridThreads = 256;   // ops/einsum.py: GRID_THREADS
 
 // header words of a step
 constexpr int kNIn = 0, kIn0 = 1, kIn1 = 2, kOut = 3, kNOut = 4, kNRed = 5, kOutCount = 6,
@@ -220,16 +231,29 @@ __global__ void __launch_bounds__(kBlockThreads)
   run_steps<T>(steps, n_steps, ops, arena, out, desc, scratch);
 }
 
+// Every step of a plan over the whole grid, one grid barrier between
+// consecutive steps (it also orders the block's staged descriptor).  The
+// barrier makes each step's writes to the arena visible to every block
+// before the next step reads them.
 template <typename T>
-__global__ void __launch_bounds__(kStepThreads)
-    plan_step_kernel(const long long* __restrict__ step, const __grid_constant__ Operands ops,
-                     T* arena, T* out) {
-  __shared__ long long desc[kStepWords];
-  __shared__ double scratch[kStepThreads / 32];
-  for (int i = threadIdx.x; i < kStepWords; i += blockDim.x) desc[i] = step[i];
+__global__ void __launch_bounds__(kGridThreads)
+    plan_grid_kernel(const long long* __restrict__ steps, int n_steps,
+                     const __grid_constant__ Operands ops, T* arena, T* out) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ long long desc[2][kStepWords];
+  __shared__ double scratch[kGridThreads / 32];
+  for (int i = threadIdx.x; i < kStepWords; i += blockDim.x) desc[0][i] = steps[i];
   __syncthreads();
-  run_tasks<T>(desc, ops, arena, out, scratch, (long long)blockIdx.x * blockDim.x,
-               (long long)gridDim.x * blockDim.x);
+  const long long first = (long long)blockIdx.x * blockDim.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) {
+      const long long* next = steps + (long long)(s + 1) * kStepWords;
+      for (int i = threadIdx.x; i < kStepWords; i += blockDim.x) desc[(s + 1) & 1][i] = next[i];
+    }
+    run_tasks<T>(desc[s & 1], ops, arena, out, scratch, first, stride);
+    if (s + 1 < n_steps) grid.sync();
+  }
 }
 
 // K10.  deltas: (arena offset, variable, state) per delta entry; results:
@@ -300,17 +324,48 @@ cudaError_t launch_block(const void* steps, int n_steps, const Operands& ops, vo
   return cudaGetLastError();
 }
 
+// blocks of a plan_grid launch: as many as the card holds at once (the
+// kernel's occupancy times the SMs, read once per device and type), at most
+// `wanted` (the largest step's tasks over kGridThreads)
 template <typename T>
-cudaError_t launch_steps(const void* steps, const long long* blocks, int n_steps,
-                         const Operands& ops, void* arena, void* out, cudaStream_t stream) {
-  const long long* table = static_cast<const long long*>(steps);
-  for (int s = 0; s < n_steps; ++s) {
-    plan_step_kernel<T><<<(unsigned)blocks[s], kStepThreads, 0, stream>>>(
-        table + (long long)s * kStepWords, ops, static_cast<T*>(arena), static_cast<T*>(out));
-    const cudaError_t err = cudaGetLastError();
+cudaError_t grid_blocks(long long wanted, int* blocks) {
+  static int resident[2][64];  // per element type and device; 0 until read
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  int& cached = resident[sizeof(T) == 8][device];
+  if (cached == 0) {
+    int sms = 0, cooperative = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
+    if (err == cudaSuccess && !cooperative) err = cudaErrorNotSupported;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan_grid_kernel<T>,
+                                                          kGridThreads, 0);
     if (err != cudaSuccess) return err;
+    if (per_sm * sms < 1) return cudaErrorInvalidConfiguration;
+    cached = per_sm * sms;
   }
+  *blocks = (int)(wanted < cached ? (wanted < 1 ? 1 : wanted) : cached);
   return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_grid(const void* steps, int n_steps, long long wanted, const Operands& ops,
+                        void* arena, void* out, cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = grid_blocks<T>(wanted, &blocks);
+  if (err != cudaSuccess) return err;
+  const long long* table = static_cast<const long long*>(steps);
+  T* arena_t = static_cast<T*>(arena);
+  T* out_t = static_cast<T*>(out);
+  void* args[] = {(void*)&table, (void*)&n_steps, (void*)&ops, (void*)&arena_t, (void*)&out_t};
+  err = cudaLaunchCooperativeKernel((const void*)plan_grid_kernel<T>, dim3(blocks),
+                                    dim3(kGridThreads), args, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -348,17 +403,19 @@ extern "C" int pgmpy_plan_block(const void* steps, int n_steps, const void* cons
   return (int)cudaErrorInvalidValue;
 }
 
-// One launch per step, blocks[s] blocks of kStepThreads for step s (a host
-// array); arena: the intermediates in global memory.
-extern "C" int pgmpy_plan_step(const void* steps, const long long* blocks, int n_steps,
+// The whole plan in one cooperative launch over the grid (plan_grid):
+// wanted, the blocks the largest step's tasks fill (the launch takes at most
+// as many as the card holds at once); arena: the intermediates in global
+// memory.
+extern "C" int pgmpy_plan_grid(const void* steps, int n_steps, long long wanted,
                                const void* const* host_ptrs, int n_ptrs, const void* many,
                                void* arena, void* out, int elem, void* stream) {
   Operands ops;  // copied into the launch's parameter block
   cudaError_t err = pack(ops, host_ptrs, n_ptrs, many);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem == 4) return (int)launch_steps<float>(steps, blocks, n_steps, ops, arena, out, s);
-  if (elem == 8) return (int)launch_steps<double>(steps, blocks, n_steps, ops, arena, out, s);
+  if (elem == 4) return (int)launch_grid<float>(steps, n_steps, wanted, ops, arena, out, s);
+  if (elem == 8) return (int)launch_grid<double>(steps, n_steps, wanted, ops, arena, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

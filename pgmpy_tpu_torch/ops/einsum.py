@@ -7,11 +7,12 @@ computed once per static (axes, shapes) signature and cached.
 
 * On CUDA tensors, the hand-written kernels of ``csrc/einsum_plan.cu`` (built
   with ``nvcc`` at first use) run the cached plan, compiled once per
-  signature into a table of steps (:class:`PlanTable`).  ``plan_block`` runs
-  the whole plan in ONE launch of one block when every step's union (output
-  entries x reduced entries) is at most ``BLOCK_UNION``; ``plan_step`` makes
-  one launch per step over the whole grid otherwise.  A build or launch
-  failure raises.
+  signature into a table of steps (:class:`PlanTable`), and run it in ONE
+  launch: ``plan_block`` runs the whole plan in one block when every step's
+  union (output entries x reduced entries) is at most ``BLOCK_UNION``;
+  ``plan_grid`` runs it otherwise as one cooperative launch over as many
+  blocks as the card holds at once, a grid barrier between steps.  A build
+  or launch failure raises.
 * On CPU tensors, the plain version :func:`_run_plan`: each step a two-operand
   (or one-operand) ``torch.einsum`` whose labels are renumbered into
   ``[0, 52)`` (``torch.einsum``'s sublist form rejects labels outside it, and
@@ -25,9 +26,9 @@ every slice's contractions run inside one ``filter_scan`` launch.
 It replaces ``pgmpy_tpu/ops/einsum.py:26`` ``sum_product``, ``:57``
 ``_cached_path`` and ``:73`` ``sum_product_planned`` (one XLA program per
 signature), and ``pgmpy_tpu/inference/dbn.py:131`` ``forward_scan``'s
-``lax.scan``.  ``LAUNCHES`` counts each K3 kernel's launches (one per step
-for ``plan_step``), ``SCAN_LAUNCHES`` the filter's; :func:`reset_launches`
-zeroes both.
+``lax.scan``.  ``LAUNCHES`` counts each K3 kernel's launches (one a
+contraction), ``SCAN_LAUNCHES`` the filter's; :func:`reset_launches` zeroes
+both.
 """
 
 import ctypes
@@ -37,14 +38,21 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-BLOCK_UNION = 1 << 16  # plan_block when no step's union is larger
+# plan_block when no step's union is larger, else plan_grid: on the card, one
+# block was 1.5x faster than the grid on a MUNIN VE query (28 steps, unions up
+# to 1,080) and 1.4-1.7x slower on a BP query (8 steps, up to 12,000) and a
+# do-query (8 steps, up to 46,656); the grid's barrier costs as much as one
+# block's step of ~2,000-6,000 union entries
+BLOCK_UNION = 1 << 13
+SCAN_JOINT = 1 << 16  # filter_scan: a slice's joint of at most so many entries is one contraction
 MAX_LABELS = 12  # output labels, and reduced labels, of one step after merging
 MAX_OPERANDS = 448  # operand pointers in the launch's parameter block (3,584 of 4,096 bytes)
 BLOCK_THREADS = 512  # plan_block's and filter_scan's one block
-STEP_THREADS = 256  # a block of plan_step
-LANE_ENTRIES = 32  # reduced entries a lane sums, aimed at
+GRID_THREADS = 256  # a block of plan_grid
+LANE_ENTRIES = 32  # reduced entries a lane sums, aimed at (plan_block)
+GRID_LANE_ENTRIES = 8  # the same for plan_grid, whose steps spread over the whole card
 SHARED_ARENA_BYTES = 160 * 1024  # a block's intermediates in shared memory up to this
-MAX_STEP_BLOCKS = 1 << 20  # plan_step's grid at most (its blocks stride over the rest)
+MAX_GRID_BLOCKS = 1 << 20  # plan_grid's blocks asked for at most (they stride over the rest)
 
 # one step of the table: a header, then MAX_LABELS words each of the output
 # extents, the reduced extents, and the first and second input's strides per
@@ -53,7 +61,7 @@ HEADER = ("n_in", "in0", "in1", "out", "n_out", "n_red", "out_count", "red_count
           "chunk")
 STEP_WORDS = len(HEADER) + 6 * MAX_LABELS
 
-LAUNCHES = {"plan_block": 0, "plan_step": 0}
+LAUNCHES = {"plan_block": 0, "plan_grid": 0}
 SCAN_LAUNCHES = 0
 
 
@@ -154,12 +162,12 @@ def _pow2_ceil(x):
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def step_lanes(out_count, red_count, threads):
+def step_lanes(out_count, red_count, threads, entries=LANE_ENTRIES):
     """Lanes per output entry of a step (a power of two, at most ``threads``):
-    enough that each sums about ``LANE_ENTRIES`` reduced entries, more while
+    enough that each sums about ``entries`` reduced entries, more while
     the block's threads would otherwise idle, never more than the reduced
     entries."""
-    lanes = _pow2_ceil(-(-red_count // LANE_ENTRIES)) if red_count else 1
+    lanes = _pow2_ceil(-(-red_count // entries)) if red_count else 1
     if out_count * lanes < threads:
         lanes = max(lanes, 1 << (threads // max(out_count, 1)).bit_length() - 1)
     return max(1, min(lanes, _pow2_ceil(max(red_count, 1)), threads))
@@ -328,11 +336,11 @@ def compile_steps(operand_axes, out_axes, shapes, strides, plan, slots, out_slot
     return table, unions, arena.end
 
 
-def set_lanes(table, threads):
+def set_lanes(table, threads, entries=LANE_ENTRIES):
     """Fill each row's lanes and chunk (reduced entries a lane sums) for
-    blocks of ``threads``."""
+    blocks of ``threads``, each lane aimed at ``entries`` reduced entries."""
     for row in table:
-        lanes = step_lanes(int(row[6]), int(row[7]), threads)
+        lanes = step_lanes(int(row[6]), int(row[7]), threads, entries)
         row[8] = lanes
         row[9] = -(-int(row[7]) // lanes)
     return table
@@ -340,17 +348,19 @@ def set_lanes(table, threads):
 
 def choose_schedule(unions):
     """``"plan_block"`` when no step's union exceeds ``BLOCK_UNION``, else
-    ``"plan_step"``: decided from the plan alone."""
-    return "plan_block" if int(max(unions, default=0)) <= BLOCK_UNION else "plan_step"
+    ``"plan_grid"``: decided from the plan alone."""
+    return "plan_block" if int(max(unions, default=0)) <= BLOCK_UNION else "plan_grid"
 
 
 class PlanTable:
     """One signature's compiled plan: the steps (``steps``, int64 rows of
     ``STEP_WORDS``), the schedule (``"plan_block"`` where every step's union
-    is within ``BLOCK_UNION``, else ``"plan_step"``), the arena of
+    is within ``BLOCK_UNION``, else ``"plan_grid"``), the arena of
     intermediates (``arena`` elements; in shared memory for ``plan_block``
-    when ``arena * itemsize <= SHARED_ARENA_BYTES``), and per ``plan_step``
-    step its grid.  Uploaded once per device (:meth:`on`)."""
+    when ``arena * itemsize <= SHARED_ARENA_BYTES``), and for ``plan_grid``
+    the blocks its largest step's tasks fill (``grid``; the launch takes at
+    most as many as the card holds at once).  Uploaded once per device
+    (:meth:`on`)."""
 
     def __init__(self, operand_axes, out_axes, shapes, strides, itemsize, plan, schedule=None):
         slots = list(range(len(operand_axes)))
@@ -358,10 +368,11 @@ class PlanTable:
             operand_axes, out_axes, shapes, strides, plan, slots, -1, 0)
         self.out_shape = tuple(label_sizes(operand_axes, shapes)[a] for a in out_axes)
         self.schedule = schedule or choose_schedule(self.unions)
-        threads = BLOCK_THREADS if self.schedule == "plan_block" else STEP_THREADS
-        self.steps = set_lanes(steps, threads)
+        block = self.schedule == "plan_block"
+        self.steps = set_lanes(steps, BLOCK_THREADS if block else GRID_THREADS,
+                               LANE_ENTRIES if block else GRID_LANE_ENTRIES)
         tasks = self.steps[:, 6] * self.steps[:, 8]
-        self.blocks = np.clip(-(-tasks // STEP_THREADS), 1, MAX_STEP_BLOCKS).astype(np.int64)
+        self.grid = int(np.clip(-(-int(tasks.max()) // GRID_THREADS), 1, MAX_GRID_BLOCKS))
         self.shared = (self.schedule == "plan_block"
                        and self.arena * itemsize <= SHARED_ARENA_BYTES)
         self._device = {}
@@ -392,10 +403,10 @@ def _library():
     lib = load_library("einsum_plan", ["einsum_plan.cu"])
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pgmpy_plan_block.argtypes = [vp, i32, vp, i32, vp, vp, vp, i64, i32, vp]
-    lib.pgmpy_plan_step.argtypes = [vp, vp, i32, vp, i32, vp, vp, vp, i32, vp]
+    lib.pgmpy_plan_grid.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp, i32, vp]
     lib.pgmpy_filter_scan.argtypes = [vp, i32, vp, i32, vp, i32, vp, i32, vp, vp, i64, vp, i32,
                                       vp, i32, i32, vp, i32, i32, vp]
-    for fn in (lib.pgmpy_plan_block, lib.pgmpy_plan_step, lib.pgmpy_filter_scan):
+    for fn in (lib.pgmpy_plan_block, lib.pgmpy_plan_grid, lib.pgmpy_filter_scan):
         fn.restype = ctypes.c_int
     return lib
 
@@ -433,9 +444,9 @@ def _run_plan_cuda(operand_axes, out_axes, arrays, optimize):
 
 
 def launch_plan(table, arrays):
-    """One ``plan_block`` launch, or one ``plan_step`` launch per step, of a
-    :class:`PlanTable` over ``arrays`` (the shapes and strides it was
-    compiled for) on the current stream -> the contraction."""
+    """One ``plan_block`` or ``plan_grid`` launch of a :class:`PlanTable`
+    over ``arrays`` (the shapes and strides it was compiled for) on the
+    current stream -> the contraction."""
     device, dtype = _check_operands(arrays)
     with torch.cuda.device(device):
         steps = table.on(device)
@@ -451,16 +462,14 @@ def launch_plan(table, arrays):
                 steps.data_ptr(), len(table.steps), host, n,
                 0 if many is None else many.data_ptr(), 0 if arena is None else arena.data_ptr(),
                 out.data_ptr(), table.arena * elem if table.shared else 0, elem, stream)
-            launches = 1
         else:
-            err = lib.pgmpy_plan_step(
-                steps.data_ptr(), table.blocks.ctypes.data, len(table.steps), host, n,
+            err = lib.pgmpy_plan_grid(
+                steps.data_ptr(), len(table.steps), table.grid, host, n,
                 0 if many is None else many.data_ptr(), arena.data_ptr(), out.data_ptr(), elem,
                 stream)
-            launches = len(table.steps)
     if err != 0:
         raise RuntimeError(f"einsum_plan {table.schedule} launch failed: cudaError_t {err}")
-    LAUNCHES[table.schedule] += launches
+    LAUNCHES[table.schedule] += 1
     return out
 
 
@@ -524,7 +533,7 @@ class ScanProgram:
     result per output, then (``merged``) the joint, then the intermediates
     from ``base`` up.  Per slice the kernel fills the deltas from that
     slice's row of codes and runs the steps (block schedule): where the
-    joint over the interface and the queries holds at most ``BLOCK_UNION``
+    joint over the interface and the queries holds at most ``SCAN_JOINT``
     entries (``merged``), one planned contraction to the joint and a
     one-input step from it to each output; otherwise each output's own
     plan, as the plain version runs them.  Then it normalises each result:
@@ -570,7 +579,7 @@ class ScanProgram:
         # hold it: one contraction, then each output a one-input step from it
         joint = tuple(dict.fromkeys(a for labels in outputs[::-1] for a in labels))
         joint_entries = math.prod(size[a] for a in joint)
-        self.merged = joint_entries <= BLOCK_UNION
+        self.merged = joint_entries <= SCAN_JOINT
         tables = []
         if self.merged:
             self.base = offset + joint_entries

@@ -4,9 +4,10 @@ sampling.
 Port of ``pgmpy_tpu/sampling/core.py``.  CPDs are stacked per node as
 ``(prod(parent_cards), card)`` log-probability tables on ``config.DEVICE``;
 one sweep walks the (static) topological order, forms each node's flat
-parent-configuration index from its parents' columns, gathers the table rows
-and draws all n samples at once (Gumbel-max on noise from ONE explicit
-``torch.Generator`` seeded from ``seed``): the batch dimension IS the
+parent-configuration index from its parents' columns, gathers the rows of
+its cumulative probabilities and draws all n samples at once (the inverse
+CDF on one uniform per row from ONE explicit ``torch.Generator`` seeded from
+``seed``): the batch dimension IS the
 vectorization, no host round-trips.  Likelihood weighting accumulates
 ``log p(evidence | parents)`` in the same sweep.
 

@@ -1,5 +1,5 @@
 """A numpy walk of the step tables that ``csrc/einsum_plan.cu`` reads (K3's
-``plan_block`` / ``plan_step``, K10's ``filter_scan``): the only CPU check of
+``plan_block`` / ``plan_grid``, K10's ``filter_scan``): the only CPU check of
 what the CUDA threads compute.
 
 Each step row is read word by word as the kernel reads it: its inputs' slots
@@ -9,8 +9,12 @@ the lanes and chunk each output entry is split into.  Every (output, lane)
 sums its chunk of reduced entries, then the lanes are added.  The walk also
 asserts what the kernels take for granted: lanes a power of two that divides
 the block, the chunks covering every reduced entry, a step's output never
-overlapping a live intermediate, and every intermediate read once after it
-is written.  ``random_signature`` makes the seeded contractions both the
+overlapping a live intermediate nor the step's own inputs (the threads of a
+step, in one block or over the grid, read while others write; only the
+barrier after the step orders them), and every intermediate read once, by a
+later step than the one that wrote it.  :func:`grid_cover` walks
+``plan_grid``'s stride: every (output, lane) task of every step is worked
+exactly once by a grid of any size.  ``random_signature`` makes the seeded contractions both the
 CPU and the card's tests run."""
 
 import math
@@ -50,6 +54,7 @@ def walk_steps(rows, operands, arena, out, threads, base=0, live=None):
         assert oc == math.prod(int(e) for e in ext_o) and rc == math.prod(int(e) for e in ext_r)
         do, dr = _digits(ext_o, oc), _digits(ext_r, rc)
         prod = np.ones((oc, rc))
+        read = []  # the step's arena inputs: (offset, size)
         for k, slot in enumerate((in0, in1)[:n_in]):
             s_o = row[h + (2 + 2 * k) * L:h + (2 + 2 * k) * L + n_out]
             s_r = row[h + (3 + 2 * k) * L:h + (3 + 2 * k) * L + n_red]
@@ -60,7 +65,7 @@ def walk_steps(rows, operands, arena, out, threads, base=0, live=None):
                 offset = -1 - slot
                 if offset >= base:  # an intermediate: read once, then dead
                     assert offset in live, f"step reads arena {offset}, never written or read"
-                    del live[offset]
+                    read.append((offset, live.pop(offset)))
                 source = arena[offset:]
             if offsets.size:
                 prod = prod * source[offsets]
@@ -71,26 +76,48 @@ def walk_steps(rows, operands, arena, out, threads, base=0, live=None):
             out[:oc] = result
         else:
             if oslot >= base:
-                for start, size in live.items():
+                for start, size in list(live.items()) + read:
                     assert oslot + max(oc, 1) <= start or start + size <= oslot, \
-                        "a step's output overlaps a live intermediate"
+                        "a step's output overlaps a live intermediate or its own input"
                 live[oslot] = max(oc, 1)
             arena[oslot:oslot + oc] = result
     return live
 
 
+def grid_cover(table, blocks, threads=E.GRID_THREADS):
+    """``plan_grid``'s stride over ``blocks`` blocks of ``threads``: thread j
+    of block b works tasks ``b * threads + j + k * blocks * threads`` of every
+    step (``run_tasks``); asserts that each (output, lane) task of each step
+    is worked exactly once.  Returns the rounds of the largest step."""
+    stride = blocks * threads
+    rounds = 0
+    for row in table.steps:
+        tasks = int(row[6]) * int(row[8])
+        steps_rounds = -(-tasks // stride)
+        worked = (np.arange(stride)[:, None] + stride * np.arange(steps_rounds)[None, :]).ravel()
+        worked = worked[worked < tasks]
+        assert np.array_equal(np.bincount(worked, minlength=tasks), np.ones(tasks, np.int64)), \
+            "a task is worked twice or never"
+        rounds = max(rounds, steps_rounds)
+    return rounds
+
+
 def walk_plan(table, arrays, out_shape):
-    """A :class:`PlanTable` over torch ``arrays`` -> the contraction (float64)."""
-    threads = E.BLOCK_THREADS if table.schedule == "plan_block" else E.STEP_THREADS
+    """A :class:`PlanTable` over torch ``arrays`` -> the contraction (float64).
+    A ``plan_grid`` table's stride is walked at one block, at its ``grid``
+    (the blocks its largest step's tasks fill: one round) and between."""
+    threads = E.BLOCK_THREADS if table.schedule == "plan_block" else E.GRID_THREADS
     arena = np.full(max(table.arena, 1), np.nan)
     out = np.full(math.prod(out_shape), np.nan)
     live = walk_steps(table.steps, [flat(a) for a in arrays], arena, out, threads)
     assert not live, "an intermediate was never read"
-    if table.schedule == "plan_step":
+    if table.schedule == "plan_grid":
         tasks = table.steps[:, 6] * table.steps[:, 8]
-        assert (table.blocks >= 1).all() and (table.blocks <= E.MAX_STEP_BLOCKS).all()
-        covered = table.blocks * E.STEP_THREADS >= tasks
-        assert (covered | (table.blocks == E.MAX_STEP_BLOCKS)).all()
+        assert 1 <= table.grid <= E.MAX_GRID_BLOCKS
+        assert table.grid == min(E.MAX_GRID_BLOCKS, max(1, -(-int(tasks.max()) // threads)))
+        for blocks in sorted({1, 7, max(1, table.grid // 2), table.grid}):
+            grid_cover(table, blocks, threads)
+        assert table.grid == E.MAX_GRID_BLOCKS or grid_cover(table, table.grid, threads) <= 1
     return out.reshape(out_shape)
 
 

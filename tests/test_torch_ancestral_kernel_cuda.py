@@ -4,9 +4,10 @@ distribution.  Every test here needs a CUDA device and skips without one; on
 a GPU machine:
 ``python -m pytest tests/test_torch_ancestral_kernel_cuda.py -m cuda``.
 
-Tolerances: on the same explicit noise the kernel's codes and log weights
-equal the plain version's to the bit (both subtract, compare and add in the
-tables' type in node order).  Philox draws are held to the exact marginals
+Tolerances: on the same explicit noise (one float64 uniform per node and
+row) the kernel's codes and log weights equal the plain version's to the bit
+(both count the same CDF entries at or below the uniform, and add the
+evidence's log probabilities in the tables' type in node order).  Philox draws are held to the exact marginals
 within 5 standard errors plus 1e-4 per state."""
 
 import numpy as np
@@ -22,7 +23,7 @@ from pgmpy_tpu_torch.ops import ancestral
 from pgmpy_tpu_torch.sampling import CompiledAncestralSampler
 from pgmpy_tpu_torch.utils import get_example_model
 from pgmpy_tpu_torch.utils.interop import bn_from_numpy
-from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
 
 @pytest.fixture
@@ -51,7 +52,17 @@ def _model(name):
     if name == "random":
         names, edges, tuples = random_bn_tables(11, n_nodes=12)
         return bn_from_numpy(edges, tuples, nodes=names)
-    return get_example_model(name)
+    if name == "long":  # 400 binary nodes after a 130-state root: int32 rows past 48 KB
+        model = DiscreteBayesianNetwork([("a", "n0")] + [(f"n{k}", f"n{k + 1}")
+                                                          for k in range(399)])
+        rng = np.random.default_rng(1)
+        model.add_cpds(TabularCPD("a", 130, rng.dirichlet(np.ones(130))[:, None]),
+                       TabularCPD("n0", 2, rng.dirichlet(np.ones(2), 130).T, evidence=["a"],
+                                  evidence_card=[130]),
+                       *[TabularCPD(f"n{k + 1}", 2, rng.dirichlet(np.ones(2), 2).T,
+                                    evidence=[f"n{k}"], evidence_card=[2]) for k in range(399)])
+        return model
+    return get_example_model(name.split("_")[0])
 
 
 def _call(sampler, kind, n, seed):
@@ -72,9 +83,13 @@ def _call(sampler, kind, n, seed):
     return given, partial, evidence
 
 
-# MUNIN in float32, its working type; the others in both types
+# MUNIN in float32, its working type, at 4,096 rows and at the smoke's
+# simulate (52,048 rows); the others in both types; "long" opts its blocks
+# into more than 48 KB of shared memory
 NETWORKS = [("random", "float32"), ("random", "float64"), ("alarm", "float32"),
-            ("alarm", "float64"), ("munin", "float32"), ("wide", "float32"), ("wide", "float64")]
+            ("alarm", "float64"), ("munin", "float32"), ("munin_simulate", "float32"),
+            ("wide", "float32"), ("wide", "float64"), ("long", "float32")]
+ROWS = {"munin": 4096, "munin_simulate": 52_048}
 
 
 @pytest.mark.cuda
@@ -83,10 +98,14 @@ NETWORKS = [("random", "float32"), ("random", "float64"), ("alarm", "float32"),
 def test_explicit_noise_matches_plain_to_the_bit(on_cuda, name, dtype, kind):
     config.set_dtype(dtype)
     sampler = CompiledAncestralSampler(_model(name))
-    n = 4096 if name == "munin" else 3001
+    n = ROWS.get(name, 3001)
     given, partial, evidence = _call(sampler, kind, n, 7)
     sweep = sampler._sweep_tables
-    noise = race_noise((sum(sweep.cards), n), seeded_generator(3), config.DTYPE)
+    if name == "long":
+        rows, _, shared = ancestral.plan_tile(401, 4, sweep.groups, n)
+        assert rows == 32 and shared > 48 * 1024
+    noise = torch.rand((len(sweep.cards), n), generator=seeded_generator(3),
+                       dtype=torch.float64, device="cuda")
     before = ancestral.LAUNCHES
     codes, logw = ancestral.sweep_cuda(sweep, n, None, given, partial, evidence, noise)
     assert ancestral.LAUNCHES == before + 1

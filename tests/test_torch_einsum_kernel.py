@@ -1,6 +1,6 @@
 """The planned contraction (K3) on the CPU, and what a CPU test can see of its
 CUDA route (``csrc/einsum_plan.cu``): the step tables ``plan_block`` and
-``plan_step`` read, walked in numpy (``tests/_torch_einsum_walk.py``) against
+``plan_grid`` read, walked in numpy (``tests/_torch_einsum_walk.py``) against
 the plain version, and the choice between the two schedules.
 
 Tolerances: the plain version against ``pgmpy_tpu``'s jitted einsum in
@@ -73,7 +73,7 @@ def test_more_than_52_labels():
                                rtol=1e-12)
 
 
-@pytest.mark.parametrize("schedule", ["plan_block", "plan_step"])
+@pytest.mark.parametrize("schedule", ["plan_block", "plan_grid"])
 @pytest.mark.parametrize("batch", [False, True])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_table_walk_matches_plain(seed, batch, schedule):
@@ -84,7 +84,7 @@ def test_table_walk_matches_plain(seed, batch, schedule):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
-@pytest.mark.parametrize("schedule", ["plan_block", "plan_step"])
+@pytest.mark.parametrize("schedule", ["plan_block", "plan_grid"])
 @pytest.mark.parametrize("case", ["transposed", "broadcast", "scalar_only", "copy", "permute",
                                   "diagonal", "zero_output", "zero_reduced", "one_operand_sum"])
 def test_table_walk_edge_cases(case, schedule):
@@ -110,18 +110,21 @@ def test_table_walk_edge_cases(case, schedule):
 
 
 def test_schedule_is_decided_from_the_plan():
+    """The schedule follows ``BLOCK_UNION`` from the plan alone: one step of
+    3 x m union entries, m on either side of ``BLOCK_UNION / 3``."""
     assert E.plan_table(((0, 1), (1, 2)), (2,), ((4, 8), (8, 16)), ((8, 1), (16, 1)),
                         4).schedule == "plan_block"
-    # a union of 2^16 + 2 entries in one step
-    big = ((0, 1), (1,))
-    shapes = ((3, 21846), (21846,))
-    table = E.plan_table(big, (0,), shapes, ((21846, 1), (1,)), 4)
-    assert int(table.unions.max()) == 3 * 21846 > E.BLOCK_UNION
-    assert table.schedule == "plan_step"
-    # the long reduction is spread over a block's lanes, not 3 threads
-    assert int(table.steps[-1, 8]) == E.STEP_THREADS
+    for over in (False, True):
+        m = E.BLOCK_UNION // 3 + (1 if over else 0)
+        table = E.plan_table(((0, 1), (1,)), (0,), ((3, m), (m,)), ((m, 1), (1,)), 4)
+        assert (int(table.unions.max()) > E.BLOCK_UNION) == over
+        assert table.schedule == ("plan_grid" if over else "plan_block")
+    # the long reduction is spread over a block's lanes, not 3 threads, and
+    # the grid is what the largest step's tasks fill
+    assert int(table.steps[-1, 8]) == E.step_lanes(3, m, E.GRID_THREADS, E.GRID_LANE_ENTRIES)
+    assert table.grid == -(-3 * int(table.steps[-1, 8]) // E.GRID_THREADS)
     assert E.choose_schedule([E.BLOCK_UNION]) == "plan_block"
-    assert E.choose_schedule([1, E.BLOCK_UNION + 1]) == "plan_step"
+    assert E.choose_schedule([1, E.BLOCK_UNION + 1]) == "plan_grid"
 
 
 @pytest.mark.parametrize("out_count,red_count,threads", [
@@ -168,7 +171,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     E.reset_launches()
     got = E.sum_product(((0, 1), (1,)), (0,), torch.ones(2, 3), torch.ones(3))
     assert torch.equal(got, torch.full((2,), 3.0))
-    assert E.LAUNCHES == {"plan_block": 0, "plan_step": 0} and E.SCAN_LAUNCHES == 0
+    assert E.LAUNCHES == {"plan_block": 0, "plan_grid": 0} and E.SCAN_LAUNCHES == 0
 
 
 @pytest.mark.slow

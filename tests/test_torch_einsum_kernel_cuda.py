@@ -1,4 +1,4 @@
-"""K3 on the card: ``plan_block`` and ``plan_step`` (``csrc/einsum_plan.cu``)
+"""K3 on the card: ``plan_block`` and ``plan_grid`` (``csrc/einsum_plan.cu``)
 against the plain version (``sum_product_reference``: one ``torch.einsum``
 per plan step) on the same card, the dispatch of ``sum_product_planned`` and
 its launch counters.  Every test here needs a CUDA device and skips without
@@ -40,7 +40,7 @@ def forced(axes, out, tensors, schedule):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("schedule", ["plan_block", "plan_step"])
+@pytest.mark.parametrize("schedule", ["plan_block", "plan_grid"])
 @pytest.mark.parametrize("batch", [False, True])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_schedule_matches_plain(cuda, seed, batch, schedule, dtype):
@@ -54,10 +54,11 @@ def test_schedule_matches_plain(cuda, seed, batch, schedule, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("schedule", ["plan_block", "plan_step"])
+@pytest.mark.parametrize("schedule", ["plan_block", "plan_grid"])
 @pytest.mark.parametrize("case", ["transposed", "broadcast", "scalar_only", "copy", "permute",
                                   "diagonal", "zero_output", "zero_reduced", "one_operand_sum",
-                                  "long_reduction", "many_operands"])
+                                  "long_reduction", "many_operands", "many_outputs",
+                                  "query_batch"])
 def test_edge_cases(cuda, case, schedule):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -79,6 +80,13 @@ def test_edge_cases(cuda, case, schedule):
         # past the parameter block's MAX_OPERANDS pointers
         "many_operands": ([(i, i + 1) for i in range(E.MAX_OPERANDS + 20)],
                           (0, E.MAX_OPERANDS + 20), [t(2, 2) for _ in range(E.MAX_OPERANDS + 20)]),
+        # 1,000,000 outputs of 4 reduced entries: more tasks than the grid's
+        # threads, so each thread strides over several rounds
+        "many_outputs": ([(0, 1), (1, 2)], (0, 2), [t(1000, 4), t(4, 1000)]),
+        # the shape of a 2,048-row MUNIN query_batch: a batch label on the
+        # evidence, unions of ~10^6 entries over a chain of steps
+        "query_batch": ([(9, 0), (0, 1, 2), (1, 2, 3, 4), (3, 4, 5), (5, 6)], (9, 6),
+                        [t(2048, 4), t(4, 6, 6), t(6, 6, 9, 4), t(9, 4, 5), t(5, 3)]),
     }[case]
     if case == "many_operands":
         tensors = [x / x.sum(0, keepdim=True) for x in tensors]  # no overflow along the chain
@@ -93,14 +101,14 @@ def test_dispatch_and_launch_counts(cuda, monkeypatch):
     rng = np.random.default_rng(1)
     small = [torch.tensor(rng.random(s), device=cuda) for s in ((4, 8), (8, 16), (16,))]
     got = E.sum_product_planned([(0, 1), (1, 2), (2,)], (0,), small)
-    assert E.LAUNCHES == {"plan_block": 1, "plan_step": 0}
+    assert E.LAUNCHES == {"plan_block": 1, "plan_grid": 0}
     torch.testing.assert_close(got, E.sum_product_reference([(0, 1), (1, 2), (2,)], (0,), small),
                                rtol=1e-12, atol=0)
     big = [torch.tensor(rng.random(s), device=cuda) for s in ((3, 300, 400), (300, 400), (400,))]
     axes = [(0, 1, 2), (1, 2), (2,)]
     steps = len(E.contraction_plan(tuple(axes), (0,), ((3, 300, 400), (300, 400), (400,))))
     got = E.sum_product_planned(axes, (0,), big)
-    assert E.LAUNCHES == {"plan_block": 1, "plan_step": steps}
+    assert steps > 1 and E.LAUNCHES == {"plan_block": 1, "plan_grid": 1}
     torch.testing.assert_close(got, E.sum_product_reference(axes, (0,), big), rtol=1e-12, atol=0)
     # the intermediates in global memory instead of shared
     monkeypatch.setattr(E, "SHARED_ARENA_BYTES", 0)

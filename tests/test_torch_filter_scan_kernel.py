@@ -130,9 +130,9 @@ def float64():
 def test_table_walk_matches_plain(name, merged, float64, monkeypatch):
     """Merged: one contraction to the joint over the interface and the
     queries, a one-input step from it per output; unmerged (a joint past
-    ``BLOCK_UNION``): each output's own plan."""
+    ``SCAN_JOINT``): each output's own plan."""
     if not merged:
-        monkeypatch.setattr(E, "BLOCK_UNION", 1)
+        monkeypatch.setattr(E, "SCAN_JOINT", 1)
     edges, tuples, _ = networks(name)
     infer = DBNInference(dbn_from_numpy(edges, tuples))
     variables = names_of(tuples)

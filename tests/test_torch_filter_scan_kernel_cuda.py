@@ -91,10 +91,12 @@ def test_kernel_matches_plain_with_one_launch(on_cuda, name, dtype):
 @pytest.mark.parametrize("setting", ["global_arena", "unmerged"])
 def test_other_layouts(on_cuda, monkeypatch, setting):
     """The arena in global memory when it would not fit the shared budget;
-    each output's own plan when the joint would pass ``BLOCK_UNION``."""
+    each output's own plan when the joint would pass ``SCAN_JOINT``, with
+    the slice-0 contractions on ``plan_grid`` (``BLOCK_UNION`` 1)."""
     if setting == "global_arena":
         monkeypatch.setattr(E, "SHARED_ARENA_BYTES", 0)
     else:
+        monkeypatch.setattr(E, "SCAN_JOINT", 1)
         monkeypatch.setattr(E, "BLOCK_UNION", 1)
         E.plan_table.cache_clear()  # the slice-0 contractions' tables follow the limit too
     dbn = model("random1")

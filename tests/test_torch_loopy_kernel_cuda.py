@@ -152,7 +152,7 @@ def test_one_launch_per_query_and_no_k3(on_cuda):
     einsum.reset_launches()
     got = bp.query(sorted(cards), virtual_evidence=virtual)
     assert loopy.LAUNCHES == 1
-    assert einsum.LAUNCHES == {"plan_block": 0, "plan_step": 0}
+    assert einsum.LAUNCHES == {"plan_block": 0, "plan_grid": 0}
     assert 0 < bp._program.last_rounds < MAX_ITER
     config.set_device("cpu")
     try:

@@ -4,8 +4,9 @@ slice): the node table with previous-slice parents, the output columns, the
 per-slice modes and the column-major matrix the wrapper hands the kernel,
 emulated in numpy against the plain version on the same explicit noise.
 
-Codes and log weights are compared to the bit where both sides subtract,
-compare and add in the tables' type in node order; the log weights are held
+Codes and log weights are compared to the bit where both sides count the
+CDF entries at or below the same uniforms and add the evidence's log
+probabilities in the tables' type in node order; the log weights are held
 to ``pgmpy_tpu``'s ``ParticleFilter._sweep`` at rtol 1e-5 (float32 sums of a
 few log entries, every variable observed so that both sweeps are
 deterministic), and the draws of nodes whose parents all lie in the previous
@@ -26,7 +27,7 @@ from _torch_parity import random_2tbn
 from pgmpy_tpu_torch.ops import ancestral
 from pgmpy_tpu_torch.sampling.smc import ParticleFilter
 from pgmpy_tpu_torch.utils.interop import dbn_from_numpy
-from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
 N = 300
 
@@ -70,8 +71,10 @@ def test_node_tables_of_both_slices(pair):
             var = pf.variables[tables.columns[i]]
             evidence, ev_card = cpds[(var, time_slice)]
             want = [pf.var_index[u] + (d if s != time_slice else 0) for u, s in evidence]
+            h = ancestral._NODE_HEADER
             assert list(parents) == want and tables.nodes[i, 3] == len(want)
-            assert tables.nodes[i, 4: 4 + len(want)].tolist() == want
+            assert tables.nodes[i, h: h + len(want)].tolist() == want
+            assert tables.nodes[i, 4] == tables.columns[i] and tables.nodes[i, 5] == i
             assert tuple(table.shape) == (int(np.prod(ev_card)), pf.cards[var])
             # a parent in this slice is drawn before its child
             assert all(p >= d or p in drawn for p in parents)
@@ -88,27 +91,51 @@ def test_node_tables_of_both_slices(pair):
 
 
 def emulated_slice(tables, n, modes, noise, prev):
-    """The kernel's arithmetic in numpy from the node table, the columns, the
-    modes and the flat log tables it is handed; rows side by side, nodes in
-    order, parents of index d + j read from the previous slice's column j."""
-    nodes, columns = tables.nodes, tables.columns
-    d, width = len(nodes), (nodes.shape[1] - 4) // 2
+    """The kernel's schedule and arithmetic in numpy, from what it is handed:
+    level by level, each level's node rows staged from the schedule-order
+    table with the modes in schedule order, group by group; a parent of index
+    d + j read from the previous slice's column j, one below d from a column
+    drawn in an earlier level; the CDF rows read as pairs from each node's
+    even offset and counted against the uniform; then the evidence's log
+    probabilities added in node order.  Rows side by side."""
+    h, width, groups = ancestral._NODE_HEADER, tables.width, tables.groups
+    d = len(tables.cards)
+    assert np.array_equal(tables.sched_nodes, tables.nodes[tables.schedule])
     flat_tables = torch.cat([t.reshape(-1) for _, _, t in tables.node_specs]).numpy()
+    cdf = tables.cdf
+    mode_sched, evidence_at = ancestral.call_modes(tables, np.asarray(modes))
     noise, prev = noise.numpy(), prev.numpy().astype(np.int64)
-    codes = np.zeros((d, n), dtype=np.int64)
+    codes = np.full((d, n), -1, dtype=np.int64)
     lw = np.zeros(n, dtype=flat_tables.dtype)
-    rows = np.arange(n)
-    for i, (card, offset, first, n_parents) in enumerate(nodes[:, :4]):
+
+    def flat_of(nd):
         flat = np.zeros(n, dtype=np.int64)
-        for j in range(n_parents):
-            p = nodes[i, 4 + j]
-            flat += (codes[p] if p < d else prev[p - d, :n]) * nodes[i, 4 + width + j]
-        logits = flat_tables[offset + flat[:, None] * card + np.arange(card)]
-        if modes[i] <= -2:
-            lw = lw + logits[rows, -2 - modes[i]]
-            codes[columns[i]] = -2 - modes[i]
-        else:
-            codes[columns[i]] = np.argmax(logits - noise[first: first + card].T, axis=1)
+        for j in range(nd[3]):
+            p = nd[h + j]
+            value = codes[p] if p < d else prev[p - d, :n]
+            assert (value >= 0).all(), "a parent read before its level"
+            flat += value * nd[h + width + j]
+        return flat
+
+    for lv in range(tables.n_levels):
+        first, last = tables.starts[lv * groups], tables.starts[(lv + 1) * groups]
+        assert last - first <= tables.stage_nodes
+        drawn = {}
+        for x in range(first, last):
+            nd, m = tables.sched_nodes[x], mode_sched[x]
+            card, _, offset, _, col, i = nd[:h]
+            if m <= -2:
+                drawn[col] = np.full(n, -2 - m)
+                continue
+            pairs = (card + 1) // 2
+            row = cdf[offset + flat_of(nd)[:, None] * 2 * pairs + np.arange(2 * pairs)]
+            drawn[col] = (row <= noise[i][:, None]).sum(axis=1)
+        for col, draw in drawn.items():  # the level's barrier
+            codes[col] = draw
+    for x in evidence_at:
+        nd = tables.sched_nodes[x]
+        logits = flat_tables[nd[1] + flat_of(nd)[:, None] * nd[0] + np.arange(nd[0])]
+        lw = lw + logits[np.arange(n), -2 - mode_sched[x]]
     return codes, lw
 
 
@@ -121,7 +148,8 @@ def test_node_table_computes_the_plain_slice(pair, observed):
     for c in rng.choice(len(pf.variables), observed, replace=False):
         ev_codes[c] = rng.integers(0, pf.cards[pf.variables[c]])
     prev = random_prev(pf, 1)
-    noise = race_noise((sum(tables.cards), N), seeded_generator(2), torch.float32)
+    noise = torch.rand((len(tables.cards), N), generator=seeded_generator(2),
+                       dtype=torch.float64)
     evidence = {i: int(ev_codes[c]) for i, c in enumerate(tables.columns) if ev_codes[c] >= 0}
     out = pf._code_matrix()
     codes, logw = ancestral.sweep_reference(tables, N, None, evidence=evidence, noise=noise,
@@ -144,11 +172,10 @@ def test_explicit_noise_gives_the_generator_draw(pair):
     prev = random_prev(pf, 3)
     want, want_lw = pf._sweep(seeded_generator(4), prev, tables, ev_codes)
     gen = seeded_generator(4)
-    noise = torch.zeros(sum(tables.cards), N)
-    for i, card in enumerate(tables.cards):
+    noise = torch.zeros(len(tables.cards), N, dtype=torch.float64)
+    for i in range(len(tables.cards)):
         if tables.columns[i] != 0:  # the observed variable draws nothing
-            first = int(tables.noise_offsets[i])
-            noise[first: first + card] = race_noise((N, card), gen, torch.float32).t()
+            noise[i] = torch.rand(N, generator=gen, dtype=torch.float64)
     evidence = {i: 1 for i, c in enumerate(tables.columns) if c == 0}
     got, got_lw = ancestral.sweep_reference(tables, N, None, evidence=evidence, noise=noise,
                                             prev=prev, out=pf._code_matrix())

@@ -6,9 +6,10 @@ card, its launch counter, the same seed, and the filter against the exact
 on a GPU machine:
 ``python -m pytest tests/test_torch_particle_kernel_cuda.py -m cuda``.
 
-Tolerances: on the same explicit noise the kernel's codes and log weights
-equal the plain version's to the bit (both subtract, compare and add in the
-tables' type in node order).  Filtered marginals are held to ``forward_scan``
+Tolerances: on the same explicit noise (one float64 uniform per node and
+particle) the kernel's codes and log weights equal the plain version's to
+the bit (both count the same CDF entries at or below the uniform, and add
+the evidence's log probabilities in the tables' type in node order).  Filtered marginals are held to ``forward_scan``
 within 5 standard errors at the slice's effective sample size plus 1e-4, as
 ``tests/test_torch_smc.py`` holds them."""
 
@@ -22,7 +23,7 @@ from pgmpy_tpu_torch.inference import DBNInference
 from pgmpy_tpu_torch.ops import ancestral
 from pgmpy_tpu_torch.sampling.smc import ParticleFilter
 from pgmpy_tpu_torch.utils.interop import dbn_from_numpy
-from pgmpy_tpu_torch.utils.mathext import race_noise, seeded_generator
+from pgmpy_tpu_torch.utils.mathext import seeded_generator
 
 
 @pytest.fixture
@@ -71,11 +72,19 @@ def _model(name):
                    {k: states[k] for k in [("w", 1), ("w", 0)]}),
                   (("x", 1), 3, x, [("w", 1)], [130], {k: states[k] for k in [("x", 1), ("w", 1)]})]
         return dbn_from_numpy([(("w", 0), ("x", 0)), (("w", 0), ("w", 1))], tuples)
+    if name == "alarm":  # the smoke's ALARM as a 2-TBN
+        import chip_smoke
+        from pgmpy_tpu_torch.utils import get_example_model
+
+        return chip_smoke.alarm_2tbn(get_example_model("alarm"), chip_smoke.ALARM_PERSISTENT)[0]
     return dbn_from_numpy(*random_2tbn(int(name[6:]), n_vars=8))
 
 
+# ALARM's slice at the smoke's 262,144 particles
 NETWORKS = [("rain", "float32"), ("rain", "float64"), ("random3", "float32"),
-            ("random4", "float64"), ("wide", "float32"), ("wide", "float64")]
+            ("random4", "float64"), ("wide", "float32"), ("wide", "float64"),
+            ("alarm", "float32")]
+PARTICLES = {"alarm": 262_144}
 
 
 @pytest.mark.cuda
@@ -83,7 +92,7 @@ NETWORKS = [("rain", "float32"), ("rain", "float64"), ("random3", "float32"),
 @pytest.mark.parametrize("observed", [0, 1])
 def test_explicit_noise_matches_plain_to_the_bit(on_cuda, name, dtype, observed):
     config.set_dtype(dtype)
-    n = 5003
+    n = PARTICLES.get(name, 5003)
     pf = ParticleFilter(_model(name), n_particles=n)
     rng = np.random.default_rng(7)
     prev = torch.as_tensor(np.stack([rng.integers(0, pf.cards[v], n) for v in pf.variables]),
@@ -93,7 +102,8 @@ def test_explicit_noise_matches_plain_to_the_bit(on_cuda, name, dtype, observed)
         ev_codes[-1] = 1
     for tables in (pf._start_specs, pf._trans_specs):
         evidence = {i: int(ev_codes[c]) for i, c in enumerate(tables.columns) if ev_codes[c] >= 0}
-        noise = race_noise((sum(tables.cards), n), seeded_generator(3), config.DTYPE)
+        noise = torch.rand((len(tables.cards), n), generator=seeded_generator(3),
+                           dtype=torch.float64, device="cuda")
         before = ancestral.PARTICLE_LAUNCHES
         got, got_lw = ancestral.sweep_cuda(tables, n, None, evidence=evidence, noise=noise,
                                            prev=prev, out=pf._code_matrix())

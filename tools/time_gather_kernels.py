@@ -113,7 +113,8 @@ def time_e_step(program, log_table, em_codes, dtype):
 def time_sweep(model):
     sampler = CompiledAncestralSampler(model)
     sweep = sampler._sweep_tables
-    noise = race_noise((sum(sweep.cards), 4096), seeded_generator(0), config.DTYPE)
+    noise = torch.rand((len(sweep.cards), 4096), generator=seeded_generator(0),
+                       dtype=torch.float64, device="cuda")
     got = ancestral.sweep_cuda(sweep, 4096, None, noise=noise)
     chip_smoke.check(torch.equal(got[0], ancestral.sweep_reference(sweep, 4096, None,
                                                                    noise=noise)[0]),
@@ -133,7 +134,8 @@ def time_particle_sweep():
     rng = np.random.default_rng(0)
     prev = torch.as_tensor(np.stack([rng.integers(0, pf.cards[v], PARTICLES)
                                      for v in pf.variables]), device="cuda").to(pf._out_dtype)
-    noise = race_noise((sum(tables.cards), PARTICLES), seeded_generator(0), config.DTYPE)
+    noise = torch.rand((d, PARTICLES), generator=seeded_generator(0), dtype=torch.float64,
+                       device="cuda")
     got = ancestral.sweep_cuda(tables, PARTICLES, None, evidence=evidence, noise=noise,
                                prev=prev, out=pf._code_matrix())
     want = ancestral.sweep_reference(tables, PARTICLES, None, evidence=evidence, noise=noise,
