@@ -81,8 +81,9 @@ Runs from the repository root and needs one CUDA card.  It
    (``.chip_scratch/parent``), those of ``PARENT_WRAPPERS`` are built beside
    the others and timed in turns with this tree's at the shapes the smoke
    times them (the rows' ``parent_ms``; "not timed" without them): K5 and
-   K9 (``ancestral.cu``) and K3 (``einsum_plan.cu``), and K6 and K8 where it
-   names ``gibbs.cu`` and ``hmc.cu``;
+   K9 (``ancestral.cu``), K3 and K10 (``einsum_plan.cu``) and K11
+   (``table_gather.cu``), and K6 and K8 where it names ``gibbs.cu`` and
+   ``hmc.cu``;
 6. drives the temporal lane (``phase_temporal``): the particle filter on the
    rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
    as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
@@ -95,7 +96,9 @@ Runs from the repository root and needs one CUDA card.  It
    ``DBNInference.forward_scan`` on the card, ``forward_scan`` (K10: one
    ``filter_scan`` launch a call, the profiler's kernels of a 50-slice call
    equal to a 2-slice call's) against its plain version on the card and the
-   CPU run, and timed; ``DynamicBayesianNetwork.simulate`` and ``fit`` (one
+   CPU run, and timed on ALARM's 49 transition slices and rain's 199 beside
+   the parent commit's kernel where it is unpacked, with its bytes,
+   operations and dependency bounds; ``DynamicBayesianNetwork.simulate`` and ``fit`` (one
    launch per pair of slices);
 7. drives score-based structure search (``phase_structure``):
    ``HillClimbSearch`` with BIC on 2,000 simulated ALARM rows (one launch per
@@ -120,8 +123,10 @@ Runs from the repository root and needs one CUDA card.  It
    every table against ``np.bincount``; ``predict_probability`` of 2,048
    rows against a numpy float64 log-space oracle), ``ExpectationMaximization``
    with DIFFN_PATHO latent (one E-step launch per iteration, K11's ``e_step``
-   kernel over the 250,000 expanded rows, held at atol 1e-6 against its plain
-   version and timed; one iteration against numpy float64, the
+   kernel over the 50,000 observed rows and 5 latent states, held at atol
+   1e-6 against its plain version and timed beside the parent commit's
+   kernel over the 250,000 expanded rows where it is unpacked; one
+   iteration against numpy float64, the
    observed-data log-likelihood along 1, 3 and 10 iterations, the same seed
    twice), ``MirrorDescentEstimator`` on ALARM's junction tree fitted to
    50,000 simulated rows (100 iterations with the line search, against the
@@ -221,6 +226,13 @@ HBM_BYTES_PER_S = 3.35e12
 PLAIN_OPS_PER_S = 67e12
 # cycles per second of torch.cuda._sleep's spin on an H100 (its SM clock)
 SLEEP_CYCLES_PER_S = 2e9
+# K10's dependency bound: SM cycles of one __syncthreads() of a 512-thread
+# block and one dependent shared-memory read (tools/stamp_kernels.py k10's
+# dependency probe on an NVIDIA H100 80GB HBM3 at 700 W: 62.56 a round, the
+# read alone 32.1), counted at the card's highest SM clock (SM_MAX_MHZ, read
+# from nvidia-smi at the start)
+K10_LEVEL_CYCLES = 62.56
+SM_MAX_MHZ = [1980.0]
 
 
 def log(msg):
@@ -2640,7 +2652,8 @@ def phase_temporal():
         f"{len(specs)} columns offset into one index space, weights repeated) "
         f"wrapper_host_us_median {float(np.median(host_us)):.1f} (descriptor uploaded once)")
     GATHER_ROWS["ancestral/particle_sweep"] = k9_kernel_row(alarm_pf, alarm_particles, alarm_ev)
-    GATHER_ROWS["einsum_plan/filter_scan"] = k10_kernel_row(alarm_infer, persistent, alarm_ev)
+    GATHER_ROWS["einsum_plan/filter_scan"] = k10_kernel_row(alarm_infer, persistent, alarm_ev,
+                                                            rain_infer, rain_ev)
 
     # ---- simulate and fit of the 2-TBN
     check(set(frame.columns) == {(v, t) for v in alarm.nodes() for t in range(DBN_SIM_SLICES)}
@@ -5683,41 +5696,113 @@ def k9_kernel_row(pf, particles, evidence):
             "bound_by": bound_by, "library_ms": None, "parent_ms": parent_ms}
 
 
-def k10_kernel_row(infer, variables, evidence):
-    """K10 on ALARM as a 2-TBN: ``filter_scan`` over the 49 transition slices
-    of ``forward_scan`` (the smoke's queries and evidence) against the plain
-    version (the host loop of plain planned contractions) on the same inputs,
-    its device time (median of 20 behind a device sleep), the plain
-    version's (median of 3, eager), and the bound: the transition tables,
-    codes, alpha and output moved once, or two operations per union entry of
-    every step of every slice."""
+def k10_shape(name, infer, variables, evidence, slices):
+    """One K10 shape: ``filter_scan`` over ``slices`` - 1 transition slices
+    against the plain version (the host loop of plain planned contractions)
+    on the same inputs, its device time beside the parent commit's kernel in
+    turns where it is unpacked (median of 20 behind a device sleep), the
+    plain version's (median of 3, eager), and the bounds: bytes (the
+    transition tables, codes, alpha and output moved once), operations (two
+    a union entry of every step of every slice, pinned dims at their code
+    counted once) and the dependency chain (``k10_dependency_ms``)."""
     from pgmpy_tpu_torch.factors.factor_ops import factor_sum_product
     from pgmpy_tpu_torch.inference.dbn import scan_reference
 
-    inputs = infer._scan_inputs(variables, evidence, ALARM_SLICES)
+    inputs = infer._scan_inputs(variables, evidence, slices)
     alpha = factor_sum_product(inputs["iface0"], inputs["factors0"]).normalize(
         inplace=False).values
     program = infer._scan_program(inputs)
-    codes = torch.as_tensor(inputs["codes"], dtype=torch.int32, device=alpha.device)
-    trans = inputs["trans_arrays"]
+    codes, trans = inputs["codes"], inputs["trans_arrays"]
     got = program.run(alpha, trans, codes)
     want = scan_reference(inputs, alpha)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(got.shape == want.shape and err <= 1e-5, f"k10: max_abs_err {err} (limit 1e-5)")
-    ms = cuda_median_ms(lambda: program.run(alpha, trans, codes), device_only=True)
+    limit = 1e-5 if got.dtype == torch.float32 else 1e-12
+    check(got.shape == want.shape and err <= limit,
+          f"k10 {name}: max_abs_err {err} (limit {limit})")
+    parent = None
+    old = PARENT.get("modules", {}).get("einsum")
+    if old is not None:
+        shapes = [inputs["alpha_shape"]] + [tuple(a.shape) for a in trans] + [
+            (c,) for c in inputs["delta_cards"]]
+        old_program = old.ScanProgram(inputs["operand_axes"], inputs["outputs"], shapes,
+                                      [tuple(a.stride()) for a in trans], alpha.element_size())
+        old_codes = torch.as_tensor(codes, dtype=torch.int32, device=alpha.device)
+        old_err = float((old_program.run(alpha, trans, old_codes) - got).abs().max())
+        check(old_err <= limit, f"k10 {name}: {old_err} from the parent's kernel")
+        parent = lambda: old_program.run(alpha, trans, old_codes)  # noqa: E731
+    ms, parent_ms, runs = paired_ms(lambda: program.run(alpha, trans, codes), parent)
     plain_ms = cuda_median_ms(lambda: scan_reference(inputs, alpha), reps=3, warmup=1)
-    slices = codes.shape[0]
-    unions = int((program.steps[:, 6] * program.steps[:, 7]).sum())
-    nbytes = sum(t.numel() * t.element_size() for t in [*trans, alpha, codes, got])
-    bound_ms, bound_by = bound(nbytes, 2 * unions * slices)
-    log(f"k10 filter_scan slices={slices} queries={len(variables)} steps_per_slice="
-        f"{len(program.steps)} unions_per_slice={unions} arena={program.arena} "
-        f"({'shared' if program.shared else 'global'}) kernel_ms={ms:.4f} (device time, one "
-        f"launch, median of 20) plain_ms={plain_ms:.3f} (median of 3) bound_ms={bound_ms:.6f} "
-        f"({bound_by}) library: none max_abs_err={err:.3e} (limit 1e-5)")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    n = codes.shape[0]
+    observed = tuple(int(j) for j in np.flatnonzero((codes >= 0).any(axis=0)))
+    rows, pairs = program.tables_for(observed)
+    unions = k10_unions(program, observed, codes)
+    nbytes = sum(t.numel() * t.element_size() for t in [*trans, alpha, got]) + codes.size * 4
+    bound_ms, bound_by = bound(nbytes, 2 * unions)
+    dependency_ms = k10_dependency_ms(program.n_levels + 1, n)
+    staged, _, _, shared_bytes = program.layout(observed)
+    log(f"k10 filter_scan {name} slices={n} queries={len(variables)} steps_per_slice={len(rows)} "
+        f"(pair {int((rows[:, 0] == 2).sum())}, one-input {int((rows[:, 0] == 1).sum())}; no "
+        f"delta operands, {len(observed)} evidence variables pinned; {len(pairs)} offset pairs; "
+        f"lanes {rows[:, 6].tolist()}) levels={program.n_levels} "
+        f"level_sizes={np.bincount(program.levels).tolist()} barriers_per_slice="
+        f"{program.n_levels + 1} work_items={len(program.work)} unions_this_run={unions} "
+        f"arena={program.arena} ({'shared' if program.shared else 'global'}) factors_and_tables="
+        f"{'staged' if staged else 'global'} shared_bytes={shared_bytes} kernel_ms={ms:.5f} "
+        f"parent_ms={'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, one "
+        f"launch, each the smaller median of 20 of two turns: "
+        + "/".join(f"{t:.5f}" for t in runs)
+        + f") plain_ms={plain_ms:.3f} (median of 3) bound_ms={bound_ms:.6f} ({bound_by}) "
+        f"dependency_bound_ms={dependency_ms:.5f} ({program.n_levels + 1} barriers a slice x "
+        f"{n} slices x {K10_LEVEL_CYCLES} cycles at {SM_MAX_MHZ[0]:.0f} MHz) library: none "
+        f"max_abs_err={err:.3e} (limit {limit:g})")
+    return {"name": name, "slices": n, "err": err, "ms": ms, "parent_ms": parent_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "dependency_bound_ms": dependency_ms, "levels": program.n_levels,
+            "steps": len(rows)}
+
+
+def k10_unions(program, observed, codes):
+    """Union entries (output x reduced) of every step over the slices, as
+    this run's data needs them: an output entry whose pinned digit differs
+    from its slice's code and a reduced entry off a pinned code are not
+    counted."""
+    from pgmpy_tpu_torch.ops.einsum import MAX_LABELS, SCAN_HEADER
+
+    rows, _ = program.tables_for(observed)
+    total = 0
+    for code in np.asarray(codes):
+        for row in rows:
+            n_po, n_pr = int(row[7]), int(row[8])
+            outs, reds = int(row[4]), int(row[5])
+            for i in range(n_po):
+                var, _, ext = (int(x) for x in row[SCAN_HEADER + 3 * i:SCAN_HEADER + 3 * i + 3])
+                outs //= ext if code[var] >= 0 else 1
+            at = SCAN_HEADER + 3 * MAX_LABELS
+            for i in range(n_pr):
+                var, _, ext = (int(x) for x in row[at + 3 * i:at + 3 * i + 3])
+                reds *= 1 if code[var] >= 0 else ext
+            total += outs * reds
+    return total
+
+
+def k10_dependency_ms(barriers, slices):
+    """The dependency bound of a filter_scan launch: its barriers (levels + 1
+    a slice) times the cycles of one barrier and one dependent shared-memory
+    read (``K10_LEVEL_CYCLES``, a ``tools/stamp_kernels.py k10`` reading) at
+    the card's highest SM clock."""
+    return barriers * slices * K10_LEVEL_CYCLES / (SM_MAX_MHZ[0] * 1e3)
+
+
+def k10_kernel_row(infer, variables, evidence, rain_infer, rain_evidence):
+    """K10: ``filter_scan`` on ALARM as a 2-TBN over its 49 transition
+    slices (the row's own numbers: the smoke's queries and evidence) and on
+    the rain / umbrella network over 199 (``k10_shape``)."""
+    alarm = k10_shape("alarm_2tbn", infer, variables, evidence, ALARM_SLICES)
+    rain = k10_shape("rain_umbrella", rain_infer, ["rain"], rain_evidence, PF_SLICES)
+    return {**{key: alarm[key] for key in ("err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                           "parent_ms", "dependency_bound_ms")},
+            "library_ms": None, "shapes": [alarm, rain]}
 
 
 def gather_bytes(gather, codes, table, out_elem):
@@ -5759,32 +5844,118 @@ def k13_kernel_row(prob, codes):
             "bound_by": bound_by, "library_ms": None}
 
 
+def e_step_node_rows(gather, latent_only):
+    """The E-step's node rows (the latent nodes' alone where
+    ``latent_only``) and their node indices."""
+    row_words = 2 + 2 * gather.width
+    n_shared, n_nodes = len(gather.shared_nodes), len(gather.shared_nodes) + len(
+        gather.latent_nodes)
+    rows = gather.nodes[: n_nodes * row_words].reshape(n_nodes, row_words)
+    if latent_only:
+        return rows[n_shared:], gather.latent_nodes
+    return rows, gather.shared_nodes + gather.latent_nodes
+
+
+def e_step_bytes(gather, codes, sizes, table_elem, n_out, out_elem, latent_only):
+    """Bytes the E-step must move: every observed code column its nodes read,
+    once per row; their table entries (``sizes`` per node); its weights
+    (``n_out``) once; their node rows and the grid.  ``latent_only``: the
+    latent nodes alone, which is all the weights need (the shared nodes add
+    one finite sum, the same for every configuration, to a row's
+    log-probabilities, and the softmax cancels it)."""
+    rows, nodes = e_step_node_rows(gather, latent_only)
+    used = {int(c) for row in rows for c in row[2: 2 + row[1]] if c >= 0}
+    return (len(used) * codes.shape[1] * codes.element_size()
+            + int(np.asarray(sizes)[nodes].sum()) * table_elem + n_out * out_elem
+            + (rows.size + gather.grid.size) * 4)
+
+
+def e_step_operations(gather, n_rows, latent_only):
+    """The least operations a row takes: a shared node's index, a
+    multiply-add per code, and its add, once; a latent node's data part of
+    the index once, then per configuration an add of its latent part and
+    an add of its term.  The shared nodes are left out where
+    ``latent_only``."""
+    rows, _ = e_step_node_rows(gather, False)
+    n_shared = len(gather.shared_nodes)
+    data = np.array([int((row[2: 2 + row[1]] >= 0).sum()) for row in rows], dtype=np.int64)
+    per_row = int((2 * data[n_shared:] + 2 * gather.K).sum())
+    if not latent_only:
+        per_row += int((2 * data[:n_shared] + 1).sum())
+    return per_row * n_rows
+
+
 def k11_kernel_row(program, prob):
-    """K11 on MUNIN with DIFFN_PATHO latent: ``e_step`` against its plain
-    version (atol 1e-6: both take the softmax in float64 and round the weights
-    to float32 once; the float64 sums differ in order only), device times of
-    both (median of 20 behind a device sleep) and the card's bound."""
+    """K11 on MUNIN with DIFFN_PATHO latent: ``e_step`` over the 50,000
+    observed rows against its plain version (atol 1e-6: both take the softmax
+    in float64 and round the weights to float32 once; the float64 sums differ
+    in order only) and against the parent commit's kernel over the 250,000
+    expanded rows where it is unpacked, device times (median of 20 behind a
+    device sleep; the parent's in turns), the plain version's, and the bound
+    of the bytes the weights need (the latent nodes' columns, tables and the
+    weights: ``e_step_bytes``) beside the bound of every column any node
+    reads and the old one that counted the expanded codes."""
     from pgmpy_tpu_torch.config import TINY
 
     gather, K = program.gather, program.K
     table = torch.log(torch.clamp_min(prob, TINY).to(torch.float64))
-    codes = program.coded._column_codes()[:, : program.coded.n]
-    got = gather.e_step_cuda(table, codes, K, prob.dtype)
-    want = gather.e_step_reference(table, codes, K, prob.dtype)
+    codes = program.obs._column_codes()[:, : program.n]
+    got = gather.e_step_cuda(table, codes, prob.dtype)
+    want = gather.e_step_reference(table, codes, prob.dtype)
     err = float((got.double() - want.double()).abs().max())
     check(got.shape == want.shape and err <= 1e-6,
           f"k11: the E-step kernel is {err} from the plain version")
-    ms = cuda_median_ms(lambda: gather.e_step_cuda(table, codes, K, prob.dtype), device_only=True)
-    plain_ms = cuda_median_ms(lambda: gather.e_step_reference(table, codes, K, prob.dtype),
+    parent = None
+    expanded = program.coded._column_codes()[:, : program.coded.n]
+    old = PARENT.get("modules", {}).get("table_gather")
+    if old is not None:
+        specs = program.specs
+        n_nodes = len(program.var_order)
+        old_gather = old.TableGather([specs.cols[s, : specs.n_cols[s]] for s in range(n_nodes)],
+                                     [specs.strides[s, : specs.n_cols[s]] for s in range(n_nodes)],
+                                     specs.offsets, specs.total, table.device)
+        old_err = float((old_gather.e_step_cuda(table, expanded, K, prob.dtype).double()
+                         - got.double()).abs().max())
+        check(old_err <= 1e-6, f"k11: {old_err} from the parent's kernel")
+        parent = lambda: old_gather.e_step_cuda(table, expanded, K, prob.dtype)  # noqa: E731
+    ms, parent_ms, runs = paired_ms(lambda: gather.e_step_cuda(table, codes, prob.dtype), parent)
+    plain_ms = cuda_median_ms(lambda: gather.e_step_reference(table, codes, prob.dtype),
                               device_only=True)
-    bound_ms, bound_by = bound(gather_bytes(gather, codes, table, got.element_size()),
-                               gather_operations(gather, codes.shape[1]))
-    log(f"k11 e_step expanded_rows={codes.shape[1]} K={K} nodes={gather.nodes.shape[0]} "
-        f"codes={codes.dtype} weights={got.dtype} max_abs_err={err:.3e} (limit 1e-6) "
-        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (device time, median of 20) "
-        f"bound_ms={bound_ms:.6f} ({bound_by}) library: none")
+    sizes, n = program.specs.sizes, codes.shape[1]
+    nbytes = e_step_bytes(gather, codes, sizes, table.element_size(), got.numel(),
+                          got.element_size(), latent_only=True)
+    bound_ms, bound_by = bound(nbytes, e_step_operations(gather, n, latent_only=True))
+    all_bytes = e_step_bytes(gather, codes, sizes, table.element_size(), got.numel(),
+                             got.element_size(), latent_only=False)
+    all_ms, all_by = bound(all_bytes, e_step_operations(gather, n, latent_only=False))
+    old_bytes = (expanded.shape[0] * expanded.shape[1] * expanded.element_size()
+                 + table.numel() * table.element_size() + got.numel() * got.element_size())
+    rows, slices, block, shared = plan_e_step_of(gather)
+    log(f"k11 e_step rows={codes.shape[1]} K={K} nodes={len(gather.shared_nodes)} shared + "
+        f"{len(gather.latent_nodes)} latent codes={codes.dtype} weights={got.dtype} tile_rows="
+        f"{rows} latent_slices={slices} block={block} shared_bytes={shared} max_abs_err="
+        f"{err:.3e} (limit 1e-6) kernel_ms={ms:.5f} parent_ms="
+        f"{'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, each the "
+        f"smaller median of 20 of two turns: " + "/".join(f"{t:.5f}" for t in runs)
+        + f"; the parent over the {expanded.shape[1]} expanded rows) plain_ms={plain_ms:.5f} "
+        f"(median of 20) bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} bytes, the columns the "
+        f"latent nodes read once, their tables, the weights; operations_ms="
+        f"{e_step_operations(gather, n, True) / PLAIN_OPS_PER_S * 1e3:.6f}) all_nodes_bound_ms="
+        f"{all_ms:.6f} ({all_by}: {all_bytes} bytes, every column any node reads, as the kernel "
+        f"sums the shared nodes too) expanded_bound_ms={old_bytes / HBM_BYTES_PER_S * 1e3:.6f} "
+        f"(the expanded codes, {old_bytes} bytes, read by the kernel before the redesign) library: "
+        f"none")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "parent_ms": parent_ms,
+            "all_nodes_bound_ms": all_ms,
+            "expanded_bound_ms": old_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def plan_e_step_of(gather):
+    from pgmpy_tpu_torch.ops import table_gather
+
+    return table_gather.plan_e_step(gather.K, gather.width, len(gather.shared_nodes),
+                                    len(gather.latent_nodes), gather.L)
 
 
 def ptxas_summary(text):
@@ -5841,9 +6012,11 @@ def build_kernels():
 
 # the parent commit's wrappers over its kernels, where ``tools/parent_kernels.py
 # unpack`` left them in the tree: {"rev", "modules"}; those timed beside this
-# tree's (K5 and K9, K3; K6 and K8 whenever "gibbs" and "hmc" are added)
+# tree's (K5 and K9, K3 and K10, K11; K6 and K8 whenever "gibbs" and "hmc" are
+# added)
 PARENT = {}
-PARENT_WRAPPERS = {"ancestral": "ancestral.cu", "einsum": "einsum_plan.cu"}
+PARENT_WRAPPERS = {"ancestral": "ancestral.cu", "einsum": "einsum_plan.cu",
+                   "table_gather": "table_gather.cu"}
 
 
 def parent_tool():
@@ -5901,6 +6074,10 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    SM_MAX_MHZ[0] = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    log(f"sm_max_mhz {SM_MAX_MHZ[0]:.0f}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     parent = start_parent_builds()
@@ -6026,7 +6203,9 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_counted_on": path, "max_abs_err": result["err"],
             **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            **{key: result[key] for key in ("parent_ms", "shapes") if key in result},
+            **{key: result[key] for key in ("parent_ms", "shapes", "dependency_bound_ms",
+                                            "all_nodes_bound_ms", "expanded_bound_ms")
+               if key in result},
             **{f"launches_{other}": counts[name] for other, counts in GATHER_PATH_LAUNCHES.items()
                if other != path},
         })

@@ -22,10 +22,9 @@
 // 692.6 kernels per slice).
 //
 // Bound: small plans are latency; large steps bytes.  The ALARM filter's
-// contractions are 74 steps of at most 864 union entries (about 5,300
-// multiply-adds each): a slice is ~518 dependent steps, far below what one
-// launch per step can carry.  A MUNIN query_batch step walks 289 M union
-// entries, each reading two inputs.
+// plain version runs 1 + 6 plans a slice (~518 dependent steps of at most 864
+// union entries), far below what one launch per step can carry.  A MUNIN
+// query_batch step walks 289 M union entries, each reading two inputs.
 //
 // What the design does about it:
 //   1. Two schedules, chosen on the host from the plan alone, each ONE launch
@@ -55,15 +54,26 @@
 //   4. Sums in double for both float and double tables (no TF32 anywhere);
 //      results are stored in the tables' type, as the plain version stores
 //      them.
-//   5. K10: `filter_scan` loops over the slices inside one block: it fills
-//      the slice's evidence deltas in the arena from its row of codes, runs
-//      the slice's steps with the block executor above, then normalises
-//      each result (a sum of 0 gives NaN, as m / m.sum() does): the queries
-//      into the output row, the interface into alpha.  Where the joint over
-//      the interface and the queries holds at most SCAN_JOINT entries, the
-//      slice is one contraction to that joint and a one-input step from it
-//      per output (ALARM: 81 steps a slice, where the 1 + 6 separate plans
-//      of the plain version take 518).
+//   5. K10: `filter_scan` loops over the slices inside one block.  Where
+//      the joint over the interface and the queries holds at most
+//      SCAN_JOINT entries, a slice is one contraction of alpha and the
+//      transition factors to that joint and a one-input step from it per
+//      output (ALARM: 37 pair steps and 7 output steps).  Evidence is not a
+//      factor: each label whose variable the call observes is pinned to the
+//      slice's code (staged in shared memory): an output entry with another
+//      digit is 0, a reduced label walks the code alone; an unobserved
+//      variable costs nothing.  The steps are grouped by dependency level on
+//      the host, and a level's steps run at once, its 16 warps and each
+//      step's lanes (at most a warp: shuffles only) dealt by a cost model,
+//      one barrier after each level (ALARM: 13 levels).  A slice's chain of
+//      levels bounds it, not its arithmetic (a few hundred multiply-adds a
+//      step), so a task is kept short: its step is an int32 row and the
+//      host's tables of offset pairs give each output entry's and each
+//      reduced entry's input offsets (no digit decoded on the card), and the
+//      rows, the tables and the transition factors are staged in shared
+//      memory once per launch where they fit, beside the arena.  Then each
+//      result is normalised (a sum of 0 gives NaN, as m / m.sum() does): the
+//      queries into the output row, the interface into alpha.
 //
 // The wrapper (pgmpy_tpu_torch/ops/einsum.py) compiles and uploads the step
 // tables and calls the extern "C" launchers through ctypes on PyTorch's
@@ -256,43 +266,173 @@ __global__ void __launch_bounds__(kGridThreads)
   }
 }
 
-// K10.  deltas: (arena offset, variable, state) per delta entry; results:
-// (arena offset, entries, output column or -1 for the interface, 0) per
-// output; codes: (n_slices, n_vars) int32, -1 where unobserved; out:
-// (n_slices, width).  Alpha lives at arena offset 0.
+// K10's step rows (int32, ops/einsum.py:SCAN_ROW): a header, then
+// kMaxLabels (variable, place, extent) triples of pinned output labels and
+// kMaxLabels of pinned reduced labels.
+constexpr int kScanHeader = 12;
+constexpr int kScanRow = kScanHeader + 6 * kMaxLabels;
+constexpr int kScanWarps = kBlockThreads / 32;  // ops/einsum.py: SCAN_WARPS
+constexpr int sNIn = 0, sIn0 = 1, sIn1 = 2, sOut = 3, sOutCount = 4, sFree = 5, sLanes = 6,
+              sPinOut = 7, sPinRed = 8, sOutPairs = 9, sRedPairs = 10;
+
+// An input slot of a filter_scan step: >= 0 a transition factor (staged in
+// shared memory where `staged` is not null), < 0 the arena.
+template <typename T>
+__device__ __forceinline__ const T* scan_input(int slot, const T* staged, const int* op_off,
+                                               const Operands& ops, const T* arena) {
+  if (slot < 0) return arena + (-slot - 1);
+  if (staged != nullptr) return staged + op_off[slot];
+  return static_cast<const T*>(ops.many != nullptr ? ops.many[slot] : ops.p[slot]);
+}
+
+// One lane's partial sum of output entry o of a filter_scan step.  The
+// host's offset pairs give the inputs' offsets of each output entry and of
+// each reduced entry (the unpinned reduced labels innermost, F of them, the
+// pinned ones outermost), so no digit is decoded: an output entry whose
+// pinned digit differs from this slice's code is 0; the pinned reduced
+// labels this slice observes fix one block of F reduced entries, and the
+// lanes share it in chunks.  A pinned label the slice leaves unobserved is
+// walked (a slower loop that decodes it).
+template <typename T>
+__device__ double scan_partial(const int* d, const int2* pairs, const int* code, const T* a,
+                               const T* b, int o, int lane) {
+  const int* pin = d + kScanHeader;
+  for (int i = 0; i < d[sPinOut]; ++i, pin += 3) {
+    const int c = code[pin[0]];
+    if (c >= 0 && (o / pin[1]) % pin[2] != c) return 0.0;
+  }
+  const int2 base = pairs[d[sOutPairs] + o];
+  const int free = d[sFree], n_pin = d[sPinRed];
+  pin = d + kScanHeader + 3 * kMaxLabels;
+  int q = 0, walked = 1;
+  for (int i = 0; i < n_pin; ++i) {
+    const int c = code[pin[3 * i]];
+    if (c >= 0) {
+      q += c * pin[3 * i + 1];
+    } else {
+      walked *= pin[3 * i + 2];
+    }
+  }
+  const int lanes = d[sLanes], count = free * walked, chunk = (count + lanes - 1) / lanes;
+  int r = lane * chunk;
+  const int hi = min(r + chunk, count);
+  const int2* red = pairs + d[sRedPairs];
+  double acc = 0.0;
+  if (walked == 1) {
+    const int2* e = red + free * q;
+    for (; r < hi; ++r) {
+      const int2 x = e[r];
+      acc += b != nullptr ? (double)a[base.x + x.x] * (double)b[base.y + x.y]
+                          : (double)a[base.x + x.x];
+    }
+    return acc;
+  }
+  for (; r < hi; ++r) {
+    int rest = r / free, at = q;
+    for (int i = 0; i < n_pin; ++i) {
+      if (code[pin[3 * i]] < 0) {
+        const int e = pin[3 * i + 2];
+        at += rest % e * pin[3 * i + 1];
+        rest /= e;
+      }
+    }
+    const int2 x = red[r % free + free * at];
+    acc += b != nullptr ? (double)a[base.x + x.x] * (double)b[base.y + x.y]
+                        : (double)a[base.x + x.x];
+  }
+  return acc;
+}
+
+// One warp's share of a filter_scan step: it is warp `rank` of the `group`
+// warps the level gave the step, striding over the step's (output, lane)
+// tasks; the lanes of an output (at most 32, a power of two) meet by shuffles.
+template <typename T>
+__device__ void scan_tasks(const int* d, const int2* pairs, const int* code, const T* staged,
+                           const int* op_off, const Operands& ops, T* arena, int rank,
+                           int group) {
+  const T* a = scan_input<T>(d[sIn0], staged, op_off, ops, arena);
+  const T* b = d[sNIn] > 1 ? scan_input<T>(d[sIn1], staged, op_off, ops, arena) : nullptr;
+  T* dst = arena + d[sOut];
+  const int lanes = d[sLanes], shift = __ffs(lanes) - 1, tasks = d[sOutCount] * lanes;
+  const int lane = threadIdx.x & 31;
+  for (int first = 32 * rank; first < tasks; first += 32 * group) {
+    const int t = first + lane;
+    double v = t < tasks ? scan_partial<T>(d, pairs, code, a, b, t >> shift, t & (lanes - 1))
+                         : 0.0;
+    for (int s = lanes >> 1; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s, lanes);
+    if (t < tasks && (t & (lanes - 1)) == 0) dst[t >> shift] = (T)v;
+  }
+}
+
+// K10.  table (int32, ops/einsum.py:ScanProgram.table): n_steps rows of
+// kScanRow, the results (arena offset, entries, output column or -1 for the
+// interface, 0) per output, level_start (per (level, warp) the first of its
+// work items, n_levels * kScanWarps + 1 words), the work items (step, rank,
+// group), each transition factor's offset and span in the staged operands,
+// then (8-byte aligned) the offset pairs.  Where `staged`, the table sits in
+// shared memory at byte table_at and the factors at operands_at.  codes:
+// (n_slices, n_vars) int32, -1 where unobserved; out: (n_slices, width).
+// Alpha lives at arena offset 0.  A slice: its levels, one barrier after
+// each, then the normalisations while the next slice's codes are staged,
+// one barrier.
 template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-    filter_scan_kernel(const long long* __restrict__ steps, int n_steps,
-                       const long long* __restrict__ deltas, int n_delta,
-                       const long long* __restrict__ results, int n_results,
-                       const __grid_constant__ Operands ops, T* arena_global, int shared_arena,
+    filter_scan_kernel(const int* __restrict__ table, int n_steps, int n_results, int n_levels,
+                       int n_work, long long words, int staged,
+                       const __grid_constant__ Operands ops, int n_ptrs, T* arena_global,
+                       int shared_arena, long long operands_at, long long table_at,
                        const T* __restrict__ alpha0, int alpha_size,
                        const int* __restrict__ codes, int n_vars, int n_slices, T* out,
                        int width) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ long long desc[2][kStepWords];
-  __shared__ double scratch[kBlockThreads / 32];
   T* arena = shared_arena ? reinterpret_cast<T*>(smem_raw) : arena_global;
+  T* s_ops = staged ? reinterpret_cast<T*>(smem_raw + operands_at) : nullptr;
+  int* s_table = reinterpret_cast<int*>(smem_raw + table_at);
+  int* s_code = reinterpret_cast<int*>(smem_raw + table_at + (staged ? words * 4 : 0));
+  const long long head = (long long)n_steps * kScanRow + 4LL * n_results +
+                         (long long)n_levels * kScanWarps + 1 + 3LL * n_work + 2LL * n_ptrs;
+  if (staged) {
+    for (long long i = threadIdx.x; i < words; i += blockDim.x) s_table[i] = table[i];
+    const int* g_off = table + head - 2LL * n_ptrs;
+    for (int p = 0; p < n_ptrs; ++p) {
+      const T* src = static_cast<const T*>(ops.many != nullptr ? ops.many[p] : ops.p[p]);
+      T* dst = s_ops + g_off[p];
+      for (int e = threadIdx.x; e < g_off[n_ptrs + p]; e += blockDim.x) dst[e] = src[e];
+    }
+  }
+  const int* rows = staged ? s_table : table;
+  const int* results = rows + (long long)n_steps * kScanRow;
+  const int* level_start = results + 4LL * n_results;
+  const int* work = level_start + (long long)n_levels * kScanWarps + 1;
+  const int* op_off = work + 3LL * n_work;
+  const int2* pairs = reinterpret_cast<const int2*>(rows + ((head + 1) & ~1LL));
   for (int i = threadIdx.x; i < alpha_size; i += blockDim.x) arena[i] = alpha0[i];
+  for (int i = threadIdx.x; i < n_vars; i += blockDim.x) s_code[i] = n_slices > 0 ? codes[i] : -1;
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   for (int t = 0; t < n_slices; ++t) {
-    const int* row = codes + (long long)t * n_vars;
-    for (int e = threadIdx.x; e < n_delta; e += blockDim.x) {
-      const long long* de = deltas + 3LL * e;
-      const int code = row[de[1]];
-      arena[de[0]] = (code < 0 || code == (int)de[2]) ? T(1) : T(0);
+    for (int level = 0; level < n_levels; ++level) {
+      const int* at = level_start + level * kScanWarps + warp;
+      for (int w = at[0]; w < at[1]; ++w) {
+        const int* item = work + 3 * w;
+        scan_tasks<T>(rows + (long long)item[0] * kScanRow, pairs, s_code, s_ops, op_off, ops,
+                      arena, item[1], item[2]);
+      }
+      __syncthreads();  // the level's results are written
     }
-    __syncthreads();  // the deltas (and the new alpha) are in the arena
-    run_steps<T>(steps, n_steps, ops, arena, nullptr, desc, scratch);
     for (int r = warp; r < n_results; r += warps) {
-      const long long* re = results + 4LL * r;
+      const int* re = results + 4 * r;
       const T* m = arena + re[0];
-      const int entries = (int)re[1];
+      const int entries = re[1];
       double s = 0.0;
       for (int k = lane; k < entries; k += 32) s += (double)m[k];
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       T* dst = re[2] < 0 ? arena : out + (long long)t * width + re[2];
       for (int k = lane; k < entries; k += 32) dst[k] = (T)((double)m[k] / s);
+    }
+    if (t + 1 < n_slices) {
+      for (int i = threadIdx.x; i < n_vars; i += blockDim.x)
+        s_code[i] = codes[(long long)(t + 1) * n_vars + i];
     }
     __syncthreads();
   }
@@ -369,18 +509,19 @@ cudaError_t launch_grid(const void* steps, int n_steps, long long wanted, const 
 }
 
 template <typename T>
-cudaError_t launch_scan(const void* steps, int n_steps, const void* deltas, int n_delta,
-                        const void* results, int n_results, const Operands& ops, void* arena,
-                        long long shared_bytes, const void* alpha0, int alpha_size,
-                        const void* codes, int n_vars, int n_slices, void* out, int width,
-                        cudaStream_t stream) {
+cudaError_t launch_scan(const void* table, int n_steps, int n_results, int n_levels, int n_work,
+                        long long words, int staged, const Operands& ops, int n_ptrs,
+                        void* arena, int shared_arena, long long operands_at,
+                        long long table_at, long long shared_bytes, const void* alpha0,
+                        int alpha_size, const void* codes, int n_vars, int n_slices, void* out,
+                        int width, cudaStream_t stream) {
   cudaError_t err = allow_shared(filter_scan_kernel<T>, shared_bytes);
   if (err != cudaSuccess) return err;
   filter_scan_kernel<T><<<1, kBlockThreads, (size_t)shared_bytes, stream>>>(
-      static_cast<const long long*>(steps), n_steps, static_cast<const long long*>(deltas),
-      n_delta, static_cast<const long long*>(results), n_results, ops, static_cast<T*>(arena),
-      shared_bytes > 0, static_cast<const T*>(alpha0), alpha_size,
-      static_cast<const int*>(codes), n_vars, n_slices, static_cast<T*>(out), width);
+      static_cast<const int*>(table), n_steps, n_results, n_levels, n_work, words, staged, ops,
+      n_ptrs, static_cast<T*>(arena), shared_arena, operands_at, table_at,
+      static_cast<const T*>(alpha0), alpha_size, static_cast<const int*>(codes), n_vars,
+      n_slices, static_cast<T*>(out), width);
   return cudaGetLastError();
 }
 
@@ -419,23 +560,29 @@ extern "C" int pgmpy_plan_grid(const void* steps, int n_steps, long long wanted,
   return (int)cudaErrorInvalidValue;
 }
 
-// Every filter slice in one launch of one block (K10); host_ptrs: the
-// transition factors; alpha0: the slice-0 interface posterior (alpha_size
-// entries), copied into the arena.
-extern "C" int pgmpy_filter_scan(const void* steps, int n_steps, const void* deltas, int n_delta,
-                                 const void* results, int n_results, const void* const* host_ptrs,
-                                 int n_ptrs, const void* many, void* arena,
-                                 long long shared_bytes, const void* alpha0, int alpha_size,
-                                 const void* codes, int n_vars, int n_slices, void* out,
-                                 int width, int elem, void* stream) {
+// Every filter slice in one launch of one block (K10); table: the int32
+// buffer of ScanProgram.table (`words` of them), staged in shared memory at
+// byte table_at, with the transition factors at operands_at, when `staged`;
+// host_ptrs: the transition factors; arena: global memory, or null with
+// shared_arena to keep it at the start of shared memory; alpha0: the slice-0
+// interface posterior (alpha_size entries), copied into the arena;
+// shared_bytes: the arena, the staged factors and table and the slice's
+// n_vars codes.
+extern "C" int pgmpy_filter_scan(const void* table, int n_steps, int n_results, int n_levels,
+                                 int n_work, long long words, int staged,
+                                 const void* const* host_ptrs, int n_ptrs, const void* many,
+                                 void* arena, int shared_arena, long long operands_at,
+                                 long long table_at, long long shared_bytes, const void* alpha0,
+                                 int alpha_size, const void* codes, int n_vars, int n_slices,
+                                 void* out, int width, int elem, void* stream) {
   Operands ops;  // copied into the launch's parameter block
   cudaError_t err = pack(ops, host_ptrs, n_ptrs, many);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PGMPY_SCAN(T)                                                                        \
-  return (int)launch_scan<T>(steps, n_steps, deltas, n_delta, results, n_results, ops, arena, \
-                             shared_bytes, alpha0, alpha_size, codes, n_vars, n_slices, out,   \
-                             width, s)
+#define PGMPY_SCAN(T)                                                                          \
+  return (int)launch_scan<T>(table, n_steps, n_results, n_levels, n_work, words, staged, ops,  \
+                             n_ptrs, arena, shared_arena, operands_at, table_at, shared_bytes, \
+                             alpha0, alpha_size, codes, n_vars, n_slices, out, width, s)
   if (elem == 4) PGMPY_SCAN(float);
   if (elem == 8) PGMPY_SCAN(double);
 #undef PGMPY_SCAN

@@ -4,57 +4,77 @@
 //   row sums   out[r] = sum_i table[offset_i + sum_j codes[col_ij][r] * stride_ij]
 //              (with `missing`, node i's term is dropped where any of its
 //              codes is negative)
-//   E-step     for each original row g, its K consecutive expanded rows
-//              gK .. gK + K - 1: lp[k] = the masked row sum, then
-//              w[gK + k] = exp(lp[k] - max lp) / sum_k' exp(lp[k'] - max lp)
+//   E-step     for each original row r and latent configuration k:
+//              lp[k] = the masked sum over the nodes, a latent column's code
+//              being grid[k][l]; then w[rK + k] = exp(lp[k] - max lp) /
+//              sum_k' exp(lp[k'] - max lp)
 //
 // Replaces, from the JAX package:
 //   * pgmpy_tpu/metrics/bn_inference.py:24-32 (`logp`, K13): a jitted loop of
 //     per-node flat indices and gathers from the sampler's log tables;
 //   * pgmpy_tpu/estimators/em.py:169-191 (`log_prob` and `e_step_chunk`, K11):
-//     the same gather-sum with missing codes masked, then a softmax over the
-//     K latent configurations of each row, one jitted program per chunk.
+//     the same gather-sum with missing codes masked over the rows expanded by
+//     the latent configurations, then a softmax over the K configurations of
+//     each row, one jitted program per chunk.
 // The port's plain version (ops/table_gather.py) groups the nodes by width and
-// makes a few torch kernels per group, each with an (m, n) temporary.
+// makes a few torch kernels per group, each with an (m, n) temporary
+// ((m, n, K) for the E-step's latent nodes).
 //
 // Bound: bytes.  A row reads its own code and its parents' codes once per
 // node that names them and writes one value; the table (MUNIN: 98,423 entries,
-// 0.4-0.8 MB) stays in L2 and L1.  MUNIN's E-step reads its 250,000 x 1041
-// int8 expanded codes, 260 MB (0.078 ms at 3.35 TB/s); K13 its 50,000 x 1041
-// int8 codes, 52 MB (0.016 ms).  The arithmetic is an integer multiply-add per
-// (row, column) and one double add per (row, node): far below the card's rate.
+// 0.4-0.8 MB) stays in L2 and L1.  K13 reads MUNIN's 50,000 x 1041 int8
+// codes, 52 MB (0.016 ms at 3.35 TB/s); the E-step the same 50,000 x 1040
+// observed codes once and writes 250,000 weights (DIFFN_PATHO latent at 5
+// states).  The arithmetic is an integer multiply-add per (row, column) and
+// one double add per (row, node): far below the card's rate.  What limits
+// both is the chain of dependent loads per node (node row, codes, table
+// entry), a thousand nodes a row.
 //
 // What the design does about it:
-//   1. One thread per (expanded) row.  The codes are column-major (n_vars, ld),
-//      so a warp's 32 rows of one column are 32 consecutive codes: every code
-//      load is coalesced, and a block's columns stay in L1 for the nodes that
-//      read them again as parents.  No temporary leaves the registers.
+//   1. The codes are column-major (n_vars, ld), a warp's lanes on consecutive
+//      rows: every code load is coalesced, and a block's columns stay in L1
+//      for the nodes that read them again as parents.
 //   2. The node table is data: one int32 row per node (table offset, column
-//      count, columns, strides), uploaded once per TableGather and padded to
-//      a width of 4, 8 or 32 columns, the kernel's template argument, so the
-//      column loop is unrolled.  A block stages it in shared memory a chunk
-//      of nodes at a time (8 KB), and every lane of a warp reads the same row.
-//   3. A row is a chain (node row, codes, table entry) a thousand nodes long,
-//      and MUNIN's 50,000 rows are only 12 warps per multiprocessor.  A thread
-//      issues the code and table loads of four nodes before it adds their
-//      terms.  With 2, that took K13 on MUNIN from 1.0 ms (one node at a time,
-//      node rows read through L1) to 0.5 ms, 32x the byte bound; eight nodes
-//      deep gained nothing, and staging the tables in shared memory too cost
-//      more than it saved.  What limits it now is not measured.
-//   4. Each row accumulates in float64 in node order and stores once in the
-//      output's type: the same sum from run to run, and at MUNIN's 1041 terms
-//      no less exact than the plain version's float32 sum.
-//   5. The E-step keeps a block's whole rows in shared memory: G = 128 / K
-//      original rows (one for K >= 128, the block then loops over the K
-//      expanded rows), their K float64 running sums, then one warp per row
-//      takes the max and the sum of exponentials by a fixed shuffle tree, and
-//      every thread writes its weight.  One launch per EM iteration, any K.
+//      count, columns, strides), uploaded once and padded to a width of 4, 8
+//      or 32 columns, the kernels' template argument, so the column loop is
+//      unrolled.  Every lane of a warp reads the same node row.
+//   3. A thread issues the code and table loads of four nodes before it adds
+//      their terms.  row_sums: one thread per row, the node table staged in
+//      shared memory a chunk (8 KB) at a time; on MUNIN 0.5 ms, 32x the byte
+//      bound, with only 12 warps a multiprocessor (50,000 rows).
+//   4. The E-step reads the ORIGINAL rows, not the rows expanded over the K
+//      latent configurations.  The host splits the nodes: a shared node (no
+//      latent in scope; MUNIN: 971 of 1041) has the same term for every k
+//      and is summed once per row; a latent node (70) reads its latent codes
+//      from the K x L grid in shared memory and is summed once per (row, k).
+//      MUNIN at K = 5: 1,321 table gathers a row where the expanded rows took
+//      5,205, and 52 MB of codes where they took 260 MB.
+//   5. The E-step's parallelism: a block takes a tile of R rows (32, fewer
+//      for a large K) and cuts the shared nodes into threads / R slices, a
+//      thread summing its slice for its row, so that a row's chain of
+//      gathers is spread over 8 warps and tens of warps a multiprocessor are
+//      in flight; the latent nodes run as (slice, block of 8 k, row) tasks,
+//      each reading a node's data codes once and gathering its 8 entries
+//      together.  The grid
+//      is the blocks the card holds at once (the occupancy API), each
+//      looping over tiles.  The node rows are read through L1 (every lane
+//      of a warp reads the same row): staging MUNIN's 41 KB in shared memory
+//      leaves L1 less room for the table's entries (0.332 ms staged, 0.320
+//      not, on an H100).  Registers are capped at 64 a thread, so that 4
+//      blocks (32 warps) fit an SM: uncapped, the latent blocks' registers
+//      (96-108 in a stamped build) left 2 and the E-step took 0.426 ms.
+//   6. Sums in float64 in a fixed order, stored once in the output's type:
+//      the same result from run to run.  row_sums adds in node order; the
+//      E-step adds each slice in node order, then per row the shared slices
+//      (a fixed shuffle tree), then lp[k] = shared + the latent slices in
+//      order, and the softmax (a warp a row, fixed shuffle trees).
 //
 // The wrapper (pgmpy_tpu_torch/ops/table_gather.py) builds and uploads the
-// node table, plans the grid and calls the extern "C" launchers through
+// node table, plans the launch and calls the extern "C" launchers through
 // ctypes on PyTorch's current stream; each returns the launch's cudaError_t.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 
@@ -65,23 +85,27 @@ namespace {
 constexpr int kHeader = 2;
 constexpr int kWarp = 32;
 constexpr int kUnroll = 4;  // nodes whose loads a thread issues before adding their terms
+constexpr int kLatentBlock = 8;  // latent configurations a thread sums at once (ops: E_STEP_KBLOCK)
+// the E-step's block (ops: E_STEP_BLOCK, at most) and the blocks a
+// multiprocessor should hold: registers are capped at 64 a thread
+constexpr int kEStepThreads = 256, kEStepBlocks = 4;
 
 struct Args {
   const void* codes;
   long long ld;
   long long n;  // rows (row_sums) or original rows (e_step)
-  int K;
-  int per_block;
   const void* table;
   const void* nodes;
-  int n_nodes;
-  int chunk;  // nodes staged in shared memory at a time
+  int n_nodes;  // row_sums: every node; e_step: the shared ones
+  int chunk;    // row_sums: nodes staged in shared memory at a time
   int missing;
   void* out;
   int block;
-  long long blocks;
+  long long blocks;  // row_sums; the E-step's grid is the card's resident blocks
   long long smem;
   cudaStream_t stream;
+  // e_step only
+  int K, R, P, n_latent, L;
 };
 
 // Node d's entry for the row at `base` (its code of column c: base[c * ld]);
@@ -160,50 +184,141 @@ __global__ void row_sums_kernel(const C* __restrict__ codes, long long ld, long 
   if (active) out[row] = (T)acc;
 }
 
-// One block: `per_block` original rows of K expanded rows each.
+// acc[k] (k < kc) plus the terms of `count` latent node rows for the row at
+// `base` and the latent configurations k0 .. k0 + kc - 1 (grid: K x L codes;
+// column j of a node row is a data column (>= 0) or latent l (-1 - l)), added
+// in node order.  A node's data codes are read once; its kc table entries are
+// gathered together.  A term is dropped where a data code is missing (latent
+// codes never are).
+template <int W, typename C, typename T>
+__device__ __forceinline__ void latent_block(double* acc, const C* __restrict__ base, long long ld,
+                                             const T* __restrict__ table, const int* rows,
+                                             int count, const int* grid, int L, int k0, int kc) {
+  constexpr int kRow = kHeader + 2 * W;
+  for (int i = 0; i < count; ++i) {
+    const int* d = rows + i * kRow;
+    int flat = d[0];
+    const int n = d[1];
+    bool valid = true;
+    int lat[W], stride[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      lat[j] = -1;
+      stride[j] = 0;
+      if (j < n) {
+        const int col = d[kHeader + j], st = d[kHeader + W + j];
+        if (col >= 0) {
+          const int code = (int)base[(long long)col * ld];
+          valid &= code >= 0;
+          flat += max(code, 0) * st;
+        } else {
+          lat[j] = -1 - col;
+          stride[j] = st;
+        }
+      }
+    }
+    T v[kLatentBlock];
+#pragma unroll
+    for (int k = 0; k < kLatentBlock; ++k) {
+      if (k < kc) {
+        const int* g = grid + (k0 + k) * L;
+        int f = flat;
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          if (lat[j] >= 0) f += g[lat[j]] * stride[j];
+        }
+        v[k] = table[f];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLatentBlock; ++k) {
+      if (k < kc && valid) acc[k] += (double)v[k];
+    }
+  }
+}
+
+// The E-step over the original rows, a tile of R rows at a time (the grid
+// strides over the tiles).  Node rows: the n_shared shared nodes (no latent
+// in scope), then the n_latent latent nodes; grid: K x L latent codes.
+//   1. thread (slice, row) sums slice `slice` of the shared nodes for its row
+//      (threads / R slices, the lanes of a warp on consecutive rows);
+//   2. task (p, b, row) sums slice p of the latent nodes for its row at the
+//      configurations of block b (kLatentBlock of them, in registers; P
+//      slices, chosen so that the tasks fill the block where they can);
+//   3. a warp per row: its shared sum over the slices in order, then each
+//      lp[k] = shared + the latent slices in order, their max and the sum of
+//      exponentials (fixed shuffle trees);
+//   4. the weights, K consecutive outputs a row.
 template <int W, typename C, typename T, typename O>
-__global__ void e_step_kernel(const C* __restrict__ codes, long long ld, long long n_groups,
-                              int K, int per_block, const T* __restrict__ table,
-                              const int* __restrict__ nodes, int n_nodes, int chunk,
-                              O* __restrict__ out) {
+__global__ void __launch_bounds__(kEStepThreads, kEStepBlocks)
+    e_step_kernel(const C* __restrict__ codes, long long ld, long long n_rows, int K,
+                  int R, int P, const int* __restrict__ nodes, int n_shared, int n_latent,
+                  int L, const T* __restrict__ table, O* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* s_lp = reinterpret_cast<double*>(smem_raw);  // per_block * K running sums
-  double* s_max = s_lp + (long long)per_block * K;
-  double* s_sum = s_max + per_block;
-  int* s_nodes = reinterpret_cast<int*>(s_sum + per_block);
-  const long long g0 = (long long)blockIdx.x * per_block;
-  const int groups = (int)min((long long)per_block, n_groups - g0);
-  const long long e0 = g0 * K;
-  const int count = groups * K;
-  for (int e = threadIdx.x; e < count; e += blockDim.x) s_lp[e] = 0.0;
-  for (int first = 0; first < n_nodes; first += chunk) {
-    const int staged = min(chunk, n_nodes - first);
-    __syncthreads();
-    stage<W>(s_nodes, nodes, first, staged);
-    __syncthreads();
-    for (int e = threadIdx.x; e < count; e += blockDim.x) {
-      s_lp[e] = chunk_sum<W>(s_lp[e], codes + e0 + e, ld, table, s_nodes, staged, true);
-    }
-  }
+  constexpr int kRow = kHeader + 2 * W;
+  const int threads = blockDim.x, KR = K * R;
+  double* s_part = reinterpret_cast<double*>(smem_raw);  // threads shared-node partial sums
+  double* s_lp = s_part + threads;                       // P * K * R latent partials, then lp
+  double* s_max = s_lp + (long long)P * KR;              // R
+  double* s_sum = s_max + R;                             // R
+  int* s_grid = reinterpret_cast<int*>(s_sum + R);       // K * L
+  const int* grid = nodes + (long long)(n_shared + n_latent) * kRow;
+  for (int i = threadIdx.x; i < K * L; i += threads) s_grid[i] = grid[i];
+  const int* rows = nodes;  // read through L1: every lane of a warp reads the same row
   __syncthreads();
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int g = warp; g < groups; g += blockDim.x / kWarp) {
-    const double* lp = s_lp + (long long)g * K;
-    double m = lp[lane < K ? lane : 0];
-    for (int k = lane + kWarp; k < K; k += kWarp) m = fmax(m, lp[k]);
-    for (int o = kWarp / 2; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(0xffffffffu, m, o));
-    double s = 0.0;
-    for (int k = lane; k < K; k += kWarp) s += exp(lp[k] - m);
-    for (int o = kWarp / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) {
-      s_max[g] = m;
-      s_sum[g] = s;
+  const int slices = threads / R, row = threadIdx.x % R, slice = threadIdx.x / R;
+  const int first = (int)((long long)n_shared * slice / slices);
+  const int count = (int)((long long)n_shared * (slice + 1) / slices) - first;
+  const int blocks = (K + kLatentBlock - 1) / kLatentBlock, tasks = P * blocks * R;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, warps = threads / kWarp;
+  const long long n_tiles = (n_rows + R - 1) / R;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * R;
+    const int here = (int)min((long long)R, n_rows - r0);
+    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(row, here - 1), ld, table,
+                                       rows + first * kRow, count, true);
+    for (int q = threadIdx.x; q < tasks; q += threads) {
+      const int p = q / (blocks * R), b = q / R % blocks, r = q % R;
+      const int lo = n_shared + (int)((long long)n_latent * p / P);
+      const int hi = n_shared + (int)((long long)n_latent * (p + 1) / P);
+      const int k0 = b * kLatentBlock, kc = min(kLatentBlock, K - k0);
+      double acc[kLatentBlock];
+#pragma unroll
+      for (int k = 0; k < kLatentBlock; ++k) acc[k] = 0.0;
+      latent_block<W>(acc, codes + r0 + min(r, here - 1), ld, table, rows + lo * kRow, hi - lo,
+                      s_grid, L, k0, kc);
+#pragma unroll
+      for (int k = 0; k < kLatentBlock; ++k) {
+        if (k < kc) s_lp[(long long)p * KR + (k0 + k) * R + r] = acc[k];
+      }
     }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int g = e / K;
-    out[e0 + e] = (O)(exp(s_lp[e] - s_max[g]) / s_sum[g]);
+    __syncthreads();
+    for (int r = warp; r < here; r += warps) {
+      double shared = 0.0;
+      for (int j = lane; j < slices; j += kWarp) shared += s_part[j * R + r];
+      for (int o = kWarp / 2; o > 0; o >>= 1) shared += __shfl_xor_sync(0xffffffffu, shared, o);
+      double m = -CUDART_INF;
+      for (int k = lane; k < K; k += kWarp) {
+        double lp = shared;
+        for (int p = 0; p < P; ++p) lp += s_lp[(long long)p * KR + k * R + r];
+        s_lp[k * R + r] = lp;
+        m = fmax(m, lp);
+      }
+      for (int o = kWarp / 2; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(0xffffffffu, m, o));
+      double s = 0.0;
+      for (int k = lane; k < K; k += kWarp) s += exp(s_lp[k * R + r] - m);
+      for (int o = kWarp / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) {
+        s_max[r] = m;
+        s_sum[r] = s;
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < here * K; e += threads) {
+      const int r = e / K, k = e % K;
+      out[r0 * K + e] = (O)(exp(s_lp[k * R + r] - s_max[r]) / s_sum[r]);
+    }
+    __syncthreads();  // the tile's sums are read before the next tile writes them
   }
 }
 
@@ -224,15 +339,26 @@ cudaError_t launch_row_sums(const Args& a) {
   return cudaGetLastError();
 }
 
+// The E-step's grid: as many blocks as the card holds at once at this
+// shared memory (the occupancy API), at most one a tile.
 template <int W, typename C, typename T, typename O>
 cudaError_t launch_e_step(const Args& a) {
   auto kernel = e_step_kernel<W, C, T, O>;
   cudaError_t err = allow_smem(kernel, a.smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, a.block, (size_t)a.smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)a.blocks, a.block, (size_t)a.smem, a.stream>>>(
-      static_cast<const C*>(a.codes), a.ld, a.n, a.K, a.per_block,
-      static_cast<const T*>(a.table), static_cast<const int*>(a.nodes), a.n_nodes, a.chunk,
-      static_cast<O*>(a.out));
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (a.n + a.R - 1) / a.R;
+  const long long blocks = tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
+  kernel<<<(unsigned)blocks, a.block, (size_t)a.smem, a.stream>>>(
+      static_cast<const C*>(a.codes), a.ld, a.n, a.K, a.R, a.P,
+      static_cast<const int*>(a.nodes), a.n_nodes, a.n_latent, a.L,
+      static_cast<const T*>(a.table), static_cast<O*>(a.out));
   return cudaGetLastError();
 }
 
@@ -278,25 +404,29 @@ extern "C" int pgmpy_table_gather_row_sums(const void* codes, int code_bytes, lo
                                            const void* nodes, int n_nodes, int width, int chunk,
                                            int missing, void* out, int block, long long blocks,
                                            long long smem, void* stream) {
-  const Args a{codes, ld, n_rows, 1, 1, table, nodes, n_nodes, chunk, missing, out, block,
-               blocks, smem, static_cast<cudaStream_t>(stream)};
+  const Args a{codes, ld, n_rows, table, nodes, n_nodes, chunk, missing, out, block, blocks,
+               smem, static_cast<cudaStream_t>(stream), 1, 1, 1, 0, 0};
   return (int)dispatch(width, code_bytes, table_bytes, 0, a);
 }
 
-// The E-step's weights, n_groups * K values of out_bytes (4: float, 8:
-// double): per original row the masked row sums of its K expanded rows, then
-// their softmax in float64.  per_block original rows a block, `block` threads
-// (a multiple of 32); smem = (per_block * K + 2 * per_block) * 8 bytes, then
-// the staged chunk of node rows.
+// The E-step's weights, n_rows * K values of out_bytes (4: float, 8: double):
+// per original row (codes column-major, `ld` apart, as row_sums reads them)
+// and latent configuration k, the masked sum of every node's entry, then the
+// softmax over k in float64.  nodes: the n_shared shared node rows, then the
+// n_latent latent node rows (width columns each, a latent column -1 - l),
+// then the K x L latent codes, all int32.  Tiles of R rows, P latent slices,
+// `block` threads (a multiple of 32 and of R, at most kEStepThreads); smem =
+// (block + P * K * R + 2 * R) * 8 + K * L * 4 bytes.
 extern "C" int pgmpy_table_gather_e_step(const void* codes, int code_bytes, long long ld,
-                                         long long n_groups, int K, const void* table,
-                                         int table_bytes, const void* nodes, int n_nodes,
-                                         int width, int chunk, void* out, int out_bytes,
-                                         int per_block, int block, long long blocks,
-                                         long long smem, void* stream) {
-  if (K < 1 || per_block < 1 || (out_bytes != 4 && out_bytes != 8))
+                                         long long n_rows, const void* table, int table_bytes,
+                                         const void* nodes, int n_shared, int n_latent,
+                                         int width, int K, int L, int R, int P, void* out,
+                                         int out_bytes, int block, long long smem,
+                                         void* stream) {
+  if (K < 1 || R < 1 || P < 1 || L < 0 || block % R != 0 || block > kEStepThreads ||
+      (out_bytes != 4 && out_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  const Args a{codes, ld, n_groups, K, per_block, table, nodes, n_nodes, chunk, 1, out, block,
-               blocks, smem, static_cast<cudaStream_t>(stream)};
+  const Args a{codes, ld, n_rows, table, nodes, n_shared, 1, 1, out, block, 0, smem,
+               static_cast<cudaStream_t>(stream), K, R, P, n_latent, L};
   return (int)dispatch(width, code_bytes, table_bytes, out_bytes, a);
 }

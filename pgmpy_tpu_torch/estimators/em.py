@@ -1,18 +1,21 @@
 """ExpectationMaximization for latent-variable parameter learning.
 
 Port of ``pgmpy_tpu/estimators/em.py``.  Every row of the data is expanded
-over the K joint states of the latent variables.  The expanded code matrix is
-built on the device from the codes already there (``repeat_interleave`` of
-the observed columns, the latent grid tiled) and never crosses from the host.
-Each iteration then runs on the device:
+over the K joint states of the latent variables for the M-step's weighted
+counts.  The expanded code matrix is built on the device from the codes
+already there (``repeat_interleave`` of the observed columns, the latent grid
+tiled) and never crosses from the host.  Each iteration then runs on the
+device:
 
-* the E-step (K11): per expanded row the sum over nodes of
-  ``log max(P(node | parents), TINY)`` (``ops/table_gather.py``, the gather
-  K13 uses, with a node's term left out where its code or a parent's is
-  missing), then a softmax over the K latent states of each row: on a card
-  ONE launch of the hand-written kernel (``csrc/table_gather.cu``).  The logs
-  and their sum are float64: at MUNIN's width a row sums a thousand terms,
-  and float32 would leave 1e-4 of error in the weights;
+* the E-step (K11): per row and latent state k the sum over nodes of
+  ``log max(P(node | parents), TINY)`` (``ops/table_gather.py:LatentGather``,
+  with a node's term left out where its code or a parent's is missing), then
+  a softmax over the K states of each row: on a card ONE launch of the
+  hand-written kernel (``csrc/table_gather.cu``).  It reads the observed
+  codes, not the expanded ones: a node with no latent in scope is summed once
+  per row, the others once per state with the latent codes from the grid.
+  The logs and their sum are float64: at MUNIN's width a row sums a thousand
+  terms, and float32 would leave 1e-4 of error in the weights;
 * the M-step: ONE weighted ``table_counts`` launch (K1) for every CPD, the
   smoothing, the zero-column rule and the normalisation, all on the flat
   table vector, and the largest change of any CPD entry.
@@ -34,7 +37,7 @@ from pgmpy_tpu_torch.config import TINY, config, logger
 from pgmpy_tpu_torch.estimators.base import BaseEstimator, ParameterEstimator, _CodedData
 from pgmpy_tpu_torch.factors.cpd import TabularCPD
 from pgmpy_tpu_torch.ops.bincount import table_specs
-from pgmpy_tpu_torch.ops.table_gather import TableGather
+from pgmpy_tpu_torch.ops.table_gather import LatentGather
 
 def _budget_bytes(device):
     """Bytes the E-step's temporaries may take per chunk: half the free
@@ -80,10 +83,17 @@ class _EMProgram:
             [[cards[v]] + [cards[p] for p in parents[v]] for v in var_order],
         )
         sizes, offsets = self.specs.sizes, self.specs.offsets
-        self.gather = TableGather(
-            [self.specs.cols[s, : self.specs.n_cols[s]] for s in range(len(var_order))],
+        # the E-step's columns: a variable's column of the observed codes, or
+        # -1 - j for latent j (its codes come from the grid)
+        source = {v: -1 - j for j, v in enumerate(latents)}
+        source.update({v: obs_coded.var_index[v] for v in observed})
+        self.obs = obs_coded
+        self.gather = LatentGather(
+            [[source[var_order[c]] for c in self.specs.cols[s, : self.specs.n_cols[s]]]
+             for s in range(len(var_order))],
             [self.specs.strides[s, : self.specs.n_cols[s]] for s in range(len(var_order))],
-            offsets, self.specs.total, device,
+            offsets, self.specs.total,
+            np.asarray(grid, dtype=np.int64).reshape(self.K, len(latents)), device,
         )
 
         # per entry of ``prob``: its column (one per parent configuration of
@@ -102,14 +112,17 @@ class _EMProgram:
         self.smoothing = torch.as_tensor(np.repeat(5.0 / sizes, sizes), dtype=config.DTYPE,
                                          device=device)
 
-        # E-step chunks: whole rows (K expanded rows each), at least batch_size;
-        # per expanded row and node of a group: its codes (int8, int32 and
-        # their products) and its index, value and mask
+        # E-step chunks of the plain version: rows, at least batch_size; per
+        # row and node of a group its codes (int8, int32 and their products)
+        # and its index, value and mask, K of them for a latent group
+        gather = self.gather
         width_bytes = max(
-            (9 * strides.shape[0] + 17) * offsets_g.shape[0]
-            for _, strides, offsets_g in self.gather.groups
+            [(9 * strides.shape[0] + 17) * offsets_g.shape[0]
+             for _, strides, offsets_g in gather.shared.groups]
+            + [(9 * data.shape[0] + 17) * data.shape[1] * self.K
+               for _, data, _, _ in gather.latent_groups]
         )
-        fit = _budget_bytes(device) // max(width_bytes * self.K, 1)
+        fit = _budget_bytes(device) // max(width_bytes, 1)
         self.chunk_rows = max(int(batch_size), int(fit), 1)
 
     def flat_of(self, cpds):
@@ -129,13 +142,12 @@ class _EMProgram:
         one launch of the E-step kernel on a card (it keeps no temporaries),
         chunks of ``chunk_rows`` rows through the plain version on the CPU."""
         log_table = torch.log(torch.clamp_min(prob, TINY).to(torch.float64))
-        codes = self.coded._column_codes()
-        K, weights = self.K, []
+        codes = self.obs._column_codes()
+        weights = []
         chunk = self.n if codes.is_cuda else self.chunk_rows
         for r0 in range(0, self.n, chunk):
             r1 = min(self.n, r0 + chunk)
-            weights.append(self.gather.e_step(log_table, codes[:, r0 * K : r1 * K], K,
-                                              prob.dtype))
+            weights.append(self.gather.e_step(log_table, codes[:, r0:r1], prob.dtype))
         return weights[0] if len(weights) == 1 else torch.cat(weights)
 
     def m_step(self, weights, apply_smoothing):

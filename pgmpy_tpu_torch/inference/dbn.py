@@ -9,13 +9,13 @@ T); smoothing unrolls the network and runs ``VariableElimination``.
 ``lax.scan`` over the slices; here, on a CUDA device, ONE launch of the
 hand-written ``filter_scan`` kernel (``csrc/einsum_plan.cu``, host tables in
 ``ops/einsum.py:ScanProgram``) runs every transition slice inside one block:
-the slice's evidence deltas from its row of codes, the contraction of
-``[alpha, transition factors, evidence deltas]`` to the joint over the
+the contraction of ``[alpha, transition factors]`` to the joint over the
 interface and the queries with each marginal read from it (or, where that
 joint would pass a block's limit, the ``1 + queries`` planned contractions
-the plain version runs), the normalisations, and alpha carried to the next
-slice.  The slice-0 work stays
-on the host (``factor_sum_product``, K3).  On the CPU the plain version
+the plain version runs), a slice's evidence pinning the observed labels to
+its row of codes instead of multiplying deltas, its steps run level by level,
+then the normalisations, and alpha carried to the next slice.  The slice-0
+work stays on the host (``factor_sum_product``, K3).  On the CPU the plain version
 :func:`scan_reference` loops over the slices on the host.  Slice-0 evidence
 on an interface variable is kept in alpha as a one-hot mask; the JAX package
 reduces it out of the start factors and then raises (a fault fixed in the
@@ -292,8 +292,7 @@ class DBNInference:
         if n_time_slices > 1 and variables:
             if alpha.device.type == "cuda" and kernel:
                 program = self._scan_program(inputs)
-                codes = torch.as_tensor(inputs["codes"], dtype=torch.int32, device=alpha.device)
-                stacked = program.run(alpha, inputs["trans_arrays"], codes)
+                stacked = program.run(alpha, inputs["trans_arrays"], inputs["codes"])
             else:
                 stacked = scan_reference(inputs, alpha)
             # one readback: (T - 1, sum of the query cardinalities)

@@ -20,8 +20,9 @@ computed once per static (axes, shapes) signature and cached.
   contraction path either).  Float32 products run in full f32 (``config``
   disables TF32).
 
-The same table drives ``forward_scan``'s exact filter (K10, :class:`ScanProgram`):
-every slice's contractions run inside one ``filter_scan`` launch.
+The same step rows, with the evidence folded in, drive ``forward_scan``'s
+exact filter (K10, :class:`ScanProgram`): every slice's contractions run
+inside one ``filter_scan`` launch, level by level.
 
 It replaces ``pgmpy_tpu/ops/einsum.py:26`` ``sum_product``, ``:57``
 ``_cached_path`` and ``:73`` ``sum_product_planned`` (one XLA program per
@@ -52,6 +53,11 @@ GRID_THREADS = 256  # a block of plan_grid
 LANE_ENTRIES = 32  # reduced entries a lane sums, aimed at (plan_block)
 GRID_LANE_ENTRIES = 8  # the same for plan_grid, whose steps spread over the whole card
 SHARED_ARENA_BYTES = 160 * 1024  # a block's intermediates in shared memory up to this
+SCAN_WARPS = BLOCK_THREADS // 32  # filter_scan's warps, dealt among a level's steps
+SCAN_SETUP = 8  # a filter_scan task's set-up, in reduced entries, when dealing warps and lanes
+SCAN_STAGE_BYTES = 160 * 1024  # filter_scan's factors and tables in shared memory up to this
+SCAN_SHARED_LIMIT = 227 * 1024  # filter_scan's dynamic shared memory at most
+SCAN_PATTERNS = 16  # observed patterns whose tables a ScanProgram keeps (the oldest dropped)
 MAX_GRID_BLOCKS = 1 << 20  # plan_grid's blocks asked for at most (they stride over the rest)
 
 # one step of the table: a header, then MAX_LABELS words each of the output
@@ -60,6 +66,12 @@ MAX_GRID_BLOCKS = 1 << 20  # plan_grid's blocks asked for at most (they stride o
 HEADER = ("n_in", "in0", "in1", "out", "n_out", "n_red", "out_count", "red_count", "lanes",
           "chunk")
 STEP_WORDS = len(HEADER) + 6 * MAX_LABELS
+# a filter_scan step (int32): n_in, in0, in1, out, out_count, free reduced
+# count, lanes, pinned outputs, pinned reduced, where its output and its
+# reduced offset pairs start, 0; then MAX_LABELS (variable, place, extent)
+# triples of pinned output labels and MAX_LABELS of pinned reduced labels
+SCAN_HEADER = 12
+SCAN_ROW = SCAN_HEADER + 6 * MAX_LABELS
 
 LAUNCHES = {"plan_block": 0, "plan_grid": 0}
 SCAN_LAUNCHES = 0
@@ -173,29 +185,6 @@ def step_lanes(out_count, red_count, threads, entries=LANE_ENTRIES):
     return max(1, min(lanes, _pow2_ceil(max(red_count, 1)), threads))
 
 
-class _Arena:
-    """First-fit offsets of the intermediates in the arena, each freed when
-    its one reader has run."""
-
-    def __init__(self, base):
-        self.base = self.end = base
-        self.live = {}
-
-    def alloc(self, size):
-        size = max(int(size), 1)
-        offset = self.base
-        for start in sorted(self.live):
-            if start - offset >= size:
-                break
-            offset = max(offset, start + self.live[start])
-        self.live[offset] = size
-        self.end = max(self.end, offset + size)
-        return offset
-
-    def free(self, offset):
-        del self.live[offset]
-
-
 def _merge(dims):
     """Drop extent-1 labels and merge neighbours that every tensor walks as
     one: ``dims`` are [extent, stride per tensor...] innermost first, and an
@@ -281,41 +270,29 @@ def _step_row(inputs, out_labels, out_slot, size):
     return row
 
 
-def compile_steps(operand_axes, out_axes, shapes, strides, plan, slots, out_slot, arena_base):
-    """The table rows of one planned contraction.  ``slots[i]`` is operand
-    ``i``'s slot (>= 0 a pointer index, < 0 an arena offset as -(1 +
-    offset)); the last step writes the result contiguously in ``out_axes``
-    order to ``out_slot`` (-1: the call's output; else an arena offset).
-    Intermediates get arena offsets from ``arena_base`` up, reused once dead.
-    Returns (rows (steps, STEP_WORDS) int64, unions per step, arena end)."""
-    size = label_sizes(operand_axes, shapes)
-    ops = []
-    for slot, axes, shape, stride in zip(slots, operand_axes, shapes, strides):
-        label_strides = {}
-        for a, n, s in zip(axes, shape, stride):
-            # a broadcast axis of extent 1 does not move
-            label_strides[a] = label_strides.get(a, 0) + (0 if n == 1 else int(s))
-        ops.append(_Operand(slot, axes, label_strides))
-    out_axes = tuple(out_axes)
-    missing = set(out_axes) - set(size)
-    if missing:
-        raise ValueError(f"einsum_plan: output labels {sorted(missing)} are in no operand")
-    arena = _Arena(arena_base)
-    rows = []
+class _Tmp:
+    """An intermediate of a slice: its size, the level of the step that
+    writes it and of the one that reads it, and its arena offset once
+    placed."""
+
+    __slots__ = ("size", "level", "read", "offset")
+
+    def __init__(self, size):
+        self.size, self.level, self.read, self.offset = size, None, None, None
+
+
+def _symbolic_steps(out_axes, operands, plan, target, size):
+    """The steps of one planned contraction as (inputs, output labels,
+    output), an input an :class:`_Operand` whose slot is an int (a pointer,
+    or -(1 + arena offset)) or a :class:`_Tmp`, the last step's output the
+    arena offset ``target``, every other a new :class:`_Tmp`."""
+    ops = list(operands)
+    steps = []
 
     def emit(inputs, labels, final):
-        if final:
-            row = _step_row(inputs, labels, out_slot, size)
-            result = None
-        else:
-            offset = arena.alloc(math.prod(size[a] for a in labels))
-            row = _step_row(inputs, labels, offset, size)
-            result = _Operand(-1 - offset, labels, _contiguous(labels, size))
-        for op in inputs:  # read by this step only: free once it has run
-            if op.slot < 0 and -1 - op.slot in arena.live:
-                arena.free(-1 - op.slot)
-        rows.append(row)
-        return result
+        out = target if final else _Tmp(max(math.prod(size[a] for a in labels), 1))
+        steps.append((inputs, tuple(labels), out))
+        return None if final else _Operand(out, labels, _contiguous(labels, size))
 
     if not plan:
         emit(ops[:1], out_axes, True)
@@ -331,9 +308,77 @@ def compile_steps(operand_axes, out_axes, shapes, strides, plan, slots, out_slot
             labels = tuple(dict.fromkeys(a for op in picked[:2] for a in op.labels if a in later))
             picked = [emit(picked[:2], labels, False)] + picked[2:]
         ops.append(emit(picked, out_axes if last else keep, last))
-    table = np.stack(rows)
+    return steps
+
+
+def _place(tmps, base):
+    """Arena offsets from ``base`` up for the intermediates: two may share
+    entries only where one is read at a level before the other is written
+    (the steps of a level run at once).  First fit, in order of the level
+    that writes them.  Returns the arena's end."""
+    end, live = base, []  # live: (offset, size, level read)
+    for tmp in sorted(tmps, key=lambda t: t.level):
+        live = [entry for entry in live if entry[2] >= tmp.level]
+        offset = base
+        for start, length, _ in sorted(live):
+            if start - offset >= tmp.size:
+                break
+            offset = max(offset, start + length)
+        tmp.offset = offset
+        live.append((offset, tmp.size, tmp.read))
+        end = max(end, offset + tmp.size)
+    return end
+
+
+def _operands(slots, operand_axes, shapes, strides):
+    """One :class:`_Operand` per operand: its slot, and each label's stride
+    in elements (summed over repeated labels; a broadcast axis of extent 1
+    does not move)."""
+    ops = []
+    for slot, axes, shape, stride in zip(slots, operand_axes, shapes, strides):
+        label_strides = {}
+        for a, n, s in zip(axes, shape, stride):
+            label_strides[a] = label_strides.get(a, 0) + (0 if n == 1 else int(s))
+        ops.append(_Operand(slot, axes, label_strides))
+    return ops
+
+
+def _resolved(op):
+    """``op`` with an intermediate's slot replaced by its arena offset."""
+    if isinstance(op.slot, _Tmp):
+        return _Operand(-1 - op.slot.offset, op.labels, op.strides)
+    return op
+
+
+def compile_steps(operand_axes, out_axes, shapes, strides, plan, slots, out_slot, arena_base):
+    """The table rows of one planned contraction.  ``slots[i]`` is operand
+    ``i``'s slot (>= 0 a pointer index, < 0 an arena offset as -(1 +
+    offset)); the last step writes the result contiguously in ``out_axes``
+    order to ``out_slot`` (-1: the call's output; else an arena offset).
+    Intermediates get arena offsets from ``arena_base`` up, reused once dead
+    (the steps run one after another).  Returns (rows (steps, STEP_WORDS)
+    int64, unions per step, arena end)."""
+    size = label_sizes(operand_axes, shapes)
+    out_axes = tuple(out_axes)
+    missing = set(out_axes) - set(size)
+    if missing:
+        raise ValueError(f"einsum_plan: output labels {sorted(missing)} are in no operand")
+    steps = _symbolic_steps(out_axes, _operands(slots, operand_axes, shapes, strides), plan,
+                            out_slot, size)
+    tmps = []
+    for index, (inputs, _, out) in enumerate(steps):  # step i is level i
+        for op in inputs:
+            if isinstance(op.slot, _Tmp):
+                op.slot.read = index
+        if isinstance(out, _Tmp):
+            out.level = index
+            tmps.append(out)
+    end = _place(tmps, arena_base)
+    table = np.stack([_step_row([_resolved(op) for op in inputs], labels,
+                                out.offset if isinstance(out, _Tmp) else out, size)
+                      for inputs, labels, out in steps])
     unions = table[:, 6] * table[:, 7]
-    return table, unions, arena.end
+    return table, unions, end
 
 
 def set_lanes(table, threads, entries=LANE_ENTRIES):
@@ -404,8 +449,8 @@ def _library():
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pgmpy_plan_block.argtypes = [vp, i32, vp, i32, vp, vp, vp, i64, i32, vp]
     lib.pgmpy_plan_grid.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp, i32, vp]
-    lib.pgmpy_filter_scan.argtypes = [vp, i32, vp, i32, vp, i32, vp, i32, vp, vp, i64, vp, i32,
-                                      vp, i32, i32, vp, i32, i32, vp]
+    lib.pgmpy_filter_scan.argtypes = [vp, i32, i32, i32, i32, i64, i32, vp, i32, vp, vp, i32,
+                                      i64, i64, i64, vp, i32, vp, i32, i32, vp, i32, i32, vp]
     for fn in (lib.pgmpy_plan_block, lib.pgmpy_plan_grid, lib.pgmpy_filter_scan):
         fn.restype = ctypes.c_int
     return lib
@@ -521,48 +566,158 @@ def make_axis_map(factor_scopes):
 # --------------------------------------------------------------------------- #
 # K10: the exact filter's slices in one launch
 # --------------------------------------------------------------------------- #
+def _scan_cost(out_count, red_count, lanes, group):
+    """A filter_scan step's time on ``group`` warps at ``lanes`` lanes an
+    output, in reduced entries: its rounds of 32 tasks, each a set-up and a
+    lane's chunk."""
+    rounds = -(-int(out_count) * lanes // (32 * group))
+    return rounds * (SCAN_SETUP + -(-int(red_count) // lanes))
+
+
+def _scan_lanes(out_count, red_count, group):
+    """(cost, lanes) of a step on ``group`` warps at its best number of lanes
+    (a power of two up to 32 and up to its reduced entries)."""
+    options = [1 << k for k in range(6) if 1 << k <= max(1, _pow2_ceil(red_count))]
+    return min((_scan_cost(out_count, red_count, lanes, group), lanes) for lanes in options)
+
+
+def deal_level(out_counts, red_counts, warps):
+    """A level's steps dealt to ``warps`` warps: ``(items, lanes)``, an
+    item ``(step, warp, rank, group)`` for each warp of the ``group`` warps
+    (ranks 0 .. group - 1) that stride over step ``step``'s tasks, and per
+    step its lanes.  Costs are :func:`_scan_lanes`'.  With at least as many
+    steps as warps, each step goes whole to the least loaded warp, the
+    costliest first; else each has one warp and the rest go, one by one, to
+    the step that then takes longest, while that shortens it."""
+    n = len(out_counts)
+
+    def best(s, group):
+        return _scan_lanes(out_counts[s], red_counts[s], group)
+
+    items = []
+    if n >= warps:
+        loads = [0] * warps
+        for s in sorted(range(n), key=lambda s: (-best(s, 1)[0], s)):
+            w = loads.index(min(loads))
+            loads[w] += best(s, 1)[0]
+            items.append((s, w, 0, 1))
+        return items, [best(s, 1)[1] for s in range(n)]
+    groups = [1] * n
+    for _ in range(warps - n):
+        s = max(range(n), key=lambda s: (best(s, groups[s])[0], -s))
+        if best(s, groups[s] + 1)[0] >= best(s, groups[s])[0]:
+            break
+        groups[s] += 1
+    w = 0
+    for s in range(n):
+        for rank in range(groups[s]):
+            items.append((s, w, rank, groups[s]))
+            w += 1
+    return items, [best(s, groups[s])[1] for s in range(n)]
+
+
+def _scan_tables(inputs, out_labels, out_offset, size, pinned, lanes):
+    """One filter_scan step: its row (int32, ``SCAN_ROW`` words; the offset
+    tables' places left 0) and its two offset tables, int32 (entries, 2)
+    pairs of (first input's offset, second input's offset): per output entry
+    (row-major over ``out_labels``) and per reduced entry, the reduced labels
+    not in ``pinned`` innermost (in the first input's stride order), the
+    pinned ones outermost.  ``pinned``: {label: evidence variable}."""
+    def strides(a):
+        return [op.strides.get(a, 0) for op in inputs] + [0] * (2 - len(inputs))
+
+    reduced = list(dict.fromkeys(a for op in inputs for a in op.labels if a not in out_labels))
+    free = sorted((a for a in reduced if a not in pinned), key=lambda a: strides(a))
+    pins = [a for a in reduced if a in pinned]
+
+    def table(labels, innermost_first):
+        ext = [size[a] for a in labels]
+        count = math.prod(ext)
+        index = np.arange(count, dtype=np.int64)
+        pairs = np.zeros((count, 2), dtype=np.int64)
+        place = 1
+        for a in (labels if innermost_first else labels[::-1]):
+            digit = index // place % size[a]
+            pairs += digit[:, None] * np.asarray(strides(a), dtype=np.int64)[None, :]
+            place *= size[a]
+        return pairs
+
+    out_pairs = table(list(out_labels), False)
+    red_pairs = table(free + pins, True)
+    row = np.zeros(SCAN_ROW, dtype=np.int64)
+    row[:9] = [len(inputs), inputs[0].slot, inputs[1].slot if len(inputs) > 1 else 0, out_offset,
+               len(out_pairs), math.prod(size[a] for a in free), lanes,
+               sum(a in pinned for a in out_labels), len(pins)]
+    at = SCAN_HEADER
+    for j, a in enumerate(out_labels):
+        if a in pinned:
+            row[at:at + 3] = [pinned[a], math.prod(size[b] for b in out_labels[j + 1:]), size[a]]
+            at += 3
+    at = SCAN_HEADER + 3 * MAX_LABELS
+    qplace = 1
+    for a in pins:
+        row[at:at + 3] = [pinned[a], qplace, size[a]]
+        qplace *= size[a]
+        at += 3
+    if len(out_labels) > MAX_LABELS or len(pins) > MAX_LABELS:
+        raise ValueError(f"filter_scan: a step pins more than MAX_LABELS = {MAX_LABELS} labels")
+    return row, out_pairs, red_pairs
+
+
 class ScanProgram:
     """The host side of ``filter_scan``: every transition slice of
     ``forward_scan`` in one launch of one block.
 
-    The operands of each slice's contractions are ``[alpha] + transition
-    factors + evidence deltas`` (labels ``operand_axes``); ``outputs`` are
-    the label tuples of the query marginals and, last, of the next interface.
-    The arena holds alpha at offset 0, then the deltas (a one-hot row where
-    the slice observes the variable, all ones where it does not), then one
-    result per output, then (``merged``) the joint, then the intermediates
-    from ``base`` up.  Per slice the kernel fills the deltas from that
-    slice's row of codes and runs the steps (block schedule): where the
-    joint over the interface and the queries holds at most ``SCAN_JOINT``
-    entries (``merged``), one planned contraction to the joint and a
-    one-input step from it to each output; otherwise each output's own
-    plan, as the plain version runs them.  Then it normalises each result:
-    a query's into its columns of the ``(slices, sum of query cards)``
-    output, the interface's into alpha.
+    ``operand_axes`` are the labels of ``[alpha] + transition factors +
+    evidence deltas`` (the plain version's operands; a delta's one label is
+    its variable's); ``outputs`` are the label tuples of the query marginals
+    and, last, of the next interface.  The kernel contracts alpha and the
+    transition factors only: evidence is folded into the steps' reads.  A
+    label whose variable the call observes in some slice is pinned, per
+    slice, to that slice's code (an output entry with another digit is 0, a
+    reduced label walks its code alone); an unobserved variable costs
+    nothing.
 
-    Tables (int64): ``steps`` (rows of ``STEP_WORDS``), ``deltas`` (arena
-    offset, variable, state) per delta entry, ``results`` (arena offset,
-    entries, output column or -1 for the interface, 0) per output."""
+    The arena holds alpha at offset 0, then one result per output, then
+    (``merged``) the joint, then the intermediates from ``base`` up.  Where
+    the joint over the interface and the queries holds at most
+    ``SCAN_JOINT`` entries (``merged``), a slice is one planned contraction
+    to the joint and a one-input step from it to each output; otherwise each
+    output's own plan, as the plain version runs them.  The steps are grouped
+    by dependency level (``levels``; a step's level is one more than the
+    highest level of the steps whose results it reads): a level's steps run
+    at once, its warps and each step's lanes dealt by :func:`deal_level`, one
+    barrier after each level.  Then each result is normalised: a query's into
+    its columns of the ``(slices, sum of query cards)`` output, the
+    interface's into alpha.
+
+    A step is an int32 row (``SCAN_ROW``: inputs, output, counts, lanes,
+    pins, and where its offset tables start) and two tables of offset pairs
+    (:func:`_scan_tables`): a task reads its output entry's pair and its
+    chunk of reduced pairs, and no digit is decoded on the card.  The launch
+    reads one int32 buffer (:meth:`table`, per observed pattern), staged in
+    shared memory with the transition factors once per launch where they
+    fit."""
 
     def __init__(self, operand_axes, outputs, shapes, pointer_strides, itemsize,
                  optimize="greedy"):
-        operand_axes = tuple(tuple(ax) for ax in operand_axes)
-        shapes = tuple(tuple(int(d) for d in s) for s in shapes)
         n_pointer = len(pointer_strides)
-        n_delta = len(operand_axes) - 1 - n_pointer
-        size = {}
-        for axes, shape in zip(operand_axes, shapes):
-            size.update(zip(axes, shape))
+        self.n_vars = len(operand_axes) - 1 - n_pointer
+        self.var_labels = [tuple(operand_axes[1 + n_pointer + j])[0] for j in range(self.n_vars)]
+        operand_axes = tuple(tuple(ax) for ax in operand_axes[:1 + n_pointer])
+        shapes = tuple(tuple(int(d) for d in s) for s in shapes[:1 + n_pointer])
+        size = self.size = label_sizes(operand_axes, shapes)
         self.alpha_size = math.prod(shapes[0])
         offset = self.alpha_size
-        slots = [-1]  # alpha at arena offset 0
-        slots += list(range(n_pointer))
-        delta_rows = []
-        for j in range(n_delta):
-            card = shapes[1 + n_pointer + j][0]
-            slots.append(-1 - offset)
-            delta_rows += [(offset + k, j, k) for k in range(card)]
-            offset += card
+        # alpha (contiguous, at arena offset 0) and the transition factors;
+        # a broadcast axis of extent 1 does not move
+        strides = [tuple(_contiguous(range(len(shapes[0])), dict(enumerate(shapes[0]))).values())
+                   [::-1]] + [tuple(st) for st in pointer_strides]
+        operands = _operands([-1] + list(range(n_pointer)), operand_axes, shapes, strides)
+        # each transition factor's storage span, staged in shared memory
+        self.spans = np.array([sum((n - 1) * st for n, st in zip(shape, stride)) + 1
+                               for shape, stride in zip(shapes[1:], pointer_strides)],
+                              dtype=np.int64)
         result_rows, column = [], 0
         for r, labels in enumerate(outputs):
             entries = math.prod(size[a] for a in labels)
@@ -571,83 +726,190 @@ class ScanProgram:
             column += 0 if last else entries
             offset += entries
         self.width = column
-        # alpha and the deltas are contiguous in the arena
-        strides = [tuple(_contiguous(range(len(s)), dict(enumerate(s))).values())[::-1]
-                   for s in shapes]
-        strides[1:1 + n_pointer] = [tuple(s) for s in pointer_strides]
         # the joint over the interface and the queries, where a block may
         # hold it: one contraction, then each output a one-input step from it
         joint = tuple(dict.fromkeys(a for labels in outputs[::-1] for a in labels))
         joint_entries = math.prod(size[a] for a in joint)
         self.merged = joint_entries <= SCAN_JOINT
-        tables = []
+        steps = []
         if self.merged:
             self.base = offset + joint_entries
             plan = contraction_plan(operand_axes, joint, shapes, optimize)
-            steps, _, self.arena = compile_steps(operand_axes, joint, shapes, strides, plan, slots,
-                                                 offset, self.base)
-            tables.append(steps)
+            steps += _symbolic_steps(joint, operands, plan, offset, size)
             joint_op = _Operand(-1 - offset, joint, _contiguous(joint, size))
-            tables += [_step_row([joint_op], tuple(labels), out_offset, size)[None]
-                       for (out_offset, *_), labels in zip(result_rows, outputs)]
+            steps += [([joint_op], tuple(labels), out_offset)
+                      for (out_offset, *_), labels in zip(result_rows, outputs)]
         else:
-            self.base = self.arena = offset
+            self.base = offset
             for (out_offset, *_), labels in zip(result_rows, outputs):
                 plan = contraction_plan(operand_axes, tuple(labels), shapes, optimize)
-                steps, _, end = compile_steps(operand_axes, labels, shapes, strides, plan, slots,
-                                              out_offset, self.base)
-                tables.append(steps)
-                self.arena = max(self.arena, end)
-        self.steps = set_lanes(np.concatenate(tables), BLOCK_THREADS)
-        self.deltas = np.array(delta_rows, dtype=np.int64).reshape(-1, 3)
+                steps += _symbolic_steps(tuple(labels), operands, plan, out_offset, size)
+        # dependency levels: the joint (merged) and every intermediate are
+        # written by one step of the slice; alpha and the operands are not
+        written = {}
+        levels = []
+        tmps = []
+        for inputs, _, out in steps:
+            level = 0
+            for op in inputs:
+                key = op.slot if isinstance(op.slot, _Tmp) else ("arena", -1 - op.slot) \
+                    if op.slot < 0 else None
+                if key in written:
+                    level = max(level, written[key] + 1)
+            for op in inputs:
+                if isinstance(op.slot, _Tmp):
+                    op.slot.read = level
+            levels.append(level)
+            if isinstance(out, _Tmp):
+                out.level = level
+                tmps.append(out)
+            written[out if isinstance(out, _Tmp) else ("arena", out)] = level
+        self.arena = _place(tmps, self.base)
+        self.specs = [([_resolved(op) for op in inputs], labels,
+                       out.offset if isinstance(out, _Tmp) else out)
+                      for inputs, labels, out in steps]
+        self.levels = np.array(levels, dtype=np.int64)
+        self.n_levels = int(self.levels.max()) + 1 if levels else 0
+        self.out_counts = np.array([math.prod(size[a] for a in labels)
+                                    for _, labels, _ in self.specs], dtype=np.int64)
+        self.red_counts = np.array([
+            math.prod(size[a] for a in dict.fromkeys(b for op in inputs for b in op.labels
+                                                     if b not in labels))
+            for inputs, labels, _ in self.specs], dtype=np.int64)
+        # each level's warps and each step's lanes
+        self.lanes = np.ones(len(self.specs), dtype=np.int64)
+        work = []
+        for level in range(self.n_levels):
+            members = np.flatnonzero(self.levels == level)
+            items, lanes = deal_level(self.out_counts[members], self.red_counts[members],
+                                      SCAN_WARPS)
+            self.lanes[members] = lanes
+            work += [(level, w, int(members[s]), rank, group) for s, w, rank, group in items]
+        work.sort(key=lambda item: (item[0], item[1]))
+        self.work = np.array([item[2:] for item in work], dtype=np.int64).reshape(-1, 3)
+        starts = np.zeros(self.n_levels * SCAN_WARPS + 1, dtype=np.int64)
+        for level, w, *_ in work:
+            starts[level * SCAN_WARPS + w + 1] += 1
+        self.level_start = np.cumsum(starts)
         self.results = np.array(result_rows, dtype=np.int64).reshape(-1, 4)
-        self.n_vars = n_delta
+        self.itemsize = itemsize
         self.shared = self.arena * itemsize <= SHARED_ARENA_BYTES
-        self._device = {}
+        self._patterns = {}
+        self.steps = self.tables_for(())[0]
 
-    def on(self, device):
-        """(steps, deltas, results) as one int64 buffer on ``device``,
-        uploaded once."""
-        buf = self._device.get(device)
-        if buf is None:
-            host = np.concatenate([self.steps.ravel(), self.deltas.ravel(),
-                                   self.results.ravel()])
-            buf = torch.from_numpy(host).to(device)
-            self._device[device] = buf
-        return buf
+    def _pattern(self, observed):
+        """The cache entry of the pattern ``observed``: its tables, launch
+        buffer, layout and device copies, built on first use.  The last
+        ``SCAN_PATTERNS`` patterns are kept, the oldest dropped first."""
+        observed = tuple(sorted({int(j) for j in observed}))
+        entry = self._patterns.get(observed)
+        if entry is None:
+            entry = self._patterns[observed] = {"tables": self._build(observed), "device": {}}
+            if len(self._patterns) > SCAN_PATTERNS:
+                del self._patterns[next(iter(self._patterns))]
+        return entry
+
+    def tables_for(self, observed):
+        """(step rows int32 (steps, SCAN_ROW), offset pairs int32 (n, 2))
+        when the variables ``observed`` (indices into the codes' columns) may
+        be observed: their labels pinned."""
+        return self._pattern(observed)["tables"]
+
+    def _build(self, observed):
+        pinned = {self.var_labels[j]: j for j in observed}
+        rows, pairs, at = [], [], 0
+        for (inputs, labels, out), lanes in zip(self.specs, self.lanes):
+            row, out_pairs, red_pairs = _scan_tables(inputs, labels, out, self.size, pinned,
+                                                     int(lanes))
+            row[9], row[10] = at, at + len(out_pairs)
+            at += len(out_pairs) + len(red_pairs)
+            rows.append(row)
+            pairs += [out_pairs, red_pairs]
+        pairs = np.concatenate(pairs)
+        if max(int(np.abs(pairs).max(initial=0)), at, self.arena) >= 2**31:
+            raise ValueError("filter_scan: the slice's offsets pass the kernel's int32 index")
+        return np.stack(rows).astype(np.int32), pairs.astype(np.int32)
+
+    def table(self, observed):
+        """The launch's int32 buffer: step rows, results, level starts, work
+        items, the transition factors' offsets in shared memory and spans,
+        then the offset pairs (8-byte aligned)."""
+        entry = self._pattern(observed)
+        if "table" not in entry:
+            rows, pairs = entry["tables"]
+            head = np.concatenate([rows.ravel(), self.results.ravel(), self.level_start,
+                                   self.work.ravel(), self.operand_offsets(), self.spans])
+            head = np.concatenate([head, np.zeros(len(head) % 2, dtype=np.int64)])
+            entry["table"] = np.concatenate([head.astype(np.int32), pairs.ravel()])
+        return entry["table"]
+
+    def operand_offsets(self):
+        """Each transition factor's offset (entries) in the staged operands."""
+        return np.concatenate([[0], np.cumsum(self.spans)[:-1]]).astype(np.int64)
+
+    def layout(self, observed):
+        """(staged, byte offset of the factors, byte offset of the table,
+        dynamic shared bytes): the arena first where ``shared``, then, where
+        both fit ``SCAN_STAGE_BYTES`` and the block's limit (``staged``), the
+        transition factors and the int32 table, then the slice's codes
+        (int32)."""
+        entry = self._pattern(observed)
+        if "layout" not in entry:
+            arena = -(-self.arena * self.itemsize // 16) * 16 if self.shared else 0
+            operands = -(-int(self.spans.sum()) * self.itemsize // 16) * 16
+            table = 4 * self.table(observed).size
+            codes = 4 * self.n_vars
+            staged = (operands + table <= SCAN_STAGE_BYTES
+                      and arena + operands + table + codes <= SCAN_SHARED_LIMIT)
+            table_at = arena + (operands if staged else 0)
+            entry["layout"] = (staged, arena, table_at,
+                               table_at + (table if staged else 0) + codes)
+        return entry["layout"]
+
+    def on(self, device, observed):
+        """The table of ``observed`` on ``device``, uploaded once."""
+        uploaded = self._pattern(observed)["device"]
+        if device not in uploaded:
+            uploaded[device] = torch.from_numpy(self.table(observed)).to(device)
+        return uploaded[device]
 
     def run(self, alpha, pointers, codes):
         """ONE ``filter_scan`` launch over every slice: ``alpha`` the
         slice-0 interface posterior, ``pointers`` the transition factors'
         tensors (the strides the program was built for), ``codes`` int
-        (slices, variables) evidence codes (-1 unobserved) -> (slices,
-        width) normalised query marginals."""
+        (slices, variables) evidence codes (-1 unobserved), a numpy array (a
+        tensor is read back to the host for its pattern) -> (slices, width)
+        normalised query marginals."""
         global SCAN_LAUNCHES
         device, dtype = _check_operands([alpha] + list(pointers))
-        n_slices = codes.shape[0]
-        if tuple(codes.shape) != (n_slices, self.n_vars):
+        host = np.asarray(codes.cpu() if torch.is_tensor(codes) else codes)
+        n_slices = host.shape[0]
+        if host.shape != (n_slices, self.n_vars):
             raise ValueError(f"filter_scan: codes must be (slices, {self.n_vars}), got "
-                             f"{tuple(codes.shape)}")
+                             f"{tuple(host.shape)}")
         if alpha.numel() != self.alpha_size:
             raise ValueError(f"filter_scan: alpha has {alpha.numel()} entries, the interface "
                              f"{self.alpha_size}")
+        observed = tuple(int(j) for j in np.flatnonzero((host >= 0).any(axis=0)))
+        staged, operands_at, table_at, shared_bytes = self.layout(observed)
+        n_steps = len(self.tables_for(observed)[0])
         with torch.cuda.device(device):
-            buf = self.on(device)
-            codes = codes.to(device=device, dtype=torch.int32).contiguous()
+            buf = self.on(device, observed)
+            # pinned, so the host does not wait: the call stays queued
+            # behind earlier work on the stream
+            codes = torch.from_numpy(np.ascontiguousarray(host, dtype=np.int32)).pin_memory().to(
+                device, non_blocking=True)
             alpha = alpha.contiguous()
             out = torch.empty((n_slices, self.width), dtype=dtype, device=device)
-            elem = out.element_size()
             arena = None if self.shared else torch.empty(self.arena, dtype=dtype, device=device)
-            host, n, many = _pointers(pointers, device)
-            base = buf.data_ptr()
-            deltas = base + 8 * self.steps.size
-            results = deltas + 8 * self.deltas.size
+            ptrs, n, many = _pointers(pointers, device)
             err = _library().pgmpy_filter_scan(
-                base, len(self.steps), deltas, len(self.deltas), results, len(self.results),
-                host, n, 0 if many is None else many.data_ptr(),
-                0 if arena is None else arena.data_ptr(), self.arena * elem if self.shared else 0,
-                alpha.data_ptr(), self.alpha_size, codes.data_ptr(), self.n_vars, n_slices,
-                out.data_ptr(), self.width, elem, torch.cuda.current_stream(device).cuda_stream)
+                buf.data_ptr(), n_steps, len(self.results), self.n_levels, len(self.work),
+                buf.numel(), int(staged), ptrs, n, 0 if many is None else many.data_ptr(),
+                0 if arena is None else arena.data_ptr(), int(self.shared), operands_at,
+                table_at, shared_bytes, alpha.data_ptr(), self.alpha_size, codes.data_ptr(),
+                self.n_vars, n_slices, out.data_ptr(), self.width, out.element_size(),
+                torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"filter_scan launch failed: cudaError_t {err}")
         SCAN_LAUNCHES += 1

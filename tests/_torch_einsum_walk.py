@@ -12,7 +12,9 @@ the block, the chunks covering every reduced entry, a step's output never
 overlapping a live intermediate nor the step's own inputs (the threads of a
 step, in one block or over the grid, read while others write; only the
 barrier after the step orders them), and every intermediate read once, by a
-later step than the one that wrote it.  :func:`grid_cover` walks
+later step than the one that wrote it.  K10's tables are walked level by
+level (:func:`walk_scan`, :func:`check_scan_schedule`: no step reads or
+overwrites what another step of its level writes).  :func:`grid_cover` walks
 ``plan_grid``'s stride: every (output, lane) task of every step is worked
 exactly once by a grid of any size.  ``random_signature`` makes the seeded contractions both the
 CPU and the card's tests run."""
@@ -121,21 +123,136 @@ def walk_plan(table, arrays, out_shape):
     return out.reshape(out_shape)
 
 
+def scan_step(rows, pairs, s):
+    """Step ``s`` of a filter_scan table: (n_in, in0, in1, out, out_count,
+    free, lanes, pinned outputs [(var, place, ext)], pinned reduced [(var,
+    qplace, ext)], output pairs (out_count, 2), reduced pairs (free x the
+    pinned extents, 2))."""
+    row = rows[s]
+    n_in, in0, in1, out, oc, free, lanes, n_po, n_pr, at_o, at_r = (int(x) for x in row[:11])
+    h, L = E.SCAN_HEADER, E.MAX_LABELS
+    pin_out = [tuple(int(x) for x in row[h + 3 * i:h + 3 * i + 3]) for i in range(n_po)]
+    pin_red = [tuple(int(x) for x in row[h + 3 * L + 3 * i:h + 3 * L + 3 * i + 3])
+               for i in range(n_pr)]
+    red = free * math.prod(e for _, _, e in pin_red)
+    return (n_in, in0, in1, out, oc, free, lanes, pin_out, pin_red, pairs[at_o:at_o + oc],
+            pairs[at_r:at_r + red])
+
+
+def scan_regions(rows, pairs):
+    """Per step (the arena regions it reads, the region it writes), each
+    (offset, entries): an input reads up to its largest offset pair."""
+    out = []
+    for s in range(len(rows)):
+        n_in, in0, in1, oslot, oc, *_, out_pairs, red_pairs = scan_step(rows, pairs, s)
+        reads = []
+        for k, slot in enumerate((in0, in1)[:n_in]):
+            if slot < 0:
+                reach = int(out_pairs[:, k].max()) + int(red_pairs[:, k].max()) + 1
+                reads.append((-1 - slot, reach))
+        assert oslot >= 0, "a filter_scan step writes to the arena"
+        out.append((reads, (oslot, max(oc, 1))))
+    return out
+
+
+def _overlap(a, b):
+    return a[0] < b[0] + b[1] and b[0] < a[0] + a[1]
+
+
+def check_scan_schedule(program, rows, pairs):
+    """What ``filter_scan`` takes for granted of its tables: within a level
+    no step reads what a step of the same level writes (its own output
+    included) and no two steps write overlapping entries; every (level,
+    warp)'s work items lie in that level, and each step's items are ranks 0
+    .. group - 1 of one group of warps, each warp once; lanes a power of two
+    up to a warp; every offset inside its input.  Returns the number of
+    barriers a slice (levels + 1)."""
+    regions = scan_regions(rows, pairs)
+    levels = program.levels
+    assert len(levels) == len(rows) and levels.min() == 0
+    assert set(levels.tolist()) == set(range(program.n_levels))
+    for level in range(program.n_levels):
+        members = np.flatnonzero(levels == level)
+        writes = [regions[s][1] for s in members]
+        for i, w in enumerate(writes):
+            assert not any(_overlap(w, x) for x in writes[i + 1:]), "two writes of a level overlap"
+            for s in members:
+                for r in regions[s][0]:
+                    assert not _overlap(r, w), "a step reads what a step of its level writes"
+    lanes = rows[:, 6]
+    assert ((lanes & (lanes - 1)) == 0).all() and (lanes <= 32).all() and (lanes >= 1).all()
+    assert (pairs >= 0).all()
+    start, work = program.level_start, program.work
+    assert len(start) == program.n_levels * E.SCAN_WARPS + 1 and start[0] == 0
+    assert start[-1] == len(work) and (np.diff(start) >= 0).all()
+    seen = {}
+    for level in range(program.n_levels):
+        for w in range(E.SCAN_WARPS):
+            for item in range(start[level * E.SCAN_WARPS + w],
+                              start[level * E.SCAN_WARPS + w + 1]):
+                step, rank, group = (int(x) for x in work[item])
+                assert levels[step] == level
+                seen.setdefault(step, []).append((rank, group, w))
+    assert sorted(seen) == list(range(len(rows))), "a step has no warp"
+    for step, items in seen.items():
+        group = items[0][1]
+        assert sorted(r for r, _, _ in items) == list(range(group))
+        assert all(g == group for _, g, _ in items)
+        assert len({w for _, _, w in items}) == group
+    return program.n_levels + 1
+
+
+def walk_scan_step(rows, pairs, s, operands, arena, code):
+    """Step ``s`` of a filter_scan table in numpy, as ``scan_partial`` reads
+    it: per output entry its offset pair, zero where a pinned output digit
+    differs from the slice's code; per reduced entry its pair, the pinned
+    reduced labels held to the slice's codes (those it leaves unobserved
+    walked); each lane's chunk of the entries summed, then the lanes."""
+    n_in, in0, in1, oslot, oc, free, lanes, pin_out, pin_red, out_pairs, red_pairs = \
+        scan_step(rows, pairs, s)
+    keep_o = np.ones(oc, dtype=bool)
+    o = np.arange(oc)
+    for var, place, ext in pin_out:
+        if code[var] >= 0:
+            keep_o &= o // place % ext == code[var]
+    q = np.arange(len(red_pairs)) // free
+    keep_r = np.ones(len(red_pairs), dtype=bool)
+    for var, qplace, ext in pin_red:
+        if code[var] >= 0:
+            keep_r &= q // qplace % ext == code[var]
+    chosen = red_pairs[keep_r]
+    count = len(chosen)
+    chunk = -(-count // lanes)
+    assert lanes * chunk >= count
+    prod = np.ones((oc, count))
+    for k, slot in enumerate((in0, in1)[:n_in]):
+        source = operands[slot] if slot >= 0 else arena[-1 - slot:]
+        prod = prod * source[out_pairs[:, k][:, None] + chosen[:, k][None, :]]
+    padded = np.zeros((oc, lanes * chunk))
+    padded[:, :count] = prod
+    result = padded.reshape(oc, lanes, chunk).sum(axis=2).sum(axis=1)
+    arena[oslot:oslot + oc] = np.where(keep_o, result, 0.0)
+
+
 def walk_scan(program, alpha, trans, codes):
     """A :class:`ScanProgram` over ``alpha``, the transition tensors and the
     (slices, variables) codes -> the (slices, width) normalised marginals,
-    as ``filter_scan`` computes them slice by slice."""
+    as ``filter_scan`` computes them slice by slice: the tables of the
+    codes' pattern, level after level (within a level in reverse, to show
+    that order does not matter), then the normalisations."""
+    codes = np.asarray(codes)
+    observed = tuple(int(j) for j in np.flatnonzero((codes >= 0).any(axis=0)))
+    rows, pairs = program.tables_for(observed)
+    check_scan_schedule(program, rows, pairs)
     arena = np.full(program.arena, np.nan)
     arena[:program.alpha_size] = alpha.contiguous().reshape(-1).double().numpy()
     operands = [flat(t) for t in trans]
-    base = program.base
+    assert [len(o) for o in operands] == program.spans.tolist()
     out = np.full((codes.shape[0], program.width), np.nan)
-    for t, row in enumerate(np.asarray(codes)):
-        for offset, var, state in program.deltas:
-            code = row[var]
-            arena[offset] = 1.0 if code < 0 or code == state else 0.0
-        live = walk_steps(program.steps, operands, arena, None, E.BLOCK_THREADS, base=base)
-        assert not live
+    for t, code in enumerate(codes):
+        for level in range(program.n_levels):
+            for s in np.flatnonzero(program.levels == level)[::-1]:
+                walk_scan_step(rows, pairs, s, operands, arena, code)
         for offset, entries, column, _ in program.results:
             m = arena[offset:offset + entries].copy()
             with np.errstate(invalid="ignore", divide="ignore"):

@@ -11,11 +11,13 @@ walk against the plain version at 1e-12 and the port against a numpy
 recursion over the joint slice state at 1e-10.  The kernel on a card:
 ``tests/test_torch_filter_scan_kernel_cuda.py``."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_einsum_walk import walk_scan
+from _torch_einsum_walk import check_scan_schedule, scan_step, walk_scan
 from _torch_parity import random_2tbn
 from pgmpy_tpu.factors import TabularCPD as JaxCPD
 from pgmpy_tpu.inference import DBNInference as JaxDBNInference
@@ -125,12 +127,9 @@ def float64():
         config.set_dtype(torch.float32)
 
 
-@pytest.mark.parametrize("merged", [True, False])
-@pytest.mark.parametrize("name", sorted(NETWORKS))
-def test_table_walk_matches_plain(name, merged, float64, monkeypatch):
-    """Merged: one contraction to the joint over the interface and the
-    queries, a one-input step from it per output; unmerged (a joint past
-    ``SCAN_JOINT``): each output's own plan."""
+def _walk_against_plain(name, merged, monkeypatch):
+    """(the numpy walk of the program's tables, the plain version) over
+    ``N_SLICES`` slices of ``name`` with later evidence, in the port's dtype."""
     if not merged:
         monkeypatch.setattr(E, "SCAN_JOINT", 1)
     edges, tuples, _ = networks(name)
@@ -144,10 +143,32 @@ def test_table_walk_matches_plain(name, merged, float64, monkeypatch):
     assert program.width == sum(inputs["query_cards"])
     assert program.results[-1, 2] == -1 and program.results[-1, 0] + program.results[-1, 1] <= \
         program.arena
+    assert program.itemsize == config.DTYPE.itemsize
     want = scan_reference(inputs, alpha).numpy()
     got = walk_scan(program, alpha, inputs["trans_arrays"], inputs["codes"])
     assert got.shape == want.shape == (N_SLICES - 1, program.width)
+    return got, want
+
+
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_table_walk_matches_plain(name, merged, float64, monkeypatch):
+    """Merged: one contraction to the joint over the interface and the
+    queries, a one-input step from it per output; unmerged (a joint past
+    ``SCAN_JOINT``): each output's own plan.  Each slice's steps walked
+    level by level with the evidence pinned (no deltas)."""
+    got, want = _walk_against_plain(name, merged, monkeypatch)
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("merged", [True, False])
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_table_walk_matches_plain_float32(name, merged, monkeypatch):
+    """The float32 program's tables (its arena and layout for 4-byte
+    entries): the walk in float64 against the plain version's float32 at
+    atol 1e-6 (its rounding, carried in alpha over 8 slices)."""
+    got, want = _walk_against_plain(name, merged, monkeypatch)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("name", sorted(NETWORKS))
@@ -173,6 +194,40 @@ def test_float64_against_the_joint_recursion(name, float64):
     oracle = joint_forward(tuples, evidence, N_SLICES)
     for key, value in got.items():
         np.testing.assert_allclose(value, oracle[key], atol=1e-10, err_msg=str(key))
+
+
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_evidence_is_folded_into_the_steps(name):
+    """No step reads a delta: the operands are alpha and the transition
+    factors.  Each variable the call observes is a pinned label in every
+    step whose labels name it, unobserved ones are not pinned, and the
+    levels hold the schedule's rules (``check_scan_schedule``) with fewer
+    barriers a slice than steps."""
+    edges, tuples, _ = networks(name)
+    infer = DBNInference(dbn_from_numpy(edges, tuples))
+    variables = names_of(tuples)
+    evidence = later_evidence(tuples, 1)
+    inputs = infer._scan_inputs(variables, evidence, N_SLICES)
+    program = infer._scan_program(inputs)
+    n_trans = len(inputs["trans_arrays"])
+    observed = tuple(int(j) for j in np.flatnonzero((inputs["codes"] >= 0).any(axis=0)))
+    assert observed
+    rows, pairs = program.tables_for(observed)
+    slots = rows[:, 1:3][rows[:, 0:1] > np.arange(2)[None, :]]
+    assert slots.max() < n_trans  # pointer slots: the transition factors only
+    pinned = set()
+    for s in range(len(rows)):
+        _, _, _, _, _, _, _, pin_out, pin_red, _, _ = scan_step(rows, pairs, s)
+        pinned |= {var for var, _, _ in pin_out + pin_red}
+        labels = set(program.specs[s][1]) | {a for op in program.specs[s][0] for a in op.labels}
+        assert {var for var, _, _ in pin_out + pin_red} == {
+            j for j in observed if program.var_labels[j] in labels}
+    assert pinned == set(observed)
+    bare_rows, bare_pairs = program.tables_for(())
+    assert (bare_rows[:, 7:9] == 0).all()
+    barriers = check_scan_schedule(program, rows, pairs)
+    assert barriers == program.n_levels + 1 <= len(rows) + 1
+    assert check_scan_schedule(program, bare_rows, bare_pairs) == barriers
 
 
 def _slice0_cases():
@@ -229,6 +284,29 @@ def test_one_program_per_output_signature():
     again = infer._scan_program(infer._scan_inputs(variables, {(variables[0], 2): 1}, 7))
     other = infer._scan_program(infer._scan_inputs(variables[:1], {}, 4))
     assert first is again and other is not first
-    # the deltas: one arena entry per (slice-1 variable, state)
-    assert len(first.deltas) == sum(first.deltas[:, 1] == first.deltas[:, 1]) == len(
-        set(map(tuple, first.deltas[:, 1:])))
+    # no delta operand: one evidence variable (and label) per slice-1
+    # variable, and the step rows built once per observed pattern
+    assert len(first.var_labels) == len(set(first.var_labels)) == first.n_vars
+    assert first.tables_for((1, 0)) is first.tables_for((0, 1)) is not first.tables_for(())
+
+
+def test_pattern_cache_keeps_the_last_patterns():
+    from pgmpy_tpu_torch.ops.einsum import SCAN_PATTERNS
+
+    edges, tuples, _ = networks("random1")
+    infer = DBNInference(dbn_from_numpy(edges, tuples))
+    program = infer._scan_program(infer._scan_inputs(names_of(tuples), {}, 4))
+    patterns = [p for r in range(program.n_vars + 1)
+                for p in itertools.combinations(range(program.n_vars), r)]
+    assert len(patterns) > SCAN_PATTERNS
+    first = program.table(patterns[0])
+    assert program.layout(patterns[0]) is program.layout(patterns[0])
+    for pattern in patterns[1:]:
+        rows, pairs = program.tables_for(pattern)
+        # the buffer a launch reads and its layout follow the pattern's tables
+        assert program.table(pattern)[-pairs.size:].tolist() == pairs.ravel().tolist()
+        assert program.layout(pattern)[3] >= 4 * program.n_vars
+    assert len(program._patterns) == SCAN_PATTERNS
+    # the oldest pattern was dropped and is built again, equal to before
+    again = program.table(patterns[0])
+    assert again is not first and np.array_equal(again, first)

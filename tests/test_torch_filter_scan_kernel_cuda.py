@@ -5,9 +5,11 @@ the same card, and its launch counter.  Every test here needs a CUDA device
 and skips without one; on a GPU machine:
 ``python -m pytest tests/test_torch_filter_scan_kernel_cuda.py -m cuda``.
 
-Tolerances: float32 marginals at atol 1e-5 (the kernel sums in float64, the
-plain version in float32, and alpha carries the difference on from slice to
-slice); float64 at 1e-12."""
+The kernel folds the evidence into its steps (an observed label pinned to
+the slice's code) and runs each slice level by level; the plain version
+multiplies one-hot deltas.  Tolerances: float32 marginals at atol 1e-5 (the
+kernel sums in float64, the plain version in float32, and alpha carries the
+difference on from slice to slice); float64 at 1e-12."""
 
 import numpy as np
 import pytest
@@ -88,13 +90,17 @@ def test_kernel_matches_plain_with_one_launch(on_cuda, name, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("setting", ["global_arena", "unmerged"])
+@pytest.mark.parametrize("setting", ["global_arena", "unmerged", "global_tables"])
 def test_other_layouts(on_cuda, monkeypatch, setting):
     """The arena in global memory when it would not fit the shared budget;
     each output's own plan when the joint would pass ``SCAN_JOINT``, with
-    the slice-0 contractions on ``plan_grid`` (``BLOCK_UNION`` 1)."""
+    the slice-0 contractions on ``plan_grid`` (``BLOCK_UNION`` 1); the step
+    tables read from global memory when they would pass
+    ``SCAN_STAGE_BYTES``."""
     if setting == "global_arena":
         monkeypatch.setattr(E, "SHARED_ARENA_BYTES", 0)
+    elif setting == "global_tables":
+        monkeypatch.setattr(E, "SCAN_STAGE_BYTES", 0)
     else:
         monkeypatch.setattr(E, "SCAN_JOINT", 1)
         monkeypatch.setattr(E, "BLOCK_UNION", 1)
@@ -106,6 +112,7 @@ def test_other_layouts(on_cuda, monkeypatch, setting):
     got = infer.forward_scan(variables, evidence, n_time_slices=12)
     programs = list(infer._scan_programs.values())
     assert programs and all(p.shared == (setting != "global_arena") for p in programs)
+    assert all(p.layout((0,))[0] == (setting != "global_tables") for p in programs)
     assert all(p.merged == (setting != "unmerged") for p in programs)
     check_same(got, infer._forward_scan(variables, evidence, 12, kernel=False), 1e-5)
     E.plan_table.cache_clear()
@@ -154,3 +161,37 @@ def test_launches_do_not_grow_with_the_horizon(on_cuda):
     # a profiling session can lose device records: the longer call never
     # shows more than the warm short one
     assert counts[2] <= max(counts[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rain_at_200_slices(on_cuda, dtype):
+    """The smoke's rain / umbrella filter: 200 slices, the umbrella observed
+    in every third, one launch, against the plain version."""
+    config.set_dtype(dtype)
+    dbn = rain()
+    evidence = {("umbrella", t): t % 2 for t in range(0, 200, 3)}
+    infer = DBNInference(dbn)
+    before = E.SCAN_LAUNCHES
+    got = infer.forward_scan(["rain"], evidence, n_time_slices=200)
+    assert E.SCAN_LAUNCHES == before + 1
+    want = infer._forward_scan(["rain"], evidence, 200, kernel=False)
+    check_same(got, want, ATOL[dtype])
+    program = next(iter(infer._scan_programs.values()))
+    assert 1 <= program.n_levels <= len(program.steps)
+
+
+@pytest.mark.cuda
+def test_run_to_run_and_unobserved_evidence(on_cuda):
+    """The same call twice gives equal marginals (no atomics: a fixed order),
+    and a call with no evidence after slice 0 runs the unpinned rows."""
+    dbn = model("random3")
+    variables = names_of(dbn)
+    infer = DBNInference(dbn)
+    evidence = {(variables[1], t): 0 for t in range(1, 20, 4)}
+    first = infer.forward_scan(variables, evidence, n_time_slices=20)
+    again = infer.forward_scan(variables, evidence, n_time_slices=20)
+    for key in first:
+        np.testing.assert_array_equal(first[key], again[key])
+    bare = infer.forward_scan(variables, {}, n_time_slices=20)
+    check_same(bare, infer._forward_scan(variables, {}, 20, kernel=False), ATOL["float32"])

@@ -9,6 +9,8 @@ JAX package's float32 one (atol 1e-6); whole EM fits at atol 1e-5 as in
 ``tests/test_torch_em.py``; the numpy emulation of the kernel sums in float64
 in node order, the plain version group by group (rtol 1e-12)."""
 
+import itertools
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -168,15 +170,22 @@ def test_launch_plans():
     assert tg.chunk_nodes(4) == 204 and tg.chunk_nodes(8) == 113 and tg.chunk_nodes(32) == 31
     assert tg.plan_rows(50_000, 4) == (128, 391, 204 * 10 * 4)
     assert tg.plan_rows(1, 32) == (128, 1, 31 * 66 * 4)
-    chunk = 204 * 10 * 4
-    # MUNIN with DIFFN_PATHO latent: 25 whole rows of 5 a block
-    assert tg.plan_e_step(50_000, 5, 4) == (25, 128, 2000, (125 + 50) * 8 + chunk)
-    assert tg.plan_e_step(10, 1, 4) == (128, 128, 1, (128 + 256) * 8 + chunk)
-    assert tg.plan_e_step(7, 128, 4) == (1, 128, 7, (128 + 2) * 8 + chunk)
-    # two latents of 32 states: one row a block, its sums in 8 KB
-    assert tg.plan_e_step(100, 1024, 4) == (1, 128, 100, (1024 + 2) * 8 + chunk)
+    # MUNIN with DIFFN_PATHO latent: 971 shared and 70 latent nodes of width
+    # 4, K = 5: tiles of 32 rows, the latent nodes in 8 slices (one block of
+    # configurations: 8 x 32 = 256 tasks)
+    assert tg.plan_e_step(5, 4, 971, 70, 1) == (32, 8, 256, (256 + 8 * 5 * 32 + 64) * 8 + 5 * 4)
+    # no latent: K = 1, eight latent slices would be empty, so one
+    assert tg.plan_e_step(1, 4, 8, 0, 0) == (32, 1, 256, (256 + 32 + 64) * 8)
+    assert tg.plan_e_step(1, 4, 8, 20, 1)[:2] == (32, 8)
+    assert tg.plan_e_step(3, 4, 8, 20, 1)[:2] == (32, 8)
+    assert tg.plan_e_step(9, 4, 8, 20, 1)[:2] == (32, 4)  # two blocks of configurations
+    # K x 32 float64 sums past LP_BYTES: fewer rows a tile; 1,024 configurations, 4 rows
+    assert tg.plan_e_step(128, 4, 10, 10, 2)[:2] == (32, 1)
+    assert tg.plan_e_step(300, 4, 10, 10, 2)[:2] == (8, 1)
+    assert tg.plan_e_step(1024, 4, 10, 10, 2) == (4, 1, 256, (256 + 1024 * 4 + 8) * 8
+                                                   + 1024 * 2 * 4)
     with pytest.raises(ValueError, match="shared memory"):
-        tg.plan_e_step(10, 40_000, 4)
+        tg.plan_e_step(40_000, 4, 10, 10, 2)
 
 
 def _random_gather(seed, n_vars=9, n_rows=257, missing=0.0, dtype=torch.float64):
@@ -227,20 +236,178 @@ def test_node_table_computes_the_plain_row_sums(seed, missing):
                                rtol=1e-12)
 
 
+def _random_latent_gather(seed, latent_cards, n_obs=7, n_rows=97, missing=0.15,
+                          dtype=torch.float64):
+    """A LatentGather over a random network of ``n_obs`` observed variables
+    and latent ones of ``latent_cards`` states, its flat table, its observed
+    codes
+    (column-major, padded past the rows as ``column_major_codes`` pads), and
+    the matrix of the rows expanded over the configurations (observed
+    columns, then the latent ones)."""
+    rng = np.random.default_rng(seed)
+    n_latent = len(latent_cards)
+    n_vars = n_obs + n_latent
+    cards = np.concatenate([rng.integers(2, 5, n_obs), np.asarray(latent_cards, dtype=np.int64)])
+    cols, expanded_cols, strides, sizes = [], [], [], []
+    for v in range(n_vars):
+        parents = [int(p) for p in rng.choice(n_vars, size=int(rng.integers(0, 4)), replace=False)
+                   if p != v]
+        c = [v] + parents
+        s = np.cumprod([1] + [int(cards[p]) for p in c[:0:-1]])[::-1]
+        expanded_cols.append(tuple(c))
+        cols.append(tuple(u if u < n_obs else -1 - (u - n_obs) for u in c))
+        strides.append(tuple(int(x) for x in s))
+        sizes.append(int(np.prod([cards[p] for p in c])))
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    grid = np.array(list(itertools.product(*[range(int(cards[n_obs + j]))
+                                             for j in range(n_latent)])),
+                    dtype=np.int64)
+    K = grid.shape[0]
+    grid = grid.reshape(K, n_latent)
+    obs = np.stack([rng.integers(0, cards[v], n_rows) for v in range(n_obs)])
+    obs[rng.random(obs.shape) < missing] = -1
+    padded = np.full((n_obs, n_rows + 11), -1, dtype=np.int8)
+    padded[:, :n_rows] = obs
+    expanded = np.concatenate([np.repeat(obs, K, axis=1), np.tile(grid.T, (1, n_rows))])
+    gather = tg.LatentGather(cols, strides, offsets, int(sum(sizes)), grid, torch.device("cpu"))
+    full = tg.TableGather(expanded_cols, strides, offsets, int(sum(sizes)), torch.device("cpu"))
+    table = torch.as_tensor(rng.normal(size=int(sum(sizes))), dtype=dtype)
+    return gather, full, table, torch.from_numpy(padded)[:, :n_rows], expanded
+
+
+def _softmax_rows(lp):
+    w = np.exp(lp - lp.max(axis=1, keepdims=True))
+    return w / w.sum(axis=1, keepdims=True)
+
+
+def _emulated_e_step(gather, table, codes):
+    """The e_step kernel's schedule in numpy from the table it is handed
+    (``gather.nodes``: shared rows, latent rows, grid) and its plan: per tile
+    of R rows, each thread's slice of the shared nodes for its row, each (p,
+    block of configurations, row) task's slice of the latent nodes (node by
+    node, each configuration's own sum), then per row the shared slices in
+    order, lp[k] = that plus the latent slices in order, and the softmax."""
+    K, L = gather.K, gather.L
+    n_shared, n_latent = len(gather.shared_nodes), len(gather.latent_nodes)
+    width = gather.width
+    row_words = 2 + 2 * width
+    nodes = gather.nodes[: (n_shared + n_latent) * row_words].reshape(-1, row_words)
+    grid = gather.nodes[(n_shared + n_latent) * row_words:].reshape(K, L)
+    R, P, threads, _ = tg.plan_e_step(K, width, n_shared, n_latent, L)
+    assert threads % R == 0 and threads % 32 == 0
+    table, codes = table.double().numpy(), codes.long().numpy()
+    n = codes.shape[1]
+
+    def term(node, r, k):
+        flat, valid = int(node[0]), True
+        for j in range(int(node[1])):
+            col = int(node[2 + j])
+            code = int(codes[col, r]) if col >= 0 else int(grid[k, -1 - col])
+            valid &= code >= 0
+            flat += max(code, 0) * int(node[2 + width + j])
+        return table[flat] if valid else 0.0
+
+    slices = threads // R
+    out = np.zeros((n, K))
+    for r in range(n):
+        parts = []
+        for slice_ in range(slices):
+            lo, hi = n_shared * slice_ // slices, n_shared * (slice_ + 1) // slices
+            parts.append(sum((term(nodes[i], r, 0) for i in range(lo, hi)), 0.0))
+        shared = sum(parts, 0.0)
+        for k in range(K):
+            lp = shared
+            for p in range(P):
+                lo, hi = n_shared + n_latent * p // P, n_shared + n_latent * (p + 1) // P
+                lp += sum((term(nodes[i], r, k) for i in range(lo, hi)), 0.0)
+            out[r, k] = lp
+    return _softmax_rows(out).ravel()
+
+
+# (latent cards, seed): no latent (K = 1), one of 3 and of 7 states, two (K = 6, 21)
+LATENT_CASES = [((), 0), ((3,), 1), ((7,), 2), ((3, 2), 3), ((7, 3), 4)]
+
+
+@pytest.mark.parametrize("latent_cards,seed", LATENT_CASES)
+def test_latent_gather_splits_shared_and_latent_nodes(latent_cards, seed):
+    gather, _, _, _, _ = _random_latent_gather(seed, latent_cards)
+    n_latent = len(latent_cards)
+    assert (gather.K, gather.L) == (int(np.prod(latent_cards)), n_latent)
+    n_nodes = len(gather.shared_nodes) + len(gather.latent_nodes)
+    assert sorted(gather.shared_nodes + gather.latent_nodes) == list(range(n_nodes))
+    width = gather.width
+    rows = gather.nodes[: n_nodes * (2 + 2 * width)].reshape(n_nodes, -1)
+    for i, row in zip(gather.shared_nodes + gather.latent_nodes, rows):
+        used = row[2: 2 + row[1]]
+        assert (i in gather.latent_nodes) == bool((used < 0).any())
+        assert (used >= -n_latent).all()
+    grid = gather.nodes[n_nodes * (2 + 2 * width):].reshape(gather.K, n_latent)
+    np.testing.assert_array_equal(grid, gather.grid)
+    assert len(gather.latent_nodes) >= n_latent  # each latent's own CPD at least
+
+
+@pytest.mark.parametrize("missing", [0.0, 0.2])
+@pytest.mark.parametrize("latent_cards,seed", LATENT_CASES)
+def test_latent_gather_plain_matches_the_expanded_rows(latent_cards, seed, missing):
+    """The plain version over the observed codes against the softmax of the
+    masked row sums of the expanded rows (the layout the E-step read before)."""
+    gather, full, table, codes, expanded = _random_latent_gather(seed, latent_cards,
+                                                                 missing=missing)
+    got = gather.e_step(table, codes, torch.float64)
+    assert got.dtype == torch.float64 and got.shape == (codes.shape[1] * gather.K,)
+    lp = full.row_sums_reference(table, torch.from_numpy(expanded.astype(np.int8)), missing=True)
+    want = _softmax_rows(lp.numpy().reshape(-1, gather.K)).ravel()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
+    f32 = gather.e_step(table, codes, torch.float32)
+    assert f32.dtype == torch.float32
+    np.testing.assert_allclose(f32.numpy(), want, atol=1e-7)
+
+
+@pytest.mark.parametrize("latent_cards,seed", LATENT_CASES)
+def test_e_step_tables_walk_to_the_plain_version(latent_cards, seed):
+    gather, _, table, codes, _ = _random_latent_gather(seed, latent_cards, n_rows=41)
+    got = _emulated_e_step(gather, table, codes)
+    want = gather.e_step_reference(table, codes, torch.float64).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
 @pytest.mark.parametrize("K", [1, 3, 7])
 def test_e_step_is_the_softmax_of_the_masked_row_sums(K):
-    gather, table, codes = _random_gather(K, n_rows=K * 40, missing=0.1)
-    got = gather.e_step(table, codes, K, torch.float32)
-    assert got.dtype == torch.float32 and got.shape == (K * 40,)
-    lp = _emulated_row_sums(gather, table, codes, True).reshape(-1, K)
-    want = np.exp(lp - lp.max(axis=1, keepdims=True))
-    want /= want.sum(axis=1, keepdims=True)
-    np.testing.assert_allclose(got.numpy(), want.ravel(), atol=1e-7)
+    """One latent of K states (K = 1: no latent) beside six observed
+    variables, missing codes among them."""
+    rng = np.random.default_rng(K)
+    n_obs, n_rows = 6, 40
+    cards = list(rng.integers(2, 5, n_obs)) + [K]
+    cols, strides, sizes = [], [], []
+    for v in range(n_obs + (K > 1)):
+        parents = [int(p) for p in rng.choice(n_obs + (K > 1), size=2, replace=False) if p != v]
+        c = [v] + parents
+        s = np.cumprod([1] + [int(cards[p]) for p in c[:0:-1]])[::-1]
+        cols.append(tuple(u if u < n_obs else -1 for u in c))
+        strides.append(tuple(int(x) for x in s))
+        sizes.append(int(np.prod([cards[p] for p in c])))
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    grid = np.arange(K).reshape(K, 1) if K > 1 else np.zeros((1, 0), dtype=np.int64)
+    gather = tg.LatentGather(cols, strides, offsets, int(sum(sizes)), grid, torch.device("cpu"))
+    codes = np.stack([rng.integers(0, cards[v], n_rows) for v in range(n_obs)])
+    codes[rng.random(codes.shape) < 0.1] = -1
+    table = torch.as_tensor(rng.normal(size=int(sum(sizes))), dtype=torch.float64)
+    got = gather.e_step(table, torch.from_numpy(codes.astype(np.int8)), torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (K * n_rows,)
+    lp = np.zeros((n_rows, K))
+    for c, s, off in zip(cols, strides, offsets):
+        for k in range(K):
+            rows = [codes[u] if u >= 0 else np.full(n_rows, k) for u in c]
+            flat = off + sum(np.maximum(r, 0) * st for r, st in zip(rows, s))
+            valid = np.all([r >= 0 for r in rows], axis=0)
+            lp[:, k] += np.where(valid, table.numpy()[flat], 0.0)
+    np.testing.assert_allclose(got.numpy(), _softmax_rows(lp).ravel(), atol=1e-7)
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():
     gather, table, codes = _random_gather(0)
     with pytest.raises(ValueError, match="CUDA"):
         gather.row_sums_cuda(table, codes)
+    latent, _, table, codes, _ = _random_latent_gather(0, (2,))
     with pytest.raises(ValueError, match="CUDA"):
-        gather.e_step_cuda(table, codes, 1, torch.float32)
+        latent.e_step_cuda(table, codes, torch.float32)

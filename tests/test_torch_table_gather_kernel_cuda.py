@@ -1,6 +1,7 @@
 """K13 and K11 on the card: both entry points of ``csrc/table_gather.cu``
 (``row_sums`` and ``e_step``) against their plain PyTorch versions on the same
-card, their launch counters, and the paths that call them
+card (``e_step`` at K from 1 to 1,024 and at MUNIN's shape), their launch
+counters, and the paths that call them
 (``BayesianModelProbability.log_probability``, ``ExpectationMaximization``).
 Every test here needs a CUDA device and skips without one; on a GPU machine:
 ``python -m pytest tests/test_torch_table_gather_kernel_cuda.py -m cuda``.
@@ -11,6 +12,8 @@ the table's type group by group.  With a float64 table they agree to rtol
 (the plain version's float32 rounding).  The E-step's softmax is float64 on
 both sides: float64 weights agree to atol 1e-12, float32 ones to atol 1e-7
 (one rounding of each)."""
+
+import itertools
 
 import numpy as np
 import pytest
@@ -91,18 +94,88 @@ def test_row_sums_match_plain(on_cuda, code_dtype, table_dtype, missing, n_rows)
     assert torch.equal(got, gather.row_sums(table, codes, missing=missing))  # run to run
 
 
+def _latent_gather(latent_cards, n_obs=12, n_rows=5000, missing=0.1, table_dtype=torch.float64,
+                   seed=0):
+    """A LatentGather over random (node, parents) tables of ``n_obs``
+    observed variables and latent ones of ``latent_cards`` states, its flat
+    table and the observed codes, int8 and column-major with a padded
+    leading dimension, on the card."""
+    rng = np.random.default_rng(seed)
+    n_latent = len(latent_cards)
+    cards = np.concatenate([rng.integers(2, 22, n_obs), np.asarray(latent_cards, dtype=np.int64)])
+    cols, strides, sizes = [], [], []
+    for v in range(n_obs + n_latent):
+        parents = [int(p) for p in rng.choice(n_obs + n_latent, size=int(rng.integers(0, 4)),
+                                              replace=False) if p != v]
+        c = [v] + parents
+        s = np.cumprod([1] + [int(cards[p]) for p in c[:0:-1]])[::-1]
+        cols.append(tuple(u if u < n_obs else n_obs - 1 - u for u in c))
+        strides.append(tuple(int(x) for x in s))
+        sizes.append(int(np.prod([cards[p] for p in c])))
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    grid = np.array(list(itertools.product(*[range(int(k)) for k in latent_cards])),
+                    dtype=np.int64)
+    grid = grid.reshape(grid.shape[0], n_latent)
+    codes = np.full((n_obs, n_rows + 13), -1, dtype=np.int8)
+    codes[:, :n_rows] = np.stack([rng.integers(0, cards[v], n_rows) for v in range(n_obs)])
+    codes[:, :n_rows][rng.random((n_obs, n_rows)) < missing] = -1
+    device = torch.device("cuda")
+    gather = tg.LatentGather(cols, strides, offsets, int(sum(sizes)), grid, device)
+    table = torch.as_tensor(rng.normal(size=int(sum(sizes))), dtype=table_dtype, device=device)
+    return gather, table, torch.from_numpy(codes).to(device)[:, :n_rows]
+
+
+# latent cards -> K: 1 (no latent), 2, 5, 36, 300 and 1,024 (two latents of 32)
+E_STEP_LATENTS = [(), (2,), (5,), (6, 6), (20, 15), (32, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 2, 5, 36, 300, 1024])
+@pytest.mark.parametrize("latent_cards", E_STEP_LATENTS)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
-def test_e_step_matches_plain(on_cuda, K, out_dtype):
-    groups = max(2, 60_000 // K)
-    gather, table, codes = _gather(K, n_rows=groups * K, missing=0.1)
+def test_e_step_matches_plain(on_cuda, latent_cards, out_dtype):
+    K = int(np.prod(latent_cards))
+    n_rows = max(2, 60_000 // K)
+    gather, table, codes = _latent_gather(latent_cards, n_rows=n_rows, seed=K)
+    assert gather.K == K
     before = tg.LAUNCHES["e_step"]
-    got = gather.e_step(table, codes, K, out_dtype)
+    got = gather.e_step(table, codes, out_dtype)
     assert tg.LAUNCHES["e_step"] == before + 1
-    want = gather.e_step_reference(table, codes, K, out_dtype)
+    want = gather.e_step_reference(table, codes, out_dtype)
     torch.cuda.synchronize()
-    assert got.dtype == out_dtype and got.shape == (groups * K,)
+    assert got.dtype == out_dtype and got.shape == (n_rows * K,)
+    atol = 1e-12 if out_dtype == torch.float64 else 1e-7
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.equal(got, gather.e_step(table, codes, out_dtype))  # run to run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.float64])
+def test_e_step_at_munins_shape(on_cuda, out_dtype, table_dtype):
+    """MUNIN's E-step with DIFFN_PATHO latent at 5 states: 1041 nodes (971
+    shared, 70 latent), 50,000 rows of its simulated codes with 10% missing."""
+    from pgmpy_tpu_torch.estimators.em import _EMProgram
+    from pgmpy_tpu_torch.estimators.base import _CodedData
+
+    model = get_example_model("munin")
+    frame = model.simulate(50_000, seed=3, show_progress=False).drop(columns=["DIFFN_PATHO"])
+    frame = frame.astype(object)
+    rng = np.random.default_rng(5)
+    frame = frame.mask(rng.random(frame.shape) < 0.1)
+    coded = _CodedData(frame)
+    var_order = sorted(model.nodes(), key=str)
+    parents = {v: sorted(model.get_parents(v), key=str) for v in var_order}
+    cards = dict(coded.cards, DIFFN_PATHO=5)
+    names = dict(coded.state_names, DIFFN_PATHO=list(range(5)))
+    program = _EMProgram(coded, var_order, parents, ["DIFFN_PATHO"], cards, names, 1000)
+    gather = program.gather
+    assert (len(gather.shared_nodes), len(gather.latent_nodes), gather.K) == (971, 70, 5)
+    table = torch.as_tensor(np.log(np.random.default_rng(1).random(gather.total) + 1e-3),
+                            dtype=table_dtype, device="cuda")
+    codes = coded._column_codes()[:, : coded.n]
+    got = gather.e_step(table, codes, out_dtype)
+    want = gather.e_step_reference(table, codes, out_dtype)
+    torch.cuda.synchronize()
     atol = 1e-12 if out_dtype == torch.float64 else 1e-7
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
@@ -114,8 +187,11 @@ def test_cuda_route_refuses_bad_inputs(on_cuda):
         gather.row_sums_cuda(table, codes.cpu())
     with pytest.raises(TypeError):
         gather.row_sums_cuda(table.half(), codes)
-    with pytest.raises(ValueError, match="whole rows"):
-        gather.e_step_cuda(table, codes[:, :99], 2, torch.float32)
+    latent, table64, latent_codes = _latent_gather((2,), n_rows=100)
+    with pytest.raises(TypeError, match="float32 or float64 weights"):
+        latent.e_step_cuda(table64, latent_codes, torch.float16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        latent.e_step_cuda(table64, latent_codes.cpu(), torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         gather.row_sums_cuda(table, codes.t().contiguous().t())
 

@@ -7,7 +7,8 @@ Run from a tree's root on a machine with one CUDA card, after
 
     python3 tools/stamp_kernels.py KERNEL [parent|this ...]   # default: both
 
-KERNEL is one of ``PROBES`` (``k3``, ``k5``, ``k6``, ``k8``).  For each
+KERNEL is one of ``PROBES`` (``k3``, ``k5``, ``k6``, ``k8``, ``k10``, ``k10tasks``,
+``k11``).  For each
 version it copies that version's wrapper and source (``PROBES[k].wrapper``,
 ``.source``) into ``pgmpy_tpu_torch/_build/diag/<version>/`` (git-ignored),
 inserts the stamps at fixed lines of the source (the first set of anchors in
@@ -32,15 +33,37 @@ kernel's probe:
 * ``k6`` / ``k8`` (``gibbs.cu``, ``hmc.cu``): K6's levels and pieces at
   MUNIN's 4,096 chains and HEPAR2's 10,000 and 2,500, K8 ``nuts_step``'s
   leaf phases at 1,024 and 256 chains, each in this tree's variants
-  (``VARIANTS``).
+  (``VARIANTS``);
+* ``k10`` (``einsum_plan.cu``, ``filter_scan``): ALARM as a 2-TBN over 49
+  slices and rain / umbrella over 199 (``chip_smoke``'s inputs): per level
+  of a slice (the normalisation last) its cycles (thread 0's clock), the
+  warps' mean wait at its barrier (each warp's clock before and after it)
+  and the busiest warp's work (the level less its shortest wait), averaged
+  over the slices; and the
+  dependency probe, one block of 512 threads taking rounds of a dependent
+  shared-memory read and a barrier (and of the read alone): the cycles of
+  one level's unavoidable chain, which ``chip_smoke.K10_LEVEL_CYCLES`` keeps;
+  ``k10tasks``: thread 0's clock around the parts of each task it runs
+  (setting up the inputs, the partial sum, the shuffles and the store) and
+  around reading its level's work range;
+* ``k11`` (``table_gather.cu``, ``e_step``): MUNIN's E-step with
+  DIFFN_PATHO latent at 5 states over 50,000 rows: per tile and warp the
+  cycles of its shared-node slice, its latent tasks, its wait at the
+  barrier after them and the softmax with the writes (the mean warp and the
+  slowest, over the blocks stamped), tiles per block and the blocks a
+  multiprocessor holds; timed also with the latent nodes alone (their
+  weights equal the full sum's: the shared nodes add the same to every
+  configuration) and at 128 threads.
 
 Then the unstamped kernels are timed, the parent's and this tree's in turns
 (parent, this, this, parent) at the same shapes, each the device time of
 single calls behind a device sleep (median of 20,
 ``chip_smoke.cuda_median_ms``); ``k3`` adds ``plan_block`` and one
-``torch.einsum`` over the whole contraction.  The stamps cost cycles of
-their own (a clock read and a store per group and level; clock reads and an
-ordering ``asm`` around each phase of a draw).  Prints ptxas's report of
+``torch.einsum`` over the whole contraction, ``k10`` its tables read from
+global memory.  The stamps cost cycles of their own (a clock read and a
+store per group and level; clock reads and an ordering ``asm`` around each
+phase of a draw; ``k10`` and ``k11`` keep memory accesses from moving
+across a stamp).  Prints ptxas's report of
 each build, one line per measurement and, last, a JSON object of all of
 them with the card's name and power limit.
 """
@@ -258,9 +281,120 @@ EDITS["einsum_plan.cu"] = [
       "      stamp_step[(blockIdx.x * STAMP_STEPS + s) * 2] = st1 - st0;\n"
       "      stamp_step[(blockIdx.x * STAMP_STEPS + s) * 2 + 1] = st2 - st1;\n    }\n")],
 ]
+# K10 (this tree's filter_scan): per slice and level, each warp's arrival at
+# the level's barrier and the barrier's release (the normalisation phase as
+# level n_levels)
+_ARRIVE = ("asm volatile(\"\" ::: \"memory\");"
+           " const long long stamp_a{tag} = clock64();\n")
+_RELEASE = ("const long long stamp_b{tag} = clock64();"
+            " if (lane == 0 && t < STAMP_BLOCKS && {level} < STAMP_LEVELS && warp < STAMP_GROUPS)"
+            " stamp_group[((long long)t * STAMP_LEVELS + {level}) * STAMP_GROUPS + warp] ="
+            " stamp_b{tag} - stamp_a{tag};\n"
+            " if (threadIdx.x == 0 && t < STAMP_BLOCKS && {level} < STAMP_LEVELS)"
+            " stamp_level[t * STAMP_LEVELS + {level}] = stamp_b{tag} - stamp_t0;\n")
+EDITS["k10"] = [[
+    ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;\n"
+     "  for (int t = 0; t < n_slices; ++t) {\n",
+     "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;\n"
+     "  const long long stamp_t0 = clock64();\n  for (int t = 0; t < n_slices; ++t) {\n"),
+    ("      __syncthreads();  // the level's results are written\n",
+     "      " + _ARRIVE.format(tag="l") + "      __syncthreads();\n      "
+     + _RELEASE.format(level="level", tag="l")),
+    ("        s_code[i] = codes[(long long)(t + 1) * n_vars + i];\n    }\n    __syncthreads();\n",
+     "        s_code[i] = codes[(long long)(t + 1) * n_vars + i];\n    }\n    "
+     + _ARRIVE.format(tag="n") + "    __syncthreads();\n    "
+     + _RELEASE.format(level="n_levels", tag="n")),
+]]
+# K10's tasks (probe ``k10tasks``): thread 0's clock around the parts of each
+# task it runs (setting up the inputs, the partial sum, the shuffles and the
+# store; a sink store before each stamp waits for the part's values) and
+# around reading its level's work range; counters in stamp_step[0] and [1]
+_F = 'asm volatile("" ::: "memory");'
+EDITS["k10tasks"] = [[
+    ("  const T* a = scan_input<T>(d[sIn0], staged, op_off, ops, arena);\n",
+     "  " + _F + " const long long q0 = clock64();\n"
+     "  const T* a = scan_input<T>(d[sIn0], staged, op_off, ops, arena);\n"),
+    ("  const int lane = threadIdx.x & 31;\n"
+     "  for (int first = 32 * rank; first < tasks; first += 32 * group) {\n",
+     "  const int lane = threadIdx.x & 31;\n"
+     "  stamp_step[2 + threadIdx.x] = (long long)a ^ (long long)b ^ (long long)dst ^ tasks;\n"
+     "  " + _F + " const long long q1 = clock64();\n"
+     "  for (int first = 32 * rank; first < tasks; first += 32 * group) {\n"),
+    ("    for (int s = lanes >> 1; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s, lanes);\n"
+     "    if (t < tasks && (t & (lanes - 1)) == 0) dst[t >> shift] = (T)v;\n  }\n",
+     "    stamp_step[1024 + threadIdx.x] = __double_as_longlong(v);\n"
+     "    " + _F + " const long long q2 = clock64();\n"
+     "    for (int s = lanes >> 1; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s, lanes);\n"
+     "    if (t < tasks && (t & (lanes - 1)) == 0) dst[t >> shift] = (T)v;\n"
+     "    " + _F + " const long long q3 = clock64();\n"
+     "    if (threadIdx.x == 0 && stamp_step[0] < STAMP_BLOCKS * STAMP_THREADS) {\n"
+     "      long long* r = stamp_node + 4 * stamp_step[0];\n"
+     "      r[0] = q1 - q0;\n      r[1] = q2 - q1;\n      r[2] = q3 - q2;\n"
+     "      r[3] = (long long)d[sOutCount] * 1000 + d[sLanes];\n      stamp_step[0] += 1;\n"
+     "    }\n  }\n"),
+    ("    for (int level = 0; level < n_levels; ++level) {\n"
+     "      const int* at = level_start + level * kScanWarps + warp;\n",
+     "    for (int level = 0; level < n_levels; ++level) {\n"
+     "      " + _F + " const long long p0 = clock64();\n"
+     "      const int* at = level_start + level * kScanWarps + warp;\n"
+     "      if (threadIdx.x == 0 && stamp_step[1] < STAMP_CHAINS * 5) {\n"
+     "        stamp_step[4096] = at[0] + at[1];\n"
+     "        " + _F + " stamp_nuts[stamp_step[1]] = clock64() - p0;\n"
+     "        stamp_step[1] += 1;\n      }\n"),
+]]
+# K11 (this tree's e_step): per block and warp, summed over its tiles, the
+# cycles of its shared-node slice, of its latent tasks, of its wait at the
+# barrier after them, and of the softmax and the writes; tiles per block
+_E_STEP_SHARED = ("    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(row, here - 1), ld,"
+                  " table,\n                                       rows + first * kRow, count,"
+                  " true);\n")
+_FENCE = '    asm volatile("" ::: "memory");\n'  # no memory access moves across a stamp
+EDITS["k11"] = [[
+    (_E_STEP_SHARED, _FENCE + "    const long long se0 = clock64();\n" + _E_STEP_SHARED + _FENCE
+     + "    const long long se1 = clock64();\n"),
+    ("        if (k < kc) s_lp[(long long)p * KR + (k0 + k) * R + r] = acc[k];\n      }\n    }\n"
+     "    __syncthreads();\n",
+     "        if (k < kc) s_lp[(long long)p * KR + (k0 + k) * R + r] = acc[k];\n      }\n    }\n"
+     + _FENCE + "    const long long se2 = clock64();\n    __syncthreads();\n"
+     "    const long long se3 = clock64();\n"),
+    ("    __syncthreads();  // the tile's sums are read before the next tile writes them\n",
+     "    __syncthreads();\n"
+     "    if (lane == 0 && blockIdx.x < STAMP_BLOCKS && warp < STAMP_GROUPS) {\n"
+     "      long long* at = stamp_piece + ((long long)blockIdx.x * STAMP_GROUPS + warp) * 4;\n"
+     "      at[0] += se1 - se0;\n      at[1] += se2 - se1;\n      at[2] += se3 - se2;\n"
+     "      at[3] += clock64() - se3;\n    }\n"
+     "    if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS)"
+     " stamp_level[blockIdx.x * STAMP_LEVELS] += 1;\n"),
+]]
+# K10's dependency probe: one block of `threads` threads, `iters` rounds of a
+# dependent shared-memory read and a barrier (or the read alone)
+EXTRA = {"k10": """
+__global__ void stamp_barrier_kernel(int iters, int barrier, long long* out) {
+  __shared__ int ring[1024];
+  ring[threadIdx.x] = (threadIdx.x + 33) % blockDim.x;
+  __syncthreads();
+  int x = threadIdx.x;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    x = ring[x];
+    if (barrier) __syncthreads();
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = t1 - t0;
+    out[1] = x;
+  }
+}
+
+extern "C" int pgmpy_stamps_barrier(int threads, int iters, int barrier, void* out) {
+  stamp_barrier_kernel<<<1, threads>>>(iters, barrier, static_cast<long long*>(out));
+  return (int)cudaDeviceSynchronize();
+}
+"""}
 # the kernel whose resident blocks a probe asks for, by source
 OCCUPANCY = {"ancestral.cu": "sweep_kernel<float, int8_t>",
-             "einsum_plan.cu": "plan_grid_kernel<float>"}
+             "einsum_plan.cu": "plan_grid_kernel<float>",
+             "table_gather.cu": "e_step_kernel<4, int8_t, double, float>"}
 
 READER = "".join(
     [f"""
@@ -293,19 +427,22 @@ extern "C" int pgmpy_stamps_occupancy(int threads, long long smem, int* out) {
 
 class Probe:
     """A kernel the tool stamps: its wrapper module, its source, the probe
-    that runs a stamped build (``stamps(module, lib, version)``) and the
+    that runs a stamped build (``stamps(module, lib, version)``), the
     timings of the unstamped kernels (``times(parent_module or None,
-    this_module)``)."""
+    this_module)``) and the key of its stamps in ``EDITS`` (the source's by
+    default)."""
 
-    def __init__(self, wrapper, source, stamps, times):
+    def __init__(self, wrapper, source, stamps, times, edits=None):
         self.wrapper, self.source, self.stamps, self.times = wrapper, source, stamps, times
+        self.edits = edits or source
 
 
-def instrument(text, source):
-    """The source with the first of ``EDITS[source]``'s anchor sets that it
-    holds (each anchor exactly once) applied, the stamp arrays, their reader
-    and, where ``OCCUPANCY`` names a kernel of the source, its occupancy."""
-    for edits in EDITS[source]:
+def instrument(text, source, key=None):
+    """The source with the first of ``EDITS[key or source]``'s anchor sets
+    that it holds (each anchor exactly once) applied, the stamp arrays, their
+    reader, ``EXTRA[key]`` where there is one and, where ``OCCUPANCY`` names
+    a kernel of the source, its occupancy."""
+    for edits in EDITS[key or source]:
         if all(text.count(old) == 1 for old, _ in edits):
             break
     else:
@@ -313,7 +450,7 @@ def instrument(text, source):
     for old, new in edits:
         text = text.replace(old, new)
     at = text.index("namespace {")
-    text = text[:at] + PRELUDE + text[at:] + READER
+    text = text[:at] + PRELUDE + text[at:] + READER + EXTRA.get(key, "")
     kernel = OCCUPANCY.get(source)
     if kernel and kernel.split("<")[0] in text:
         text += OCCUPANCY_READER.replace("KERNEL", kernel)
@@ -337,7 +474,7 @@ def diag_tree(version, probe):
     with open(os.path.join(csrc, probe.source)) as fh:
         text = fh.read()
     with open(os.path.join(dest, "pgmpy_tpu_torch", "csrc", probe.source), "w") as fh:
-        fh.write(instrument(text, probe.source))
+        fh.write(instrument(text, probe.source, probe.edits))
     with open(os.path.join(dest, "REV"), "w") as fh:
         fh.write(f"stamps_{version}\n")
     return dest
@@ -803,8 +940,270 @@ def k3_times(parent, this):
     return [turns("einsum_plan", "munin_query_batch_2048", calls)]
 
 
+# --------------------------------------------------------------------------- #
+# K10 and K11
+# --------------------------------------------------------------------------- #
+_INPUTS = {}
+
+
+def k10_calls(module):
+    """{shape: (program, alpha, transition tensors, codes)} of this tree's
+    ``filter_scan`` (``module`` the wrapper; the parent's takes its deltas'
+    program and int32 codes on the card): ALARM as a 2-TBN over 49 slices
+    and rain / umbrella over 199, chip_smoke's inputs."""
+    import chip_smoke
+    from pgmpy_tpu_torch.factors.factor_ops import factor_sum_product
+    from pgmpy_tpu_torch.inference import DBNInference
+    from pgmpy_tpu_torch.utils import get_example_model
+
+    if "k10" not in _INPUTS:
+        alarm = get_example_model("alarm")
+        dbn, persistent, _ = chip_smoke.alarm_2tbn(alarm, chip_smoke.ALARM_PERSISTENT)
+        leaves = sorted((v for v in alarm.nodes() if not alarm.get_children(v)),
+                        key=str)[:chip_smoke.ALARM_EVIDENCE_LEAVES]
+        truth = chip_smoke.dbn_trajectory(dbn, chip_smoke.ALARM_SLICES, chip_smoke.SEED)
+        ev = {(v, t): truth[(v, t)] for v in leaves for t in range(chip_smoke.ALARM_SLICES)}
+        rain_ev = {("umbrella", t): t % 2 for t in range(0, chip_smoke.PF_SLICES, 3)}
+        _INPUTS["k10"] = {}
+        for shape, model, variables, evidence, slices in (
+                ("alarm_2tbn_49", dbn, persistent, ev, chip_smoke.ALARM_SLICES),
+                ("rain_umbrella_199", chip_smoke.rain_umbrella_dbn(), ["rain"], rain_ev,
+                 chip_smoke.PF_SLICES)):
+            infer = DBNInference(model)
+            inputs = infer._scan_inputs(variables, evidence, slices)
+            alpha = factor_sum_product(inputs["iface0"], inputs["factors0"]).normalize(
+                inplace=False).values
+            _INPUTS["k10"][shape] = (inputs, alpha)
+    out = {}
+    for shape, (inputs, alpha) in _INPUTS["k10"].items():
+        trans = inputs["trans_arrays"]
+        shapes = [inputs["alpha_shape"]] + [tuple(a.shape) for a in trans] + [
+            (c,) for c in inputs["delta_cards"]]
+        program = module.ScanProgram(inputs["operand_axes"], inputs["outputs"], shapes,
+                                     [tuple(a.stride()) for a in trans], alpha.element_size())
+        codes = inputs["codes"] if hasattr(program, "tables_for") else torch.as_tensor(
+            inputs["codes"], dtype=torch.int32, device="cuda")
+        out[shape] = (program, alpha, trans, codes)
+    return out
+
+
+def barrier_cycles(lib, threads=512, iters=4096):
+    """Cycles a round of the dependency probe: a dependent shared-memory read
+    and a barrier, and the read alone."""
+    import ctypes
+
+    fn = lib.pgmpy_stamps_barrier
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = {}
+    for barrier in (1, 0):
+        buf = torch.zeros(2, dtype=torch.int64, device="cuda")
+        runs = []
+        for _ in range(5):
+            err = fn(threads, iters, barrier, buf.data_ptr())
+            if err:
+                raise RuntimeError(f"barrier probe failed: cudaError_t {err}")
+            runs.append(int(buf[0]) / iters)
+        out["read_and_barrier" if barrier else "read"] = round(float(np.median(runs)), 2)
+    return out
+
+
+def k10_stamps(module, lib, version):
+    if not hasattr(module, "deal_level"):
+        print(f"k10 {version}: no level schedule to stamp", flush=True)
+        return []
+    rows = []
+    probe = barrier_cycles(lib)
+    print(f"k10 {version} dependency probe (512 threads, cycles a round) {probe}", flush=True)
+    for shape, (program, alpha, trans, codes) in k10_calls(module).items():
+        for _ in range(2):
+            program.run(alpha, trans, codes)
+        torch.cuda.synchronize()
+        clear(lib)
+        program.run(alpha, trans, codes)
+        torch.cuda.synchronize()
+        slices = min(len(codes), BLOCKS)
+        phases = program.n_levels + 1
+        release = read(lib, 0, BLOCKS * LEVELS).reshape(BLOCKS, LEVELS)[:slices, :phases]
+        wait = read(lib, 1, BLOCKS * LEVELS * GROUPS).reshape(BLOCKS, LEVELS, GROUPS)[
+            :slices, :phases, :module.SCAN_WARPS]
+        # a phase begins at the release of the one before (the slice's
+        # first at the previous slice's last; the launch's first at 0)
+        previous = np.concatenate([[0], release[:-1, -1]])
+        begin = np.concatenate([previous[:, None], release[:, :-1]], axis=1)
+        span = release - begin
+        work = span[:, :, None] - wait  # each warp's own clock: its wait at the barrier
+        row = {"label": version, "shape": shape, "slices": int(len(codes)),
+               "levels": program.n_levels, "steps": len(program.steps),
+               "level_sizes": np.bincount(program.levels).tolist(),
+               "phase_cycles": span.mean(axis=0).round().astype(int).tolist(),
+               "busiest_warp_cycles": work.max(axis=2).mean(axis=0).round().astype(int).tolist(),
+               "mean_wait_cycles": wait.mean(axis=(0, 2)).round().astype(int).tolist(),
+               "slice_cycles": int(span.sum(axis=1).mean()), "dependency_probe": probe}
+        print(f"k10 {version} {shape} levels={row['levels']} steps={row['steps']} level_sizes "
+              f"{row['level_sizes']} slice_cycles {row['slice_cycles']} phase_cycles "
+              f"{row['phase_cycles']} busiest_warp_cycles {row['busiest_warp_cycles']} "
+              f"mean_wait_cycles {row['mean_wait_cycles']}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def k10_task_stamps(module, lib, version):
+    """Thread 0's tasks: the mean cycles of setting up a task's inputs, its
+    partial sum and its shuffles with the store, and of reading its level's
+    work range, over one launch of each shape."""
+    if not hasattr(module, "deal_level"):
+        print(f"k10tasks {version}: no level schedule to stamp", flush=True)
+        return []
+    rows = []
+    for shape, (program, alpha, trans, codes) in k10_calls(module).items():
+        program.run(alpha, trans, codes)
+        torch.cuda.synchronize()
+        clear(lib)
+        program.run(alpha, trans, codes)
+        torch.cuda.synchronize()
+        counts = read(lib, 5, 2)
+        tasks = read(lib, 4, 4 * int(counts[0])).reshape(-1, 4)
+        entries = read(lib, 2, int(counts[1]))
+        row = {"label": version, "shape": shape, "thread0_tasks": int(counts[0]),
+               "inputs_cycles": round(float(tasks[:, 0].mean()), 1),
+               "partial_cycles": round(float(tasks[:, 1].mean()), 1),
+               "shuffle_and_store_cycles": round(float(tasks[:, 2].mean()), 1),
+               "work_range_cycles": round(float(entries.mean()), 1)}
+        print(f"k10tasks {version} {shape} " + " ".join(f"{k} {v}" for k, v in row.items()
+                                                          if k not in ("label", "shape")),
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def k10_times(parent, this):
+    out = []
+    new = k10_calls(this)
+    old = k10_calls(parent) if parent else {}
+    for shape, (program, alpha, trans, codes) in new.items():
+        calls = {"this": lambda p=program, a=alpha, t=trans, c=codes: p.run(a, t, c),
+                 "this_tables_global": lambda p=program, a=alpha, t=trans, c=codes: patched_run(
+                     this, {"SCAN_STAGE_BYTES": 0}, lambda: p.run(a, t, c))}
+        if shape in old:
+            p, a, t, c = old[shape]
+            calls = {"parent": lambda: p.run(a, t, c), **calls}
+        out.append(turns("filter_scan", shape, calls))
+    return out
+
+
+def k11_inputs():
+    """MUNIN's E-step with DIFFN_PATHO latent at 5 states (chip_smoke's
+    shape): the program over 50,000 simulated rows and a log table."""
+    if "k11" not in _INPUTS:
+        from pgmpy_tpu_torch.estimators.base import _CodedData
+        from pgmpy_tpu_torch.estimators.em import _EMProgram
+        from pgmpy_tpu_torch.utils import get_example_model
+
+        model = get_example_model("munin")
+        frame = model.simulate(50_000, seed=3, show_progress=False).drop(columns=["DIFFN_PATHO"])
+        coded = _CodedData(frame)
+        var_order = sorted(model.nodes(), key=str)
+        parents = {v: sorted(model.get_parents(v), key=str) for v in var_order}
+        cards = dict(coded.cards, DIFFN_PATHO=5)
+        names = dict(coded.state_names, DIFFN_PATHO=list(range(5)))
+        program = _EMProgram(coded, var_order, parents, ["DIFFN_PATHO"], cards, names, 1000)
+        prob = torch.rand(program.gather.total, dtype=torch.float64, device="cuda") + 1e-3
+        _INPUTS["k11"] = (program, coded, torch.log(prob))
+    return _INPUTS["k11"]
+
+
+def k11_call(module, latent_only=False):
+    """A call of ``module``'s E-step at MUNIN's shape: this tree's over the
+    observed rows (with ``latent_only``, its latent nodes alone: the shared
+    nodes' sum is the same for every k and cancels in the softmax, so the
+    weights agree to rounding), the parent's over the expanded rows."""
+    program, coded, table = k11_inputs()
+    if hasattr(module, "LatentGather"):
+        specs, gather = program.specs, program.gather
+        cols = _latent_cols(program)
+        keep = [i for i, c in enumerate(cols) if min(c) < 0 or not latent_only]
+        g = module.LatentGather(
+            [cols[i] for i in keep], [specs.strides[i, :specs.n_cols[i]] for i in keep],
+            specs.offsets[keep], specs.total, gather.grid, torch.device("cuda"))
+        codes = coded._column_codes()[:, :coded.n]
+        return g, lambda: g.e_step_cuda(table, codes, torch.float32)
+    specs = program.specs
+    n = len(program.var_order)
+    g = module.TableGather([specs.cols[s, :specs.n_cols[s]] for s in range(n)],
+                           [specs.strides[s, :specs.n_cols[s]] for s in range(n)], specs.offsets,
+                           specs.total, torch.device("cuda"))
+    expanded = program.coded._column_codes()[:, :program.coded.n]
+    return g, lambda: g.e_step_cuda(table, expanded, program.K, torch.float32)
+
+
+def _latent_cols(program):
+    """Each node's E-step columns, as ``_EMProgram`` gives them."""
+    specs, obs = program.specs, program.obs
+    latents = [v for v in program.var_order if v not in obs.var_index]  # sorted, as the program's
+    source = {v: -1 - j for j, v in enumerate(latents)}
+    source.update({v: obs.var_index[v] for v in program.var_order if v in obs.var_index})
+    return [[source[program.var_order[c]] for c in specs.cols[s, :specs.n_cols[s]]]
+            for s in range(len(program.var_order))]
+
+
+def k11_stamps(module, lib, version):
+    if not hasattr(module, "LatentGather"):
+        print(f"k11 {version}: no observed-row E-step to stamp", flush=True)
+        return []
+    gather, call = k11_call(module)
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    clear(lib)
+    call()
+    torch.cuda.synchronize()
+    n_shared, n_latent = len(gather.shared_nodes), len(gather.latent_nodes)
+    rows, slices, block, smem = module.plan_e_step(gather.K, gather.width, n_shared, n_latent,
+                                                   gather.L)
+    per_sm = occupancy(lib, block, smem)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = block // 32
+    tiles = read(lib, 0, BLOCKS * LEVELS).reshape(BLOCKS, LEVELS)[:, 0]
+    piece = read(lib, 3, BLOCKS * GROUPS * 4).reshape(BLOCKS, GROUPS, 4)[:, :warps]
+    used = tiles > 0
+    per_tile = piece[used] / tiles[used][:, None, None]
+    keys = ("shared_slice", "latent_tasks", "barrier_wait", "softmax_and_writes")
+    out = {"label": version, "shape": "munin_50000_K5", "tile_rows": rows,
+           "latent_slices": slices, "block": block, "smem": smem,
+           "blocks_per_sm": per_sm, "blocks": min(per_sm * sms, -(-50_000 // rows)),
+           "blocks_stamped": int(used.sum()), "tiles_per_block": float(tiles[used].mean()),
+           "mean_cycles_per_tile": {k: round(float(per_tile[:, :, j].mean()), 1)
+                                    for j, k in enumerate(keys)},
+           "slowest_warp_cycles_per_tile": {k: round(float(per_tile[:, :, j].max(axis=1).mean()),
+                                                      1) for j, k in enumerate(keys)}}
+    print(f"k11 {version} munin_50000_K5 tile_rows={rows} latent_slices={slices} block={block} "
+          f"smem={smem} blocks_per_sm={per_sm} blocks={out['blocks']} "
+          f"tiles_per_block {out['tiles_per_block']:.2f} mean_cycles_per_tile "
+          f"{out['mean_cycles_per_tile']} slowest_warp_cycles_per_tile "
+          f"{out['slowest_warp_cycles_per_tile']}", flush=True)
+    return [out]
+
+
+def k11_times(parent, this):
+    _, call = k11_call(this)
+    full = call()
+    latent, latent_call = k11_call(this, latent_only=True)
+    gap = float((latent_call().double() - full.double()).abs().max())
+    print(f"e_step latent nodes alone ({len(latent.latent_nodes)}, no shared): max abs gap "
+          f"{gap:.3e} to the full sum's weights", flush=True)
+    calls = {"this": call, "this_latent_only": latent_call,
+             "this_block_128": lambda: patched_run(this, {"E_STEP_BLOCK": 128}, call)}
+    if parent:
+        _, old = k11_call(parent)
+        calls = {"parent": old, **calls}
+    return [turns("e_step", "munin_50000_K5", calls)]
+
+
 PROBES = {
     "k3": Probe("einsum", "einsum_plan.cu", k3_stamps, k3_times),
+    "k10": Probe("einsum", "einsum_plan.cu", k10_stamps, k10_times, edits="k10"),
+    "k10tasks": Probe("einsum", "einsum_plan.cu", k10_task_stamps, k10_times, edits="k10tasks"),
+    "k11": Probe("table_gather", "table_gather.cu", k11_stamps, k11_times, edits="k11"),
     "k5": Probe("ancestral", "ancestral.cu", k5_stamps, k5_times),
     "k6": Probe("gibbs", "gibbs.cu", k6_stamps, k6_times),
     "k8": Probe("hmc", "hmc.cu", nuts_stamps, k8_times),

@@ -14,8 +14,8 @@ sleep (median of 20, CUDA events):
 
 * ``row_sums`` (K13): ``BayesianModelProbability._logp`` of the 50,000 rows,
   int8 codes, float32 log tables;
-* ``e_step`` (K11): EM's E-step with DIFFN_PATHO latent at 5 states, 250,000
-  expanded rows, from seeded random CPDs;
+* ``e_step`` (K11): EM's E-step with DIFFN_PATHO latent at 5 states, over the
+  50,000 observed rows (250,000 weights), from seeded random CPDs;
 * ``sweep`` (K5): ``forward`` of 52,048 rows (Philox from a seeded generator);
 * ``particle_sweep`` (K9): one transition slice of ALARM as a 2-TBN
   (``chip_smoke.alarm_2tbn``) over 262,144 particles with three leaves
@@ -88,7 +88,7 @@ def inputs():
     program, cards, names = em._program({LATENT: LATENT_CARD})
     weights = program.flat_of(em._initial_cpds("random", 0, cards, names))
     log_table = torch.log(torch.clamp_min(weights, TINY).to(torch.float64))
-    em_codes = program.coded._column_codes()[:, : program.coded.n]
+    em_codes = program.obs._column_codes()[:, : program.n]
     return model, prob, codes, program, log_table, em_codes, weights.dtype
 
 
@@ -102,12 +102,12 @@ def time_row_sums(prob, codes):
 
 
 def time_e_step(program, log_table, em_codes, dtype):
-    gather, K = program.gather, program.K
-    got = gather.e_step_cuda(log_table, em_codes, K, dtype)
-    err = float((got.double() - gather.e_step_reference(log_table, em_codes, K, dtype)).abs().max())
+    gather = program.gather
+    got = gather.e_step_cuda(log_table, em_codes, dtype)
+    err = float((got.double() - gather.e_step_reference(log_table, em_codes, dtype)).abs().max())
     chip_smoke.check(err <= 1e-6, f"e_step: {err} from the plain version")
-    return time_pair(lambda: gather.e_step_cuda(log_table, em_codes, K, dtype),
-                     lambda: gather.e_step_reference(log_table, em_codes, K, dtype))
+    return time_pair(lambda: gather.e_step_cuda(log_table, em_codes, dtype),
+                     lambda: gather.e_step_reference(log_table, em_codes, dtype))
 
 
 def time_sweep(model):
