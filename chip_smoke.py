@@ -57,8 +57,9 @@ Runs from the repository root and needs one CUDA card.  It
    schedule its plan chooses, counts K3's launches per ``predict`` /
    ``predict_probability`` call, times both schedules on each of those
    contractions, and times the chosen one beside the plain version, the
-   bound, one ``torch.einsum`` and, where it is unpacked, the parent
-   commit's kernel;
+   bound (``plan_block``'s also its dependency bound: its levels, each a
+   barrier and a dependent shared-memory read), one ``torch.einsum`` and,
+   where it is unpacked, the parent commit's kernel;
 5. drives the MCMC lane (``phase_mcmc``): Gibbs on MUNIN (4,096 chains started
    from ancestral samples, 5 sweeps over all 1041 variables, each sweep one
    launch of the Gibbs sweep kernel, K6, ``csrc/gibbs.cu``: the local
@@ -81,9 +82,9 @@ Runs from the repository root and needs one CUDA card.  It
    (``.chip_scratch/parent``), those of ``PARENT_WRAPPERS`` are built beside
    the others and timed in turns with this tree's at the shapes the smoke
    times them (the rows' ``parent_ms``; "not timed" without them): K5 and
-   K9 (``ancestral.cu``), K3 and K10 (``einsum_plan.cu``) and K11
-   (``table_gather.cu``), and K6 and K8 where it names ``gibbs.cu`` and
-   ``hmc.cu``;
+   K9 (``ancestral.cu``), K3's two schedules and K10 (``einsum_plan.cu``)
+   and K11 and K13 (``table_gather.cu``), and K6 and K8 where it names
+   ``gibbs.cu`` and ``hmc.cu``;
 6. drives the temporal lane (``phase_temporal``): the particle filter on the
    rain/umbrella 2-TBN (16,384 particles, 200 slices) and on ALARM unrolled
    as a 2-TBN with 6 persistent root nodes (262,144 particles, 50 slices,
@@ -117,7 +118,8 @@ Runs from the repository root and needs one CUDA card.  It
    the CPU run), and ``log_likelihood_score`` of the fitted MUNIN on its
    50,000 rows (one launch of K13's ``row_sums`` kernel, ``csrc/table_gather.cu``,
    on int8 codes; against a numpy float64 gather-sum and, at rtol 1e-5, the
-   plain version, and timed), with ``DAG.validate``;
+   plain version, and timed beside the parent commit's kernel where it is
+   unpacked), with ``DAG.validate``;
 9. drives the latent-variable lane (``phase_latent``): ``NaiveBayes`` on
    MUNIN's 50,000 rows with DIFFN_PATHO (5 states) as the class (one launch,
    every table against ``np.bincount``; ``predict_probability`` of 2,048
@@ -125,7 +127,7 @@ Runs from the repository root and needs one CUDA card.  It
    with DIFFN_PATHO latent (one E-step launch per iteration, K11's ``e_step``
    kernel over the 50,000 observed rows and 5 latent states, held at atol
    1e-6 against its plain version and timed beside the parent commit's
-   kernel over the 250,000 expanded rows where it is unpacked; one
+   kernel where it is unpacked; one
    iteration against numpy float64, the
    observed-data log-likelihood along 1, 3 and 10 iterations, the same seed
    twice), ``MirrorDescentEstimator`` on ALARM's junction tree fitted to
@@ -1655,8 +1657,10 @@ def phase_k3(context):
     MUNIN VariableElimination query, a MUNIN BeliefPropagation query, a
     2,048-row ``query_batch`` and a do-query on MUNIN (the causal lane's
     batched query), each with both schedules, and the VE query's in float64
-    (loopy BP's round is held in ``phase_loopy``); exactly one launch, of the
-    plan's schedule, for each of them; both schedules timed on each; K3's
+    (loopy BP's round is held in ``phase_loopy``), and the synthetic
+    contractions of ``k3_probe_contractions``; exactly one launch, of the
+    plan's schedule, for each of them; both schedules timed on each, and
+    how often the dispatch chose the faster; K3's
     launches per ``predict`` and ``predict_probability`` call; the chosen
     schedules timed beside the plain version, the bound, ``torch.einsum``
     and the parent's kernel."""
@@ -1688,14 +1692,20 @@ def phase_k3(context):
     check(k3_table(ve_calls[-1]).schedule == "plan_block", "the VE plan is not under the limit")
     check(k3_table(batch_calls[-1]).schedule == "plan_grid",
           "the query_batch plan is not past the block limit")
-    # each distinct contraction: one launch of its schedule, both schedules timed
-    seen = set()
-    for name, calls in captured:
+    probes = k3_probe_contractions(ve_calls[-1][2][0].device)
+    for name, call in probes:
+        worst = max(worst, k3_case(name, call))
+    # each distinct contraction: one launch of its schedule, both schedules
+    # timed, and whether the dispatch chose the faster one
+    seen, picks = set(), []
+    for name, calls in list(captured) + [(name, [call]) for name, call in probes]:
         for k, call in enumerate(calls):
             signature = (call[0], call[1], tuple(tuple(a.shape) for a in call[2]))
             if signature not in seen:
                 seen.add(signature)
-                k3_schedules(f"{name}[{k}]", call)
+                picks.append((f"{name}[{k}]", k3_schedules(f"{name}[{k}]", call)[1]))
+    log(f"k3_schedule_choice faster on {sum(ok for _, ok in picks)} of {len(picks)} "
+        f"contractions (slower: {[name for name, ok in picks if not ok] or 'none'})")
     fitted_p, _, test = context["predict_rows"]
     per_call = {}
     for name, fn in (("predict", lambda: fitted_p.predict(test)),
@@ -1706,7 +1716,8 @@ def phase_k3(context):
     log(f"k3_launches_per_call predict {per_call['predict']} predict_probability "
         f"{per_call['predict_probability']} (their profiler kernels per call are logged with "
         f"predict_rows_per_s)")
-    GATHER_ROWS["einsum_plan/plan_block"] = k3_kernel_row("munin_ve_query", ve_calls[-1])
+    GATHER_ROWS["einsum_plan/plan_block"] = k3_kernel_row("munin_ve_query", ve_calls[-1],
+                                                          parent=True)
     GATHER_ROWS["einsum_plan/plan_grid"] = k3_kernel_row("munin_query_batch_2048",
                                                          batch_calls[-1], parent=True)
     log(f"k3_checks ok: every captured contraction within its limits under both schedules, "
@@ -1777,26 +1788,63 @@ def k3_kernel_row(name, call, parent=False):
     plain_ms = cuda_median_ms(lambda: einsum.sum_product_reference(axes, out, arrays))
     nbytes = sum(a.numel() * a.element_size() for a in arrays) + got.numel() * got.element_size()
     bound_ms, bound_by = bound(nbytes, 2 * int(table.unions.sum()))
+    # plan_block: its chain of levels, a barrier and a dependent shared read
+    # each (K10's dependency bound at one slice)
+    dependency_ms = (k10_dependency_ms(table.n_levels, 1) if table.schedule == "plan_block"
+                     else None)
     log(f"k3 {table.schedule} {name} operands={len(arrays)} steps={len(table.steps)} "
         f"unions={int(table.unions.sum())} kernel_ms={ms:.5f} parent_ms="
         f"{'not timed' if parent_ms is None else f'{parent_ms:.5f} ({old_table.schedule})'} "
         f"torch_einsum_ms={'none' if library_ms is None else f'{library_ms:.5f}'} (device time, "
         f"each the smaller median of 20 of two turns: "
         + " ".join(f"{k} " + "/".join(f"{t:.5f}" for t in v[1]) for k, v in times.items())
-        + f") plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) max_abs_err={err:.3e}")
+        + f") plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) "
+        + ("" if dependency_ms is None else
+           f"dependency_bound_ms={dependency_ms:.6f} ({table.n_levels} levels x "
+           f"{K10_LEVEL_CYCLES} cycles at {SM_MAX_MHZ[0]:.0f} MHz; level_sizes="
+           f"{np.bincount(table.levels).tolist()}, tables "
+           f"{'staged' if table.staged else 'global'}, shared_bytes={table.shared_bytes}) ")
+        + f"max_abs_err={err:.3e}")
     row = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms}
     if parent:
         row["parent_ms"] = parent_ms
+    if dependency_ms is not None:
+        row["dependency_bound_ms"] = dependency_ms
     return row
 
 
+def k3_probe_contractions(device, seed=0):
+    """(name, call) of synthetic contractions on which the schedule choice
+    is hard: scalar and four-output reductions of 2^12 to 2^16 entries (one
+    step; one warp of the block walks them), chains of mat-vec products (16
+    steps of 64 x 64, 28 of 32 x 32) and 16 independent mat-vec products
+    with their product (64 and 256 wide); float32 in [0.1, 1.1]."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(*shape):
+        return (torch.rand(shape, generator=gen) + 0.1).to(device)
+
+    calls = [(f"scalar_{n}", ([(0,), (0,)], (), [t(n), t(n)])) for n in (4096, 16384, 65536)]
+    calls += [(f"out4_red{n}", ([(0, 1), (1,)], (0,), [t(4, n), t(n)])) for n in (4096, 16384)]
+    for steps, w in ((16, 64), (28, 32)):
+        calls.append((f"chain{steps}_{w}", ([(0,)] + [(i, i + 1) for i in range(steps)], (steps,),
+                                            [t(w)] + [t(w, w) for _ in range(steps)])))
+    for w in (64, 256):
+        axes = [ax for i in range(16) for ax in ((i,), (i, 100))]
+        calls.append((f"fan16_{w}", (axes, (100,), [t(w) if k % 2 == 0 else t(w, w)
+                                                    for k in range(32)])))
+    return [(name, (tuple(map(tuple, axes)), out, arrays)) for name, (axes, out, arrays) in calls]
+
+
 def k3_schedules(name, call):
-    """Both schedules' device time on one captured contraction (median of 20
-    behind a device sleep; ``plan_block`` only where one block walks its
-    unions in reasonable time), beside the plan's numbers the choice reads:
-    the data ``BLOCK_UNION`` is set from.  Also checks that the dispatch
-    makes exactly one launch, of the schedule the plan chooses."""
+    """Both schedules' device time on one contraction (median of 20 behind
+    a device sleep; ``plan_block`` only where one block walks its unions in
+    reasonable time), beside the plan's numbers and the modelled times the
+    choice reads (``tools/k3_schedules.py`` fits the models to such times).
+    Also checks that the dispatch makes exactly one launch, of the schedule
+    the plan chooses.  Returns (the times, whether the chosen schedule was
+    the faster)."""
     from pgmpy_tpu_torch.ops import einsum
 
     axes, out, arrays = call
@@ -1814,11 +1862,16 @@ def k3_schedules(name, call):
         times[schedule] = cuda_median_ms(lambda: einsum.launch_plan(forced, arrays),
                                          device_only=True)
     fmt = {k: "not timed" if v is None else f"{v:.5f}" for k, v in times.items()}
+    timed = {k: v for k, v in times.items() if v is not None}
+    faster = min(timed, key=timed.get)
+    model = {k: "none" if v is None else f"{v / 1e3:.5f}"
+             for k, v in (("plan_block", table.block_us), ("plan_grid", table.grid_us))}
     log(f"k3_schedules {name} steps={len(table.steps)} max_union={int(table.unions.max())} "
         f"unions={int(table.unions.sum())} chosen={table.schedule} (BLOCK_UNION "
-        f"{einsum.BLOCK_UNION}) plan_block_ms={fmt['plan_block']} plan_grid_ms="
-        f"{fmt['plan_grid']} (device time, median of 20) launches=1")
-    return times
+        f"{einsum.BLOCK_UNION}; modelled ms plan_block={model['plan_block']} plan_grid="
+        f"{model['plan_grid']}) plan_block_ms={fmt['plan_block']} plan_grid_ms="
+        f"{fmt['plan_grid']} (device time, median of 20) faster={faster} launches=1")
+    return times, faster == table.schedule
 
 
 # --------------------------------------------------------------------------- #
@@ -5727,10 +5780,9 @@ def k10_shape(name, infer, variables, evidence, slices):
             (c,) for c in inputs["delta_cards"]]
         old_program = old.ScanProgram(inputs["operand_axes"], inputs["outputs"], shapes,
                                       [tuple(a.stride()) for a in trans], alpha.element_size())
-        old_codes = torch.as_tensor(codes, dtype=torch.int32, device=alpha.device)
-        old_err = float((old_program.run(alpha, trans, old_codes) - got).abs().max())
+        old_err = float((old_program.run(alpha, trans, codes) - got).abs().max())
         check(old_err <= limit, f"k10 {name}: {old_err} from the parent's kernel")
-        parent = lambda: old_program.run(alpha, trans, old_codes)  # noqa: E731
+        parent = lambda: old_program.run(alpha, trans, codes)  # noqa: E731
     ms, parent_ms, runs = paired_ms(lambda: program.run(alpha, trans, codes), parent)
     plain_ms = cuda_median_ms(lambda: scan_reference(inputs, alpha), reps=3, warmup=1)
     n = codes.shape[0]
@@ -5820,11 +5872,26 @@ def gather_operations(gather, n_rows):
     return per_row * n_rows
 
 
+def k13_parent_gather(prob, old):
+    """The parent commit's ``TableGather`` over ``prob``'s nodes, built as
+    ``BayesianModelProbability`` builds its own."""
+    specs, cards = prob.sampler._node_specs, prob.sampler.cards
+    sizes = [int(log_table.numel()) for _, _, log_table in specs]
+    return old.TableGather(
+        [(i,) + tuple(parents) for i, (parents, _, _) in enumerate(specs)],
+        [(1,) + tuple(s * cards[i] for s in strides) for i, (_, strides, _) in enumerate(specs)],
+        np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64), int(sum(sizes)),
+        prob._table.device)
+
+
 def k13_kernel_row(prob, codes):
     """K13 on MUNIN's rows: ``row_sums`` against its plain version (rtol
     1e-5: the kernel sums in float64 and rounds once, the plain version sums
-    float32 group by group), device times of both (median of 20 behind a
-    device sleep) and the card's bound."""
+    float32 group by group) and, where it is unpacked, the parent commit's
+    kernel, device times (median of 20 behind a device sleep; the parent's in
+    turns) and the card's bound."""
+    from pgmpy_tpu_torch.ops import table_gather
+
     gather, table = prob._gather, prob._table
     got = gather.row_sums_cuda(table, codes)
     want = gather.row_sums_reference(table, codes)
@@ -5832,16 +5899,28 @@ def k13_kernel_row(prob, codes):
     rel = float(((got.double() - want.double()).abs() / want.double().abs()).max())
     check(bool(torch.isfinite(got).all()) and rel <= 1e-5,
           f"k13: the kernel is {rel} (relative) from the plain version")
-    ms = cuda_median_ms(lambda: gather.row_sums_cuda(table, codes), device_only=True)
+    parent = None
+    old = PARENT.get("modules", {}).get("table_gather")
+    if old is not None:
+        old_gather = k13_parent_gather(prob, old)
+        old_rel = float(((old_gather.row_sums_cuda(table, codes).double() - got.double()).abs()
+                         / want.double().abs()).max())
+        check(old_rel <= 1e-5, f"k13: {old_rel} (relative) from the parent's kernel")
+        parent = lambda: old_gather.row_sums_cuda(table, codes)  # noqa: E731
+    ms, parent_ms, runs = paired_ms(lambda: gather.row_sums_cuda(table, codes), parent)
     plain_ms = cuda_median_ms(lambda: gather.row_sums_reference(table, codes), device_only=True)
     bound_ms, bound_by = bound(gather_bytes(gather, codes, table, got.element_size()),
                                gather_operations(gather, codes.shape[1]))
+    rows, slices, block, _, tiles = table_gather.plan_rows(codes.shape[1])
     log(f"k13 row_sums rows={codes.shape[1]} nodes={gather.nodes.shape[0]} codes={codes.dtype} "
-        f"table={table.dtype} max_abs_err={err:.3e} max_rel_err={rel:.3e} (limit 1e-5) "
-        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} (device time, median of 20) "
-        f"bound_ms={bound_ms:.6f} ({bound_by}) library: none")
+        f"table={table.dtype} tiles={tiles} of {rows} rows, {slices} node slices, block={block} "
+        f"max_abs_err={err:.3e} max_rel_err={rel:.3e} (limit 1e-5) kernel_ms={ms:.5f} "
+        f"parent_ms={'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, each "
+        f"the smaller median of 20 of two turns: " + "/".join(f"{t:.5f}" for t in runs)
+        + f") plain_ms={plain_ms:.5f} (median of 20) bound_ms={bound_ms:.6f} ({bound_by}) "
+        f"library: none")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "parent_ms": parent_ms}
 
 
 def e_step_node_rows(gather, latent_only):
@@ -5889,8 +5968,8 @@ def k11_kernel_row(program, prob):
     """K11 on MUNIN with DIFFN_PATHO latent: ``e_step`` over the 50,000
     observed rows against its plain version (atol 1e-6: both take the softmax
     in float64 and round the weights to float32 once; the float64 sums differ
-    in order only) and against the parent commit's kernel over the 250,000
-    expanded rows where it is unpacked, device times (median of 20 behind a
+    in order only) and against the parent commit's kernel where it is
+    unpacked (over the same observed rows), device times (median of 20 behind a
     device sleep; the parent's in turns), the plain version's, and the bound
     of the bytes the weights need (the latent nodes' columns, tables and the
     weights: ``e_step_bytes``) beside the bound of every column any node
@@ -5905,19 +5984,25 @@ def k11_kernel_row(program, prob):
     err = float((got.double() - want.double()).abs().max())
     check(got.shape == want.shape and err <= 1e-6,
           f"k11: the E-step kernel is {err} from the plain version")
-    parent = None
+    parent, parent_rows = None, "none"
     expanded = program.coded._column_codes()[:, : program.coded.n]
     old = PARENT.get("modules", {}).get("table_gather")
+    specs, n_nodes = program.specs, len(program.var_order)
     if old is not None:
-        specs = program.specs
-        n_nodes = len(program.var_order)
-        old_gather = old.TableGather([specs.cols[s, : specs.n_cols[s]] for s in range(n_nodes)],
-                                     [specs.strides[s, : specs.n_cols[s]] for s in range(n_nodes)],
-                                     specs.offsets, specs.total, table.device)
-        old_err = float((old_gather.e_step_cuda(table, expanded, K, prob.dtype).double()
-                         - got.double()).abs().max())
+        obs = program.obs
+        latents = [v for v in program.var_order if v not in obs.var_index]
+        source = {v: -1 - j for j, v in enumerate(latents)}
+        source.update({v: obs.var_index[v] for v in program.var_order if v in obs.var_index})
+        old_gather = old.LatentGather(
+            [[source[program.var_order[c]] for c in specs.cols[s, : specs.n_cols[s]]]
+             for s in range(n_nodes)],
+            [specs.strides[s, : specs.n_cols[s]] for s in range(n_nodes)], specs.offsets,
+            specs.total, gather.grid, table.device)
+        parent = lambda: old_gather.e_step_cuda(table, codes, prob.dtype)  # noqa: E731
+        parent_rows = f"the same {codes.shape[1]} observed rows"
+    if parent is not None:
+        old_err = float((parent().double() - got.double()).abs().max())
         check(old_err <= 1e-6, f"k11: {old_err} from the parent's kernel")
-        parent = lambda: old_gather.e_step_cuda(table, expanded, K, prob.dtype)  # noqa: E731
     ms, parent_ms, runs = paired_ms(lambda: gather.e_step_cuda(table, codes, prob.dtype), parent)
     plain_ms = cuda_median_ms(lambda: gather.e_step_reference(table, codes, prob.dtype),
                               device_only=True)
@@ -5937,7 +6022,7 @@ def k11_kernel_row(program, prob):
         f"{err:.3e} (limit 1e-6) kernel_ms={ms:.5f} parent_ms="
         f"{'not timed' if parent_ms is None else f'{parent_ms:.5f}'} (device time, each the "
         f"smaller median of 20 of two turns: " + "/".join(f"{t:.5f}" for t in runs)
-        + f"; the parent over the {expanded.shape[1]} expanded rows) plain_ms={plain_ms:.5f} "
+        + f"; the parent over {parent_rows}) plain_ms={plain_ms:.5f} "
         f"(median of 20) bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} bytes, the columns the "
         f"latent nodes read once, their tables, the weights; operations_ms="
         f"{e_step_operations(gather, n, True) / PLAIN_OPS_PER_S * 1e3:.6f}) all_nodes_bound_ms="

@@ -21,40 +21,45 @@
 // host loop of (1 + queries) contractions per filter slice (ALARM as a 2-TBN:
 // 692.6 kernels per slice).
 //
-// Bound: small plans are latency; large steps bytes.  The ALARM filter's
-// plain version runs 1 + 6 plans a slice (~518 dependent steps of at most 864
-// union entries), far below what one launch per step can carry.  A MUNIN
-// query_batch step walks 289 M union entries, each reading two inputs.
+// Bound: small plans are latency; large steps bytes.  A MUNIN VE query is 28
+// steps of at most 1,080 union entries (6,459 in all: a few microseconds of
+// arithmetic for one SM), whose chain of 12 dependency levels bounds it; the
+// ALARM filter's plain version runs 1 + 6 plans a slice (~518 dependent
+// steps of at most 864 union entries), far below what one launch per step can
+// carry.  A MUNIN query_batch step walks 289 M union entries, each reading two
+// inputs.
 //
 // What the design does about it:
 //   1. Two schedules, chosen on the host from the plan alone, each ONE launch
-//      a contraction.  `plan_block` runs the whole plan in one block when
-//      every step's union is within ops/einsum.py:BLOCK_UNION: a step's
-//      descriptor is staged in shared memory while the previous step runs,
-//      one barrier per step, the intermediates in shared memory when they
-//      fit.  `plan_grid` runs the rest as one cooperative launch of as many
-//      blocks as the card holds at once (the occupancy API), at most as many
-//      as the largest step's tasks fill: each step's (output, lane) tasks are
-//      strided over the whole grid, one grid barrier (grid.sync()) between
-//      consecutive steps, the next step's descriptor staged in shared memory
-//      while the current one runs, the intermediates in the global arena (a
-//      2,048-row MUNIN query_batch: 36,900 entries, which L2 holds); a
-//      launch per step would pay a launch latency and a kernel tail per step,
-//      eight in a row on that query_batch.
-//   2. Few outputs, long reductions: each output entry is summed by `lanes`
-//      threads (a power of two chosen per step: ~32 reduced entries a lane
-//      in a block, ~8 over the grid, more lanes while the block would idle),
-//      each over a contiguous chunk of the reduced entries walked by an
-//      odometer (no division per entry), then combined by warp shuffles and,
-//      past 32 lanes, shared memory, in a fixed order: a 3-state marginal of
-//      141 k entries runs on 3 x 256 threads, not on 3.
-//   3. Labels are merged on the host where every tensor walks two neighbours
-//      as one, and extent-1 labels dropped, so steps decode few digits (at
-//      most kMaxLabels output and kMaxLabels reduced labels; wider raises).
-//   4. Sums in double for both float and double tables (no TF32 anywhere);
-//      results are stored in the tables' type, as the plain version stores
-//      them.
-//   5. K10: `filter_scan` loops over the slices inside one block.  Where
+//      a contraction.  `plan_block` runs the whole plan in one block of 512
+//      threads where every step's union is within ops/einsum.py:BLOCK_UNION
+//      and its level model's time is at most the grid's (a long reduction
+//      with few outputs walks on one warp: the grid), as K10 runs a slice
+//      (item 5, `run_levels`): its steps grouped by
+//      dependency level, one barrier a level (the MUNIN VE query: 12 levels
+//      where its 28 steps ran one after another).  `plan_grid` runs the rest
+//      as one cooperative launch of as many blocks as the card holds at once
+//      (the occupancy API), at most as many as the largest step's tasks fill:
+//      each step's (output, lane) tasks are strided over the whole grid, one
+//      grid barrier (grid.sync()) between consecutive steps, the next step's
+//      descriptor staged in shared memory while the current one runs, the
+//      intermediates in the global arena (a 2,048-row MUNIN query_batch:
+//      36,900 entries, which L2 holds); a launch per step would pay a launch
+//      latency and a kernel tail per step, eight in a row on that
+//      query_batch.
+//   2. `plan_grid`: few outputs, long reductions.  Each output entry is
+//      summed by `lanes` threads (a power of two chosen per step: ~8 reduced
+//      entries a lane, more lanes while the grid would idle), each over a
+//      contiguous chunk of the reduced entries walked by an odometer (no
+//      division per entry), then combined by warp shuffles and, past 32
+//      lanes, shared memory, in a fixed order.  Labels are merged on the
+//      host where every tensor walks two neighbours as one, and extent-1
+//      labels dropped, so steps decode few digits (at most kMaxLabels output
+//      and kMaxLabels reduced labels; wider raises).
+//   3. Sums in double for both float and double tables (no TF32 anywhere),
+//      in a fixed order; results are stored once in the tables' type, as the
+//      plain version stores them.
+//   4. K10: `filter_scan` loops over the slices inside one block.  Where
 //      the joint over the interface and the queries holds at most
 //      SCAN_JOINT entries, a slice is one contraction of alpha and the
 //      transition factors to that joint and a one-input step from it per
@@ -62,24 +67,30 @@
 //      factor: each label whose variable the call observes is pinned to the
 //      slice's code (staged in shared memory): an output entry with another
 //      digit is 0, a reduced label walks the code alone; an unobserved
-//      variable costs nothing.  The steps are grouped by dependency level on
-//      the host, and a level's steps run at once, its 16 warps and each
-//      step's lanes (at most a warp: shuffles only) dealt by a cost model,
-//      one barrier after each level (ALARM: 13 levels).  A slice's chain of
-//      levels bounds it, not its arithmetic (a few hundred multiply-adds a
-//      step), so a task is kept short: its step is an int32 row and the
-//      host's tables of offset pairs give each output entry's and each
-//      reduced entry's input offsets (no digit decoded on the card), and the
-//      rows, the tables and the transition factors are staged in shared
-//      memory once per launch where they fit, beside the arena.  Then each
-//      result is normalised (a sum of 0 gives NaN, as m / m.sum() does): the
-//      queries into the output row, the interface into alpha.
+//      variable costs nothing.  After the slice's levels each result is
+//      normalised (a sum of 0 gives NaN, as m / m.sum() does): the queries
+//      into the output row, the interface into alpha.
+//   5. The level schedule `plan_block` and `filter_scan` share
+//      (`run_levels`, `scan_tasks`, `scan_partial`, `stage_levels`): the
+//      host groups the steps by dependency level (a step's level is one more
+//      than the highest level of the steps whose results it reads) and places
+//      the intermediates so that no step reads or overwrites what another
+//      step of its level writes; a level's steps run at once, its 16 warps
+//      and each step's lanes (at most a warp: shuffles only) dealt by a cost
+//      model, one barrier after each level.  A chain of levels bounds such a
+//      launch, not its arithmetic, so a task is kept short: its step is an
+//      int32 row and the host's tables of offset pairs give each output
+//      entry's and each reduced entry's input offsets (no digit decoded on
+//      the card), and the rows, the tables and the operands are staged in
+//      shared memory by asynchronous copies (cp.async) once per launch where
+//      they fit, beside the arena, else read from global memory.
 //
 // The wrapper (pgmpy_tpu_torch/ops/einsum.py) compiles and uploads the step
 // tables and calls the extern "C" launchers through ctypes on PyTorch's
 // current stream; each returns the launch's cudaError_t.
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -211,36 +222,6 @@ __device__ void run_tasks(const long long* d, const Operands& ops, T* arena, T* 
   }
 }
 
-// Every step of a plan by one block, a barrier after each; the next step's
-// descriptor is staged while the current one runs.
-template <typename T>
-__device__ void run_steps(const long long* steps, int n_steps, const Operands& ops, T* arena,
-                          T* out, long long (*desc)[kStepWords], double* scratch) {
-  if (n_steps == 0) return;
-  for (int i = threadIdx.x; i < kStepWords; i += blockDim.x) desc[0][i] = steps[i];
-  __syncthreads();
-  for (int s = 0; s < n_steps; ++s) {
-    if (s + 1 < n_steps) {
-      const long long* next = steps + (long long)(s + 1) * kStepWords;
-      for (int i = threadIdx.x; i < kStepWords; i += blockDim.x) desc[(s + 1) & 1][i] = next[i];
-    }
-    run_tasks<T>(desc[s & 1], ops, arena, out, scratch, 0, blockDim.x);
-    __syncthreads();  // the step's result is written
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
-    plan_block_kernel(const long long* __restrict__ steps, int n_steps,
-                      const __grid_constant__ Operands ops, T* arena_global, T* out,
-                      int shared_arena) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ long long desc[2][kStepWords];
-  __shared__ double scratch[kBlockThreads / 32];
-  T* arena = shared_arena ? reinterpret_cast<T*>(smem_raw) : arena_global;
-  run_steps<T>(steps, n_steps, ops, arena, out, desc, scratch);
-}
-
 // Every step of a plan over the whole grid, one grid barrier between
 // consecutive steps (it also orders the block's staged descriptor).  The
 // barrier makes each step's writes to the arena visible to every block
@@ -266,17 +247,17 @@ __global__ void __launch_bounds__(kGridThreads)
   }
 }
 
-// K10's step rows (int32, ops/einsum.py:SCAN_ROW): a header, then
-// kMaxLabels (variable, place, extent) triples of pinned output labels and
-// kMaxLabels of pinned reduced labels.
+// The level steps' rows (plan_block and K10; int32, ops/einsum.py:SCAN_ROW):
+// a header, then kMaxLabels (variable, place, extent) triples of pinned
+// output labels and kMaxLabels of pinned reduced labels (none in plan_block).
 constexpr int kScanHeader = 12;
 constexpr int kScanRow = kScanHeader + 6 * kMaxLabels;
 constexpr int kScanWarps = kBlockThreads / 32;  // ops/einsum.py: SCAN_WARPS
 constexpr int sNIn = 0, sIn0 = 1, sIn1 = 2, sOut = 3, sOutCount = 4, sFree = 5, sLanes = 6,
               sPinOut = 7, sPinRed = 8, sOutPairs = 9, sRedPairs = 10;
 
-// An input slot of a filter_scan step: >= 0 a transition factor (staged in
-// shared memory where `staged` is not null), < 0 the arena.
+// An input slot of a level step: >= 0 an operand (staged in shared memory
+// where `staged` is not null), < 0 the arena.
 template <typename T>
 __device__ __forceinline__ const T* scan_input(int slot, const T* staged, const int* op_off,
                                                const Operands& ops, const T* arena) {
@@ -285,7 +266,7 @@ __device__ __forceinline__ const T* scan_input(int slot, const T* staged, const 
   return static_cast<const T*>(ops.many != nullptr ? ops.many[slot] : ops.p[slot]);
 }
 
-// One lane's partial sum of output entry o of a filter_scan step.  The
+// One lane's partial sum of output entry o of a level step.  The
 // host's offset pairs give the inputs' offsets of each output entry and of
 // each reduced entry (the unpinned reduced labels innermost, F of them, the
 // pinned ones outermost), so no digit is decoded: an output entry whose
@@ -313,7 +294,8 @@ __device__ double scan_partial(const int* d, const int2* pairs, const int* code,
       walked *= pin[3 * i + 2];
     }
   }
-  const int lanes = d[sLanes], count = free * walked, chunk = (count + lanes - 1) / lanes;
+  const int lanes = d[sLanes], count = free * walked;
+  const int chunk = (count + lanes - 1) >> (__ffs(lanes) - 1);  // lanes: a power of two
   int r = lane * chunk;
   const int hi = min(r + chunk, count);
   const int2* red = pairs + d[sRedPairs];
@@ -343,16 +325,17 @@ __device__ double scan_partial(const int* d, const int2* pairs, const int* code,
   return acc;
 }
 
-// One warp's share of a filter_scan step: it is warp `rank` of the `group`
-// warps the level gave the step, striding over the step's (output, lane)
-// tasks; the lanes of an output (at most 32, a power of two) meet by shuffles.
+// One warp's share of a level step: it is warp `rank` of the `group` warps
+// the level gave the step, striding over the step's (output, lane) tasks;
+// the lanes of an output (at most 32, a power of two) meet by shuffles.  A
+// step whose output slot is negative writes `out` (plan_block's last step).
 template <typename T>
 __device__ void scan_tasks(const int* d, const int2* pairs, const int* code, const T* staged,
-                           const int* op_off, const Operands& ops, T* arena, int rank,
+                           const int* op_off, const Operands& ops, T* arena, T* out, int rank,
                            int group) {
   const T* a = scan_input<T>(d[sIn0], staged, op_off, ops, arena);
   const T* b = d[sNIn] > 1 ? scan_input<T>(d[sIn1], staged, op_off, ops, arena) : nullptr;
-  T* dst = arena + d[sOut];
+  T* dst = d[sOut] < 0 ? out : arena + d[sOut];
   const int lanes = d[sLanes], shift = __ffs(lanes) - 1, tasks = d[sOutCount] * lanes;
   const int lane = threadIdx.x & 31;
   for (int first = 32 * rank; first < tasks; first += 32 * group) {
@@ -364,17 +347,106 @@ __device__ void scan_tasks(const int* d, const int2* pairs, const int* code, con
   }
 }
 
-// K10.  table (int32, ops/einsum.py:ScanProgram.table): n_steps rows of
-// kScanRow, the results (arena offset, entries, output column or -1 for the
-// interface, 0) per output, level_start (per (level, warp) the first of its
-// work items, n_levels * kScanWarps + 1 words), the work items (step, rank,
-// group), each transition factor's offset and span in the staged operands,
-// then (8-byte aligned) the offset pairs.  Where `staged`, the table sits in
-// shared memory at byte table_at and the factors at operands_at.  codes:
-// (n_slices, n_vars) int32, -1 where unobserved; out: (n_slices, width).
-// Alpha lives at arena offset 0.  A slice: its levels, one barrier after
-// each, then the normalisations while the next slice's codes are staged,
-// one barrier.
+// A level launch's int32 buffer (ops/einsum.py:level_buffer): n_steps rows
+// of kScanRow, the results (K10: arena offset, entries, output column or -1
+// for the interface, 0; none in plan_block), level_start (per (level, warp)
+// the first of its work items, n_levels * kScanWarps + 1 words), the work
+// items (step, rank, group), each operand's offset and span in the staged
+// operands, then (8-byte aligned) the offset pairs.
+struct LevelTable {
+  const int* rows;
+  const int* results;
+  const int* level_start;
+  const int* work;
+  const int* op_off;
+  const int2* pairs;
+};
+
+__device__ __forceinline__ LevelTable level_table(const int* buf, int n_steps, int n_results,
+                                                  int n_levels, int n_work, int n_ptrs) {
+  LevelTable t;
+  t.rows = buf;
+  t.results = buf + (long long)n_steps * kScanRow;
+  t.level_start = t.results + 4LL * n_results;
+  t.work = t.level_start + (long long)n_levels * kScanWarps + 1;
+  t.op_off = t.work + 3LL * n_work;
+  const long long head = (t.op_off + 2LL * n_ptrs) - buf;
+  t.pairs = reinterpret_cast<const int2*>(buf + ((head + 1) & ~1LL));
+  return t;
+}
+
+// The buffer (`words` int32) into s_table and each operand's span into s_ops
+// at its offset (g_off: the offsets, then the spans), by asynchronous copies
+// that every thread issues without waiting: 16 bytes a copy for the buffer
+// (both 16-byte aligned), an element for the operands (a warp per operand).
+// Returns when this thread's copies have landed; the caller's barrier makes
+// them the block's.
+template <typename T>
+__device__ void stage_levels(const int* __restrict__ table, long long words, int* s_table,
+                             const Operands& ops, int n_ptrs, const int* g_off, T* s_ops) {
+  const long long vec = words >> 2;
+  for (long long i = threadIdx.x; i < vec; i += blockDim.x)
+    __pipeline_memcpy_async(s_table + 4 * i, table + 4 * i, 16);
+  for (long long i = 4 * vec + threadIdx.x; i < words; i += blockDim.x)
+    __pipeline_memcpy_async(s_table + i, table + i, 4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int p = warp; p < n_ptrs; p += warps) {
+    const T* src = static_cast<const T*>(ops.many != nullptr ? ops.many[p] : ops.p[p]);
+    T* dst = s_ops + g_off[p];
+    const int span = g_off[n_ptrs + p];
+    for (int e = lane; e < span; e += 32) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// Every level of a plan: each warp runs its work items of the level, then
+// one barrier.  code: the slice's codes for the pinned labels (K10), else
+// unread.
+template <typename T>
+__device__ void run_levels(const LevelTable& t, int n_levels, const int* code, const T* s_ops,
+                           const Operands& ops, T* arena, T* out) {
+  const int warp = threadIdx.x >> 5;
+  for (int level = 0; level < n_levels; ++level) {
+    const int* at = t.level_start + level * kScanWarps + warp;
+    for (int w = at[0]; w < at[1]; ++w) {
+      const int* item = t.work + 3 * w;
+      scan_tasks<T>(t.rows + (long long)item[0] * kScanRow, t.pairs, code, s_ops, t.op_off, ops,
+                    arena, out, item[1], item[2]);
+    }
+    __syncthreads();  // the level's results are written
+  }
+}
+
+// plan_block: the whole plan in one block, level by level.  Where `staged`,
+// the buffer sits in shared memory at byte table_at and the operands at
+// operands_at; the arena at the start of shared memory where shared_arena.
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+    plan_block_kernel(const int* __restrict__ table, int n_steps, int n_levels, int n_work,
+                      long long words, int staged, const __grid_constant__ Operands ops,
+                      int n_ptrs, T* arena_global, int shared_arena, long long operands_at,
+                      long long table_at, T* out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* arena = shared_arena ? reinterpret_cast<T*>(smem_raw) : arena_global;
+  T* s_ops = staged ? reinterpret_cast<T*>(smem_raw + operands_at) : nullptr;
+  int* s_table = reinterpret_cast<int*>(smem_raw + table_at);
+  if (staged) {
+    const LevelTable g = level_table(table, n_steps, 0, n_levels, n_work, n_ptrs);
+    stage_levels<T>(table, words, s_table, ops, n_ptrs, g.op_off, s_ops);
+    __syncthreads();
+  }
+  const LevelTable t = level_table(staged ? s_table : table, n_steps, 0, n_levels, n_work,
+                                   n_ptrs);
+  run_levels<T>(t, n_levels, nullptr, s_ops, ops, arena, out);
+}
+
+// K10.  table: ops/einsum.py:ScanProgram.table (a LevelTable with one result
+// per output), staged in shared memory at byte table_at, the transition
+// factors at operands_at, where `staged`.  codes: (n_slices, n_vars) int32,
+// -1 where unobserved; out: (n_slices, width).  Alpha lives at arena offset
+// 0.  A slice: its levels, one barrier after each, then the normalisations
+// while the next slice's codes are staged, one barrier.
 template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
     filter_scan_kernel(const int* __restrict__ table, int n_steps, int n_results, int n_levels,
@@ -389,39 +461,20 @@ __global__ void __launch_bounds__(kBlockThreads)
   T* s_ops = staged ? reinterpret_cast<T*>(smem_raw + operands_at) : nullptr;
   int* s_table = reinterpret_cast<int*>(smem_raw + table_at);
   int* s_code = reinterpret_cast<int*>(smem_raw + table_at + (staged ? words * 4 : 0));
-  const long long head = (long long)n_steps * kScanRow + 4LL * n_results +
-                         (long long)n_levels * kScanWarps + 1 + 3LL * n_work + 2LL * n_ptrs;
   if (staged) {
-    for (long long i = threadIdx.x; i < words; i += blockDim.x) s_table[i] = table[i];
-    const int* g_off = table + head - 2LL * n_ptrs;
-    for (int p = 0; p < n_ptrs; ++p) {
-      const T* src = static_cast<const T*>(ops.many != nullptr ? ops.many[p] : ops.p[p]);
-      T* dst = s_ops + g_off[p];
-      for (int e = threadIdx.x; e < g_off[n_ptrs + p]; e += blockDim.x) dst[e] = src[e];
-    }
+    const LevelTable g = level_table(table, n_steps, n_results, n_levels, n_work, n_ptrs);
+    stage_levels<T>(table, words, s_table, ops, n_ptrs, g.op_off, s_ops);
   }
-  const int* rows = staged ? s_table : table;
-  const int* results = rows + (long long)n_steps * kScanRow;
-  const int* level_start = results + 4LL * n_results;
-  const int* work = level_start + (long long)n_levels * kScanWarps + 1;
-  const int* op_off = work + 3LL * n_work;
-  const int2* pairs = reinterpret_cast<const int2*>(rows + ((head + 1) & ~1LL));
+  const LevelTable lt = level_table(staged ? s_table : table, n_steps, n_results, n_levels,
+                                    n_work, n_ptrs);
   for (int i = threadIdx.x; i < alpha_size; i += blockDim.x) arena[i] = alpha0[i];
   for (int i = threadIdx.x; i < n_vars; i += blockDim.x) s_code[i] = n_slices > 0 ? codes[i] : -1;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   for (int t = 0; t < n_slices; ++t) {
-    for (int level = 0; level < n_levels; ++level) {
-      const int* at = level_start + level * kScanWarps + warp;
-      for (int w = at[0]; w < at[1]; ++w) {
-        const int* item = work + 3 * w;
-        scan_tasks<T>(rows + (long long)item[0] * kScanRow, pairs, s_code, s_ops, op_off, ops,
-                      arena, item[1], item[2]);
-      }
-      __syncthreads();  // the level's results are written
-    }
+    run_levels<T>(lt, n_levels, s_code, s_ops, ops, arena, nullptr);
     for (int r = warp; r < n_results; r += warps) {
-      const int* re = results + 4 * r;
+      const int* re = lt.results + 4 * r;
       const T* m = arena + re[0];
       const int entries = re[1];
       double s = 0.0;
@@ -454,13 +507,16 @@ cudaError_t pack(Operands& ops, const void* const* host_ptrs, int n_ptrs, const 
 }
 
 template <typename T>
-cudaError_t launch_block(const void* steps, int n_steps, const Operands& ops, void* arena,
-                         void* out, long long shared_bytes, cudaStream_t stream) {
+cudaError_t launch_block(const void* table, int n_steps, int n_levels, int n_work,
+                         long long words, int staged, const Operands& ops, int n_ptrs,
+                         void* arena, int shared_arena, long long operands_at,
+                         long long table_at, long long shared_bytes, void* out,
+                         cudaStream_t stream) {
   cudaError_t err = allow_shared(plan_block_kernel<T>, shared_bytes);
   if (err != cudaSuccess) return err;
   plan_block_kernel<T><<<1, kBlockThreads, (size_t)shared_bytes, stream>>>(
-      static_cast<const long long*>(steps), n_steps, ops, static_cast<T*>(arena),
-      static_cast<T*>(out), shared_bytes > 0);
+      static_cast<const int*>(table), n_steps, n_levels, n_work, words, staged, ops, n_ptrs,
+      static_cast<T*>(arena), shared_arena, operands_at, table_at, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -527,20 +583,29 @@ cudaError_t launch_scan(const void* table, int n_steps, int n_results, int n_lev
 
 }  // namespace
 
-// The whole plan in one launch of one block.  steps: n_steps rows of
-// kStepWords int64 on the card; host_ptrs: the operands' n_ptrs data
-// pointers (or, past kMaxOperands, `many`, the same on the card); arena:
-// the intermediates in global memory, or null with shared_bytes > 0 to keep
-// them in shared memory; elem: 4 (float) or 8 (double).
-extern "C" int pgmpy_plan_block(const void* steps, int n_steps, const void* const* host_ptrs,
-                                int n_ptrs, const void* many, void* arena, void* out,
-                                long long shared_bytes, int elem, void* stream) {
+// The whole plan in one launch of one block (plan_block), level by level.
+// table: the int32 buffer of PlanTable.buffer (`words` of them), staged in
+// shared memory at byte table_at, with the operands at operands_at, when
+// `staged`; host_ptrs: the operands' n_ptrs data pointers (or, past
+// kMaxOperands, `many`, the same on the card); arena: the intermediates in
+// global memory, or null with shared_arena to keep them at the start of
+// shared memory; shared_bytes: the arena and the staged operands and
+// buffer; elem: 4 (float) or 8 (double).
+extern "C" int pgmpy_plan_block(const void* table, int n_steps, int n_levels, int n_work,
+                                long long words, int staged, const void* const* host_ptrs,
+                                int n_ptrs, const void* many, void* arena, int shared_arena,
+                                long long operands_at, long long table_at,
+                                long long shared_bytes, void* out, int elem, void* stream) {
   Operands ops;  // copied into the launch's parameter block
   cudaError_t err = pack(ops, host_ptrs, n_ptrs, many);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem == 4) return (int)launch_block<float>(steps, n_steps, ops, arena, out, shared_bytes, s);
-  if (elem == 8) return (int)launch_block<double>(steps, n_steps, ops, arena, out, shared_bytes, s);
+#define PGMPY_BLOCK(T)                                                                    \
+  return (int)launch_block<T>(table, n_steps, n_levels, n_work, words, staged, ops, n_ptrs, \
+                              arena, shared_arena, operands_at, table_at, shared_bytes, out, s)
+  if (elem == 4) PGMPY_BLOCK(float);
+  if (elem == 8) PGMPY_BLOCK(double);
+#undef PGMPY_BLOCK
   return (int)cudaErrorInvalidValue;
 }
 

@@ -38,10 +38,11 @@
 //      count, columns, strides), uploaded once and padded to a width of 4, 8
 //      or 32 columns, the kernels' template argument, so the column loop is
 //      unrolled.  Every lane of a warp reads the same node row.
-//   3. A thread issues the code and table loads of four nodes before it adds
-//      their terms.  row_sums: one thread per row, the node table staged in
-//      shared memory a chunk (8 KB) at a time; on MUNIN 0.5 ms, 32x the byte
-//      bound, with only 12 warps a multiprocessor (50,000 rows).
+//   3. A thread issues the code and table loads of four nodes before it
+//      adds their terms, in node order, in both kernels.  Eight made
+//      row_sums on MUNIN 0.233 ms where four take 0.241, on an H100, but
+//      the E-step that shares the code 0.303 where the earlier E-step took
+//      0.299 in the same run, its registers spilling more at the cap.
 //   4. The E-step reads the ORIGINAL rows, not the rows expanded over the K
 //      latent configurations.  The host splits the nodes: a shared node (no
 //      latent in scope; MUNIN: 971 of 1041) has the same term for every k
@@ -49,25 +50,29 @@
 //      from the K x L grid in shared memory and is summed once per (row, k).
 //      MUNIN at K = 5: 1,321 table gathers a row where the expanded rows took
 //      5,205, and 52 MB of codes where they took 260 MB.
-//   5. The E-step's parallelism: a block takes a tile of R rows (32, fewer
-//      for a large K) and cuts the shared nodes into threads / R slices, a
-//      thread summing its slice for its row, so that a row's chain of
-//      gathers is spread over 8 warps and tens of warps a multiprocessor are
-//      in flight; the latent nodes run as (slice, block of 8 k, row) tasks,
-//      each reading a node's data codes once and gathering its 8 entries
-//      together.  The grid
-//      is the blocks the card holds at once (the occupancy API), each
-//      looping over tiles.  The node rows are read through L1 (every lane
-//      of a warp reads the same row): staging MUNIN's 41 KB in shared memory
-//      leaves L1 less room for the table's entries (0.332 ms staged, 0.320
-//      not, on an H100).  Registers are capped at 64 a thread, so that 4
-//      blocks (32 warps) fit an SM: uncapped, the latent blocks' registers
-//      (96-108 in a stamped build) left 2 and the E-step took 0.426 ms.
+//   5. Row tiles, nodes in slices (`node_slice`, `combine_slices`, shared by
+//      both kernels): a block takes a tile of R rows (32; fewer for the
+//      E-step's large K) and cuts the nodes (row_sums: all of them; the
+//      E-step: the shared ones) into threads / R slices, a thread summing its
+//      slice for its row, so that a row's chain of gathers is spread over 8
+//      warps and tens of warps a multiprocessor are in flight (row_sums ran
+//      one thread a row until then, 12 warps an SM on MUNIN's 50,000 rows:
+//      0.50 ms, 32x the byte bound).  The E-step's latent nodes run as
+//      (slice, block of 8 k, row) tasks, each reading a node's data codes
+//      once and gathering its 8 entries together.  The grid is the blocks
+//      the card holds at once (the occupancy API), each looping over tiles.
+//      The node rows are read through L1 (every lane of a warp reads the
+//      same row): staging MUNIN's 41 KB in shared memory leaves L1 less room
+//      for the table's entries (the E-step: 0.332 ms staged, 0.320 not, on
+//      an H100).  Registers are capped at 64 a thread, so that 4 blocks (32
+//      warps) fit an SM: uncapped, the latent blocks' registers (96-108 in a
+//      stamped build) left 2 and the E-step took 0.426 ms.
 //   6. Sums in float64 in a fixed order, stored once in the output's type:
-//      the same result from run to run.  row_sums adds in node order; the
-//      E-step adds each slice in node order, then per row the shared slices
-//      (a fixed shuffle tree), then lp[k] = shared + the latent slices in
-//      order, and the softmax (a warp a row, fixed shuffle trees).
+//      the same result from run to run.  Each slice adds in node order; per
+//      row the slices meet in a fixed order (lane j of a warp adds slices j,
+//      j + 32, ..., then a fixed shuffle tree); row_sums stores that; the
+//      E-step takes it as the shared sum, then lp[k] = shared + the latent
+//      slices in order, and the softmax (a warp a row, fixed shuffle trees).
 //
 // The wrapper (pgmpy_tpu_torch/ops/table_gather.py) builds and uploads the
 // node table, plans the launch and calls the extern "C" launchers through
@@ -86,9 +91,9 @@ constexpr int kHeader = 2;
 constexpr int kWarp = 32;
 constexpr int kUnroll = 4;  // nodes whose loads a thread issues before adding their terms
 constexpr int kLatentBlock = 8;  // latent configurations a thread sums at once (ops: E_STEP_KBLOCK)
-// the E-step's block (ops: E_STEP_BLOCK, at most) and the blocks a
-// multiprocessor should hold: registers are capped at 64 a thread
-constexpr int kEStepThreads = 256, kEStepBlocks = 4;
+// a tile kernel's block at most (ops: ROW_BLOCK, E_STEP_BLOCK) and the blocks
+// a multiprocessor should hold: registers are capped at 64 a thread
+constexpr int kTileThreads = 256, kTileBlocks = 4;
 
 struct Args {
   const void* codes;
@@ -97,15 +102,14 @@ struct Args {
   const void* table;
   const void* nodes;
   int n_nodes;  // row_sums: every node; e_step: the shared ones
-  int chunk;    // row_sums: nodes staged in shared memory at a time
   int missing;
   void* out;
   int block;
-  long long blocks;  // row_sums; the E-step's grid is the card's resident blocks
+  int R;  // rows a tile
   long long smem;
   cudaStream_t stream;
   // e_step only
-  int K, R, P, n_latent, L;
+  int K, P, n_latent, L;
 };
 
 // Node d's entry for the row at `base` (its code of column c: base[c * ld]);
@@ -129,10 +133,11 @@ __device__ __forceinline__ bool term(const C* __restrict__ base, long long ld,
   return valid || !missing;
 }
 
-// acc plus the terms of `count` staged nodes, added in node order.
+// acc plus the terms of `count` node rows, added in node order, the loads of
+// kUnroll nodes issued before their adds.
 template <int W, typename C, typename T>
 __device__ __forceinline__ double chunk_sum(double acc, const C* __restrict__ base, long long ld,
-                                            const T* __restrict__ table, const int* s_nodes,
+                                            const T* __restrict__ table, const int* rows,
                                             int count, bool missing) {
   constexpr int kRow = kHeader + 2 * W;
   int i = 0;
@@ -141,7 +146,7 @@ __device__ __forceinline__ double chunk_sum(double acc, const C* __restrict__ ba
     bool use[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      use[u] = term<W>(base, ld, table, s_nodes + (i + u) * kRow, missing, v[u]);
+      use[u] = term<W>(base, ld, table, rows + (i + u) * kRow, missing, v[u]);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -150,38 +155,63 @@ __device__ __forceinline__ double chunk_sum(double acc, const C* __restrict__ ba
   }
   for (; i < count; ++i) {
     T v;
-    if (term<W>(base, ld, table, s_nodes + i * kRow, missing, v)) acc += (double)v;
+    if (term<W>(base, ld, table, rows + i * kRow, missing, v)) acc += (double)v;
   }
   return acc;
 }
 
-// Nodes first .. first + count - 1 of the node table into shared memory.
-template <int W>
-__device__ __forceinline__ void stage(int* s_nodes, const int* __restrict__ nodes, int first,
-                                      int count) {
-  constexpr int kRow = kHeader + 2 * W;
-  const int* src = nodes + (long long)first * kRow;
-  for (int x = threadIdx.x; x < count * kRow; x += blockDim.x) s_nodes[x] = src[x];
+// A thread's part of a tile: its row (one of R, the lanes of a warp on
+// consecutive rows) and its slice of n_nodes node rows (one of threads / R,
+// cut as evenly as the nodes allow).
+struct Slice {
+  int row, first, count;
+};
+
+__device__ __forceinline__ Slice node_slice(int n_nodes, int R) {
+  const int slices = blockDim.x / R, slice = threadIdx.x / R;
+  const int first = (int)((long long)n_nodes * slice / slices);
+  return {(int)threadIdx.x % R, first, (int)((long long)n_nodes * (slice + 1) / slices) - first};
 }
 
+// Row r's sum of the tile's slice sums (s_part: one a thread, thread
+// slice * R + r), in a fixed order: lane j of the warp adds slices j, j + 32,
+// ..., then a shuffle tree.  Every lane of the warp calls it and gets the
+// same sum.
+__device__ __forceinline__ double combine_slices(const double* s_part, int slices, int R, int r,
+                                                 int lane) {
+  double v = 0.0;
+  for (int j = lane; j < slices; j += kWarp) v += s_part[j * R + r];
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// K13: the rows a tile of R at a time (the grid strides over the tiles):
+// each thread sums its slice of the nodes for its row, then a warp a row
+// combines the slices and stores the sum once.
 template <int W, typename C, typename T>
-__global__ void row_sums_kernel(const C* __restrict__ codes, long long ld, long long n_rows,
-                                const T* __restrict__ table, const int* __restrict__ nodes,
-                                int n_nodes, int chunk, int missing, T* __restrict__ out) {
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    row_sums_kernel(const C* __restrict__ codes, long long ld, long long n_rows, int R,
+                    const T* __restrict__ table, const int* __restrict__ nodes, int n_nodes,
+                    int missing, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* s_nodes = reinterpret_cast<int*>(smem_raw);
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = row < n_rows;
-  const C* base = codes + (active ? row : 0);
-  double acc = 0.0;
-  for (int first = 0; first < n_nodes; first += chunk) {
-    const int count = min(chunk, n_nodes - first);
-    __syncthreads();  // the previous chunk is read
-    stage<W>(s_nodes, nodes, first, count);
+  constexpr int kRow = kHeader + 2 * W;
+  double* s_part = reinterpret_cast<double*>(smem_raw);  // a slice sum a thread
+  const Slice mine = node_slice(n_nodes, R);
+  const int slices = blockDim.x / R;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, warps = blockDim.x / kWarp;
+  const long long n_tiles = (n_rows + R - 1) / R;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * R;
+    const int here = (int)min((long long)R, n_rows - r0);
+    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(mine.row, here - 1), ld, table,
+                                       nodes + mine.first * kRow, mine.count, missing != 0);
     __syncthreads();
-    if (active) acc = chunk_sum<W>(acc, base, ld, table, s_nodes, count, missing != 0);
+    for (int r = warp; r < here; r += warps) {
+      const double v = combine_slices(s_part, slices, R, r, lane);
+      if (lane == 0) out[r0 + r] = (T)v;
+    }
+    __syncthreads();  // the slice sums are read before the next tile's are written
   }
-  if (active) out[row] = (T)acc;
 }
 
 // acc[k] (k < kc) plus the terms of `count` latent node rows for the row at
@@ -250,7 +280,7 @@ __device__ __forceinline__ void latent_block(double* acc, const C* __restrict__ 
 //      exponentials (fixed shuffle trees);
 //   4. the weights, K consecutive outputs a row.
 template <int W, typename C, typename T, typename O>
-__global__ void __launch_bounds__(kEStepThreads, kEStepBlocks)
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     e_step_kernel(const C* __restrict__ codes, long long ld, long long n_rows, int K,
                   int R, int P, const int* __restrict__ nodes, int n_shared, int n_latent,
                   int L, const T* __restrict__ table, O* __restrict__ out) {
@@ -266,17 +296,16 @@ __global__ void __launch_bounds__(kEStepThreads, kEStepBlocks)
   for (int i = threadIdx.x; i < K * L; i += threads) s_grid[i] = grid[i];
   const int* rows = nodes;  // read through L1: every lane of a warp reads the same row
   __syncthreads();
-  const int slices = threads / R, row = threadIdx.x % R, slice = threadIdx.x / R;
-  const int first = (int)((long long)n_shared * slice / slices);
-  const int count = (int)((long long)n_shared * (slice + 1) / slices) - first;
+  const int slices = threads / R;
+  const Slice mine = node_slice(n_shared, R);
   const int blocks = (K + kLatentBlock - 1) / kLatentBlock, tasks = P * blocks * R;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp, warps = threads / kWarp;
   const long long n_tiles = (n_rows + R - 1) / R;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long r0 = tile * R;
     const int here = (int)min((long long)R, n_rows - r0);
-    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(row, here - 1), ld, table,
-                                       rows + first * kRow, count, true);
+    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(mine.row, here - 1), ld, table,
+                                       rows + mine.first * kRow, mine.count, true);
     for (int q = threadIdx.x; q < tasks; q += threads) {
       const int p = q / (blocks * R), b = q / R % blocks, r = q % R;
       const int lo = n_shared + (int)((long long)n_latent * p / P);
@@ -294,9 +323,7 @@ __global__ void __launch_bounds__(kEStepThreads, kEStepBlocks)
     }
     __syncthreads();
     for (int r = warp; r < here; r += warps) {
-      double shared = 0.0;
-      for (int j = lane; j < slices; j += kWarp) shared += s_part[j * R + r];
-      for (int o = kWarp / 2; o > 0; o >>= 1) shared += __shfl_xor_sync(0xffffffffu, shared, o);
+      const double shared = combine_slices(s_part, slices, R, r, lane);
       double m = -CUDART_INF;
       for (int k = lane; k < K; k += kWarp) {
         double lp = shared;
@@ -328,22 +355,10 @@ cudaError_t allow_smem(F* kernel, long long smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int W, typename C, typename T>
-cudaError_t launch_row_sums(const Args& a) {
-  auto kernel = row_sums_kernel<W, C, T>;
-  cudaError_t err = allow_smem(kernel, a.smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)a.blocks, a.block, (size_t)a.smem, a.stream>>>(
-      static_cast<const C*>(a.codes), a.ld, a.n, static_cast<const T*>(a.table),
-      static_cast<const int*>(a.nodes), a.n_nodes, a.chunk, a.missing, static_cast<T*>(a.out));
-  return cudaGetLastError();
-}
-
-// The E-step's grid: as many blocks as the card holds at once at this
-// shared memory (the occupancy API), at most one a tile.
-template <int W, typename C, typename T, typename O>
-cudaError_t launch_e_step(const Args& a) {
-  auto kernel = e_step_kernel<W, C, T, O>;
+// Blocks of a tile kernel: as many as the card holds at once at this shared
+// memory (the occupancy API), at most one a tile.
+template <typename F>
+cudaError_t resident_grid(F* kernel, const Args& a, long long* blocks) {
   cudaError_t err = allow_smem(kernel, a.smem);
   int device = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
@@ -354,7 +369,28 @@ cudaError_t launch_e_step(const Args& a) {
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = (a.n + a.R - 1) / a.R;
-  const long long blocks = tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
+  *blocks = tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms;
+  return cudaSuccess;
+}
+
+template <int W, typename C, typename T>
+cudaError_t launch_row_sums(const Args& a) {
+  auto kernel = row_sums_kernel<W, C, T>;
+  long long blocks = 0;
+  cudaError_t err = resident_grid(kernel, a, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, a.block, (size_t)a.smem, a.stream>>>(
+      static_cast<const C*>(a.codes), a.ld, a.n, a.R, static_cast<const T*>(a.table),
+      static_cast<const int*>(a.nodes), a.n_nodes, a.missing, static_cast<T*>(a.out));
+  return cudaGetLastError();
+}
+
+template <int W, typename C, typename T, typename O>
+cudaError_t launch_e_step(const Args& a) {
+  auto kernel = e_step_kernel<W, C, T, O>;
+  long long blocks = 0;
+  cudaError_t err = resident_grid(kernel, a, &blocks);
+  if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, a.block, (size_t)a.smem, a.stream>>>(
       static_cast<const C*>(a.codes), a.ld, a.n, a.K, a.R, a.P,
       static_cast<const int*>(a.nodes), a.n_nodes, a.n_latent, a.L,
@@ -384,7 +420,8 @@ cudaError_t by_codes(int code_bytes, int table_bytes, int out_bytes, const Args&
 }
 
 cudaError_t dispatch(int width, int code_bytes, int table_bytes, int out_bytes, const Args& a) {
-  if (a.block % kWarp != 0 || a.chunk < 1) return cudaErrorInvalidValue;
+  if (a.block % kWarp != 0 || a.block > kTileThreads || a.R < 1 || a.block % a.R != 0)
+    return cudaErrorInvalidValue;
   if (width == 4) return by_codes<4>(code_bytes, table_bytes, out_bytes, a);
   if (width == 8) return by_codes<8>(code_bytes, table_bytes, out_bytes, a);
   if (width == 32) return by_codes<32>(code_bytes, table_bytes, out_bytes, a);
@@ -397,15 +434,15 @@ cudaError_t dispatch(int width, int code_bytes, int table_bytes, int out_bytes, 
 // rows of `nodes` (int32, 2 + 2 * width entries each; width 4, 8 or 32) of
 // the row's table entry.  code_bytes: 1, 2, 4 or 8 (int8 .. int64 codes,
 // column-major with leading dimension ld, `codes` pointing at the first row);
-// table_bytes: 4 (float) or 8 (double).  One thread per row, `block` threads
-// a block (a multiple of 32), `chunk` node rows staged in smem bytes.
+// table_bytes: 4 (float) or 8 (double).  Tiles of R rows, `block` threads (a
+// multiple of 32 and of R, at most kTileThreads), smem = block * 8 bytes.
 extern "C" int pgmpy_table_gather_row_sums(const void* codes, int code_bytes, long long ld,
                                            long long n_rows, const void* table, int table_bytes,
-                                           const void* nodes, int n_nodes, int width, int chunk,
-                                           int missing, void* out, int block, long long blocks,
-                                           long long smem, void* stream) {
-  const Args a{codes, ld, n_rows, table, nodes, n_nodes, chunk, missing, out, block, blocks,
-               smem, static_cast<cudaStream_t>(stream), 1, 1, 1, 0, 0};
+                                           const void* nodes, int n_nodes, int width, int R,
+                                           int missing, void* out, int block, long long smem,
+                                           void* stream) {
+  const Args a{codes, ld, n_rows, table, nodes, n_nodes, missing, out, block, R, smem,
+               static_cast<cudaStream_t>(stream), 1, 1, 0, 0};
   return (int)dispatch(width, code_bytes, table_bytes, 0, a);
 }
 
@@ -415,7 +452,7 @@ extern "C" int pgmpy_table_gather_row_sums(const void* codes, int code_bytes, lo
 // softmax over k in float64.  nodes: the n_shared shared node rows, then the
 // n_latent latent node rows (width columns each, a latent column -1 - l),
 // then the K x L latent codes, all int32.  Tiles of R rows, P latent slices,
-// `block` threads (a multiple of 32 and of R, at most kEStepThreads); smem =
+// `block` threads (a multiple of 32 and of R, at most kTileThreads); smem =
 // (block + P * K * R + 2 * R) * 8 + K * L * 4 bytes.
 extern "C" int pgmpy_table_gather_e_step(const void* codes, int code_bytes, long long ld,
                                          long long n_rows, const void* table, int table_bytes,
@@ -423,10 +460,9 @@ extern "C" int pgmpy_table_gather_e_step(const void* codes, int code_bytes, long
                                          int width, int K, int L, int R, int P, void* out,
                                          int out_bytes, int block, long long smem,
                                          void* stream) {
-  if (K < 1 || R < 1 || P < 1 || L < 0 || block % R != 0 || block > kEStepThreads ||
-      (out_bytes != 4 && out_bytes != 8))
+  if (K < 1 || P < 1 || L < 0 || (out_bytes != 4 && out_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  const Args a{codes, ld, n_rows, table, nodes, n_shared, 1, 1, out, block, 0, smem,
-               static_cast<cudaStream_t>(stream), K, R, P, n_latent, L};
+  const Args a{codes, ld, n_rows, table, nodes, n_shared, 1, out, block, R, smem,
+               static_cast<cudaStream_t>(stream), K, P, n_latent, L};
   return (int)dispatch(width, code_bytes, table_bytes, out_bytes, a);
 }

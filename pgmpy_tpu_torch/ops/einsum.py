@@ -7,12 +7,14 @@ computed once per static (axes, shapes) signature and cached.
 
 * On CUDA tensors, the hand-written kernels of ``csrc/einsum_plan.cu`` (built
   with ``nvcc`` at first use) run the cached plan, compiled once per
-  signature into a table of steps (:class:`PlanTable`), and run it in ONE
-  launch: ``plan_block`` runs the whole plan in one block when every step's
-  union (output entries x reduced entries) is at most ``BLOCK_UNION``;
-  ``plan_grid`` runs it otherwise as one cooperative launch over as many
-  blocks as the card holds at once, a grid barrier between steps.  A build
-  or launch failure raises.
+  signature (:class:`PlanTable`), in ONE launch: ``plan_block`` runs the
+  whole plan in one block, its steps grouped by dependency level (one
+  barrier a level) on int32 rows and offset-pair tables, as K10 runs a
+  slice; ``plan_grid`` runs it as one cooperative launch over as many blocks
+  as the card holds at once, a grid barrier between steps.  ``plan_block``
+  is chosen where every step's union (output entries x reduced entries) is
+  at most ``BLOCK_UNION`` and its modelled time is at most the grid's
+  (:func:`block_units`, :func:`grid_work`).  A build or launch failure raises.
 * On CPU tensors, the plain version :func:`_run_plan`: each step a two-operand
   (or one-operand) ``torch.einsum`` whose labels are renumbered into
   ``[0, 52)`` (``torch.einsum``'s sublist form rejects labels outside it, and
@@ -39,37 +41,47 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-# plan_block when no step's union is larger, else plan_grid: on the card, one
-# block was 1.5x faster than the grid on a MUNIN VE query (28 steps, unions up
-# to 1,080) and 1.4-1.7x slower on a BP query (8 steps, up to 12,000) and a
-# do-query (8 steps, up to 46,656); the grid's barrier costs as much as one
-# block's step of ~2,000-6,000 union entries
-BLOCK_UNION = 1 << 13
+# plan_block is considered only where no step's union is larger (it bounds
+# the block's offset tables); it is then chosen where the level model's time
+# (block_units) is at most the grid's (grid_work).  The constants are a
+# least-squares fit (in relative error) of both schedules' device times on
+# an H100 (700 W) by tools/k3_schedules.py over its 14 contractions (9
+# synthetic, 5 of MUNIN's): with them the models pick the faster schedule on
+# all 14, where the largest union alone (at most BLOCK_UNION) picked the
+# slower one on 7.
+BLOCK_UNION = 1 << 16
+BLOCK_LAUNCH_US = 2.96  # plan_block: a launch and its staging
+BLOCK_UNIT_US = 0.0860  # plan_block: one unit of _scan_cost on a level's costliest warp
+GRID_LAUNCH_US = 2.81  # plan_grid: a launch
+GRID_STEP_US = 2.03  # plan_grid: a step and its grid barrier
+GRID_ENTRY_US = 0.333  # plan_grid: a reduced entry a lane walks (its digits decoded)
+GRID_RESIDENT = 132 * 2048  # plan_grid's tasks in one round: an H100's resident threads
 SCAN_JOINT = 1 << 16  # filter_scan: a slice's joint of at most so many entries is one contraction
 MAX_LABELS = 12  # output labels, and reduced labels, of one step after merging
 MAX_OPERANDS = 448  # operand pointers in the launch's parameter block (3,584 of 4,096 bytes)
 BLOCK_THREADS = 512  # plan_block's and filter_scan's one block
 GRID_THREADS = 256  # a block of plan_grid
-LANE_ENTRIES = 32  # reduced entries a lane sums, aimed at (plan_block)
-GRID_LANE_ENTRIES = 8  # the same for plan_grid, whose steps spread over the whole card
+GRID_LANE_ENTRIES = 8  # reduced entries a plan_grid lane sums, aimed at
 SHARED_ARENA_BYTES = 160 * 1024  # a block's intermediates in shared memory up to this
-SCAN_WARPS = BLOCK_THREADS // 32  # filter_scan's warps, dealt among a level's steps
-SCAN_SETUP = 8  # a filter_scan task's set-up, in reduced entries, when dealing warps and lanes
-SCAN_STAGE_BYTES = 160 * 1024  # filter_scan's factors and tables in shared memory up to this
-SCAN_SHARED_LIMIT = 227 * 1024  # filter_scan's dynamic shared memory at most
+SCAN_WARPS = BLOCK_THREADS // 32  # the warps dealt among a level's steps (plan_block, filter_scan)
+SCAN_SETUP = 8  # a level task's set-up, in reduced entries, when dealing warps and lanes
+SCAN_STAGE_BYTES = 160 * 1024  # a level launch's operands and tables in shared memory up to this
+SCAN_SHARED_LIMIT = 227 * 1024  # a level launch's dynamic shared memory at most
 SCAN_PATTERNS = 16  # observed patterns whose tables a ScanProgram keeps (the oldest dropped)
 MAX_GRID_BLOCKS = 1 << 20  # plan_grid's blocks asked for at most (they stride over the rest)
 
-# one step of the table: a header, then MAX_LABELS words each of the output
-# extents, the reduced extents, and the first and second input's strides per
-# output label and per reduced label (innermost label first, 0 where absent)
+# one step of plan_grid's table (int64): a header, then MAX_LABELS words
+# each of the output extents, the reduced extents, and the first and second
+# input's strides per output label and per reduced label (innermost label
+# first, 0 where absent)
 HEADER = ("n_in", "in0", "in1", "out", "n_out", "n_red", "out_count", "red_count", "lanes",
           "chunk")
 STEP_WORDS = len(HEADER) + 6 * MAX_LABELS
-# a filter_scan step (int32): n_in, in0, in1, out, out_count, free reduced
-# count, lanes, pinned outputs, pinned reduced, where its output and its
-# reduced offset pairs start, 0; then MAX_LABELS (variable, place, extent)
-# triples of pinned output labels and MAX_LABELS of pinned reduced labels
+# a level step (plan_block and filter_scan; int32): n_in, in0, in1, out (-1:
+# the call's output), out_count, free reduced count, lanes, pinned outputs,
+# pinned reduced, where its output and its reduced offset pairs start, 0;
+# then MAX_LABELS (variable, place, extent) triples of pinned output labels
+# and MAX_LABELS of pinned reduced labels
 SCAN_HEADER = 12
 SCAN_ROW = SCAN_HEADER + 6 * MAX_LABELS
 
@@ -174,7 +186,7 @@ def _pow2_ceil(x):
     return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def step_lanes(out_count, red_count, threads, entries=LANE_ENTRIES):
+def step_lanes(out_count, red_count, threads, entries=GRID_LANE_ENTRIES):
     """Lanes per output entry of a step (a power of two, at most ``threads``):
     enough that each sums about ``entries`` reduced entries, more while
     the block's threads would otherwise idle, never more than the reduced
@@ -351,13 +363,14 @@ def _resolved(op):
 
 
 def compile_steps(operand_axes, out_axes, shapes, strides, plan, slots, out_slot, arena_base):
-    """The table rows of one planned contraction.  ``slots[i]`` is operand
-    ``i``'s slot (>= 0 a pointer index, < 0 an arena offset as -(1 +
-    offset)); the last step writes the result contiguously in ``out_axes``
-    order to ``out_slot`` (-1: the call's output; else an arena offset).
-    Intermediates get arena offsets from ``arena_base`` up, reused once dead
-    (the steps run one after another).  Returns (rows (steps, STEP_WORDS)
-    int64, unions per step, arena end)."""
+    """``plan_grid``'s table rows of one planned contraction.  ``slots[i]``
+    is operand ``i``'s slot (>= 0 a pointer index, < 0 an arena offset as
+    -(1 + offset)); the last step writes the result contiguously in
+    ``out_axes`` order to ``out_slot`` (-1: the call's output; else an arena
+    offset).  Intermediates get arena offsets from ``arena_base`` up, reused
+    once dead (``plan_grid`` runs the steps one after another, a grid barrier
+    between them).  Returns (rows (steps, STEP_WORDS) int64, unions per step,
+    arena end)."""
     size = label_sizes(operand_axes, shapes)
     out_axes = tuple(out_axes)
     missing = set(out_axes) - set(size)
@@ -381,52 +394,145 @@ def compile_steps(operand_axes, out_axes, shapes, strides, plan, slots, out_slot
     return table, unions, end
 
 
-def set_lanes(table, threads, entries=LANE_ENTRIES):
-    """Fill each row's lanes and chunk (reduced entries a lane sums) for
-    blocks of ``threads``, each lane aimed at ``entries`` reduced entries."""
+def set_lanes(table):
+    """Fill each ``plan_grid`` row's lanes and chunk (reduced entries a lane
+    sums) for blocks of ``GRID_THREADS``, each lane aimed at
+    ``GRID_LANE_ENTRIES`` reduced entries."""
     for row in table:
-        lanes = step_lanes(int(row[6]), int(row[7]), threads, entries)
+        lanes = step_lanes(int(row[6]), int(row[7]), GRID_THREADS, GRID_LANE_ENTRIES)
         row[8] = lanes
         row[9] = -(-int(row[7]) // lanes)
     return table
 
 
-def choose_schedule(unions):
-    """``"plan_block"`` when no step's union exceeds ``BLOCK_UNION``, else
-    ``"plan_grid"``: decided from the plan alone."""
-    return "plan_block" if int(max(unions, default=0)) <= BLOCK_UNION else "plan_grid"
+def block_units(levels, lanes, work, level_start, out_counts, red_counts):
+    """``plan_block``'s critical path under the level model: per level the
+    costliest warp's units (:func:`_scan_cost` of its work items), summed
+    over the levels.  Its time is ``BLOCK_LAUNCH_US + BLOCK_UNIT_US`` per
+    unit."""
+    units = 0
+    for level in range(levels):
+        warps = level_start[level * SCAN_WARPS: (level + 1) * SCAN_WARPS + 1]
+        units += max((sum(_scan_cost(out_counts[s], red_counts[s], int(lanes[s]), group)
+                          for s, _, group in work[a:b]) for a, b in zip(warps[:-1], warps[1:])),
+                     default=0)
+    return units
+
+
+def grid_work(out_counts, red_counts):
+    """``plan_grid``'s reduced entries a lane walks, summed over the steps
+    (rounds of ``GRID_RESIDENT`` tasks, each lane's chunk at its
+    ``step_lanes``).  Its time is ``GRID_LAUNCH_US``, ``GRID_STEP_US`` a step
+    and ``GRID_ENTRY_US`` an entry."""
+    work = 0
+    for out_count, red_count in zip(out_counts, red_counts):
+        lanes = step_lanes(int(out_count), int(red_count), GRID_THREADS)
+        work += -(-int(out_count) * lanes // GRID_RESIDENT) * -(-int(red_count) // lanes)
+    return work
+
+
+def choose_schedule(block, grid):
+    """``"plan_block"`` where its modelled time ``block`` (None: not a
+    candidate) is at most ``grid``'s, else ``"plan_grid"``."""
+    return "plan_block" if block is not None and block <= grid else "plan_grid"
+
+
+def _spans(shapes, strides):
+    """Each operand's storage span in elements, from its first entry to its
+    last (0 for an empty one)."""
+    return np.array([0 if math.prod(shape) == 0 else
+                     sum((n - 1) * st for n, st in zip(shape, stride)) + 1
+                     for shape, stride in zip(shapes, strides)], dtype=np.int64)
 
 
 class PlanTable:
-    """One signature's compiled plan: the steps (``steps``, int64 rows of
-    ``STEP_WORDS``), the schedule (``"plan_block"`` where every step's union
-    is within ``BLOCK_UNION``, else ``"plan_grid"``), the arena of
-    intermediates (``arena`` elements; in shared memory for ``plan_block``
-    when ``arena * itemsize <= SHARED_ARENA_BYTES``), and for ``plan_grid``
-    the blocks its largest step's tasks fill (``grid``; the launch takes at
-    most as many as the card holds at once).  Uploaded once per device
-    (:meth:`on`)."""
+    """One signature's compiled plan, uploaded once per device (:meth:`on`).
+
+    ``schedule`` is ``"plan_block"`` where every step's union is within
+    ``BLOCK_UNION``, the operands' offsets fit the block's int32 tables and
+    the block's modelled time (``block_us``, from ``block_units``; None
+    where the block is not a candidate) is at most the grid's (``grid_us``,
+    from ``grid_work``), else ``"plan_grid"``;
+    ``unions`` the union of each step, ``arena`` the intermediates'
+    entries.
+
+    ``plan_block``: the steps grouped by dependency level (``levels``,
+    ``n_levels``), each level's warps and each step's lanes dealt by
+    :func:`deal_level` (``work``, ``level_start``, ``lanes``), the
+    intermediates placed so that no step reads or overwrites what another
+    step of its level writes; ``steps`` the int32 rows (``SCAN_ROW``, no pins)
+    and ``pairs`` the offset pairs (:func:`_scan_tables`), in one int32
+    launch buffer (:func:`level_buffer`, ``buffer``) with the operands'
+    offsets and ``spans`` in shared memory; ``shared`` where the arena sits
+    in shared memory, ``staged`` where the buffer and the operands do too
+    (``operands_at``, ``table_at``, ``shared_bytes``: :func:`level_layout`).
+    ``K3``'s one-slice form of ``ScanProgram``.
+
+    ``plan_grid``: ``steps`` int64 rows of ``STEP_WORDS`` (digits decoded on
+    the card), the steps run one after another, and ``grid`` the blocks its
+    largest step's tasks fill (the launch takes at most as many as the card
+    holds at once)."""
 
     def __init__(self, operand_axes, out_axes, shapes, strides, itemsize, plan, schedule=None):
         slots = list(range(len(operand_axes)))
-        steps, self.unions, self.arena = compile_steps(
-            operand_axes, out_axes, shapes, strides, plan, slots, -1, 0)
-        self.out_shape = tuple(label_sizes(operand_axes, shapes)[a] for a in out_axes)
-        self.schedule = schedule or choose_schedule(self.unions)
-        block = self.schedule == "plan_block"
-        self.steps = set_lanes(steps, BLOCK_THREADS if block else GRID_THREADS,
-                               LANE_ENTRIES if block else GRID_LANE_ENTRIES)
-        tasks = self.steps[:, 6] * self.steps[:, 8]
-        self.grid = int(np.clip(-(-int(tasks.max()) // GRID_THREADS), 1, MAX_GRID_BLOCKS))
-        self.shared = (self.schedule == "plan_block"
-                       and self.arena * itemsize <= SHARED_ARENA_BYTES)
+        size = label_sizes(operand_axes, shapes)
+        out_axes = tuple(out_axes)
+        missing = set(out_axes) - set(size)
+        if missing:
+            raise ValueError(f"einsum_plan: output labels {sorted(missing)} are in no operand")
+        steps = _symbolic_steps(out_axes, _operands(slots, operand_axes, shapes, strides), plan,
+                                -1, size)
+        out_counts, red_counts = _counts(steps, size)
+        self.unions = out_counts * red_counts
+        self.out_shape = tuple(size[a] for a in out_axes)
+        self.spans = _spans(shapes, strides)
+        self.block_units = self.block_us = None
+        if schedule != "plan_grid":
+            self.levels = step_levels(steps)
+            self.n_levels, self.lanes, self.work, self.level_start = deal_levels(
+                self.levels, out_counts, red_counts)
+            self.block_units = block_units(self.n_levels, self.lanes, self.work,
+                                           self.level_start, out_counts, red_counts)
+            if int(self.unions.max(initial=0)) <= BLOCK_UNION and int(
+                    self.spans.max(initial=0)) < 2**31:
+                self.block_us = BLOCK_LAUNCH_US + BLOCK_UNIT_US * self.block_units
+        self.grid_work = grid_work(out_counts, red_counts)
+        self.grid_us = GRID_LAUNCH_US + GRID_STEP_US * len(steps) + GRID_ENTRY_US * self.grid_work
+        self.schedule = schedule or choose_schedule(self.block_us, self.grid_us)
         self._device = {}
+        if self.schedule == "plan_grid":
+            try:
+                rows, _, self.arena = compile_steps(operand_axes, out_axes, shapes, strides,
+                                                    plan, slots, -1, 0)
+            except ValueError as err:
+                # past the grid's MAX_LABELS: the block decodes no digit
+                if schedule is not None or self.block_us is None or "MAX_LABELS" not in str(err):
+                    raise
+                self.schedule = "plan_block"
+            else:
+                self.steps = set_lanes(rows)
+                tasks = self.steps[:, 6] * self.steps[:, 8]
+                self.grid = int(np.clip(-(-int(tasks.max()) // GRID_THREADS), 1,
+                                        MAX_GRID_BLOCKS))
+                self.shared = False
+                return
+        self.arena = _place([out for _, _, out in steps if isinstance(out, _Tmp)], 0)
+        specs = [([_resolved(op) for op in inputs], labels,
+                  out.offset if isinstance(out, _Tmp) else out) for inputs, labels, out in steps]
+        self.steps, self.pairs = level_tables(specs, self.lanes, size, {}, self.arena)
+        self.buffer = level_buffer(self.steps, np.zeros((0, 4), np.int64), self.level_start,
+                                   self.work, self.spans, self.pairs)
+        self.shared = self.arena * itemsize <= SHARED_ARENA_BYTES
+        self.staged, self.operands_at, self.table_at, self.shared_bytes = level_layout(
+            self.arena, itemsize, self.shared, self.spans, self.buffer.size, 0)
 
     def on(self, device):
-        """The steps as one int64 buffer on ``device``, uploaded once."""
+        """The launch buffer on ``device`` (``plan_grid``: the int64 steps),
+        uploaded once."""
         buf = self._device.get(device)
         if buf is None:
-            buf = torch.from_numpy(np.ascontiguousarray(self.steps)).to(device)
+            host = self.steps if self.schedule == "plan_grid" else self.buffer
+            buf = torch.from_numpy(np.ascontiguousarray(host)).to(device)
             self._device[device] = buf
         return buf
 
@@ -447,7 +553,8 @@ def _library():
 
     lib = load_library("einsum_plan", ["einsum_plan.cu"])
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pgmpy_plan_block.argtypes = [vp, i32, vp, i32, vp, vp, vp, i64, i32, vp]
+    lib.pgmpy_plan_block.argtypes = [vp, i32, i32, i32, i64, i32, vp, i32, vp, vp, i32, i64,
+                                     i64, i64, vp, i32, vp]
     lib.pgmpy_plan_grid.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp, i32, vp]
     lib.pgmpy_filter_scan.argtypes = [vp, i32, i32, i32, i32, i64, i32, vp, i32, vp, vp, i32,
                                       i64, i64, i64, vp, i32, vp, i32, i32, vp, i32, i32, vp]
@@ -494,7 +601,7 @@ def launch_plan(table, arrays):
     current stream -> the contraction."""
     device, dtype = _check_operands(arrays)
     with torch.cuda.device(device):
-        steps = table.on(device)
+        buf = table.on(device)
         out = torch.empty(table.out_shape, dtype=dtype, device=device)
         arena = None if table.shared else torch.empty(max(table.arena, 1), dtype=dtype,
                                                       device=device)
@@ -504,12 +611,13 @@ def launch_plan(table, arrays):
         lib = _library()
         if table.schedule == "plan_block":
             err = lib.pgmpy_plan_block(
-                steps.data_ptr(), len(table.steps), host, n,
-                0 if many is None else many.data_ptr(), 0 if arena is None else arena.data_ptr(),
-                out.data_ptr(), table.arena * elem if table.shared else 0, elem, stream)
+                buf.data_ptr(), len(table.steps), table.n_levels, len(table.work), buf.numel(),
+                int(table.staged), host, n, 0 if many is None else many.data_ptr(),
+                0 if arena is None else arena.data_ptr(), int(table.shared), table.operands_at,
+                table.table_at, table.shared_bytes, out.data_ptr(), elem, stream)
         else:
             err = lib.pgmpy_plan_grid(
-                steps.data_ptr(), len(table.steps), table.grid, host, n,
+                buf.data_ptr(), len(table.steps), table.grid, host, n,
                 0 if many is None else many.data_ptr(), arena.data_ptr(), out.data_ptr(), elem,
                 stream)
     if err != 0:
@@ -642,6 +750,9 @@ def _scan_tables(inputs, out_labels, out_offset, size, pinned, lanes):
             place *= size[a]
         return pairs
 
+    # unpinned labels take no slot of the row: the offset pairs carry them
+    if sum(a in pinned for a in out_labels) > MAX_LABELS or len(pins) > MAX_LABELS:
+        raise ValueError(f"filter_scan: a step pins more than MAX_LABELS = {MAX_LABELS} labels")
     out_pairs = table(list(out_labels), False)
     red_pairs = table(free + pins, True)
     row = np.zeros(SCAN_ROW, dtype=np.int64)
@@ -659,9 +770,105 @@ def _scan_tables(inputs, out_labels, out_offset, size, pinned, lanes):
         row[at:at + 3] = [pinned[a], qplace, size[a]]
         qplace *= size[a]
         at += 3
-    if len(out_labels) > MAX_LABELS or len(pins) > MAX_LABELS:
-        raise ValueError(f"filter_scan: a step pins more than MAX_LABELS = {MAX_LABELS} labels")
     return row, out_pairs, red_pairs
+
+
+def _counts(steps, size):
+    """(output entries, reduced entries) of each step of ``steps``."""
+    out_counts, red_counts = [], []
+    for inputs, labels, _ in steps:
+        reduced = dict.fromkeys(a for op in inputs for a in op.labels if a not in labels)
+        out_counts.append(math.prod(size[a] for a in labels))
+        red_counts.append(math.prod(size[a] for a in reduced))
+    return np.array(out_counts, dtype=np.int64), np.array(red_counts, dtype=np.int64)
+
+
+def step_levels(steps):
+    """Each step's dependency level, one more than the highest level of the
+    steps whose results it reads (an intermediate, or an arena offset a step
+    wrote; operands and what no step writes are level -1), and each
+    intermediate's ``level`` (written) and ``read`` (the level that reads it)
+    set for :func:`_place`."""
+    written, levels = {}, []
+    for inputs, _, out in steps:
+        keys = [op.slot if isinstance(op.slot, _Tmp) else ("arena", -1 - op.slot)
+                for op in inputs if isinstance(op.slot, _Tmp) or op.slot < 0]
+        level = max([written[k] + 1 for k in keys if k in written], default=0)
+        for op in inputs:
+            if isinstance(op.slot, _Tmp):
+                op.slot.read = level
+        levels.append(level)
+        if isinstance(out, _Tmp):
+            out.level = level
+        written[out if isinstance(out, _Tmp) else ("arena", out)] = level
+    return np.array(levels, dtype=np.int64)
+
+
+def deal_levels(levels, out_counts, red_counts):
+    """Each level's warps and each step's lanes (:func:`deal_level`):
+    (levels, lanes per step, work items ``(step, rank, group)`` in (level,
+    warp) order, level_start: per (level, warp) the first of its items,
+    ``levels * SCAN_WARPS + 1`` entries)."""
+    n_levels = int(levels.max()) + 1 if len(levels) else 0
+    lanes = np.ones(len(levels), dtype=np.int64)
+    work = []
+    for level in range(n_levels):
+        members = np.flatnonzero(levels == level)
+        items, chosen = deal_level(out_counts[members], red_counts[members], SCAN_WARPS)
+        lanes[members] = chosen
+        work += [(level, w, int(members[s]), rank, group) for s, w, rank, group in items]
+    work.sort(key=lambda item: (item[0], item[1]))
+    starts = np.zeros(n_levels * SCAN_WARPS + 1, dtype=np.int64)
+    for level, w, *_ in work:
+        starts[level * SCAN_WARPS + w + 1] += 1
+    return (n_levels, lanes, np.array([item[2:] for item in work], dtype=np.int64).reshape(-1, 3),
+            np.cumsum(starts))
+
+
+def level_tables(specs, lanes, size, pinned, arena):
+    """(step rows int32 (steps, SCAN_ROW), offset pairs int32 (n, 2)) of
+    resolved ``specs`` (inputs, output labels, output slot: an arena offset,
+    or -1 for the call's output) at ``lanes``, the labels of ``pinned``
+    ({label: code column}) pinned (:func:`_scan_tables`).  Raises where an
+    offset passes the kernel's int32 index."""
+    rows, pairs, at = [], [], 0
+    for (inputs, labels, out), n in zip(specs, lanes):
+        row, out_pairs, red_pairs = _scan_tables(inputs, labels, out, size, pinned, int(n))
+        row[9], row[10] = at, at + len(out_pairs)
+        at += len(out_pairs) + len(red_pairs)
+        rows.append(row)
+        pairs += [out_pairs, red_pairs]
+    pairs = np.concatenate(pairs)
+    if max(int(np.abs(pairs).max(initial=0)), at, arena) >= 2**31:
+        raise ValueError("einsum_plan: a level table's offsets pass the kernel's int32 index")
+    return np.stack(rows).astype(np.int32), pairs.astype(np.int32)
+
+
+def level_buffer(rows, results, level_start, work, spans, pairs):
+    """The int32 launch buffer ``run_levels`` reads: the step rows, the
+    results (K10's normalisations; none for a contraction), the level starts,
+    the work items, each operand's offset in the staged operands and its
+    span, then (8-byte aligned) the offset pairs."""
+    offsets = np.concatenate([[0], np.cumsum(spans)[:-1]]) if len(spans) else spans
+    head = np.concatenate([np.asarray(rows, np.int64).ravel(), results.ravel(), level_start,
+                           work.ravel(), offsets, spans]).astype(np.int64)
+    head = np.concatenate([head, np.zeros(len(head) % 2, dtype=np.int64)])
+    return np.concatenate([head.astype(np.int32), np.asarray(pairs, np.int32).ravel()])
+
+
+def level_layout(arena, itemsize, shared, spans, words, extra):
+    """(staged, byte offset of the operands, byte offset of the table,
+    dynamic shared bytes) of a level launch: the arena first where
+    ``shared``, then, where both fit ``SCAN_STAGE_BYTES`` and the block's
+    limit (``staged``), the operands and the int32 buffer of ``words``, then
+    ``extra`` bytes (K10's codes)."""
+    arena = -(-arena * itemsize // 16) * 16 if shared else 0
+    operands = -(-int(np.sum(spans)) * itemsize // 16) * 16
+    table = 4 * int(words)
+    staged = (operands + table <= SCAN_STAGE_BYTES
+              and arena + operands + table + extra <= SCAN_SHARED_LIMIT)
+    table_at = arena + (operands if staged else 0)
+    return staged, arena, table_at, table_at + (table if staged else 0) + extra
 
 
 class ScanProgram:
@@ -715,9 +922,7 @@ class ScanProgram:
                    [::-1]] + [tuple(st) for st in pointer_strides]
         operands = _operands([-1] + list(range(n_pointer)), operand_axes, shapes, strides)
         # each transition factor's storage span, staged in shared memory
-        self.spans = np.array([sum((n - 1) * st for n, st in zip(shape, stride)) + 1
-                               for shape, stride in zip(shapes[1:], pointer_strides)],
-                              dtype=np.int64)
+        self.spans = _spans(shapes[1:], pointer_strides)
         result_rows, column = [], 0
         for r, labels in enumerate(outputs):
             entries = math.prod(size[a] for a in labels)
@@ -746,51 +951,15 @@ class ScanProgram:
                 steps += _symbolic_steps(tuple(labels), operands, plan, out_offset, size)
         # dependency levels: the joint (merged) and every intermediate are
         # written by one step of the slice; alpha and the operands are not
-        written = {}
-        levels = []
-        tmps = []
-        for inputs, _, out in steps:
-            level = 0
-            for op in inputs:
-                key = op.slot if isinstance(op.slot, _Tmp) else ("arena", -1 - op.slot) \
-                    if op.slot < 0 else None
-                if key in written:
-                    level = max(level, written[key] + 1)
-            for op in inputs:
-                if isinstance(op.slot, _Tmp):
-                    op.slot.read = level
-            levels.append(level)
-            if isinstance(out, _Tmp):
-                out.level = level
-                tmps.append(out)
-            written[out if isinstance(out, _Tmp) else ("arena", out)] = level
-        self.arena = _place(tmps, self.base)
+        self.levels = step_levels(steps)
+        self.arena = _place([out for _, _, out in steps if isinstance(out, _Tmp)], self.base)
         self.specs = [([_resolved(op) for op in inputs], labels,
                        out.offset if isinstance(out, _Tmp) else out)
                       for inputs, labels, out in steps]
-        self.levels = np.array(levels, dtype=np.int64)
-        self.n_levels = int(self.levels.max()) + 1 if levels else 0
-        self.out_counts = np.array([math.prod(size[a] for a in labels)
-                                    for _, labels, _ in self.specs], dtype=np.int64)
-        self.red_counts = np.array([
-            math.prod(size[a] for a in dict.fromkeys(b for op in inputs for b in op.labels
-                                                     if b not in labels))
-            for inputs, labels, _ in self.specs], dtype=np.int64)
+        self.out_counts, self.red_counts = _counts(self.specs, size)
         # each level's warps and each step's lanes
-        self.lanes = np.ones(len(self.specs), dtype=np.int64)
-        work = []
-        for level in range(self.n_levels):
-            members = np.flatnonzero(self.levels == level)
-            items, lanes = deal_level(self.out_counts[members], self.red_counts[members],
-                                      SCAN_WARPS)
-            self.lanes[members] = lanes
-            work += [(level, w, int(members[s]), rank, group) for s, w, rank, group in items]
-        work.sort(key=lambda item: (item[0], item[1]))
-        self.work = np.array([item[2:] for item in work], dtype=np.int64).reshape(-1, 3)
-        starts = np.zeros(self.n_levels * SCAN_WARPS + 1, dtype=np.int64)
-        for level, w, *_ in work:
-            starts[level * SCAN_WARPS + w + 1] += 1
-        self.level_start = np.cumsum(starts)
+        self.n_levels, self.lanes, self.work, self.level_start = deal_levels(
+            self.levels, self.out_counts, self.red_counts)
         self.results = np.array(result_rows, dtype=np.int64).reshape(-1, 4)
         self.itemsize = itemsize
         self.shared = self.arena * itemsize <= SHARED_ARENA_BYTES
@@ -817,53 +986,29 @@ class ScanProgram:
 
     def _build(self, observed):
         pinned = {self.var_labels[j]: j for j in observed}
-        rows, pairs, at = [], [], 0
-        for (inputs, labels, out), lanes in zip(self.specs, self.lanes):
-            row, out_pairs, red_pairs = _scan_tables(inputs, labels, out, self.size, pinned,
-                                                     int(lanes))
-            row[9], row[10] = at, at + len(out_pairs)
-            at += len(out_pairs) + len(red_pairs)
-            rows.append(row)
-            pairs += [out_pairs, red_pairs]
-        pairs = np.concatenate(pairs)
-        if max(int(np.abs(pairs).max(initial=0)), at, self.arena) >= 2**31:
-            raise ValueError("filter_scan: the slice's offsets pass the kernel's int32 index")
-        return np.stack(rows).astype(np.int32), pairs.astype(np.int32)
+        return level_tables(self.specs, self.lanes, self.size, pinned, self.arena)
 
     def table(self, observed):
-        """The launch's int32 buffer: step rows, results, level starts, work
-        items, the transition factors' offsets in shared memory and spans,
-        then the offset pairs (8-byte aligned)."""
+        """The launch's int32 buffer (:func:`level_buffer`): step rows,
+        results, level starts, work items, the transition factors' offsets in
+        shared memory and spans, then the offset pairs."""
         entry = self._pattern(observed)
         if "table" not in entry:
             rows, pairs = entry["tables"]
-            head = np.concatenate([rows.ravel(), self.results.ravel(), self.level_start,
-                                   self.work.ravel(), self.operand_offsets(), self.spans])
-            head = np.concatenate([head, np.zeros(len(head) % 2, dtype=np.int64)])
-            entry["table"] = np.concatenate([head.astype(np.int32), pairs.ravel()])
+            entry["table"] = level_buffer(rows, self.results, self.level_start, self.work,
+                                          self.spans, pairs)
         return entry["table"]
-
-    def operand_offsets(self):
-        """Each transition factor's offset (entries) in the staged operands."""
-        return np.concatenate([[0], np.cumsum(self.spans)[:-1]]).astype(np.int64)
 
     def layout(self, observed):
         """(staged, byte offset of the factors, byte offset of the table,
-        dynamic shared bytes): the arena first where ``shared``, then, where
-        both fit ``SCAN_STAGE_BYTES`` and the block's limit (``staged``), the
-        transition factors and the int32 table, then the slice's codes
-        (int32)."""
+        dynamic shared bytes) (:func:`level_layout`): the arena first where
+        ``shared``, then, where both fit ``SCAN_STAGE_BYTES`` and the block's
+        limit (``staged``), the transition factors and the int32 table, then
+        the slice's codes (int32)."""
         entry = self._pattern(observed)
         if "layout" not in entry:
-            arena = -(-self.arena * self.itemsize // 16) * 16 if self.shared else 0
-            operands = -(-int(self.spans.sum()) * self.itemsize // 16) * 16
-            table = 4 * self.table(observed).size
-            codes = 4 * self.n_vars
-            staged = (operands + table <= SCAN_STAGE_BYTES
-                      and arena + operands + table + codes <= SCAN_SHARED_LIMIT)
-            table_at = arena + (operands if staged else 0)
-            entry["layout"] = (staged, arena, table_at,
-                               table_at + (table if staged else 0) + codes)
+            entry["layout"] = level_layout(self.arena, self.itemsize, self.shared, self.spans,
+                                           self.table(observed).size, 4 * self.n_vars)
         return entry["layout"]
 
     def on(self, device, observed):

@@ -12,17 +12,18 @@ each row; a node with no latent in scope gives the same term for every k and
 is summed once per row.
 
 Both are entry points of one hand-written CUDA source,
-``csrc/table_gather.cu`` (built with ``nvcc`` at first use): ``row_sums``
-walks the node table in node order, one thread per row, summing in float64
-registers; ``e_step`` reads each original row's codes once, splits the
-shared nodes over a block's threads and the latent ones over (slice,
-configuration, row) tasks, and takes the softmax in the same launch.  A CUDA
-tensor always goes to the kernel, and a build or launch failure raises; a CPU
-tensor goes to the plain version (``*_reference``): per group of nodes of one
-width, one ``index_select`` of every column the group needs from the
-column-major ``(n_vars, n_rows)`` code matrix, the index arithmetic, one
-gather from the flat table and a sum over the group's nodes (a latent group's
-gather is ``(nodes, rows, K)``).
+``csrc/table_gather.cu`` (built with ``nvcc`` at first use), and share its
+row tiles: a block takes ``ROW_TILE`` rows and cuts the nodes into slices
+over its warps, each thread summing its slice for its row in float64, the
+slices combined per row in a fixed order.  ``row_sums`` stores each row's
+sum; ``e_step`` cuts only the shared nodes so, runs the latent ones as
+(slice, configuration, row) tasks, and takes the softmax in the same launch.
+A CUDA tensor always goes to the kernel, and a build or launch failure
+raises; a CPU tensor goes to the plain version (``*_reference``): per group
+of nodes of one width, one ``index_select`` of every column the group needs
+from the column-major ``(n_vars, n_rows)`` code matrix, the index
+arithmetic, one gather from the flat table and a sum over the group's nodes
+(a latent group's gather is ``(nodes, rows, K)``).
 
 ``LAUNCHES`` counts each entry point's launches; :func:`reset_launches`
 zeroes them.
@@ -35,13 +36,13 @@ import torch
 
 from pgmpy_tpu_torch.ops._build import load_library
 
-ROW_BLOCK = 128  # threads (rows) per block of row_sums
-E_STEP_BLOCK = 256  # threads per block of e_step (at most kEStepThreads, 256)
+ROW_BLOCK = 256  # threads a block of row_sums (at most kTileThreads, 256)
+ROW_TILE = 32  # rows a tile of row_sums, one a lane: the block's warps are its slices of nodes
+E_STEP_BLOCK = 256  # threads per block of e_step (at most kTileThreads, 256)
 E_STEP_ROWS = 32  # original rows a tile of e_step, at most (one a lane)
 E_STEP_KBLOCK = 8  # latent configurations a thread of e_step sums at once (kLatentBlock)
 LP_BYTES = 32 * 1024  # a tile's K x rows float64 sums at most: fewer rows for a larger K
 MAX_SHARED = 232_448  # the most dynamic shared memory a block may opt in to (227 KB)
-CHUNK_INTS = 2048  # int32 entries of node rows a block stages in shared memory at a time
 WIDTHS = (4, 8, 32)  # the node-row widths (columns) table_gather.cu is compiled for
 _NODE_HEADER = 2  # kHeader in table_gather.cu: table offset, column count
 _CODE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
@@ -74,17 +75,14 @@ def node_table(cols, strides, offsets):
     return out.astype(np.int32)
 
 
-def chunk_nodes(width):
-    """Node rows of ``width`` columns a block stages at a time."""
-    return CHUNK_INTS // (_NODE_HEADER + 2 * width)
-
-
-def plan_rows(n_rows, width):
-    """(threads a block, blocks, dynamic shared bytes) of a row_sums launch:
-    one thread per row, a chunk of node rows in shared memory."""
-    chunk = chunk_nodes(width)
-    return (ROW_BLOCK, max(1, -(-int(n_rows) // ROW_BLOCK)),
-            chunk * (_NODE_HEADER + 2 * width) * 4)
+def plan_rows(n_rows):
+    """(rows a tile R, node slices, threads a block, dynamic shared bytes,
+    tiles) of a row_sums launch: tiles of ``ROW_TILE`` rows, each thread
+    summing its slice of the nodes for its row (``ROW_BLOCK / ROW_TILE``
+    slices), a float64 partial sum a thread in shared memory.  The grid is
+    the blocks the card holds at once, striding over the tiles."""
+    return (ROW_TILE, ROW_BLOCK // ROW_TILE, ROW_BLOCK, ROW_BLOCK * 8,
+            -(-int(n_rows) // ROW_TILE))
 
 
 def plan_e_step(K, width, n_shared, n_latent, L):
@@ -149,7 +147,7 @@ def _library():
     lib = load_library("table_gather", ["table_gather.cu"])
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pgmpy_table_gather_row_sums.argtypes = [
-        vp, i32, i64, i64, vp, i32, vp, i32, i32, i32, i32, vp, i32, i64, i64, vp]
+        vp, i32, i64, i64, vp, i32, vp, i32, i32, i32, i32, vp, i32, i64, vp]
     lib.pgmpy_table_gather_e_step.argtypes = [
         vp, i32, i64, i64, vp, i32, vp, i32, i32, i32, i32, i32, i32, i32, vp, i32, i32, i64,
         vp]
@@ -224,14 +222,13 @@ class TableGather:
         out = torch.empty(n, dtype=table.dtype, device=table.device)
         if n == 0:
             return out
-        width = self._width()
-        block, blocks, shared = plan_rows(n, width)
+        rows, _, block, shared, _ = plan_rows(n)
         with torch.cuda.device(table.device):
             nodes = self._nodes_on(table.device)
             err = _library().pgmpy_table_gather_row_sums(
                 codes.data_ptr(), codes.element_size(), codes.stride(0), n, table.data_ptr(),
-                table.element_size(), nodes.data_ptr(), nodes.shape[0], width,
-                chunk_nodes(width), int(bool(missing)), out.data_ptr(), block, blocks, shared,
+                table.element_size(), nodes.data_ptr(), nodes.shape[0], self._width(), rows,
+                int(bool(missing)), out.data_ptr(), block, shared,
                 torch.cuda.current_stream(table.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"table_gather row_sums launch failed: cudaError_t {err}")

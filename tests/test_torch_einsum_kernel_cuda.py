@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_einsum_walk import random_signature
+from _torch_einsum_walk import WIDE_CASES, network_signature, random_signature, wide_case
 from pgmpy_tpu_torch.ops import einsum as E
 
 SEEDS = range(16)
@@ -121,12 +121,66 @@ def test_dispatch_and_launch_counts(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed", range(8))
+def test_block_levels_match_plain(cuda, seed, dtype, staged, monkeypatch):
+    """``plan_block`` by levels on a random network's marginal (12-40
+    factors, several steps a level), its operands and tables staged in
+    shared memory or read from global memory, against the plain version."""
+    if not staged:
+        monkeypatch.setattr(E, "SCAN_STAGE_BYTES", 0)
+    axes, out, arrays = network_signature(seed)
+    tensors = [torch.tensor(a, dtype=dtype, device=cuda) for a in arrays]
+    shapes = tuple(tuple(t.shape) for t in tensors)
+    table = E.PlanTable(tuple(map(tuple, axes)), tuple(out), shapes,
+                        tuple(tuple(t.stride()) for t in tensors), tensors[0].element_size(),
+                        E.contraction_plan(tuple(map(tuple, axes)), tuple(out), shapes),
+                        schedule="plan_block")
+    assert table.staged == staged and table.n_levels < len(table.steps)
+    got = E.launch_plan(table, tensors)
+    want = E.sum_product_reference(axes, out, tensors)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    assert E.LAUNCHES == {"plan_block": 1, "plan_grid": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_wide_block_outputs_match_plain(cuda, name, dtype):
+    """Steps of 13 to 16 binary output labels (the call's output, or an
+    intermediate) on ``plan_block``, and through the dispatch (one launch of
+    the plan's schedule), against the plain version."""
+    axes, out, arrays, wide = wide_case(name)
+    assert E.MAX_LABELS < len(wide) <= 16
+    tensors = [torch.tensor(a, dtype=dtype, device=cuda) for a in arrays]
+    want = E.sum_product_reference(axes, out, tensors)
+    got = forced(axes, out, tensors, "plan_block")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    E.reset_launches()
+    got = E.sum_product_planned(axes, out, tensors)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    assert sum(E.LAUNCHES.values()) == 1
+
+
+@pytest.mark.cuda
 def test_refusals(cuda):
+    """Past ``plan_grid``'s MAX_LABELS merged labels it raises; the same
+    contraction's own schedule, ``plan_block``, takes it (its offset tables
+    decode no digit)."""
     n = E.MAX_LABELS + 1
-    first = torch.rand((2,) * n, device=cuda)
+    first = torch.rand((2,) * n, device=cuda, dtype=torch.float64)
     second = first.permute(*reversed(range(n)))
+    axes = [tuple(range(n)), tuple(range(n))]
     with pytest.raises(ValueError, match="MAX_LABELS"):
-        E.sum_product_planned([tuple(range(n)), tuple(range(n))], (), [first, second])
+        forced(axes, (), [first, second], "plan_grid")
+    got = E.sum_product_planned(axes, (), [first, second])
+    torch.testing.assert_close(got, E.sum_product_reference(axes, (), [first, second]),
+                               rtol=1e-12, atol=0)
+    assert E.LAUNCHES == {"plan_block": 1, "plan_grid": 0}
     with pytest.raises(TypeError):
         E.sum_product_planned([(0,)], (0,), [torch.ones(3, dtype=torch.int64, device=cuda)])
     with pytest.raises(ValueError):

@@ -166,10 +166,10 @@ def test_node_table_rows():
 
 
 def test_launch_plans():
-    # a chunk of node rows: 2048 int32 entries, 204 rows of width 4
-    assert tg.chunk_nodes(4) == 204 and tg.chunk_nodes(8) == 113 and tg.chunk_nodes(32) == 31
-    assert tg.plan_rows(50_000, 4) == (128, 391, 204 * 10 * 4)
-    assert tg.plan_rows(1, 32) == (128, 1, 31 * 66 * 4)
+    # row_sums: tiles of 32 rows, 256 threads, so 8 slices of the nodes, a
+    # float64 partial sum a thread; MUNIN's 50,000 rows are 1,563 tiles
+    assert tg.plan_rows(50_000) == (32, 8, 256, 256 * 8, 1563)
+    assert tg.plan_rows(1) == (32, 8, 256, 256 * 8, 1)
     # MUNIN with DIFFN_PATHO latent: 971 shared and 70 latent nodes of width
     # 4, K = 5: tiles of 32 rows, the latent nodes in 8 slices (one block of
     # configurations: 8 x 32 = 256 tasks)
@@ -211,8 +211,8 @@ def _random_gather(seed, n_vars=9, n_rows=257, missing=0.0, dtype=torch.float64)
 
 
 def _emulated_row_sums(gather, table, codes, missing):
-    """The kernel's arithmetic in numpy from the node table it is handed:
-    per row, node after node, a float64 sum."""
+    """The node table's arithmetic in numpy: per row, node after node, a
+    float64 sum (the kernel's tiles and slices: ``_emulated_row_tiles``)."""
     nodes, table, codes = gather.nodes, table.double().numpy(), codes.long().numpy()
     width = (nodes.shape[1] - 2) // 2
     assert width in tg.WIDTHS
@@ -224,6 +224,68 @@ def _emulated_row_sums(gather, table, codes, missing):
         term = table[flat]
         out += np.where((c >= 0).all(axis=0), term, 0.0) if missing else term
     return out
+
+
+def _shuffle_tree(values):
+    """A warp's ``__shfl_xor_sync`` tree over 32 lanes (lanes past
+    ``values`` hold 0): what lane 0 holds at the end."""
+    v = list(values) + [0.0] * (32 - len(values))
+    for o in (16, 8, 4, 2, 1):
+        v = [v[lane] + v[lane ^ o] for lane in range(32)]
+    return v[0]
+
+
+def _emulated_row_tiles(gather, table, codes, missing):
+    """``row_sums``'s schedule in numpy from the node table it is handed and
+    ``plan_rows``: per tile of R rows, thread (slice, row) sums its slice of
+    the nodes (``node_slice``: slice s of S gets nodes [n s / S, n (s + 1) /
+    S)) for its row in node order, in float64; then row r's slices meet as
+    ``combine_slices`` adds them (lane j the slices j, j + 32, ..., then the
+    shuffle tree).  Asserts that the slices cover every node once and the
+    tiles every row once."""
+    nodes, table, codes = gather.nodes, table.double().numpy(), codes.long().numpy()
+    width = (nodes.shape[1] - 2) // 2
+    n_nodes, n = len(nodes), codes.shape[1]
+    R, slices, threads, shared, tiles = tg.plan_rows(n)
+    assert threads == R * slices and threads % 32 == 0 and threads <= 256
+    assert shared == 8 * threads and tiles * R >= n > (tiles - 1) * R
+    cuts = [n_nodes * s // slices for s in range(slices + 1)]
+    assert cuts[0] == 0 and cuts[-1] == n_nodes and all(np.diff(cuts) >= 0)
+
+    def term(node, r):
+        k = int(node[1])
+        c = codes[node[2:2 + k], r]
+        value = table[int(node[0]) + int((np.maximum(c, 0) * node[2 + width:2 + width + k]).sum())]
+        return 0.0 if missing and (c < 0).any() else value
+
+    out = np.full(n, np.nan)
+    seen = np.zeros(n, dtype=np.int64)
+    for tile in range(tiles):
+        for r in range(tile * R, min(n, tile * R + R)):
+            parts = []
+            for s in range(slices):
+                acc = 0.0
+                for i in range(cuts[s], cuts[s + 1]):
+                    acc += term(nodes[i], r)
+                parts.append(acc)
+            lanes = [sum(parts[j::32], 0.0) for j in range(min(32, slices))]
+            out[r] = _shuffle_tree(lanes)
+            seen[r] += 1
+    assert (seen == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("n_vars,seed", [(9, 0), (9, 1), (40, 2), (3, 3)])
+def test_row_tiles_walk_to_the_plain_row_sums(n_vars, seed, missing):
+    """K13's tiles and slices in numpy against the plain version in float64
+    (fewer nodes than slices included: empty slices), with and without
+    missing codes, at a row count that leaves the last tile short."""
+    gather, table, codes = _random_gather(seed, n_vars=n_vars, n_rows=77,
+                                          missing=0.2 if missing else 0.0)
+    want = gather.row_sums_reference(table, codes, missing=missing).numpy()
+    np.testing.assert_allclose(_emulated_row_tiles(gather, table, codes, missing), want,
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("missing", [False, True])

@@ -94,6 +94,20 @@ def test_row_sums_match_plain(on_cuda, code_dtype, table_dtype, missing, n_rows)
     assert torch.equal(got, gather.row_sums(table, codes, missing=missing))  # run to run
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,block", [(32, 256), (16, 256), (32, 128), (8, 64), (1, 32)])
+def test_row_sums_tile_settings(on_cuda, tile, block, monkeypatch):
+    """K13 under other tiles and blocks (rows a tile, threads a block: the
+    slices of the nodes are block / tile), as the stamp tool times them."""
+    monkeypatch.setattr(tg, "ROW_TILE", tile)
+    monkeypatch.setattr(tg, "ROW_BLOCK", block)
+    gather, table, codes = _gather(7, n_vars=40, n_rows=5003, missing=0.1)
+    got = gather.row_sums(table, codes, missing=True)
+    want = gather.row_sums_reference(table, codes, missing=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 def _latent_gather(latent_cards, n_obs=12, n_rows=5000, missing=0.1, table_dtype=torch.float64,
                    seed=0):
     """A LatentGather over random (node, parents) tables of ``n_obs``

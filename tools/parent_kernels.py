@@ -4,7 +4,7 @@ versions on one card in one call.
 On a machine with git (in the repository), unpack a commit's kernel
 sources and wrappers into the git-ignored ``.chip_scratch/parent/``:
 
-    python3 tools/parent_kernels.py unpack [REV]     # default 8798176
+    python3 tools/parent_kernels.py unpack [REV]     # default 846aee6
 
 On the card, ``chip_smoke.py`` (and any script) then calls
 :func:`start_builds` and :func:`load` with the wrappers it wants (any of
@@ -32,7 +32,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARENT = os.path.join(ROOT, ".chip_scratch", "parent")
-DEFAULT_REV = "8798176"
+DEFAULT_REV = "846aee6"
 # wrapper module of pgmpy_tpu_torch/ops/ -> the csrc/ source it builds
 WRAPPERS = {"bincount": "bincount.cu", "jt": "jt_calibrate.cu",
             "table_gather": "table_gather.cu", "ancestral": "ancestral.cu",

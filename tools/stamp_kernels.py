@@ -8,7 +8,7 @@ Run from a tree's root on a machine with one CUDA card, after
     python3 tools/stamp_kernels.py KERNEL [parent|this ...]   # default: both
 
 KERNEL is one of ``PROBES`` (``k3``, ``k5``, ``k6``, ``k8``, ``k10``, ``k10tasks``,
-``k11``).  For each
+``k11``, ``k13``).  For each
 version it copies that version's wrapper and source (``PROBES[k].wrapper``,
 ``.source``) into ``pgmpy_tpu_torch/_build/diag/<version>/`` (git-ignored),
 inserts the stamps at fixed lines of the source (the first set of anchors in
@@ -28,8 +28,10 @@ kernel's probe:
 * ``k3`` (``einsum_plan.cu``): ``plan_grid`` on the contraction of a
   2,048-row MUNIN ``query_batch``: per step the cycles of its tasks and of
   its grid barrier (block 0 and the slowest block stamped), and the blocks a
-  multiprocessor holds;  the parent's ``plan_step`` is not stamped (its
-  cost sits between launches, where no clock runs);
+  multiprocessor holds; and (a tree whose ``plan_block`` runs by levels)
+  ``plan_block`` on a MUNIN VE query's contraction: the staging's cycles,
+  then per level its cycles (thread 0's clock), the busiest warp's work and
+  the warps' mean wait at its barrier;
 * ``k6`` / ``k8`` (``gibbs.cu``, ``hmc.cu``): K6's levels and pieces at
   MUNIN's 4,096 chains and HEPAR2's 10,000 and 2,500, K8 ``nuts_step``'s
   leaf phases at 1,024 and 256 chains, each in this tree's variants
@@ -53,13 +55,20 @@ kernel's probe:
   slowest, over the blocks stamped), tiles per block and the blocks a
   multiprocessor holds; timed also with the latent nodes alone (their
   weights equal the full sum's: the shared nodes add the same to every
-  configuration) and at 128 threads.
+  configuration) and at 128 threads;
+* ``k13`` (``table_gather.cu``, ``row_sums``): MUNIN's 50,000 rows: per
+  tile and warp the cycles of its slice of the nodes, its wait at the
+  barrier and the combine with the stores (the mean warp and the slowest,
+  over the blocks stamped), tiles per block and the blocks a multiprocessor
+  holds; timed also at other tiles and blocks (``K13_TILES``).
 
 Then the unstamped kernels are timed, the parent's and this tree's in turns
 (parent, this, this, parent) at the same shapes, each the device time of
 single calls behind a device sleep (median of 20,
 ``chip_smoke.cuda_median_ms``); ``k3`` adds ``plan_block`` and one
-``torch.einsum`` over the whole contraction, ``k10`` its tables read from
+``torch.einsum`` over the whole contraction, and on the VE query both
+versions' ``plan_block`` (this tree's also with its tables read from global
+memory), ``plan_grid`` and ``torch.einsum``; ``k10`` its tables read from
 global memory.  The stamps cost cycles of their own (a clock read and a
 store per group and level; clock reads and an ordering ``asm`` around each
 phase of a draw; ``k10`` and ``k11`` keep memory accesses from moving
@@ -100,6 +109,8 @@ __device__ long long stamp_nuts[STAMP_CHAINS * 5];
 __device__ long long stamp_piece[STAMP_BLOCKS * STAMP_GROUPS * 4];
 __device__ long long stamp_node[STAMP_BLOCKS * STAMP_THREADS * 4];
 __device__ long long stamp_step[STAMP_BLOCKS * STAMP_STEPS * 2];
+__device__ long long stamp_t0_g;
+__device__ int stamp_count[STAMP_THREADS];
 """
 ARRAYS = ("stamp_level", "stamp_group", "stamp_nuts", "stamp_piece", "stamp_node", "stamp_step")
 
@@ -269,9 +280,31 @@ EDITS["ancestral.cu"] = [
       "  asm volatile(\"\" ::\"r\"(best));\n  const long long sn3 = clock64();\n" + NODE_STAMP
       + "  if (partial != nullptr) {\n    const long long p = partial[row * d + i];\n")],
 ]
-# K3: per step of plan_grid, its tasks and its grid barrier
-EDITS["einsum_plan.cu"] = [
-    [("    run_tasks<T>(desc[s & 1], ops, arena, out, scratch, first, stride);\n"
+# the level schedule's barrier (run_levels, shared by plan_block and K10
+# since 846aee6's successor): each warp's arrival and the release, indexed by
+# slice (the thread's count of run_levels calls in the launch, read once a
+# call; one block: no race; the kernel zeroes it) and level
+_LEVEL_BARRIER = [
+    ("  const int warp = threadIdx.x >> 5;\n  for (int level = 0; level < n_levels; ++level) {\n",
+     "  const int warp = threadIdx.x >> 5;\n  const int stamp_t = stamp_count[threadIdx.x];\n"
+     "  for (int level = 0; level < n_levels; ++level) {\n"),
+    ("    __syncthreads();  // the level's results are written\n  }\n",
+     "    " + 'asm volatile("" ::: "memory");' + " const long long stamp_a = clock64();\n"
+     "    __syncthreads();\n"
+     "    const long long stamp_b = clock64();\n"
+     "    if ((threadIdx.x & 31) == 0 && stamp_t < STAMP_BLOCKS && level < STAMP_LEVELS"
+     " && warp < STAMP_GROUPS)\n"
+     "      stamp_group[((long long)stamp_t * STAMP_LEVELS + level) * STAMP_GROUPS + warp] ="
+     " stamp_b - stamp_a;\n"
+     "    if (threadIdx.x == 0 && stamp_t < STAMP_BLOCKS && level < STAMP_LEVELS)\n"
+     "      stamp_level[stamp_t * STAMP_LEVELS + level] = stamp_b - stamp_t0_g;\n  }\n"
+     "  stamp_count[threadIdx.x] = stamp_t + 1;\n")]
+_LEVEL_START = ("const long long stamp_t0 = clock64(); if (threadIdx.x == 0) stamp_t0_g = stamp_t0;"
+                " stamp_count[threadIdx.x] = 0;\n")
+# K3: per step of plan_grid, its tasks and its grid barrier; plan_block (this
+# tree): its staging (stamp_step[0]) and per level its release and each
+# warp's wait (the k10 layout at one slice)
+_GRID_STEPS = ("    run_tasks<T>(desc[s & 1], ops, arena, out, scratch, first, stride);\n"
       "    if (s + 1 < n_steps) grid.sync();\n",
       "    const long long st0 = clock64();\n"
       "    run_tasks<T>(desc[s & 1], ops, arena, out, scratch, first, stride);\n"
@@ -279,7 +312,18 @@ EDITS["einsum_plan.cu"] = [
       "    if (s + 1 < n_steps) grid.sync();\n    const long long st2 = clock64();\n"
       "    if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS && s < STAMP_STEPS) {\n"
       "      stamp_step[(blockIdx.x * STAMP_STEPS + s) * 2] = st1 - st0;\n"
-      "      stamp_step[(blockIdx.x * STAMP_STEPS + s) * 2 + 1] = st2 - st1;\n    }\n")],
+      "      stamp_step[(blockIdx.x * STAMP_STEPS + s) * 2 + 1] = st2 - st1;\n    }\n")
+EDITS["einsum_plan.cu"] = [
+    [_GRID_STEPS, *_LEVEL_BARRIER,
+     ("  int* s_table = reinterpret_cast<int*>(smem_raw + table_at);\n  if (staged) {\n"
+      "    const LevelTable g = level_table(table, n_steps, 0, n_levels, n_work, n_ptrs);\n",
+      "  int* s_table = reinterpret_cast<int*>(smem_raw + table_at);\n  " + _LEVEL_START
+      + "  if (staged) {\n"
+      "    const LevelTable g = level_table(table, n_steps, 0, n_levels, n_work, n_ptrs);\n"),
+     ("  const LevelTable t = level_table(staged ? s_table : table, n_steps, 0, n_levels, n_work,\n",
+      "  if (threadIdx.x == 0) stamp_step[0] = clock64() - stamp_t0;\n"
+      "  const LevelTable t = level_table(staged ? s_table : table, n_steps, 0, n_levels, n_work,\n")],
+    [_GRID_STEPS],
 ]
 # K10 (this tree's filter_scan): per slice and level, each warp's arrival at
 # the level's barrier and the barrier's release (the normalisation phase as
@@ -292,7 +336,20 @@ _RELEASE = ("const long long stamp_b{tag} = clock64();"
             " stamp_b{tag} - stamp_a{tag};\n"
             " if (threadIdx.x == 0 && t < STAMP_BLOCKS && {level} < STAMP_LEVELS)"
             " stamp_level[t * STAMP_LEVELS + {level}] = stamp_b{tag} - stamp_t0;\n")
+_NORMALISE = (
+    "        s_code[i] = codes[(long long)(t + 1) * n_vars + i];\n    }\n    __syncthreads();\n",
+    "        s_code[i] = codes[(long long)(t + 1) * n_vars + i];\n    }\n    "
+    + _ARRIVE.format(tag="n") + "    __syncthreads();\n    "
+    + _RELEASE.format(level="n_levels", tag="n"))
 EDITS["k10"] = [[
+    ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;\n"
+     "  for (int t = 0; t < n_slices; ++t) {\n"
+     "    run_levels<T>(lt, n_levels, s_code, s_ops, ops, arena, nullptr);\n",
+     "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;\n"
+     "  " + _LEVEL_START + "  for (int t = 0; t < n_slices; ++t) {\n"
+     "    run_levels<T>(lt, n_levels, s_code, s_ops, ops, arena, nullptr);\n"),
+    *_LEVEL_BARRIER, _NORMALISE,
+], [
     ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;\n"
      "  for (int t = 0; t < n_slices; ++t) {\n",
      "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;\n"
@@ -300,17 +357,14 @@ EDITS["k10"] = [[
     ("      __syncthreads();  // the level's results are written\n",
      "      " + _ARRIVE.format(tag="l") + "      __syncthreads();\n      "
      + _RELEASE.format(level="level", tag="l")),
-    ("        s_code[i] = codes[(long long)(t + 1) * n_vars + i];\n    }\n    __syncthreads();\n",
-     "        s_code[i] = codes[(long long)(t + 1) * n_vars + i];\n    }\n    "
-     + _ARRIVE.format(tag="n") + "    __syncthreads();\n    "
-     + _RELEASE.format(level="n_levels", tag="n")),
+    _NORMALISE,
 ]]
 # K10's tasks (probe ``k10tasks``): thread 0's clock around the parts of each
 # task it runs (setting up the inputs, the partial sum, the shuffles and the
 # store; a sink store before each stamp waits for the part's values) and
 # around reading its level's work range; counters in stamp_step[0] and [1]
 _F = 'asm volatile("" ::: "memory");'
-EDITS["k10tasks"] = [[
+_K10_TASKS = [
     ("  const T* a = scan_input<T>(d[sIn0], staged, op_off, ops, arena);\n",
      "  " + _F + " const long long q0 = clock64();\n"
      "  const T* a = scan_input<T>(d[sIn0], staged, op_off, ops, arena);\n"),
@@ -332,39 +386,72 @@ EDITS["k10tasks"] = [[
      "      r[0] = q1 - q0;\n      r[1] = q2 - q1;\n      r[2] = q3 - q2;\n"
      "      r[3] = (long long)d[sOutCount] * 1000 + d[sLanes];\n      stamp_step[0] += 1;\n"
      "    }\n  }\n"),
-    ("    for (int level = 0; level < n_levels; ++level) {\n"
-     "      const int* at = level_start + level * kScanWarps + warp;\n",
-     "    for (int level = 0; level < n_levels; ++level) {\n"
-     "      " + _F + " const long long p0 = clock64();\n"
-     "      const int* at = level_start + level * kScanWarps + warp;\n"
-     "      if (threadIdx.x == 0 && stamp_step[1] < STAMP_CHAINS * 5) {\n"
-     "        stamp_step[4096] = at[0] + at[1];\n"
-     "        " + _F + " stamp_nuts[stamp_step[1]] = clock64() - p0;\n"
-     "        stamp_step[1] += 1;\n      }\n"),
-]]
-# K11 (this tree's e_step): per block and warp, summed over its tiles, the
-# cycles of its shared-node slice, of its latent tasks, of its wait at the
-# barrier after them, and of the softmax and the writes; tiles per block
-_E_STEP_SHARED = ("    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(row, here - 1), ld,"
-                  " table,\n                                       rows + first * kRow, count,"
-                  " true);\n")
+]
+_WORK_RANGE = (
+    "  " + _F + " const long long p0 = clock64();\n"
+    "  const int* at = {table}level_start + level * kScanWarps + warp;\n"
+    "  if (threadIdx.x == 0 && stamp_step[1] < STAMP_CHAINS * 5) {{\n"
+    "    stamp_step[4096] = at[0] + at[1];\n"
+    "    " + _F + " stamp_nuts[stamp_step[1]] = clock64() - p0;\n"
+    "    stamp_step[1] += 1;\n  }}\n")
+EDITS["k10tasks"] = [
+    _K10_TASKS + [("  for (int level = 0; level < n_levels; ++level) {\n"
+                   "    const int* at = t.level_start + level * kScanWarps + warp;\n",
+                   "  for (int level = 0; level < n_levels; ++level) {\n"
+                   + _WORK_RANGE.format(table="t."))],
+    _K10_TASKS + [("    for (int level = 0; level < n_levels; ++level) {\n"
+                   "      const int* at = level_start + level * kScanWarps + warp;\n",
+                   "    for (int level = 0; level < n_levels; ++level) {\n"
+                   + _WORK_RANGE.format(table=""))],
+]
+# K11 (e_step): per block and warp, summed over its tiles, the cycles of its
+# shared-node slice, of its latent tasks, of its wait at the barrier after
+# them, and of the softmax and the writes; tiles per block.  One set per
+# version of its slice line (this tree's node_slice, then 846aee6's).
 _FENCE = '    asm volatile("" ::: "memory");\n'  # no memory access moves across a stamp
+_TILE_STAMPS = (
+    "    if (lane == 0 && blockIdx.x < STAMP_BLOCKS && warp < STAMP_GROUPS) {\n"
+    "      long long* at = stamp_piece + ((long long)blockIdx.x * STAMP_GROUPS + warp) * 4;\n"
+    "      at[0] += se1 - se0;\n      at[1] += se2 - se1;\n      at[2] += se3 - se2;\n"
+    "      at[3] += clock64() - se3;\n    }\n"
+    "    if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS)"
+    " stamp_level[blockIdx.x * STAMP_LEVELS] += 1;\n")
+
+
+def _around(line):
+    """``line`` between the stamps se0 and se1."""
+    return (line, _FENCE + "    const long long se0 = clock64();\n" + line + _FENCE
+            + "    const long long se1 = clock64();\n")
+
+
 EDITS["k11"] = [[
-    (_E_STEP_SHARED, _FENCE + "    const long long se0 = clock64();\n" + _E_STEP_SHARED + _FENCE
-     + "    const long long se1 = clock64();\n"),
+    _around(line),
     ("        if (k < kc) s_lp[(long long)p * KR + (k0 + k) * R + r] = acc[k];\n      }\n    }\n"
      "    __syncthreads();\n",
      "        if (k < kc) s_lp[(long long)p * KR + (k0 + k) * R + r] = acc[k];\n      }\n    }\n"
      + _FENCE + "    const long long se2 = clock64();\n    __syncthreads();\n"
      "    const long long se3 = clock64();\n"),
     ("    __syncthreads();  // the tile's sums are read before the next tile writes them\n",
-     "    __syncthreads();\n"
-     "    if (lane == 0 && blockIdx.x < STAMP_BLOCKS && warp < STAMP_GROUPS) {\n"
-     "      long long* at = stamp_piece + ((long long)blockIdx.x * STAMP_GROUPS + warp) * 4;\n"
-     "      at[0] += se1 - se0;\n      at[1] += se2 - se1;\n      at[2] += se3 - se2;\n"
-     "      at[3] += clock64() - se3;\n    }\n"
-     "    if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS)"
-     " stamp_level[blockIdx.x * STAMP_LEVELS] += 1;\n"),
+     "    __syncthreads();\n" + _TILE_STAMPS),
+] for line in (
+    "    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(mine.row, here - 1), ld, table,\n"
+    "                                       rows + mine.first * kRow, mine.count, true);\n",
+    "    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(row, here - 1), ld, table,\n"
+    "                                       rows + first * kRow, count, true);\n")]
+# K13 (this tree's row_sums): the same per block and warp: its slice of the
+# nodes (se0-se1), its wait at the barrier (se1-se2, se2 = se3), the combine
+# and the stores (to the tile's last barrier); tiles per block
+EDITS["k13"] = [[
+    _around("    s_part[threadIdx.x] = chunk_sum<W>(0.0, codes + r0 + min(mine.row, here - 1), ld,"
+            " table,\n                                       nodes + mine.first * kRow,"
+            " mine.count, missing != 0);\n"),
+    ("    __syncthreads();\n    for (int r = warp; r < here; r += warps) {\n"
+     "      const double v = combine_slices(s_part, slices, R, r, lane);\n",
+     "    __syncthreads();\n    const long long se2 = clock64(), se3 = se2;\n"
+     "    for (int r = warp; r < here; r += warps) {\n"
+     "      const double v = combine_slices(s_part, slices, R, r, lane);\n"),
+    ("    __syncthreads();  // the slice sums are read before the next tile's are written\n",
+     "    __syncthreads();\n" + _TILE_STAMPS),
 ]]
 # K10's dependency probe: one block of `threads` threads, `iters` rounds of a
 # dependent shared-memory read and a barrier (or the read alone)
@@ -394,7 +481,8 @@ extern "C" int pgmpy_stamps_barrier(int threads, int iters, int barrier, void* o
 # the kernel whose resident blocks a probe asks for, by source
 OCCUPANCY = {"ancestral.cu": "sweep_kernel<float, int8_t>",
              "einsum_plan.cu": "plan_grid_kernel<float>",
-             "table_gather.cu": "e_step_kernel<4, int8_t, double, float>"}
+             "table_gather.cu": "e_step_kernel<4, int8_t, double, float>",
+             "k13": "row_sums_kernel<4, int8_t, float>"}
 
 READER = "".join(
     [f"""
@@ -451,7 +539,7 @@ def instrument(text, source, key=None):
         text = text.replace(old, new)
     at = text.index("namespace {")
     text = text[:at] + PRELUDE + text[at:] + READER + EXTRA.get(key, "")
-    kernel = OCCUPANCY.get(source)
+    kernel = OCCUPANCY.get(key) or OCCUPANCY.get(source)
     if kernel and kernel.split("<")[0] in text:
         text += OCCUPANCY_READER.replace("KERNEL", kernel)
     return text
@@ -879,10 +967,67 @@ def k3_table(module, schedule=None):
                             schedule=schedule)
 
 
+def k3_ve_call():
+    """The contraction of a MUNIN ``VariableElimination`` query (the smoke's
+    query and evidence on MUNIN's own CPDs: 28 steps in 12 levels), captured
+    once."""
+    if not _K3_CALL[1:]:
+        import chip_smoke
+        from pgmpy_tpu_torch.inference import VariableElimination, ve
+        from pgmpy_tpu_torch.utils import get_example_model
+
+        k3_call()
+        model = get_example_model("munin")
+        nodes = sorted(model.nodes(), key=str)
+        q_var, e_var = nodes[0], nodes[len(nodes) // 2]
+        _K3_CALL.append(chip_smoke.capture_contractions(
+            lambda: VariableElimination(model).query(
+                [q_var], evidence={e_var: model.states[e_var][0]}), [ve])[-1])
+    return _K3_CALL[1]
+
+
+def k3_block_stamps(module, lib, version):
+    """``plan_block`` on the VE query's contraction: its staging and per
+    level the release (thread 0's clock from the launch's start) and each
+    warp's wait at the level's barrier."""
+    axes, out, arrays = k3_ve_call()
+    shapes = tuple(tuple(a.shape) for a in arrays)
+    table = module.PlanTable(axes, out, shapes, tuple(tuple(a.stride()) for a in arrays),
+                             arrays[0].element_size(), module.contraction_plan(axes, out, shapes),
+                             schedule="plan_block")
+    for _ in range(2):
+        module.launch_plan(table, arrays)
+    torch.cuda.synchronize()
+    clear(lib)
+    module.launch_plan(table, arrays)
+    torch.cuda.synchronize()
+    levels = table.n_levels
+    release = read(lib, 0, BLOCKS * LEVELS).reshape(BLOCKS, LEVELS)[0, :levels]
+    wait = read(lib, 1, BLOCKS * LEVELS * GROUPS).reshape(BLOCKS, LEVELS, GROUPS)[
+        0, :levels, :module.SCAN_WARPS]
+    staging = int(read(lib, 5, 1)[0])
+    begin = np.concatenate([[staging], release[:-1]])
+    span = release - begin
+    row = {"label": version, "shape": "munin_ve_query", "steps": len(table.steps),
+           "levels": levels, "level_sizes": np.bincount(table.levels).tolist(),
+           "staged": bool(table.staged), "shared_bytes": int(table.shared_bytes),
+           "staging_cycles": staging, "level_cycles": span.tolist(),
+           "busiest_warp_cycles": (span[:, None] - wait).max(axis=1).tolist(),
+           "mean_wait_cycles": wait.mean(axis=1).round().astype(int).tolist(),
+           "total_cycles": int(release[-1])}
+    print(f"k3 {version} plan_block munin_ve_query steps={row['steps']} levels={levels} "
+          f"level_sizes {row['level_sizes']} staged={row['staged']} shared_bytes="
+          f"{row['shared_bytes']} staging_cycles {staging} level_cycles {row['level_cycles']} "
+          f"busiest_warp_cycles {row['busiest_warp_cycles']} mean_wait_cycles "
+          f"{row['mean_wait_cycles']} total_cycles {row['total_cycles']}", flush=True)
+    return [row]
+
+
 def k3_stamps(module, lib, version):
+    rows = k3_block_stamps(module, lib, version) if hasattr(module, "deal_levels") else []
     if "plan_grid" not in module.LAUNCHES:
         print(f"k3 {version}: no plan_grid to stamp", flush=True)
-        return []
+        return rows
     arrays = k3_call()[2]
     table = k3_table(module, "plan_grid")
     for _ in range(2):
@@ -911,7 +1056,7 @@ def k3_stamps(module, lib, version):
           f"{row['tasks_block0_cycles']} tasks_slowest_cycles {row['tasks_slowest_cycles']} "
           f"barrier_mean_cycles {row['barrier_mean_cycles']} block0_total_cycles "
           f"{row['block0_total_cycles']}", flush=True)
-    return [row]
+    return rows + [row]
 
 
 # plan_grid's variants: (reduced entries a lane is aimed at, blocks at most)
@@ -937,7 +1082,32 @@ def k3_times(parent, this):
     if parent:
         old = k3_table(parent)
         calls = {f"parent_{old.schedule}": lambda: parent.launch_plan(old, arrays), **calls}
-    return [turns("einsum_plan", "munin_query_batch_2048", calls)]
+    out = [turns("einsum_plan", "munin_query_batch_2048", calls)]
+    # plan_block on the VE query: the parent's, this tree's (its tables
+    # staged, and read from global memory), plan_grid and torch.einsum
+    axes, outs, arrays = k3_ve_call()
+    shapes = tuple(tuple(a.shape) for a in arrays)
+
+    def table(module, schedule, **attrs):
+        return patched_run(module, attrs, lambda: module.PlanTable(
+            axes, outs, shapes, tuple(tuple(a.stride()) for a in arrays),
+            arrays[0].element_size(), module.contraction_plan(axes, outs, shapes),
+            schedule=schedule))
+
+    tables = {"plan_block": table(this, "plan_block"),
+              "plan_block_global": table(this, "plan_block", SCAN_STAGE_BYTES=0),
+              "plan_grid": table(this, "plan_grid")}
+    dense, args = {}, []
+    for a, ax in zip(arrays, axes):
+        args += [a, [dense.setdefault(label, len(dense)) for label in ax]]
+    args.append([dense[label] for label in outs])
+    calls = {key: (lambda t=t: this.launch_plan(t, arrays)) for key, t in tables.items()}
+    calls["torch_einsum"] = lambda: torch.einsum(*args)
+    if parent:
+        old = table(parent, "plan_block")
+        calls = {"parent_plan_block": lambda: parent.launch_plan(old, arrays), **calls}
+    out.append(turns("einsum_plan", "munin_ve_query", calls))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1199,11 +1369,87 @@ def k11_times(parent, this):
     return [turns("e_step", "munin_50000_K5", calls)]
 
 
+def k13_inputs():
+    """MUNIN's 50,000 simulated rows as ``BayesianModelProbability`` codes
+    them (chip_smoke's K13 shape, MUNIN's own CPDs)."""
+    if "k13" not in _INPUTS:
+        from pgmpy_tpu_torch.metrics import BayesianModelProbability
+        from pgmpy_tpu_torch.utils import get_example_model
+
+        model = get_example_model("munin")
+        prob = BayesianModelProbability(model)
+        codes = prob._encode(model.simulate(50_000, seed=3, show_progress=False))
+        _INPUTS["k13"] = (prob, codes)
+    return _INPUTS["k13"]
+
+
+def k13_call(module):
+    """A ``row_sums`` call of ``module``'s kernel at MUNIN's shape."""
+    import chip_smoke
+
+    prob, codes = k13_inputs()
+    gather = chip_smoke.k13_parent_gather(prob, module)
+    return gather, lambda: gather.row_sums_cuda(prob._table, codes)
+
+
+def k13_stamps(module, lib, version):
+    if not hasattr(module, "ROW_TILE"):
+        print(f"k13 {version}: no row tiles to stamp", flush=True)
+        return []
+    _, call = k13_call(module)
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    clear(lib)
+    call()
+    torch.cuda.synchronize()
+    rows, slices, block, smem, tiles = module.plan_rows(50_000)
+    per_sm = occupancy(lib, block, smem)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = block // 32
+    count = read(lib, 0, BLOCKS * LEVELS).reshape(BLOCKS, LEVELS)[:, 0]
+    piece = read(lib, 3, BLOCKS * GROUPS * 4).reshape(BLOCKS, GROUPS, 4)[:, :warps]
+    used = count > 0
+    per_tile = piece[used] / count[used][:, None, None]
+    keys = ("slice", "barrier_wait", "unused", "combine_and_store")
+    out = {"label": version, "shape": "munin_50000", "tile_rows": rows, "slices": slices,
+           "block": block, "smem": smem, "blocks_per_sm": per_sm,
+           "blocks": min(per_sm * sms, tiles), "blocks_stamped": int(used.sum()),
+           "tiles_per_block": float(count[used].mean()),
+           "mean_cycles_per_tile": {k: round(float(per_tile[:, :, j].mean()), 1)
+                                    for j, k in enumerate(keys) if k != "unused"},
+           "slowest_warp_cycles_per_tile": {
+               k: round(float(per_tile[:, :, j].max(axis=1).mean()), 1)
+               for j, k in enumerate(keys) if k != "unused"}}
+    print(f"k13 {version} munin_50000 tile_rows={rows} slices={slices} block={block} "
+          f"blocks_per_sm={per_sm} blocks={out['blocks']} tiles_per_block "
+          f"{out['tiles_per_block']:.2f} mean_cycles_per_tile {out['mean_cycles_per_tile']} "
+          f"slowest_warp_cycles_per_tile {out['slowest_warp_cycles_per_tile']}", flush=True)
+    return [out]
+
+
+# row_sums' variants: (rows a tile, threads a block)
+K13_TILES = ((16, 256), (8, 256), (32, 128), (64, 256))
+
+
+def k13_times(parent, this):
+    _, call = k13_call(this)
+    calls = {"this": call}
+    for tile, block in K13_TILES:
+        calls[f"this_tile{tile}_block{block}"] = (
+            lambda t=tile, b=block: patched_run(this, {"ROW_TILE": t, "ROW_BLOCK": b}, call))
+    if parent:
+        _, old = k13_call(parent)
+        calls = {"parent": old, **calls}
+    return [turns("row_sums", "munin_50000", calls)]
+
+
 PROBES = {
     "k3": Probe("einsum", "einsum_plan.cu", k3_stamps, k3_times),
     "k10": Probe("einsum", "einsum_plan.cu", k10_stamps, k10_times, edits="k10"),
     "k10tasks": Probe("einsum", "einsum_plan.cu", k10_task_stamps, k10_times, edits="k10tasks"),
     "k11": Probe("table_gather", "table_gather.cu", k11_stamps, k11_times, edits="k11"),
+    "k13": Probe("table_gather", "table_gather.cu", k13_stamps, k13_times, edits="k13"),
     "k5": Probe("ancestral", "ancestral.cu", k5_stamps, k5_times),
     "k6": Probe("gibbs", "gibbs.cu", k6_stamps, k6_times),
     "k8": Probe("hmc", "hmc.cu", nuts_stamps, k8_times),

@@ -27,7 +27,7 @@ beside the plain versions (median of 5), and checks each against its plain
 version (the sweeps on explicit noise, to the bit).  The options time the
 kernels again under other launch settings: threads per row of the ancestral
 and particle sweeps (``ops.ancestral.GROUPS``), rows per ``row_sums`` block
-(``ops.table_gather.ROW_BLOCK``), threads per ``e_step`` block
+(``ops.table_gather.ROW_BLOCK``, a multiple of ``ROW_TILE``: its node slices), threads per ``e_step`` block
 (``ops.table_gather.E_STEP_BLOCK``), threads per chain of the Gibbs sweep at
 most (``ops.gibbs.GROUPS``) and chains per Gibbs tile at most
 (``ops.gibbs.MAX_TILE_ROWS``); a setting the tree's modules do not have is
